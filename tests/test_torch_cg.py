@@ -21,9 +21,22 @@ import torch
 
 import tikejax
 from tikejax.models import make_problem
+from tikejax.ops import diffraction as jdiff
 from tikejax.solvers import cg as jcg
+from tikejax_torch.ops import fused
 from tikejax_torch.solvers import cg as tcg
 from tikejax_torch.utils import geometry_from, to_numpy, to_torch
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Small problems: one intra-op thread keeps the parallel test run
+    from oversubscribing the cores; restored after this module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 GEOM = tikejax.Geometry(nz=64, n=64, nscan=16, ndet=32, nprb=24)
 ITERS = 20
@@ -124,13 +137,10 @@ def test_ported_options_mirror_jax():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(recover_prb=True), dict(nchunks=2), dict(direction="lbfgs"),
-    dict(direction="lbfgs:4"), dict(carry_state=True),
+    dict(recover_prb=True), dict(nchunks=2),
     dict(memory="materialized"), dict(fused_linesearch=True),
     dict(precondition="illum_lowk"), dict(axis_name="scan"),
     dict(obj_slabs=2), dict(linesearch="parabolic"), dict(kernel="pallas"),
-    dict(kernel="fused_mx", merged_linesearch="off"),
-    dict(f_base=np.zeros(1)), dict(cg_init=(0, 0, 0, 0)),
 ], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items())[:40])
 def test_unported_options_raise(problem, kw):
     data, psi0, scan, prb, _ = map(to_torch, problem)
@@ -145,3 +155,147 @@ def test_unported_fields_at_default_run(problem):
     assert int(m["iters_run"]) == 2
     with pytest.raises(TypeError):
         tcg.run(data, psi0, scan, prb, geometry_from(GEOM), no_such=1)
+
+
+# -- the solver surface of reconstruct: L-BFGS, the split-operator
+# f_base, carried state, the frameless non-merged body ---------------------
+
+def run_pair(problem, jax_kw, port_kw, psi0=None, f_base=None,
+             init=(None, None)):
+    """Both solvers on the same problem; ``f_base`` (numpy) goes to both,
+    ``init`` is (JAX cg_init, port cg_init)."""
+    data, p0, scan, prb, _ = problem
+    p0 = p0 if psi0 is None else psi0
+    jb = None if f_base is None else jnp.asarray(f_base)
+    tb = None if f_base is None else to_torch(f_base)
+    pj, _, mj = jcg.run(*map(jnp.asarray, (data, p0, scan, prb)), GEOM,
+                        f_base=jb, cg_init=init[0], **jax_kw)
+    pt, _, mt = tcg.run(*map(to_torch, (data, p0, scan, prb)),
+                        geometry_from(GEOM), f_base=tb, cg_init=init[1],
+                        **port_kw)
+    return pj, mj, pt, mt
+
+
+def as_numpy(pj, mj, pt, mt):
+    skip = ("cg_state",)
+    return (np.asarray(pj), {k: np.asarray(v) for k, v in mj.items()
+                             if k not in skip},
+            to_numpy(pt), {k: (to_numpy(v) if torch.is_tensor(v) else v)
+                           for k, v in mt.items() if k not in skip})
+
+
+@pytest.fixture(scope="module")
+def f_base(problem):
+    """The farplane of an 8-iteration solve: the split-operator base."""
+    data, psi0, scan, prb, _ = problem
+    psi_b, _, _ = jcg.run(*map(jnp.asarray, (data, psi0, scan, prb)), GEOM,
+                          piter=8, kernel="xla")
+    return np.asarray(jdiff.fwd_raw(psi_b, jnp.asarray(scan),
+                                    jnp.asarray(prb), GEOM.ndet, "xla"))
+
+
+@pytest.mark.parametrize("direction", ["lbfgs", "lbfgs:4"])
+def test_lbfgs_matches_jax(problem, direction):
+    kw = dict(piter=ITERS, kernel="xla", direction=direction)
+    assert_same_trajectory(*run_both(problem, kw), tol=1e-8)
+
+
+@pytest.mark.parametrize("port_kw", [
+    dict(kernel="xla"),
+    dict(kernel="fused_mx"),
+    dict(kernel="fused_mx", merged_linesearch="off", direction="lbfgs"),
+    dict(kernel="fused", merged_linesearch="off"),
+], ids=["xla", "merged", "frameless-lbfgs", "frameless-interp"])
+def test_split_operator_matches_jax(problem, f_base, port_kw):
+    """CG on a correction from zero with a frozen base farplane: every
+    body of the port against JAX's oracle path with the same base."""
+    ls = "interp" if port_kw["kernel"] in ("xla", "fused") else (
+        "backtracking")
+    jax_kw = dict(piter=ITERS, kernel="xla", linesearch=ls,
+                  direction=port_kw.get("direction", "auto"))
+    zero = np.zeros(GEOM.psi_shape, np.complex128)
+    out = as_numpy(*run_pair(problem, jax_kw, dict(piter=ITERS, **port_kw),
+                             psi0=zero, f_base=f_base))
+    assert_same_trajectory(*out, tol=1e-8)
+
+
+@pytest.mark.parametrize("kernel, linesearch", [
+    ("fused_mx", "backtracking"), ("fused", "interp")])
+def test_frameless_classic_body_matches_jax(problem, kernel, linesearch):
+    """merged_linesearch='off' on a fused tier: one grad_fused pass per
+    iteration and one minf_fused pass per line-search candidate."""
+    before = fused.minf_fused_reference.launches
+    pj, mj, pt, mt = run_both(
+        problem, dict(piter=ITERS, kernel="xla", linesearch=linesearch),
+        dict(piter=ITERS, kernel=kernel, merged_linesearch="off"))
+    assert_same_trajectory(pj, mj, pt, mt, tol=1e-8)
+    candidates = fused.minf_fused_reference.launches - before
+    assert candidates == mt["evaluations"] - ITERS >= ITERS
+
+
+@pytest.mark.parametrize("direction", ["dy", "lbfgs"])
+def test_carried_state_continues_like_jax(problem, direction):
+    """carry_state returns the terminal (d, g, gamma, gamma0); a second run
+    seeded with it through cg_init continues the same trajectory."""
+    kw = dict(piter=8, kernel="xla", direction=direction, carry_state=True)
+    pj, mj, pt, mt = run_pair(problem, kw, kw)
+    sj, st = mj["cg_state"], mt["cg_state"]
+    assert len(st) == len(sj) == 4
+    for a, b in zip(sj, st):
+        np.testing.assert_allclose(to_numpy(b), np.asarray(a), rtol=1e-8,
+                                   atol=1e-12)
+    out = run_pair(problem, kw, kw, psi0=np.asarray(pj), init=(sj, st))
+    assert_same_trajectory(*as_numpy(*out), tol=1e-8)
+    # A carried state is not a fresh start.
+    fresh = run_pair(problem, kw, kw, psi0=np.asarray(pj))
+    assert not np.allclose(to_numpy(fresh[3]["minf"]),
+                           to_numpy(out[3]["minf"]))
+
+
+def test_carry_lbfgs_ring_matches_jax(problem):
+    """carry_lbfgs implies carry_state and carries the (S, Y, sy, count)
+    ring in the 8-tuple layout."""
+    kw = dict(piter=8, kernel="xla", direction="lbfgs:4", carry_lbfgs=True)
+    pj, mj, pt, mt = run_pair(problem, kw, kw)
+    sj, st = mj["cg_state"], mt["cg_state"]
+    assert len(st) == len(sj) == 8 and int(st[7]) == int(sj[7]) > 0
+    for a, b in zip(sj, st):
+        np.testing.assert_allclose(to_numpy(b), np.asarray(a), rtol=1e-8,
+                                   atol=1e-12)
+    out = run_pair(problem, kw, kw, psi0=np.asarray(pj), init=(sj, st))
+    assert_same_trajectory(*as_numpy(*out), tol=1e-8)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(direction="dy"), dict(direction="lbfgs:3", carry_lbfgs=True)])
+def test_zero_cg_state_is_a_fresh_start(problem, kw):
+    data, psi0, scan, prb, _ = map(to_torch, problem)
+    opts = tcg.normalize_options(tcg.CGOptions(piter=6, kernel="xla", **kw),
+                                 "cpu")
+    zero = tcg.zero_cg_state(psi0, opts)
+    zj = jcg.zero_cg_state(jnp.asarray(problem[1]), jcg.normalize_options(
+        jcg.CGOptions(piter=6, kernel="xla", **kw)))
+    assert [tuple(z.shape) for z in zero] == [z.shape for z in zj]
+    _, _, m0 = tcg.run(data, psi0, scan, prb, geometry_from(GEOM), opts)
+    _, _, m1 = tcg.run(data, psi0, scan, prb, geometry_from(GEOM), opts,
+                       cg_init=zero)
+    torch.testing.assert_close(m1["minf"], m0["minf"], rtol=0, atol=0)
+
+
+def test_solver_surface_validation(problem, f_base):
+    data, psi0, scan, prb, _ = map(to_torch, problem)
+    g = geometry_from(GEOM)
+    for direction in ("bfgs", "lbfgs:0", "lbfgs:x"):
+        with pytest.raises(ValueError, match="direction|memory"):
+            tcg.run(data, psi0, scan, prb, g, piter=2, direction=direction)
+    with pytest.raises(ValueError, match="frameless split-operator"):
+        tcg.run(data, psi0, scan, prb, g, piter=2, kernel="xla",
+                memory="frameless", f_base=to_torch(f_base))
+    state = tcg.zero_cg_state(psi0, tcg.CGOptions(direction="lbfgs",
+                                                  carry_lbfgs=True))
+    with pytest.raises(ValueError, match="8-entry"):
+        tcg.run(data, psi0, scan, prb, g, piter=2, kernel="xla",
+                cg_init=state)
+    with pytest.raises(ValueError, match="8-tuple"):
+        tcg.run(data, psi0, scan, prb, g, piter=2, kernel="xla",
+                direction="lbfgs", carry_lbfgs=True, cg_init=state[:4])

@@ -1,13 +1,13 @@
-"""The CUDA ``grad_fused`` kernel against its plain PyTorch version, on the
-card. Marked ``cuda``: without a CUDA device every test here skips. On a
+"""The CUDA kernels ``grad_fused`` (with and without a base), ``fwd`` and
+``minf_fused`` against their plain PyTorch versions, on the card. Marked ``cuda``: without a CUDA device every test here skips. On a
 machine with a card (the JAX package need not be installed there):
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda.py
 
-Tolerances: the JAX package's fused parity bound for the gradient (1e-4 of
-its scale) and 1e-5 relative for the objective -- both sides are fp32 and
-sum in different orders.
+Tolerances: the JAX package's fused parity bound for the gradient and the
+farplane (1e-4 of their scale) and 1e-5 relative for the objective -- both
+sides are fp32 and sum in different orders.
 """
 
 import pytest
@@ -88,3 +88,79 @@ def test_wrong_inputs_raise(dev):
         fused.grad_fused(psi, data.cpu(), scan_i, prb, g.ndet, "gaussian")
     with pytest.raises(ValueError, match="shapes"):
         fused.grad_fused(psi, data, scan_i, prb, g.ndet + 2, "gaussian")
+
+
+def base_for(g, dev, seed=1):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.complex(torch.randn(g.farplane_shape, generator=gen,
+                                     device=dev),
+                         torch.randn(g.farplane_shape, generator=gen,
+                                     device=dev))
+
+
+@pytest.mark.parametrize("model", ["gaussian", "poisson"])
+@pytest.mark.parametrize("g", GEOMS, ids=str)
+def test_grad_fused_base_matches_plain_version(dev, g, model):
+    args = inputs(g, dev)
+    base = base_for(g, dev)
+    launches = fused.grad_fused.launches
+    g_k, f_k = fused.grad_fused(*args, g.ndet, model, base=base)
+    g_s, f_s = fused.grad_fused(*args, g.ndet, model,
+                                base=torch.view_as_real(base).unbind(-1))
+    g_r, f_r = fused.grad_fused_reference(*args, g.ndet, model, base=base)
+    assert fused.grad_fused.launches == launches + 2
+    scale = float(g_r.abs().max())
+    assert float((g_k - g_r).abs().max()) <= 1e-4 * scale
+    assert abs(float(f_k) - float(f_r)) <= 1e-5 * abs(float(f_r))
+    assert float(f_s) == float(f_k)  # the split views are the same base
+
+
+@pytest.mark.parametrize("with_base", [False, True])
+@pytest.mark.parametrize("g", GEOMS, ids=str)
+def test_fwd_matches_plain_version(dev, g, with_base):
+    psi, _, scan_i, prb = inputs(g, dev)
+    base = base_for(g, dev) if with_base else None
+    launches = fused.fwd.launches
+    out = fused.fwd(psi, scan_i, prb, g.ndet, base=base)
+    re, im = fused.fwd(psi, scan_i, prb, g.ndet, base=base, split_out=True)
+    ref = fused.fwd_reference(psi, scan_i, prb, g.ndet, base=base)
+    assert fused.fwd.launches == launches + 2
+    assert out.dtype == torch.complex64 and out.shape == g.farplane_shape
+    assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    assert torch.equal(torch.complex(re, im), out)
+    masked = scan_i[..., 0] < 0
+    expect = base[masked] if with_base else torch.zeros_like(out[masked])
+    assert torch.equal(out[masked], expect)
+
+
+@pytest.mark.parametrize("with_base", [False, True])
+@pytest.mark.parametrize("model", ["gaussian", "poisson"])
+@pytest.mark.parametrize("g", GEOMS, ids=str)
+def test_minf_fused_matches_plain_version(dev, g, model, with_base):
+    psi, data, scan_i, prb = inputs(g, dev)
+    base = base_for(g, dev) if with_base else None
+    launches = fused.minf_fused.launches
+    f_k = fused.minf_fused(psi, data, scan_i, prb, g.ndet, model, base=base)
+    f_r = fused.minf_fused_reference(psi, data, scan_i, prb, g.ndet, model,
+                                     base=base)
+    assert fused.minf_fused.launches == launches + 1
+    assert abs(float(f_k) - float(f_r)) <= 1e-5 * abs(float(f_r))
+    again = fused.minf_fused(psi, data, scan_i, prb, g.ndet, model, base=base)
+    assert float(again) == float(f_k)  # bitwise reproducible
+
+
+def test_base_in_wrong_form_raises(dev):
+    g = GEOMS[1]
+    psi, data, scan_i, prb = inputs(g, dev)
+    base = base_for(g, dev)
+    with pytest.raises(ValueError, match="base"):
+        fused.minf_fused(psi, data, scan_i, prb, g.ndet, "gaussian",
+                         base=base[:, :-1])
+    with pytest.raises(ValueError, match="contiguous"):
+        fused.fwd(psi, scan_i, prb, g.ndet,
+                  base=base.transpose(-1, -2))
+    with pytest.raises(ValueError, match="complex64"):
+        fused.fwd(psi, scan_i, prb, g.ndet, base=base.to(torch.complex128))
+    with pytest.raises(ValueError, match="view_as_real"):
+        fused.grad_fused(psi, data, scan_i, prb, g.ndet, "gaussian",
+                         base=(base.real.clone(), base.imag.clone()))

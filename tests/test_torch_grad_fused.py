@@ -18,6 +18,17 @@ from tikejax_torch.ops import fused
 from tikejax_torch.ops.patches import scan_to_int
 from tikejax_torch.utils import to_numpy, to_torch
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Small problems: one intra-op thread keeps the parallel test run
+    from oversubscribing the cores; restored after this module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 GEOM = tikejax.Geometry(nz=40, n=37, nscan=9, ndet=24, nprb=16, ntheta=2,
                         nmodes=2)
 
@@ -100,10 +111,15 @@ def test_cpu_tensors_run_the_plain_version():
 
 
 def test_unsupported_arguments_raise():
+    """An unknown model raises in grad_fused and minf_fused; a zero base
+    (the split-operator epilogue) changes nothing."""
     psi, data, scan, prb = map(to_torch, make_inputs(GEOM, np.complex64))
-    with pytest.raises(NotImplementedError, match="base"):
-        fused.grad_fused(psi, data, scan, prb, GEOM.ndet, "gaussian",
-                         base=torch.zeros(GEOM.farplane_shape,
-                                          dtype=torch.complex64))
+    g0, f0 = fused.grad_fused(psi, data, scan, prb, GEOM.ndet, "gaussian")
+    g1, f1 = fused.grad_fused(psi, data, scan, prb, GEOM.ndet, "gaussian",
+                              base=torch.zeros(GEOM.farplane_shape,
+                                               dtype=torch.complex64))
+    assert torch.equal(g0, g1) and float(f0) == float(f1)
     with pytest.raises(ValueError, match="unknown model"):
         fused.grad_fused(psi, data, scan, prb, GEOM.ndet, "laplace")
+    with pytest.raises(ValueError, match="unknown model"):
+        fused.minf_fused(psi, data, scan, prb, GEOM.ndet, "laplace")

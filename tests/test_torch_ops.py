@@ -25,6 +25,17 @@ from tikejax_torch.ops import fft as tfft
 from tikejax_torch.ops import patches as tpatch
 from tikejax_torch.utils import geometry_from, to_numpy, to_torch
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Small problems: one intra-op thread keeps the parallel test run
+    from oversubscribing the cores; restored after this module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 GEOMS = [
     tikejax.Geometry(nz=40, n=37, nscan=11, ndet=24, nprb=16),  # odd, pad
     tikejax.Geometry(nz=32, n=32, nscan=9, ndet=16, nprb=16, ntheta=2,
@@ -229,8 +240,10 @@ def test_simulated_problem_is_consistent():
 
 def test_kernel_resolution():
     """'auto' resolves with "on CUDA" in place of "on the TPU"; explicit
-    choices pass through; unported operator kernels raise on every
-    device instead of rerouting to 'xla'."""
+    choices pass through; the fused tiers' forward operator runs the
+    ported fwd (its plain version on the CPU); unported operator kernels
+    (the fused adjoints, 'pallas') raise on every device instead of
+    rerouting to 'xla'."""
     assert tdiff.resolve_kernel("auto", "cuda") == "fused_mp"
     assert tdiff.resolve_kernel("auto", "cpu") == "xla"
     assert tdiff.resolve_kernel_for_target("auto", 0.0, "cuda") == "fused_mx"
@@ -244,10 +257,18 @@ def test_kernel_resolution():
         assert tdiff._fused_adj_precision(k) == jdiff._fused_adj_precision(k)
     g = GEOMS[0]
     psi, scan, prb, farp = map(t, make_inputs(g)[:4])
-    for kernel in ("fused_mp", "fused_mx", "pallas"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tdiff.fwd_raw(psi, scan, prb, g.ndet, kernel)
+    for kernel in ("fused_mp", "fused_mx"):
+        torch.testing.assert_close(tdiff.fwd_raw(psi, scan, prb, g.ndet,
+                                                 kernel),
+                                   tdiff.fwd_raw(psi, scan, prb, g.ndet),
+                                   rtol=0, atol=0)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tdiff.adj_raw(farp, scan, prb, g.nz, g.n, kernel)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tdiff.adj_probe_raw(farp, scan, psi, g.nprb, kernel)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tdiff.fwd_raw(psi, scan, prb, g.ndet, "pallas")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tdiff.adj_raw(farp, scan, prb, g.nz, g.n, "pallas")
     with pytest.raises(ValueError, match="unknown kernel"):
         tdiff.Ptycho(geometry_from(g), kernel="cufft")

@@ -97,3 +97,30 @@ def test_packaging_finds_the_port():
 
     found = find_packages(str(PKG.parent), include=["tikejax*"])
     assert "tikejax_torch" in found and "tikejax_torch.ops" in found
+
+
+def test_library_key_covers_included_headers(monkeypatch, tmp_path):
+    """The built library's name hashes the source, every csrc header it
+    includes (directly or through another header) and the flags: editing
+    a header changes the key, so a stale library is never loaded."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text('#include "a.cuh"\n#include <cuda.h>\n')
+    (csrc / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (csrc / "b.cuh").write_text("// b\n")
+    monkeypatch.setattr(cuda_build, "CSRC", csrc)
+    assert [p.name for p in cuda_build.sources("k")] == ["k.cu", "a.cuh",
+                                                         "b.cuh"]
+    keys = [cuda_build.library_key("k")]
+    (csrc / "b.cuh").write_text("// b, edited\n")
+    keys.append(cuda_build.library_key("k"))
+    (csrc / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n// a\n')
+    keys.append(cuda_build.library_key("k"))
+    assert len(set(keys)) == 3
+    assert cuda_build.library_key("k") == keys[-1]
+
+
+def test_every_kernel_source_uses_the_shared_header():
+    for name in cuda_build.KERNELS:
+        names = [p.name for p in cuda_build.sources(name)]
+        assert names == [f"{name}.cu", "dft_frame.cuh"], names

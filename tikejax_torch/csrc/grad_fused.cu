@@ -4,43 +4,41 @@
 // Replaces the TPU kernel tikejax/ops/pallas_fused.py grad_fused
 // (_grad_kernel). For every (angle, position, mode) frame it computes
 //   1. near = psi[y:y+p, x:x+p] * prb[m]                       (p x p)
-//   2. far  = F near F^T, F[u, y] = e^{-2 pi i u y / d} / sqrt(d)  (d x p)
-//      -- the unitary DFT of the patch zero-padded at the top left;
+//   2. far  = F near F^T (+ base[t, s, m]), F[u, y] =
+//      e^{-2 pi i u y / d} / sqrt(d) (d x p) -- the unitary DFT of the
+//      patch zero-padded at the top left; in split-operator mode the frozen
+//      base farplane is added here, before the likelihood (the TPU
+//      kernel's base epilogue, pallas_fused.py:1239-1249);
 //   3. the likelihood factor and objective from the mode-summed
-//      intensity (gaussian: 1 - sqrt(max(D,0)) / sqrt(I + 1e-12),
-//      poisson: 1 - max(D,0) / (I + 1e-8));
+//      intensity (dft_frame.cuh pixel_objective);
 //   4. adj = F^H (factor * far) conj(F);
 //   5. conj(prb[m]) * adj, summed over modes and scatter-added into the
 //      object gradient.
-// Outputs grad = G^H(factor * G psi) (no factor 2) and per-block objective
-// partials. Positions whose scan row is < 0 (masked dummies) contribute
-// nothing; so do out-of-bounds positions (invalid input: the kernel never
-// reads or writes outside the object).
+// Outputs grad = G^H(factor * (G psi + base)) (no factor 2) and per-block
+// objective partials. Positions whose scan row is < 0 (masked dummies)
+// contribute nothing; so do out-of-bounds positions (invalid input: the
+// kernel never reads or writes outside the object).
 //
 // What bounds it: the four DFT products are 2*d*p*(d+p) complex
 // multiply-adds per frame and mode -- 1.1e12 fp32 FLOPs per evaluation at
-// 16384 frames of 128^2 -- all on the SIMT fp32 units here. The design keeps
-// them in shared-memory tiled complex GEMMs (64x64 output tiles, 4x4
-// complex outputs per thread, 8 multiply-adds per shared-memory load) and
-// never materialises a farplane: the two p x d / d x d intermediates of a
-// frame live in per-block scratch sized by the grid, never by the number
-// of positions. F is never stored: it is a d-entry twiddle table in shared
-// memory, indexed by (u*y) mod d.
+// 16384 frames of 128^2 -- all on the SIMT fp32 units here (dft_frame.cuh
+// cgemm). The base adds one farplane read (8 bytes a pixel) per
+// evaluation, far below the FLOPs' time. The two p x d / d x d
+// intermediates of a frame live in per-block scratch sized by the grid,
+// never by the number of positions; no farplane is ever materialised.
+// Without a base the kernel is the instantiation kBase = false, the same
+// code as before the epilogue existed.
 //
 // Contract: the gradient scatter uses atomicAdd on the fp32 re/im planes,
 // so it is deterministic only up to summation order; the objective is
 // summed per thread and per block in double in a fixed order, then over the
 // blocks in a fixed order by the caller, so it is bitwise reproducible.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "dft_frame.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;  // 16 x 16 threads
-constexpr int kTile = 64;      // output tile side
-constexpr int kDepth = 16;     // inner-dimension slice per shared-memory stage
-constexpr int kSub = kTile / 16;  // complex outputs per thread along a side
+using namespace tk;
 
 struct Params {
   const float2* psi;   // (t, nz, n)
@@ -50,96 +48,19 @@ struct Params {
   float* grad;         // (t, nz, n) complex as interleaved re/im floats
   float2* scratch;     // gridDim.x * (m*p*d + m*d*d)
   double* partial;     // gridDim.x objective partials
+  const float2* base;  // (t, s, m, d, d), read only when kBase
   int t, s, nz, n, m, p, d, model;
 };
 
-struct Tiles {
-  float2 a[kDepth][kTile + 1];  // +1: conflict-free transposed stores
-  float2 b[kDepth][kTile];
-};
-
-__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
-  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
-}
-
-__device__ __forceinline__ float2 conjf2(float2 a) {
-  return make_float2(a.x, -a.y);
-}
-
-// C (R x C) = A (R x K) . B (K x C) for the whole block. A and B elements
-// come from the loaders la(r, k) / lb(k, c); each finished element goes to
-// epi(r, c, value). Ends with a barrier, so the next stage may read what
-// epi wrote.
-template <class LoadA, class LoadB, class Epi>
-__device__ void cgemm(int R, int C, int K, LoadA la, LoadB lb, Epi epi,
-                      Tiles& sm) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  for (int r0 = 0; r0 < R; r0 += kTile) {
-    for (int c0 = 0; c0 < C; c0 += kTile) {
-      float2 acc[kSub][kSub];
-#pragma unroll
-      for (int i = 0; i < kSub; ++i)
-#pragma unroll
-        for (int j = 0; j < kSub; ++j) acc[i][j] = make_float2(0.f, 0.f);
-      for (int k0 = 0; k0 < K; k0 += kDepth) {
-        for (int e = threadIdx.x; e < kTile * kDepth; e += kThreads) {
-          const int kk = e % kDepth, rr = e / kDepth;
-          const int r = r0 + rr, k = k0 + kk;
-          sm.a[kk][rr] = (r < R && k < K) ? la(r, k) : make_float2(0.f, 0.f);
-        }
-        for (int e = threadIdx.x; e < kTile * kDepth; e += kThreads) {
-          const int cc = e % kTile, kk = e / kTile;
-          const int c = c0 + cc, k = k0 + kk;
-          sm.b[kk][cc] = (c < C && k < K) ? lb(k, c) : make_float2(0.f, 0.f);
-        }
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < kDepth; ++kk) {
-          float2 av[kSub], bv[kSub];
-#pragma unroll
-          for (int i = 0; i < kSub; ++i) av[i] = sm.a[kk][ty + 16 * i];
-#pragma unroll
-          for (int j = 0; j < kSub; ++j) bv[j] = sm.b[kk][tx + 16 * j];
-#pragma unroll
-          for (int i = 0; i < kSub; ++i)
-#pragma unroll
-            for (int j = 0; j < kSub; ++j) {
-              acc[i][j].x = fmaf(av[i].x, bv[j].x, acc[i][j].x);
-              acc[i][j].x = fmaf(-av[i].y, bv[j].y, acc[i][j].x);
-              acc[i][j].y = fmaf(av[i].x, bv[j].y, acc[i][j].y);
-              acc[i][j].y = fmaf(av[i].y, bv[j].x, acc[i][j].y);
-            }
-        }
-        __syncthreads();
-      }
-#pragma unroll
-      for (int i = 0; i < kSub; ++i)
-#pragma unroll
-        for (int j = 0; j < kSub; ++j) {
-          const int r = r0 + ty + 16 * i, c = c0 + tx + 16 * j;
-          if (r < R && c < C) epi(r, c, acc[i][j]);
-        }
-    }
-  }
-  __syncthreads();
-}
-
 // Two resident blocks per SM: caps registers at 128 per thread.
+template <bool kBase>
 __global__ void __launch_bounds__(kThreads, 2)
     grad_fused_kernel(Params q) {
   extern __shared__ float2 tw[];  // tw[k] = e^{-2 pi i k / d} / sqrt(d)
   __shared__ Tiles sm;
-  __shared__ double red[kThreads];
 
   const int p = q.p, d = q.d, m = q.m;
-  const double scale = rsqrt(static_cast<double>(d));
-  for (int k = threadIdx.x; k < d; k += kThreads) {
-    double sn, cs;
-    sincospi(-2.0 * k / d, &sn, &cs);
-    tw[k] = make_float2(static_cast<float>(cs * scale),
-                        static_cast<float>(sn * scale));
-  }
-  __syncthreads();
+  load_twiddles(tw, d);
 
   const int64_t pd = static_cast<int64_t>(p) * d;
   const int64_t dd = static_cast<int64_t>(d) * d;
@@ -151,26 +72,26 @@ __global__ void __launch_bounds__(kThreads, 2)
   for (int64_t f = blockIdx.x; f < frames; f += gridDim.x) {
     const int th = static_cast<int>(f / q.s);
     const int sy = q.scan[2 * f], sx = q.scan[2 * f + 1];
-    if (sy < 0 || sy > q.nz - p || sx < 0 || sx > q.n - p) continue;
+    if (!frame_valid(sy, sx, q.nz, q.n, p)) continue;
     const float2* obj = q.psi + (static_cast<int64_t>(th) * q.nz + sy) * q.n + sx;
     const float2* prb = q.prb + static_cast<int64_t>(th) * m * p * p;
     const float* dat = q.data + f * dd;
 
     for (int mm = 0; mm < m; ++mm) {
-      const float2* pr = prb + static_cast<int64_t>(mm) * p * p;
-      float2* a1 = s1 + mm * pd;
       float2* a2 = s2 + mm * dd;
-      // Stage 1: a1[y][v] = sum_x near[y][x] F[v][x].
-      cgemm(p, d, p,
-            [&](int y, int x) {
-              return cmul(obj[static_cast<int64_t>(y) * q.n + x], pr[y * p + x]);
-            },
-            [&](int x, int v) { return tw[(v * x) % d]; },
-            [&](int y, int v, float2 z) { a1[y * d + v] = z; }, sm);
-      // Stage 2: a2[u][v] = sum_y F[u][y] a1[y][v]  (the farplane).
-      cgemm(d, d, p, [&](int u, int y) { return tw[(u * y) % d]; },
-            [&](int y, int v) { return a1[y * d + v]; },
-            [&](int u, int v, float2 z) { a2[u * d + v] = z; }, sm);
+      const int64_t b0 = (f * m + mm) * dd;
+      // Stages 1-2: a2 = the farplane of this mode (+ the base frame).
+      forward_frame_mode(obj, q.n, prb + static_cast<int64_t>(mm) * p * p,
+                         p, d, tw, s1 + mm * pd,
+                         [&](int u, int v, float2 z) {
+                           if constexpr (kBase) {
+                             const float2 b = base_at(q.base, b0 + u * d + v);
+                             z.x += b.x;
+                             z.y += b.y;
+                           }
+                           a2[u * d + v] = z;
+                         },
+                         sm);
     }
 
     // Likelihood factor and objective from the mode-summed intensity.
@@ -180,17 +101,8 @@ __global__ void __launch_bounds__(kThreads, 2)
         const float2 z = s2[mm * dd + i];
         inten += z.x * z.x + z.y * z.y;
       }
-      const float dv = fmaxf(dat[i], 0.f);
-      float factor, obj_i;
-      if (q.model == 0) {  // gaussian
-        const float amp = sqrtf(inten + 1e-12f), sq = sqrtf(dv);
-        factor = 1.f - sq / amp;
-        obj_i = (amp - sq) * (amp - sq);
-      } else {  // poisson
-        factor = 1.f - dv / (inten + 1e-8f);
-        obj_i = inten - dv * logf(inten + 1e-8f);
-      }
-      fsum += obj_i;
+      float factor;
+      fsum += pixel_objective(q.model, inten, dat[i], &factor);
       for (int mm = 0; mm < m; ++mm) {
         float2& z = s2[mm * dd + i];
         z = make_float2(z.x * factor, z.y * factor);
@@ -220,13 +132,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
   }
 
-  red[threadIdx.x] = fsum;
-  __syncthreads();
-  for (int w = kThreads / 2; w > 0; w >>= 1) {
-    if (threadIdx.x < w) red[threadIdx.x] += red[threadIdx.x + w];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) q.partial[blockIdx.x] = red[0];
+  block_sum_store(fsum, q.partial + blockIdx.x);
 }
 
 }  // namespace
@@ -235,29 +141,38 @@ extern "C" {
 
 // Launches the kernel on `stream` with `grid` blocks; returns
 // cudaGetLastError() (0 on success). `grad` must be zeroed, `scratch` hold
-// grid * (m*p*d + m*d*d) complex floats, `partial` grid doubles.
+// grid * (m*p*d + m*d*d) complex floats, `partial` grid doubles. A null
+// `base` means no base; otherwise it is the contiguous complex64 base
+// farplane (t, s, m, d, d).
 int tk_grad_fused(const void* psi, const void* prb, const void* data,
                   const void* scan, void* grad, void* scratch, void* partial,
-                  int t, int s, int nz, int n, int m, int p, int d, int model,
-                  int grid, void* stream) {
+                  const void* base, int t, int s, int nz, int n, int m, int p,
+                  int d, int model, int grid, void* stream) {
   Params q{static_cast<const float2*>(psi), static_cast<const float2*>(prb),
            static_cast<const float*>(data), static_cast<const int*>(scan),
            static_cast<float*>(grad), static_cast<float2*>(scratch),
-           static_cast<double*>(partial), t, s, nz, n, m, p, d, model};
+           static_cast<double*>(partial), static_cast<const float2*>(base),
+           t, s, nz, n, m, p, d, model};
   const size_t smem = static_cast<size_t>(d) * sizeof(float2);
-  grad_fused_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(q);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (base != nullptr) {
+    grad_fused_kernel<true><<<grid, kThreads, smem, st>>>(q);
+  } else {
+    grad_fused_kernel<false><<<grid, kThreads, smem, st>>>(q);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-// Resident blocks per SM at detector side `d`; returns the CUDA error code.
-int tk_grad_fused_blocks_per_sm(int d, int* out) {
+// Resident blocks per SM at detector side `d` (with or without a base);
+// returns the CUDA error code.
+int tk_grad_fused_blocks_per_sm(int d, int has_base, int* out) {
   const size_t smem = static_cast<size_t>(d) * sizeof(float2);
+  if (has_base) {
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out, grad_fused_kernel<true>, kThreads, smem));
+  }
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      out, grad_fused_kernel, kThreads, smem));
-}
-
-const char* tk_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
+      out, grad_fused_kernel<false>, kThreads, smem));
 }
 
 }  // extern "C"

@@ -1,0 +1,134 @@
+// minf_fused: the far-field ptychography objective in one kernel pass,
+// with nothing farplane-sized in memory, for NVIDIA Hopper (sm_90a).
+//
+// Replaces the TPU kernel tikejax/ops/pallas_fused.py minf_fused
+// (_minf_kernel): the forward half of grad_fused and the objective only.
+// For every (angle, position) frame it computes, per mode,
+//   far = F (psi[y:y+p, x:x+p] * prb[m]) F^T  (+ base[t, s, m])
+// (the unitary DFT of the zero-padded patch; the split-operator base frame
+// is added as in grad_fused), sums |far|^2 over the modes into the frame's
+// intensity and reduces the per-pixel objective against the measured frame
+// (dft_frame.cuh pixel_objective). Positions whose scan row is < 0 (masked
+// dummies) or whose window leaves the object contribute nothing.
+//
+// What bounds it: the two forward DFT products, d*p*(d+p) complex
+// multiply-adds per frame and mode (5.5e11 fp32 FLOPs at 16384 frames of
+// 128^2, half of grad_fused's) on the SIMT fp32 units, against one read of
+// the data (and of the base). It exists so that a line-search candidate
+// or an Anderson safeguard candidate costs no farplane: per-block scratch
+// is one p x d intermediate plus one d x d intensity plane.
+//
+// Contract: the objective is summed per thread and per block in double in
+// a fixed order, then over the blocks in a fixed order by the caller, so it
+// is bitwise reproducible.
+
+#include "dft_frame.cuh"
+
+namespace {
+
+using namespace tk;
+
+struct Params {
+  const float2* psi;  // (t, nz, n)
+  const float2* prb;  // (t, m, p, p)
+  const float* data;  // (t, s, d, d)
+  const int* scan;    // (t, s, 2) int (y, x)
+  float* scratch;     // gridDim.x * stride floats: p x d complex, d x d real
+  double* partial;    // gridDim.x objective partials
+  const float2* base;  // (t, s, m, d, d), read only when kBase
+  int64_t stride;     // floats of scratch per block (even)
+  int t, s, nz, n, m, p, d, model;
+};
+
+template <bool kBase>
+__global__ void __launch_bounds__(kThreads, 2) minf_fused_kernel(Params q) {
+  extern __shared__ float2 tw[];  // tw[k] = e^{-2 pi i k / d} / sqrt(d)
+  __shared__ Tiles sm;
+
+  const int p = q.p, d = q.d, m = q.m;
+  load_twiddles(tw, d);
+
+  const int64_t dd = static_cast<int64_t>(d) * d;
+  float* mine = q.scratch + blockIdx.x * q.stride;
+  float2* a1 = reinterpret_cast<float2*>(mine);    // p x d
+  float* inten = mine + 2 * static_cast<int64_t>(p) * d;  // d x d
+  const int64_t frames = static_cast<int64_t>(q.t) * q.s;
+  double fsum = 0.0;
+
+  for (int64_t f = blockIdx.x; f < frames; f += gridDim.x) {
+    const int th = static_cast<int>(f / q.s);
+    const int sy = q.scan[2 * f], sx = q.scan[2 * f + 1];
+    if (!frame_valid(sy, sx, q.nz, q.n, p)) continue;
+    const float2* obj = q.psi + (static_cast<int64_t>(th) * q.nz + sy) * q.n + sx;
+    const float2* prb = q.prb + static_cast<int64_t>(th) * m * p * p;
+    const float* dat = q.data + f * dd;
+
+    for (int mm = 0; mm < m; ++mm) {
+      const int64_t b0 = (f * m + mm) * dd;
+      // Each pixel's intensity is written by one thread per mode, and
+      // cgemm's closing barrier orders the modes.
+      forward_frame_mode(obj, q.n, prb + static_cast<int64_t>(mm) * p * p,
+                         p, d, tw, a1,
+                         [&](int u, int v, float2 z) {
+                           if constexpr (kBase) {
+                             const float2 b = base_at(q.base, b0 + u * d + v);
+                             z.x += b.x;
+                             z.y += b.y;
+                           }
+                           const float i2 = z.x * z.x + z.y * z.y;
+                           float& dst = inten[u * d + v];
+                           dst = mm == 0 ? i2 : dst + i2;
+                         },
+                         sm);
+    }
+    for (int64_t i = threadIdx.x; i < dd; i += kThreads) {
+      float factor;
+      fsum += pixel_objective(q.model, inten[i], dat[i], &factor);
+    }
+    __syncthreads();  // the next frame overwrites inten
+  }
+
+  block_sum_store(fsum, q.partial + blockIdx.x);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches the kernel on `stream` with `grid` blocks; returns
+// cudaGetLastError() (0 on success). `scratch` holds grid * stride floats
+// with stride >= 2*p*d + d*d and even, `partial` grid doubles. A null
+// `base` means no base; otherwise it is the contiguous complex64 base
+// farplane (t, s, m, d, d).
+int tk_minf_fused(const void* psi, const void* prb, const void* data,
+                  const void* scan, void* scratch, void* partial,
+                  const void* base, int t, int s, int nz, int n, int m, int p,
+                  int d, int model, int grid, int64_t stride, void* stream) {
+  Params q{static_cast<const float2*>(psi), static_cast<const float2*>(prb),
+           static_cast<const float*>(data), static_cast<const int*>(scan),
+           static_cast<float*>(scratch), static_cast<double*>(partial),
+           static_cast<const float2*>(base), stride, t, s, nz, n, m, p, d,
+           model};
+  const size_t smem = static_cast<size_t>(d) * sizeof(float2);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (base != nullptr) {
+    minf_fused_kernel<true><<<grid, kThreads, smem, st>>>(q);
+  } else {
+    minf_fused_kernel<false><<<grid, kThreads, smem, st>>>(q);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Resident blocks per SM at detector side `d` (with or without a base);
+// returns the CUDA error code.
+int tk_minf_fused_blocks_per_sm(int d, int has_base, int* out) {
+  const size_t smem = static_cast<size_t>(d) * sizeof(float2);
+  if (has_base) {
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out, minf_fused_kernel<true>, kThreads, smem));
+  }
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, minf_fused_kernel<false>, kThreads, smem));
+}
+
+}  // extern "C"

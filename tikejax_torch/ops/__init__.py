@@ -1,10 +1,11 @@
 """Operator layer: patch gather/scatter, batched FFT, diffraction fwd/adj,
-and the fused gradient kernel."""
+and the fused kernels (``ops.fused``: grad_fused, minf_fused, fwd)."""
 
 from tikejax_torch.ops.diffraction import (Ptycho, adj_probe_raw, adj_raw,
                                            fwd, fwd_raw)
 from tikejax_torch.ops.fft import crop_from_det, fft2o, ifft2o, pad_to_det
-from tikejax_torch.ops.fused import grad_fused, grad_fused_reference
+from tikejax_torch.ops.fused import (grad_fused, grad_fused_reference,
+                                     minf_fused, minf_fused_reference)
 from tikejax_torch.ops.patches import (check_scan_in_bounds, gather_patches,
                                        overlap_counts, scan_to_int,
                                        scatter_patches_add)
@@ -14,5 +15,6 @@ __all__ = [
     "fft2o", "ifft2o", "pad_to_det", "crop_from_det",
     "gather_patches", "scatter_patches_add", "scan_to_int",
     "check_scan_in_bounds", "overlap_counts",
-    "grad_fused", "grad_fused_reference",
+    "grad_fused", "grad_fused_reference", "minf_fused",
+    "minf_fused_reference",
 ]

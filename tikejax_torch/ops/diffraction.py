@@ -15,17 +15,21 @@ Counterpart of ``tikejax.ops.diffraction``:
 All three are C-linear maps and exact Hermitian adjoints of each other
 under ``<a, b> = sum(conj(a) * b)``.
 
-``kernel`` names the implementation as in the JAX package. Only the
-``'xla'`` oracle path (gather -> probe multiply -> pad -> ``fft2o`` and its
-adjoints, here in plain PyTorch) exists at the operator level: the fused
-operator kernels (``fwd``, ``adj``, ``adj_probe``) are not ported yet, so
-a ``'fused*'`` or ``'pallas'`` operator call raises NotImplementedError on
-every device instead of rerouting to ``'xla'``. ``'auto'`` resolves as in
-the JAX package, with "the tensor is on CUDA" in place of "the backend is
-the TPU": the symmetric ``'fused_mp'`` tier for operators, the solver's
+``kernel`` names the implementation as in the JAX package. The ``'xla'``
+oracle path is gather -> probe multiply -> pad -> ``fft2o`` and its
+adjoints, in plain PyTorch. On the ``'fused*'`` tiers the forward operator
+goes through the ported ``fwd`` kernel (``tikejax_torch.ops.fused.fwd``:
+the CUDA kernel on a CUDA tensor, its plain version on a CPU tensor), as
+the JAX package's goes through ``pallas_fused.fwd``. The fused adjoint
+kernels (``adj``, ``adj_probe``) and the hybrid ``'pallas'`` kernels are
+not ported yet, so an operator-level ``adj``/``adj_probe`` on a fused tier,
+or any ``'pallas'`` operator call, raises NotImplementedError on every
+device instead of rerouting to ``'xla'``. ``'auto'`` resolves as in the JAX
+package, with "the tensor is on CUDA" in place of "the backend is the
+TPU": the symmetric ``'fused_mp'`` tier for operators, the solver's
 target-aware choice in :func:`resolve_kernel_for_target`. The solver's
-gradient pass on the fused tiers runs the ported ``grad_fused`` kernel
-(``tikejax_torch.ops.fused``).
+gradient and objective passes on the fused tiers run the ported
+``grad_fused`` and ``minf_fused`` kernels.
 """
 
 from __future__ import annotations
@@ -45,9 +49,9 @@ FUSED_RESIDUAL_FLOOR = 5e-3
 FUSED_MP_RESIDUAL_FLOOR = 1e-5
 
 _UNPORTED_OPERATOR = (
-    "kernel={kernel!r}: the fused operator kernels (fwd/adj/adj_probe) and "
-    "the hybrid 'pallas' kernels are not ported to CUDA yet (ROADMAP.md, "
-    "queue 2); pass kernel='xla' for the oracle operators")
+    "kernel={kernel!r}: the fused adjoint kernels (adj/adj_probe, ROADMAP.md "
+    "queue 2 item 2.3) and the hybrid 'pallas' kernels (item 2.5) are not "
+    "ported to CUDA yet; pass kernel='xla' for the oracle operators")
 
 
 def _backend(device) -> str:
@@ -106,10 +110,11 @@ def _check_kernel(kernel: str) -> None:
                          f"{_KERNELS}")
 
 
-def _operator_kernel(kernel: str, x: torch.Tensor) -> str:
+def _operator_kernel(kernel: str, x: torch.Tensor,
+                     fused_ok: bool = False) -> str:
     _check_kernel(kernel)
     kernel = resolve_kernel(kernel, _backend(x.device))
-    if kernel != "xla":
+    if kernel != "xla" and not (fused_ok and kernel.startswith("fused")):
         raise NotImplementedError(_UNPORTED_OPERATOR.format(kernel=kernel))
     return kernel
 
@@ -117,8 +122,13 @@ def _operator_kernel(kernel: str, x: torch.Tensor) -> str:
 def fwd_raw(psi: torch.Tensor, scan: torch.Tensor, prb: torch.Tensor,
             ndet: int, kernel: str = "xla") -> torch.Tensor:
     """Forward diffraction. Returns ``(ntheta, nscan, nmodes, ndet, ndet)``."""
-    _operator_kernel(kernel, psi)
+    kernel = _operator_kernel(kernel, psi, fused_ok=True)
     scan_int = _patches.scan_to_int(scan)
+    if kernel.startswith("fused"):
+        from tikejax_torch.ops import fused
+
+        return fused.fwd(psi, scan_int, prb, ndet,
+                         precision=_fused_precision(kernel))
     nprb = prb.shape[-1]
     patches = _patches.gather_patches(psi, scan_int, nprb)
     nearplane = patches[:, :, None] * prb[:, None]  # (t, s, m, p, p)

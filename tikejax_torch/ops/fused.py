@@ -1,40 +1,64 @@
-"""Frameless likelihood gradient: the hand-written ``grad_fused`` kernel.
+"""Frameless fused operators: the hand-written ``grad_fused``, ``fwd`` and
+``minf_fused`` kernels.
 
-Counterpart of ``tikejax.ops.pallas_fused`` for the one kernel the main
-path runs. It replaces ``tikejax/ops/pallas_fused.py`` ``grad_fused`` (the
-TPU kernel ``_grad_kernel``): for every (angle, position, mode) frame it
-gathers the object patch, multiplies by the probe, takes the unitary DFT of
-the zero-padded frame, forms the likelihood factor and objective against
-the measured frame, takes the inverse DFT, multiplies by the conj probe,
-sums the modes and scatter-adds into the object gradient. It returns
-``(grad (t, nz, n), minf ())`` with ``grad = G^H(factor * G psi)`` -- no
-factor 2: the solver supplies it. No farplane or nearplane is ever
-allocated, which is why the kernel exists: at 16384 positions of 128^2 the
-farplane alone would be 2.1 GB.
+Counterpart of ``tikejax.ops.pallas_fused`` for the kernels that the solver
+and ``reconstruct`` run. Each gathers the object patch of every (angle,
+position, mode) frame, multiplies by the probe and takes the unitary DFT of
+the zero-padded frame (plus, in split-operator mode, the frozen ``base``
+farplane's frame); then
 
-The CUDA source is ``tikejax_torch/csrc/grad_fused.cu`` (built by
-``tikejax_torch.utils.cuda_build``). What bounds it on an H100: the DFT is
-computed as four complex matrix products per frame and mode,
-``ndet*nprb*(nprb+ndet)`` complex multiply-adds per DFT application, twice
-per frame -- 1.1e12 fp32 FLOPs per evaluation at 16384 frames of 128^2, all
-on the SIMT fp32 units. The kernel keeps them in shared-memory tiled GEMMs
-and keeps each frame's intermediates in per-block scratch sized by the
-grid (never by the number of positions).
+* ``grad_fused`` (replaces ``pallas_fused.py`` ``grad_fused``,
+  ``_grad_kernel``) forms the likelihood factor and objective against the
+  measured frame, takes the inverse DFT, multiplies by the conj probe, sums
+  the modes and scatter-adds into the object gradient. It returns
+  ``(grad (t, nz, n), minf ())`` with ``grad = G^H(factor * (G psi +
+  base))`` -- no factor 2: the solver supplies it;
+* ``minf_fused`` (replaces ``minf_fused``, ``_minf_kernel``) stops at the
+  objective: the frameless line search and the memory-bound Anderson
+  safeguard evaluate candidates with it;
+* ``fwd`` (replaces ``fwd``, ``_fwd_kernel``) writes the farplane
+  ``(t, s, m, ndet, ndet)`` itself: the base freeze of the split refinement
+  and the Anderson safeguard's candidate farplanes.
+
+``grad_fused`` and ``minf_fused`` never allocate a farplane or a nearplane,
+which is why they exist: at 16384 positions of 128^2 the farplane alone is
+2.1 GB (8.6 GB with 4 modes).
+
+The CUDA sources are ``tikejax_torch/csrc/{grad_fused,fwd,minf_fused}.cu``
+with their shared DFT-GEMM device code in ``csrc/dft_frame.cuh`` (built by
+``tikejax_torch.utils.cuda_build``). What bounds them on an H100: the DFT
+is computed as complex matrix products per frame and mode,
+``ndet*nprb*(nprb+ndet)`` complex multiply-adds per DFT application --
+twice per frame in ``grad_fused`` (1.1e12 fp32 FLOPs per evaluation at
+16384 frames of 128^2), once in ``fwd`` and ``minf_fused`` -- all on the
+SIMT fp32 units, in shared-memory tiled GEMMs whose per-frame
+intermediates sit in per-block scratch sized by the grid (never by the
+number of positions).
+
+The base. The JAX package accepts the frozen base as a complex array or as
+the (re, im) f32 pair that ``fwd(split_out=True)`` emits, because on the
+TPU the complex assembly of the pair is a second base-sized buffer. Here
+PyTorch's complex64 already has the kernels' interleaved layout, so that
+reason has no counterpart: ``fwd(split_out=True)`` returns the
+``torch.view_as_real`` halves of the one complex output, and every function
+takes a base either as a complex tensor or as such a pair of halves, which
+it reads as the complex tensor they view, without a copy.
 
 Precision tiers: the JAX package runs ``fused_mx``'s forward at bf16x3
-Karatsuba (~8e-6) and its adjoint at single-pass bf16 (~2.5e-3). This
-kernel computes both halves with plain fp32 multiply-adds, which meets or
-beats every tier's accuracy, so every ``fused*`` tier maps to it and the
-``precision``/``adj_precision`` tags are accepted and ignored.
+Karatsuba (~8e-6) and its adjoint at single-pass bf16 (~2.5e-3), and the
+base freeze at ``fused_hp``'s full fp32. These kernels compute every DFT
+with plain fp32 multiply-adds, which meets or beats every tier's accuracy,
+so every ``fused*`` tier maps to them and the ``precision`` /
+``adj_precision`` tags are accepted and ignored.
 
 Determinism: the gradient scatter uses fp32 atomics, deterministic up to
-summation order; the objective is summed in double in a fixed order and
+summation order; every objective is summed in double in a fixed order and
 is bitwise reproducible.
 
-``grad_fused`` takes CPU or CUDA tensors. On a CUDA tensor it launches the
-kernel or raises; on a CPU tensor it runs :func:`grad_fused_reference`,
-the plain PyTorch version built from the oracle operators. Each keeps an
-integer count of its runs in its ``launches`` attribute.
+Each function takes CPU or CUDA tensors. On a CUDA tensor it launches its
+kernel or raises; on a CPU tensor it runs its ``*_reference``, the plain
+PyTorch version built from the oracle operators. Each keeps an integer
+count of its runs in its ``launches`` attribute.
 """
 
 from __future__ import annotations
@@ -49,15 +73,48 @@ from tikejax_torch.ops import diffraction
 from tikejax_torch.utils import cuda_build
 
 _MODEL_CODE = {"gaussian": 0, "poisson": 1}
-# The kernel's twiddle table lives in shared memory beside its tiles.
+# The kernels' twiddle table lives in shared memory beside their tiles.
 _MAX_NDET = 2048
 # Per-block scratch holds one frame's intermediates; the grid is cut so
 # that all of it stays below this many bytes.
 _SCRATCH_BYTES = 256 * 1024**2
 
-_BASE_NOT_PORTED = (
-    "grad_fused(base=...): the split-operator epilogue is not ported yet; "
-    "it arrives with solvers.reconstruct (ROADMAP.md, queue 2)")
+
+def _check_model(model: str) -> None:
+    if model not in _MODEL_CODE:
+        raise ValueError(f"unknown model {model!r}; expected one of "
+                         f"{tuple(_MODEL_CODE)}")
+
+
+def _route(name: str, psi: torch.Tensor) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
+    (run the plain version); any other device raises."""
+    if psi.device.type == "cpu":
+        return False
+    if psi.device.type != "cuda":
+        raise ValueError(f"{name} takes CPU or CUDA tensors, got "
+                         f"{psi.device}")
+    return True
+
+
+def _base_complex(base):
+    """The base as one complex tensor, without a copy: a complex tensor as
+    given, or the tensor whose ``view_as_real`` halves the (re, im) pair
+    is (what ``fwd(split_out=True)`` returns); any other pair raises."""
+    if not isinstance(base, (tuple, list)):
+        return base
+    re, im = base
+    if (re.dtype != im.dtype or re.device != im.device
+            or re.shape != im.shape or re.stride() != im.stride()
+            or re.untyped_storage().data_ptr()
+            != im.untyped_storage().data_ptr()
+            or im.data_ptr() != re.data_ptr() + re.element_size()
+            or any(st % 2 for st in re.stride())):
+        raise ValueError("base: an (re, im) pair must be the view_as_real "
+                         "halves of one complex tensor, as "
+                         "fwd(split_out=True) returns")
+    return torch.view_as_complex(
+        re.as_strided(tuple(re.shape) + (2,), re.stride() + (1,)))
 
 
 def grad_fused(psi: torch.Tensor, data: torch.Tensor,
@@ -74,21 +131,19 @@ def grad_fused(psi: torch.Tensor, data: torch.Tensor,
       prb: ``(ntheta, nmodes, nprb, nprb)`` complex probe.
       model: 'gaussian' or 'poisson'.
       precision, adj_precision: the JAX package's tier tags; ignored.
+      base: the frozen base farplane ``(ntheta, nscan, nmodes, ndet,
+        ndet)``, complex or its ``view_as_real`` (re, im) halves (what
+        ``fwd(split_out=True)`` returns); the forward field is then
+        ``G psi + base`` (split-operator refinement).
 
     Returns:
       (grad ``(ntheta, nz, n)`` like ``psi``, minf ``()`` real).
     """
-    if base is not None:
-        raise NotImplementedError(_BASE_NOT_PORTED)
-    if model not in _MODEL_CODE:
-        raise ValueError(f"unknown model {model!r}; expected one of "
-                         f"{tuple(_MODEL_CODE)}")
-    if psi.device.type == "cpu":
-        return grad_fused_reference(psi, data, scan_int, prb, ndet, model)
-    if psi.device.type != "cuda":
-        raise ValueError(f"grad_fused takes CPU or CUDA tensors, got "
-                         f"{psi.device}")
-    return _grad_fused_cuda(psi, data, scan_int, prb, ndet, model)
+    _check_model(model)
+    if not _route("grad_fused", psi):
+        return grad_fused_reference(psi, data, scan_int, prb, ndet, model,
+                                    base=base)
+    return _grad_fused_cuda(psi, data, scan_int, prb, ndet, model, base)
 
 
 grad_fused.launches = 0
@@ -97,86 +152,212 @@ grad_fused.launches = 0
 def grad_fused_reference(psi: torch.Tensor, data: torch.Tensor,
                          scan_int: torch.Tensor, prb: torch.Tensor,
                          ndet: int, model: str, precision=None,
-                         adj_precision=None):
+                         adj_precision=None, base=None):
     """Plain PyTorch version of :func:`grad_fused`, on any device: oracle
-    forward, likelihood residual, oracle adjoint. The objective skips
-    masked positions (scan row < 0), as the kernel does."""
+    forward (plus the base), likelihood residual, oracle adjoint. The
+    objective skips masked positions (scan row < 0), as the kernel does."""
     grad_fused_reference.launches += 1
     minf_fn, resid_fn = likelihoods.get_model(model)
     nz, n = psi.shape[-2:]
     far = diffraction.fwd_raw(psi, scan_int, prb, ndet, kernel="xla")
+    if base is not None:
+        far = far + _base_complex(base)
     grad = diffraction.adj_raw(resid_fn(far, data), scan_int, prb, nz, n,
                                kernel="xla")
-    valid = scan_int[..., 0] >= 0
-    if not bool(valid.all()):
-        far, data = far[valid][None], data[valid][None]
-    return grad, minf_fn(far, data)
+    return grad, _valid_minf(minf_fn, far, data, scan_int)
 
 
 grad_fused_reference.launches = 0
 
 
+def minf_fused(psi: torch.Tensor, data: torch.Tensor,
+               scan_int: torch.Tensor, prb: torch.Tensor, ndet: int,
+               model: str, precision=None, base=None):
+    """The objective at ``psi`` (``G psi + base`` with a base) with nothing
+    farplane-sized in memory: the forward half of :func:`grad_fused`.
+    Arguments as :func:`grad_fused`. Returns minf ``()`` real."""
+    _check_model(model)
+    if not _route("minf_fused", psi):
+        return minf_fused_reference(psi, data, scan_int, prb, ndet, model,
+                                    base=base)
+    return _minf_fused_cuda(psi, data, scan_int, prb, ndet, model, base)
+
+
+minf_fused.launches = 0
+
+
+def minf_fused_reference(psi: torch.Tensor, data: torch.Tensor,
+                         scan_int: torch.Tensor, prb: torch.Tensor,
+                         ndet: int, model: str, precision=None, base=None):
+    """Plain PyTorch version of :func:`minf_fused`, on any device: the
+    oracle farplane (plus the base) and the likelihood, skipping masked
+    positions."""
+    minf_fused_reference.launches += 1
+    far = diffraction.fwd_raw(psi, scan_int, prb, ndet, kernel="xla")
+    if base is not None:
+        far = far + _base_complex(base)
+    minf_fn, _ = likelihoods.get_model(model)
+    return _valid_minf(minf_fn, far, data, scan_int)
+
+
+minf_fused_reference.launches = 0
+
+
+def fwd(psi: torch.Tensor, scan_int: torch.Tensor, prb: torch.Tensor,
+        ndet: int, precision=None, base=None, split_out: bool = False):
+    """Forward farplane ``DFT2(pad(psi[patch(s)] * prb[m]))`` (+ ``base``),
+    ``(ntheta, nscan, nmodes, ndet, ndet)`` complex; a masked position
+    (scan row < 0) gets a zero frame (plus the base). With ``split_out``,
+    the (re, im) real views of that complex tensor (see the module note on
+    the base). ``precision`` is the JAX package's tier tag, ignored."""
+    if not _route("fwd", psi):
+        return fwd_reference(psi, scan_int, prb, ndet, base=base,
+                             split_out=split_out)
+    out = _fwd_cuda(psi, scan_int, prb, ndet, base)
+    return torch.view_as_real(out).unbind(-1) if split_out else out
+
+
+fwd.launches = 0
+
+
+def fwd_reference(psi: torch.Tensor, scan_int: torch.Tensor,
+                  prb: torch.Tensor, ndet: int, precision=None, base=None,
+                  split_out: bool = False):
+    """Plain PyTorch version of :func:`fwd`, on any device: the oracle
+    forward operator (plus the base)."""
+    fwd_reference.launches += 1
+    far = diffraction.fwd_raw(psi, scan_int, prb, ndet, kernel="xla")
+    if base is not None:
+        far = far + _base_complex(base)
+    return torch.view_as_real(far).unbind(-1) if split_out else far
+
+
+fwd_reference.launches = 0
+
+
+def _valid_minf(minf_fn, far, data, scan_int):
+    """The objective over the positions whose scan row is >= 0."""
+    valid = scan_int[..., 0] >= 0
+    if not bool(valid.all()):
+        far, data = far[valid][None], data[valid][None]
+    return minf_fn(far, data)
+
+
+# -- the CUDA path -------------------------------------------------------
+
+_ARGTYPES = {
+    # pointers, then ints; every entry point ends with the stream.
+    "grad_fused": ("tk_grad_fused", [ctypes.c_void_p] * 8
+                   + [ctypes.c_int] * 9),
+    "fwd": ("tk_fwd", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8),
+    "minf_fused": ("tk_minf_fused", [ctypes.c_void_p] * 7
+                   + [ctypes.c_int] * 9 + [ctypes.c_int64]),
+}
+
+
 @functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = cuda_build.load("grad_fused")
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.tk_grad_fused.argtypes = [ptr] * 7 + [i32] * 9 + [ptr]
-    lib.tk_grad_fused.restype = i32
-    lib.tk_grad_fused_blocks_per_sm.argtypes = [i32, ctypes.POINTER(i32)]
-    lib.tk_grad_fused_blocks_per_sm.restype = i32
-    lib.tk_error_string.argtypes = [i32]
+def _lib(name: str) -> ctypes.CDLL:
+    lib = cuda_build.load(name)
+    entry, argtypes = _ARGTYPES[name]
+    getattr(lib, entry).argtypes = argtypes + [ctypes.c_void_p]
+    getattr(lib, entry).restype = ctypes.c_int
+    occupancy = getattr(lib, f"{entry}_blocks_per_sm")
+    occupancy.argtypes = [ctypes.c_int, ctypes.c_int,
+                          ctypes.POINTER(ctypes.c_int)]
+    occupancy.restype = ctypes.c_int
+    lib.tk_error_string.argtypes = [ctypes.c_int]
     lib.tk_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check(lib, err: int, what: str) -> None:
+def _check(name: str, err: int, what: str) -> None:
     if err:
-        raise RuntimeError(f"grad_fused: {what} failed: "
-                           f"{lib.tk_error_string(err).decode()}")
+        raise RuntimeError(f"{name}: {what} failed: "
+                           f"{_lib(name).tk_error_string(err).decode()}")
 
 
 @functools.cache
-def _resident_blocks(device_index: int, ndet: int) -> int:
-    """Blocks the whole card holds at once at detector side ``ndet``."""
-    lib = _lib()
+def _resident_blocks(name: str, device_index: int, ndet: int,
+                     has_base: bool) -> int:
+    """Blocks of kernel ``name`` the whole card holds at once."""
+    lib = _lib(name)
     per_sm = ctypes.c_int(0)
+    entry = getattr(lib, f"{_ARGTYPES[name][0]}_blocks_per_sm")
     with torch.cuda.device(device_index):
-        _check(lib, lib.tk_grad_fused_blocks_per_sm(ndet,
-                                                   ctypes.byref(per_sm)),
+        _check(name, entry(ndet, int(has_base), ctypes.byref(per_sm)),
                "occupancy query")
     sms = torch.cuda.get_device_properties(device_index).multi_processor_count
     return max(1, per_sm.value) * sms
 
 
-def _grad_fused_cuda(psi, data, scan_int, prb, ndet, model):
+def _check_inputs(name, psi, scan_int, prb, ndet, data=None):
+    """Device, dtype and shape checks of the kernels' common inputs;
+    returns (t, nz, n, nmodes, nprb, nscan)."""
     t, nz, n = psi.shape
     _, nmodes, nprb, _ = prb.shape
     s = scan_int.shape[1]
     expect = {"psi": (psi, torch.complex64), "prb": (prb, torch.complex64),
-              "data": (data, torch.float32),
               "scan_int": (scan_int, torch.int32)}
-    for name, (x, dtype) in expect.items():
+    if data is not None:
+        expect["data"] = (data, torch.float32)
+    for what, (x, dtype) in expect.items():
         if x.device != psi.device:
-            raise ValueError(f"grad_fused: {name} is on {x.device}, psi on "
+            raise ValueError(f"{name}: {what} is on {x.device}, psi on "
                              f"{psi.device}")
         if x.dtype != dtype:
-            raise TypeError(f"grad_fused: the CUDA kernel takes {name} as "
+            raise TypeError(f"{name}: the CUDA kernel takes {what} as "
                             f"{dtype}, got {x.dtype}")
-    if (prb.shape[0] != t or data.shape != (t, s, ndet, ndet)
-            or scan_int.shape != (t, s, 2) or prb.shape[-1] != nprb):
+    if (prb.shape[0] != t or scan_int.shape != (t, s, 2)
+            or prb.shape[-1] != nprb
+            or (data is not None and data.shape != (t, s, ndet, ndet))):
         raise ValueError(
-            f"grad_fused: inconsistent shapes psi {tuple(psi.shape)}, prb "
-            f"{tuple(prb.shape)}, data {tuple(data.shape)}, scan_int "
-            f"{tuple(scan_int.shape)}, ndet {ndet}")
+            f"{name}: inconsistent shapes psi {tuple(psi.shape)}, prb "
+            f"{tuple(prb.shape)}, scan_int {tuple(scan_int.shape)}"
+            + (f", data {tuple(data.shape)}" if data is not None else "")
+            + f", ndet {ndet}")
     if not nprb <= ndet <= _MAX_NDET:
-        raise ValueError(f"grad_fused: need nprb <= ndet <= {_MAX_NDET}, "
+        raise ValueError(f"{name}: need nprb <= ndet <= {_MAX_NDET}, "
                          f"got nprb={nprb}, ndet={ndet}")
-    lib = _lib()
-    dev = psi.device.index if psi.device.index is not None else (
-        torch.cuda.current_device())
+    return t, nz, n, nmodes, nprb, s
+
+
+def _base_ptr(name, base, shape, device):
+    """Pointer to a base on the card (None without one); never copies. The
+    base, or the complex tensor its (re, im) pair views, must be a
+    contiguous complex64 tensor of ``shape``."""
+    if base is None:
+        return None
+    b = _base_complex(base)
+    if (b.device != device or b.dtype != torch.complex64
+            or tuple(b.shape) != shape or not b.is_contiguous()):
+        raise ValueError(
+            f"{name}: base must be a contiguous complex64 tensor of shape "
+            f"{shape} on {device} (or its view_as_real halves), got "
+            f"{b.dtype} {tuple(b.shape)} with strides {b.stride()} on "
+            f"{b.device}")
+    return b.data_ptr()
+
+
+def _grid(name, device_index, frames, ndet, has_base, block_bytes):
+    return min(frames, _resident_blocks(name, device_index, ndet, has_base),
+               max(1, _SCRATCH_BYTES // block_bytes))
+
+
+def _device_index(psi):
+    return (psi.device.index if psi.device.index is not None
+            else torch.cuda.current_device())
+
+
+def _grad_fused_cuda(psi, data, scan_int, prb, ndet, model, base):
+    t, nz, n, nmodes, nprb, s = _check_inputs("grad_fused", psi, scan_int,
+                                              prb, ndet, data)
+    base_p = _base_ptr("grad_fused", base, (t, s, nmodes, ndet, ndet),
+                       psi.device)
+    lib = _lib("grad_fused")
+    dev = _device_index(psi)
     per_block = nmodes * ndet * (nprb + ndet)  # complex elements
-    grid = min(t * s, _resident_blocks(dev, ndet),
-               max(1, _SCRATCH_BYTES // (8 * per_block)))
+    grid = _grid("grad_fused", dev, t * s, ndet, base is not None,
+                 8 * per_block)
     psi, prb = psi.contiguous(), prb.contiguous()
     data, scan_int = data.contiguous(), scan_int.contiguous()
     grad = torch.zeros((t, nz, n), dtype=torch.complex64, device=psi.device)
@@ -188,8 +369,61 @@ def _grad_fused_cuda(psi, data, scan_int, prb, ndet, model):
         err = lib.tk_grad_fused(
             psi.data_ptr(), prb.data_ptr(), data.data_ptr(),
             scan_int.data_ptr(), grad.data_ptr(), scratch.data_ptr(),
-            partial.data_ptr(), t, s, nz, n, nmodes, nprb, ndet,
+            partial.data_ptr(), base_p, t, s, nz, n, nmodes, nprb, ndet,
             _MODEL_CODE[model], grid, stream)
-    _check(lib, err, "kernel launch")
+    _check("grad_fused", err, "kernel launch")
     grad_fused.launches += 1
     return grad, partial.sum().to(torch.float32)
+
+
+def _minf_fused_cuda(psi, data, scan_int, prb, ndet, model, base):
+    t, nz, n, nmodes, nprb, s = _check_inputs("minf_fused", psi, scan_int,
+                                              prb, ndet, data)
+    base_p = _base_ptr("minf_fused", base, (t, s, nmodes, ndet, ndet),
+                       psi.device)
+    lib = _lib("minf_fused")
+    dev = _device_index(psi)
+    stride = 2 * nprb * ndet + ndet * ndet  # floats: p x d complex, d x d
+    stride += stride % 2
+    grid = _grid("minf_fused", dev, t * s, ndet, base is not None,
+                 4 * stride)
+    psi, prb = psi.contiguous(), prb.contiguous()
+    data, scan_int = data.contiguous(), scan_int.contiguous()
+    scratch = torch.empty(grid * stride, dtype=torch.float32,
+                          device=psi.device)
+    partial = torch.empty(grid, dtype=torch.float64, device=psi.device)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.tk_minf_fused(
+            psi.data_ptr(), prb.data_ptr(), data.data_ptr(),
+            scan_int.data_ptr(), scratch.data_ptr(), partial.data_ptr(),
+            base_p, t, s, nz, n, nmodes, nprb, ndet, _MODEL_CODE[model],
+            grid, stride, stream)
+    _check("minf_fused", err, "kernel launch")
+    minf_fused.launches += 1
+    return partial.sum().to(torch.float32)
+
+
+def _fwd_cuda(psi, scan_int, prb, ndet, base):
+    t, nz, n, nmodes, nprb, s = _check_inputs("fwd", psi, scan_int, prb,
+                                              ndet)
+    shape = (t, s, nmodes, ndet, ndet)
+    base_p = _base_ptr("fwd", base, shape, psi.device)
+    lib = _lib("fwd")
+    dev = _device_index(psi)
+    grid = _grid("fwd", dev, t * s, ndet, base is not None,
+                 8 * nprb * ndet)
+    psi, prb = psi.contiguous(), prb.contiguous()
+    scan_int = scan_int.contiguous()
+    out = torch.empty(shape, dtype=torch.complex64, device=psi.device)
+    scratch = torch.empty(2 * grid * nprb * ndet, dtype=torch.float32,
+                          device=psi.device)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.tk_fwd(
+            psi.data_ptr(), prb.data_ptr(), scan_int.data_ptr(),
+            out.data_ptr(), scratch.data_ptr(), base_p, t, s, nz, n, nmodes,
+            nprb, ndet, grid, stream)
+    _check("fwd", err, "kernel launch")
+    fwd.launches += 1
+    return out

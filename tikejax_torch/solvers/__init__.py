@@ -1,5 +1,7 @@
-"""Solvers: object-only Dai-Yuan conjugate-gradient reconstruction."""
+"""Solvers: object-only conjugate-gradient reconstruction (Dai-Yuan or
+L-BFGS directions) and the deep-residual solver ``reconstruct``."""
 
 from tikejax_torch.solvers.cg import CGOptions, run
+from tikejax_torch.solvers.tiered import reconstruct
 
-__all__ = ["CGOptions", "run"]
+__all__ = ["CGOptions", "run", "reconstruct"]

@@ -1,32 +1,42 @@
-"""Object-only Dai-Yuan conjugate-gradient ptychography solver.
+"""Object-only conjugate-gradient ptychography solver.
 
 Counterpart of the object-only subset of ``tikejax.solvers.cg``: the same
-options (same names and defaults), the same Dai-Yuan direction, warm-started
-backtracking (or interpolating) line search, illumination preconditioner,
-stopping rules and metrics. Two loop bodies, as in the JAX package:
+options (same names and defaults), the same Dai-Yuan and two-loop L-BFGS
+directions, warm-started backtracking (or interpolating) line search,
+illumination preconditioner, stopping rules and metrics, the
+split-operator mode (``f_base``) and the carried CG state (``cg_init`` /
+``carry_state`` / ``carry_lbfgs``) that ``solvers.reconstruct`` threads
+across its refinement segments. Three loop bodies, as in the JAX package:
 
 * the MERGED body (the main path on CUDA, ``kernel='fused*'``): every
   line-search candidate is evaluated by one ``grad_fused`` pass, which
   returns the objective and the gradient together, so the accepted
   candidate's gradient seeds the next iteration;
-* the CLASSIC body (``kernel='xla'``, the 'auto' choice off CUDA): a
-  gradient pass through the oracle operators, then a line search on the
-  quadratic statistics of the two farplanes.
+* the frameless CLASSIC body (``kernel='fused*'`` with
+  ``merged_linesearch='off'``): one ``grad_fused`` pass per iteration, then
+  a line search that evaluates every candidate with one ``minf_fused``
+  pass -- nothing farplane-sized is allocated;
+* the materialized CLASSIC body (``kernel='xla'``, the 'auto' choice off
+  CUDA): a gradient pass through the oracle operators, then a line search
+  on the quadratic statistics of the two farplanes.
 
 Execution model. The JAX package runs the whole loop, data-dependent
 ``while_loop``s included, in one jit with no host round trip. Eager PyTorch
 cannot branch on ``f(candidate) > f(current)`` without reading the value, so
 this solver keeps the step control on the host and reads ONE scalar per
 line-search candidate (plus the directional derivative when the 'interp'
-step needs it, and two scalars at the start). Everything array-valued stays
-on the device. ``metrics['host_syncs']`` counts the reads and
-``metrics['evaluations']`` the objective evaluations.
+step needs it, the three curvature products of an L-BFGS pair after an
+accepted step, and two scalars at the start). Everything array-valued
+stays on the device. ``metrics['host_syncs']`` counts the reads and
+``metrics['evaluations']`` the objective evaluations. The scalar slots of
+the carried state (steps, the L-BFGS curvature ring and count) are host
+values, kept as 0-d or 1-d CPU tensors.
 
 Not ported (each raises NotImplementedError naming ROADMAP.md): joint probe
-recovery, ``nchunks > 1``, L-BFGS directions, carried CG state, the
-split-operator ``f_base``, ``memory='materialized'``, the fused line search,
-``precondition='illum_lowk'``, mesh axes, the slab fields and the TPU
-slab planner / compile-retry ladder (``run`` calls ``run_impl`` directly).
+recovery, ``nchunks > 1``, ``memory='materialized'``, the fused line
+search, ``precondition='illum_lowk'``, mesh axes, the slab fields and the
+TPU slab planner / compile-retry ladder (``run`` calls ``run_impl``
+directly).
 """
 
 from __future__ import annotations
@@ -55,8 +65,8 @@ class CGOptions:
       max_halvings: bound on backtracking steps (then gamma=0, no move).
       kernel: 'auto' (fused_mx on CUDA -- fused_hp for a deep
         target_residual, 'fused' for a shallow one -- and 'xla'
-        elsewhere), any 'fused*' tier (all run the fp32 ``grad_fused``
-        kernel), or 'xla' (the oracle operators).
+        elsewhere), any 'fused*' tier (all run the fp32 kernels of
+        ``tikejax_torch.ops.fused``), or 'xla' (the oracle operators).
       precondition: 'illum' (divide the gradient by the probe-illumination
         map, floored at 10% of its maximum), 'max' (the scalar
         1/max sum_m |prb_m|^2) or 'none'.
@@ -67,7 +77,11 @@ class CGOptions:
         'auto' (= 'regrow').
       target_residual: stop once the relative residual reaches this
         (0 disables).
-      direction: 'auto' or 'dy' (Dai-Yuan).
+      direction: 'auto' (= 'dy' here; ``solvers.reconstruct`` resolves it
+        to 'lbfgs' for its refinement segments), 'dy' (Dai-Yuan) or
+        'lbfgs' / 'lbfgs:<m>' (two-loop L-BFGS on the preconditioned
+        gradient over a ring of the last m (s, y) pairs, default m=8,
+        curvature-guarded; a fully-failed line search clears the memory).
       stop_on_stall: stop after this many consecutive fully-failed line
         searches (0 disables).
       linesearch: 'backtracking', 'interp' (one safeguarded quadratic-
@@ -75,7 +89,15 @@ class CGOptions:
         (backtracking on the fused_mp/hp/mx/hx tiers, interp otherwise).
       memory: 'auto' or 'frameless' (no farplane on the fused path).
       merged_linesearch: 'auto' (evaluate every candidate with its
-        gradient on the fused path) or 'off'.
+        gradient on the fused path) or 'off' (on the fused path: one
+        gradient pass per iteration and one ``minf_fused`` pass per
+        candidate).
+      carry_state: return the terminal CG state (direction, the
+        preconditioned gradient that built it, accepted step, step start)
+        in ``metrics['cg_state']``, to continue the trajectory in a later
+        run through ``cg_init``.
+      carry_lbfgs: with an L-BFGS direction, also carry the (S, Y, sy,
+        count) ring (the 8-tuple layout); implies carry_state.
     """
 
     piter: int = 32
@@ -94,6 +116,8 @@ class CGOptions:
     linesearch: str = "auto"
     memory: str = "auto"
     merged_linesearch: str = "auto"
+    carry_state: bool = False
+    carry_lbfgs: bool = False
 
 
 # The JAX package's remaining CGOptions fields with their defaults: a call
@@ -102,9 +126,9 @@ _UNPORTED_FIELDS = {
     "recover_prb": False, "nchunks": 1, "axis_name": None,
     "theta_axis_name": None, "obj_axis_name": None, "obj_halo": 0,
     "obj_axis_size": 1, "verbose_every": 0, "lowk_boost": 4.0,
-    "lowk_frac": 0.05, "fused_linesearch": False, "carry_state": False,
-    "carry_lbfgs": False, "obj_slabs": 1, "obj_slabs_partitioned": False,
-    "obj_slab_rows": None, "obj_slab_cols": 1, "kernel_frames": None,
+    "lowk_frac": 0.05, "fused_linesearch": False, "obj_slabs": 1,
+    "obj_slabs_partitioned": False, "obj_slab_rows": None,
+    "obj_slab_cols": 1, "kernel_frames": None,
 }
 
 
@@ -113,6 +137,43 @@ def _not_ported(what: str) -> NotImplementedError:
         f"{what} is not ported to tikejax_torch yet; see ROADMAP.md "
         "(queue 1, 'the rest of the solver surface', and queue 2 for its "
         "kernels)")
+
+
+def _lbfgs_memory(direction: str) -> int:
+    """Ring size for direction='lbfgs[:m]'; 0 for 'dy'/'auto'."""
+    if direction in ("dy", "auto"):
+        return 0
+    base, _, depth = direction.partition(":")
+    if base != "lbfgs" or (depth and not depth.isdigit()):
+        raise ValueError(f"unknown direction {direction!r}; "
+                         "expected 'auto', 'dy', 'lbfgs', or "
+                         "'lbfgs:<m>'")
+    m = int(depth) if depth else 8
+    if not 1 <= m <= 32:
+        raise ValueError(f"lbfgs memory must be in [1, 32], got {m}")
+    return m
+
+
+def _real_dtype(dtype: torch.dtype) -> torch.dtype:
+    return torch.empty(0, dtype=dtype).real.dtype
+
+
+def zero_cg_state(psi: torch.Tensor, options: CGOptions) -> tuple:
+    """All-zeros carry matching metrics['cg_state'] for these options.
+
+    An all-zeros state is exactly what :func:`run_impl` starts from with
+    ``cg_init=None`` (a steepest-descent start; an empty count=0 L-BFGS
+    ring), so a caller may pass it to express 'restart fresh'."""
+    rdt = _real_dtype(psi.dtype)
+    zc = torch.zeros_like(psi)
+    state = (zc, zc, torch.zeros((), dtype=rdt), torch.zeros((), dtype=rdt))
+    m = _lbfgs_memory(options.direction) if options.carry_lbfgs else 0
+    if m:
+        ring = torch.zeros((m,) + tuple(psi.shape), dtype=psi.dtype,
+                           device=psi.device)
+        state += (ring, ring, torch.zeros(m, dtype=rdt),
+                  torch.zeros((), dtype=torch.int32))
+    return state
 
 
 def _rdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -139,12 +200,25 @@ def _minf_of_gamma(model, a, b, c, data, gamma):
     return torch.sum(intensity - d * torch.log(intensity + 1e-8))
 
 
+@dataclasses.dataclass
+class _Lbfgs:
+    """The L-BFGS memory: S/Y rings of m object-shaped device arrays (oldest
+    first, newest at index m-1), their curvature products sy (host) and
+    the number of valid pairs (host)."""
+
+    S: torch.Tensor
+    Y: torch.Tensor
+    sy: torch.Tensor
+    count: int
+
+
 class _Engine:
     """Geometry/options-bound internals of the CG loop; counts the host
     reads it makes in ``syncs`` and its objective evaluations (gradient
     passes and line-search candidates) in ``evaluations``."""
 
-    def __init__(self, g: Geometry, o: CGOptions, backend: str):
+    def __init__(self, g: Geometry, o: CGOptions, backend: str,
+                 f_base=None):
         if o.model not in likelihoods.MODELS:
             raise ValueError(f"unknown model {o.model!r}")
         if o.precondition == "illum_lowk":
@@ -167,12 +241,7 @@ class _Engine:
             raise ValueError(f"unknown merged_linesearch "
                              f"{o.merged_linesearch!r}; expected 'auto' "
                              "or 'off'")
-        if o.direction not in ("auto", "dy"):
-            if o.direction.partition(":")[0] == "lbfgs":
-                raise _not_ported(f"direction={o.direction!r}")
-            raise ValueError(f"unknown direction {o.direction!r}; "
-                             "expected 'auto', 'dy', 'lbfgs', or "
-                             "'lbfgs:<m>'")
+        self.lbfgs_m = _lbfgs_memory(o.direction)
         if o.step_policy not in ("auto", "track", "regrow"):
             raise ValueError(f"unknown step_policy {o.step_policy!r}; "
                              "expected 'auto', 'track', or 'regrow'")
@@ -194,12 +263,16 @@ class _Engine:
                                    "fused_hx")
             self.ls = "backtracking" if deep else "interp"
         self.merged = o.merged_linesearch == "auto" and self.fused
-        if self.fused and not self.merged:
-            raise _not_ported("merged_linesearch='off' on a fused tier "
-                              "(it needs the minf_fused kernel)")
+        # Split-operator mode: psi is a small correction on a frozen base
+        # whose farplane f_base was computed once with an accurate kernel.
+        if f_base is not None and o.memory == "frameless" and not self.fused:
+            raise ValueError("frameless split-operator mode needs the "
+                             "fused kernels")
+        self.f_base = f_base
         self.g = g
         self.o = o
         self.minf_fn, self.resid_fn = likelihoods.get_model(o.model)
+        self.precision = diffraction._fused_precision(self.kernel)
         self.syncs = 0
         self.evaluations = 0
 
@@ -208,22 +281,37 @@ class _Engine:
         self.syncs += 1
         return float(x)
 
-    # -- gradient and line-search passes --------------------------------
+    # -- objective and gradient passes ----------------------------------
 
     def grad_pass(self, psi, prb, scan, scan_i, data):
-        """(minf, raw object gradient, farplane or None) at ``psi``."""
+        """(minf, raw object gradient, farplane or None) at ``psi`` (the
+        farplane ``G psi + base`` on the materialized path)."""
         self.evaluations += 1
         if self.fused:
             grad, f0 = fused.grad_fused(
                 psi, data, scan_i, prb, self.g.ndet, self.o.model,
-                precision=diffraction._fused_precision(self.kernel),
-                adj_precision=diffraction._fused_adj_precision(self.kernel))
+                precision=self.precision,
+                adj_precision=diffraction._fused_adj_precision(self.kernel),
+                base=self.f_base)
             return f0, grad, None
         fpsi = diffraction.fwd_raw(psi, scan, prb, self.g.ndet, "xla")
+        if self.f_base is not None:
+            fpsi = fpsi + fused._base_complex(self.f_base)
         resid = self.resid_fn(fpsi, data)
         grad = diffraction.adj_raw(resid, scan, prb, self.g.nz, self.g.n,
                                    "xla")
         return self.minf_fn(fpsi, data), grad, fpsi
+
+    def minf_pass(self, psi, prb, scan_i, data):
+        """The objective at ``psi`` (plus the base) through the frameless
+        ``minf_fused`` kernel: one candidate of the non-merged line
+        search."""
+        self.evaluations += 1
+        return fused.minf_fused(psi, data, scan_i, prb, self.g.ndet,
+                                self.o.model, precision=self.precision,
+                                base=self.f_base)
+
+    # -- step control ----------------------------------------------------
 
     def gamma0(self, gamma_prev: float, gamma0_prev: float) -> float:
         """Warm start: ``gamma_prev`` is the last ACCEPTED step (0 on
@@ -240,6 +328,17 @@ class _Engine:
                      if gamma_prev >= gamma0_prev else gamma_prev)
             return min(o.step0, grown)
         return gamma0_prev if gamma0_prev > 0 else o.step0
+
+    def lbfgs_gamma0(self, count: int, gamma_prev: float,
+                     gamma0_prev: float) -> float:
+        """Line-search start for the L-BFGS direction: the natural step 1
+        once history exists ('track': the previous accepted step after a
+        backtrack, ceiling 1); the Dai-Yuan warm start without history."""
+        if count <= 0:
+            return self.gamma0(gamma_prev, gamma0_prev)
+        if self.o.step_policy == "track" and 0 < gamma_prev < gamma0_prev:
+            return min(1.0, gamma_prev)
+        return 1.0
 
     def interp_gamma(self, gamma0, f0, fg0, fp0):
         """Safeguarded quadratic-interpolation candidate after the first
@@ -274,6 +373,8 @@ class _Engine:
             k += 1
         return (gamma if fg <= f0 else 0.0), fg, payload
 
+    # -- search directions -----------------------------------------------
+
     def dy_direction(self, grad, grad_prev, d_prev):
         """d = -g + beta * d_prev, beta = ||g||^2 / <d_prev, g - g_prev>_R
         (Dai-Yuan 1999); steepest descent when the denominator is 0."""
@@ -282,6 +383,54 @@ class _Engine:
         beta = torch.where(den != 0, num / torch.where(den != 0, den, 1.0),
                            0.0)
         return -grad + beta.to(grad.dtype) * d_prev
+
+    def lbfgs_init(self, like: torch.Tensor) -> _Lbfgs:
+        m = self.lbfgs_m
+        z = torch.zeros((m,) + tuple(like.shape), dtype=like.dtype,
+                        device=like.device)
+        return _Lbfgs(z, z, torch.zeros(m, dtype=torch.float64), 0)
+
+    def lbfgs_push(self, lb: _Lbfgs, s, y, accepted: bool) -> _Lbfgs:
+        """Append the (s, y) pair when the previous step was accepted and
+        it passes the curvature guard <s,y> > 1e-12 ||s|| ||y|| (one host
+        read of the three products); otherwise the memory is unchanged."""
+        if not accepted:
+            return lb
+        self.syncs += 1
+        sy, ss, yy = torch.stack([_rdot(s, y), _rdot(s, s),
+                                  _rdot(y, y)]).tolist()
+        if not sy > 1e-12 * math.sqrt(ss * yy):
+            return lb
+        return _Lbfgs(torch.cat([lb.S[1:], s[None]]),
+                      torch.cat([lb.Y[1:], y[None]]),
+                      torch.cat([lb.sy[1:], lb.sy.new_tensor([sy])]),
+                      min(lb.count + 1, self.lbfgs_m))
+
+    def lbfgs_direction(self, grad, lb: _Lbfgs):
+        """Two-loop recursion on the (already preconditioned) gradient over
+        the valid pairs; H0 = (<s,y>/<y,y>) I from the newest pair scales
+        the direction so the natural step is 1. With no pairs this is
+        steepest descent."""
+        m = self.lbfgs_m
+        sy = lb.sy.tolist()
+        rho = [1.0 / max(v, 1e-300) if v > 0 else 0.0 for v in sy]
+        valid = [i >= m - lb.count for i in range(m)]
+        q = grad
+        al = [None] * m
+        for i in reversed(range(m)):
+            if valid[i]:
+                al[i] = rho[i] * _rdot(lb.S[i], q)
+                q = q - al[i].to(q.dtype) * lb.Y[i]
+        if lb.count > 0:
+            yy = _rdot(lb.Y[m - 1], lb.Y[m - 1])
+            h0 = torch.where(yy > 0, sy[m - 1] / torch.clamp_min(yy, 1e-300),
+                             1.0)
+            q = q * h0.to(q.dtype)
+        for i in range(m):
+            if valid[i]:
+                b = rho[i] * _rdot(lb.Y[i], q)
+                q = q + (al[i] - b).to(q.dtype) * lb.S[i]
+        return -q
 
     def keep_going(self, i: int, residual: list, gamma: list) -> bool:
         """The JAX package's loop condition, on the host metrics."""
@@ -295,13 +444,15 @@ class _Engine:
         return not (n > 0 and i >= n and all(g == 0 for g in gamma[i - n:i]))
 
 
-def _sum_over_positions(fn, data, chunk_bytes=64 * 2**20):
-    """``sum(fn(chunk))`` over chunks of scan positions, so that no
-    data-sized temporary is allocated (the data are the largest array of
-    the problem: 1 GiB at 16384 frames of 128^2)."""
-    frame_bytes = data.shape[0] * data[0, 0].numel() * data.element_size()
+def _sum_over_positions(fn, *arrays, chunk_bytes=64 * 2**20):
+    """``sum(fn(*chunks))`` over chunks of scan positions (axis 1) of
+    ``arrays``, so that no data-sized temporary is allocated (the data are
+    the largest array of the problem: 1 GiB at 16384 frames of 128^2)."""
+    frame_bytes = max(a.shape[0] * a[0, 0].numel() * a.element_size()
+                      for a in arrays)
     step = max(1, chunk_bytes // frame_bytes)
-    return sum(fn(c) for c in data.split(step, dim=1))
+    return sum(fn(*chunks) for chunks in zip(
+        *(a.split(step, dim=1) for a in arrays)))
 
 
 def _preconditioner(o: CGOptions, prb, scan_i, nz, n):
@@ -320,11 +471,49 @@ def _preconditioner(o: CGOptions, prb, scan_i, nz, n):
     return lambda g: g
 
 
+def _initial_state(eng: _Engine, o: CGOptions, psi0, cg_init):
+    """(d, g_prev, gamma_prev, gamma0_prev, L-BFGS memory or None) from
+    ``cg_init`` (a carried metrics['cg_state']) or a fresh start."""
+    lb = eng.lbfgs_init(psi0) if eng.lbfgs_m else None
+    if cg_init is None:
+        return torch.zeros_like(psi0), torch.zeros_like(psi0), 0.0, 0.0, lb
+    ring_carry = bool(eng.lbfgs_m) and o.carry_lbfgs
+    if ring_carry and len(cg_init) != 8:
+        raise ValueError("carry_lbfgs expects the 8-tuple cg_state layout "
+                         "(4 CG slots + the (S, Y, sy, count) ring); got "
+                         f"{len(cg_init)} entries")
+    if not ring_carry and len(cg_init) != 4:
+        raise ValueError(
+            "cg_init has an 8-entry (L-BFGS ring) layout but this run "
+            "carries only the 4-tuple (d, g, gamma, gamma0) CG slots -- "
+            "pass carry_lbfgs=True with an L-BFGS direction to consume the "
+            f"ring, or feed the 4-tuple state (got {len(cg_init)} entries)")
+
+    def like_psi(x):
+        return torch.as_tensor(x).to(device=psi0.device, dtype=psi0.dtype)
+
+    d_in, g_in, gam_in, gam0_in = cg_init[:4]
+    if ring_carry:
+        S, Y, sy, count = cg_init[4:]
+        if S.shape[0] != eng.lbfgs_m:
+            raise ValueError(f"carried L-BFGS ring has m={S.shape[0]}, "
+                             f"options request m={eng.lbfgs_m}")
+        lb = _Lbfgs(like_psi(S), like_psi(Y),
+                    torch.as_tensor(sy).detach().to("cpu", torch.float64),
+                    int(count))
+    return like_psi(d_in), like_psi(g_in), float(gam_in), float(gam0_in), lb
+
+
 @torch.no_grad()
-def run_impl(geometry: Geometry, options: CGOptions, data, psi0, scan, prb0):
-    """The CG loop. Returns (psi, prb, metrics) like :func:`run`."""
+def run_impl(geometry: Geometry, options: CGOptions, data, psi0, scan, prb0,
+             f_base=None, cg_init=None):
+    """The CG loop. Returns (psi, prb, metrics) like :func:`run`. With
+    ``f_base`` psi0 is a small correction on a frozen base object whose
+    farplane is ``f_base`` (complex, or its ``view_as_real`` (re, im)
+    halves, as ``fused.fwd(split_out=True)`` returns); ``cg_init`` is a
+    carried ``metrics['cg_state']`` taken at the same iterate."""
     o = options
-    eng = _Engine(geometry, o, diffraction._backend(psi0.device))
+    eng = _Engine(geometry, o, diffraction._backend(psi0.device), f_base)
     real_dtype = psi0.real.dtype
     device = psi0.device
     scan_i = _patches.scan_to_int(scan)
@@ -341,9 +530,8 @@ def run_impl(geometry: Geometry, options: CGOptions, data, psi0, scan, prb0):
 
     minf, residual, gamma_hist, grad_norm = [], [], [], []
     psi = psi0
-    d = torch.zeros_like(psi0)
-    g_prev = torch.zeros_like(psi0)
-    gam_prev = gam0_prev = 0.0
+    d, g_prev, gam_prev, gam0_prev, lb = _initial_state(eng, o, psi0,
+                                                        cg_init)
     if eng.merged:
         f_t, g_raw, _ = eng.grad_pass(psi0, prb0, scan, scan_i, data)
         f_cur = eng.host(f_t)
@@ -354,13 +542,23 @@ def run_impl(geometry: Geometry, options: CGOptions, data, psi0, scan, prb0):
         # preconditioner rescales the gradient, not the objective).
         return 2.0 * eng.host(_rdot(g_raw, d))
 
+    def direction(g_now):
+        """The search direction at the gradient ``g_now`` and its
+        line-search start; updates the L-BFGS memory."""
+        nonlocal lb
+        if lb is None:
+            return (eng.dy_direction(g_now, g_prev, d),
+                    eng.gamma0(gam_prev, gam0_prev))
+        lb = eng.lbfgs_push(lb, gam_prev * d, g_now - g_prev, gam_prev > 0)
+        return (eng.lbfgs_direction(g_now, lb),
+                eng.lbfgs_gamma0(lb.count, gam_prev, gam0_prev))
+
     i = 0
     while eng.keep_going(i, residual, gamma_hist):
         if eng.merged:
             # Every candidate is evaluated with its gradient; the accepted
             # one seeds the next iteration.
-            d = eng.dy_direction(g_cur, g_prev, d)
-            gamma0 = eng.gamma0(gam_prev, gam0_prev)
+            d, gamma0 = direction(g_cur)
 
             def f_of(gamma):
                 fc, gc, _ = eng.grad_pass(psi + gamma * d, prb0, scan,
@@ -377,20 +575,27 @@ def run_impl(geometry: Geometry, options: CGOptions, data, psi0, scan, prb0):
             f_t, g_raw, fpsi = eng.grad_pass(psi, prb0, scan, scan_i, data)
             f_iter = eng.host(f_t)
             g_iter = precond(g_raw)
-            d = eng.dy_direction(g_iter, g_prev, d)
-            gamma0 = eng.gamma0(gam_prev, gam0_prev)
-            fd = diffraction.fwd_raw(d, scan, prb0, geometry.ndet, "xla")
-            a, b, c = _quad_stats(fpsi, fd)
+            d, gamma0 = direction(g_iter)
+            if eng.fused:
+                # Frameless: one minf_fused pass per candidate.
+                def f_of(gamma):
+                    return eng.host(eng.minf_pass(psi + gamma * d, prb0,
+                                                  scan_i, data)), None
+            else:
+                fd = diffraction.fwd_raw(d, scan, prb0, geometry.ndet, "xla")
+                a, b, c = _quad_stats(fpsi, fd)
 
-            def f_of(gamma):
-                eng.evaluations += 1
-                f = _minf_of_gamma(o.model, a, b, c, data, gamma)
-                return eng.host(f), None
+                def f_of(gamma):
+                    eng.evaluations += 1
+                    f = _minf_of_gamma(o.model, a, b, c, data, gamma)
+                    return eng.host(f), None
 
             gamma, _, _ = eng.line_search(f_of, f_iter, gamma0, fp0)
             if gamma != 0.0:
                 psi = psi + gamma * d
             g_prev = g_iter
+        if lb is not None and gamma == 0.0:
+            lb.count = 0  # a fully-failed search restarts from -grad
         minf.append(f_iter)
         residual.append(residual_of(f_iter))
         gamma_hist.append(gamma)
@@ -414,16 +619,30 @@ def run_impl(geometry: Geometry, options: CGOptions, data, psi0, scan, prb0):
         "host_syncs": eng.syncs,
         "evaluations": eng.evaluations,
     }
+    if o.carry_state:
+        # The terminal CG carry: the last direction, the preconditioned
+        # gradient that built it, the accepted step and its start (host
+        # scalars), then the L-BFGS ring under carry_lbfgs.
+        cs = (d, g_prev, torch.tensor(gam_prev, dtype=real_dtype),
+              torch.tensor(gam0_prev, dtype=real_dtype))
+        if lb is not None and o.carry_lbfgs:
+            cs += (lb.S, lb.Y, lb.sy.to(real_dtype),
+                   torch.tensor(lb.count, dtype=torch.int32))
+        metrics["cg_state"] = cs
     return psi, prb0, metrics
 
 
 def normalize_options(options: CGOptions, backend: str) -> CGOptions:
     """Resolve 'auto' kernel selection against the residual target for
-    tensors on ``backend`` ('cuda' or 'cpu')."""
+    tensors on ``backend`` ('cuda' or 'cpu'), and normalize flag
+    interactions: carry_lbfgs extends the carried state, so it implies
+    carry_state."""
     if options.kernel == "auto":
         k = diffraction.resolve_kernel_for_target(
             "auto", options.target_residual, backend)
         options = dataclasses.replace(options, kernel=k)
+    if options.carry_lbfgs and not options.carry_state:
+        options = dataclasses.replace(options, carry_state=True)
     return options
 
 
@@ -434,7 +653,9 @@ def run(data, psi0, scan, prb0, geometry: Geometry,
     The port's counterpart of ``tikejax.solvers.run`` for object-only
     runs; extra keyword arguments override CGOptions fields. The JAX
     package's other fields are accepted at their defaults and raise
-    NotImplementedError otherwise, as do ``f_base`` and ``cg_init``.
+    NotImplementedError otherwise. ``f_base`` (split-operator mode) and
+    ``cg_init`` (a carried ``metrics['cg_state']``) as in
+    :func:`run_impl`.
 
     Returns:
       (psi, prb, metrics): metrics holds per-iteration arrays {'minf',
@@ -442,12 +663,10 @@ def run(data, psi0, scan, prb0, geometry: Geometry,
       zero past 'iters_run'; 'residual' is the relative misfit
       sqrt(max(minf - minf_perfect, 0) / sum(data)). 'host_syncs' counts
       the scalars the loop read on the host, 'evaluations' the objective
-      evaluations (on the fused tiers, the ``grad_fused`` passes).
+      evaluations (on the fused tiers, the ``grad_fused`` and
+      ``minf_fused`` passes); 'cg_state' the carried state under
+      ``carry_state``.
     """
-    if f_base is not None:
-        raise _not_ported("the split-operator f_base")
-    if cg_init is not None:
-        raise _not_ported("cg_init (carried CG state)")
     for name, default in _UNPORTED_FIELDS.items():
         if name in kw:
             value = kw.pop(name)
@@ -458,4 +677,5 @@ def run(data, psi0, scan, prb0, geometry: Geometry,
     elif kw:
         options = dataclasses.replace(options, **kw)
     options = normalize_options(options, diffraction._backend(psi0.device))
-    return run_impl(geometry, options, data, psi0, scan, prb0)
+    return run_impl(geometry, options, data, psi0, scan, prb0, f_base,
+                    cg_init)

@@ -1,0 +1,541 @@
+"""Deep-residual reconstruction: time to a target residual.
+
+Counterpart of ``tikejax.solvers.tiered`` (``reconstruct``) for
+single-device, object-only reconstructions. Two methods, as in the JAX
+package:
+
+1. **Kernel-tier chaining** (``method='tiers'``): each tier of ``tiers``
+   runs plain CG with an early-exit ``target_residual`` just above its
+   floor and hands the object to the next.
+
+2. **Split-operator refinement** (default, ``method='split'``): the fast
+   tier runs to its floor; then the object is frozen as a base, its
+   farplane is computed once with the accurate base kernel (``fwd``) and
+   CG runs on the small correction ``delta`` with the fast kernels (cg's
+   ``f_base``); the base is re-frozen between segments. The conjugate-
+   gradient state is carried across segments, Anderson mixing over the
+   segment outputs is kept or rejected by a safeguard that evaluates both
+   candidates with the base kernel, a floor stop ends runs that no longer
+   contract, and the outer state can be checkpointed and resumed.
+
+Port notes. Where the JAX package picks its default kernels "on the TPU"
+(fast 'fused', base 'fused_hp'), ``reconstruct`` picks them when the tensors
+are on CUDA, and the oracle 'xla' path elsewhere. The step control lives
+on the host (see ``tikejax_torch.solvers.cg``), so segments run one after
+the other; the JAX package's one-deep speculation (the termination test
+reads the PREVIOUS segment's status after the next segment was started) is
+kept as control flow, so both packages run the same stages: after the
+segment that reaches the target, one more segment runs, and exits after
+one iteration. The safeguard's choice is read on the host (one scalar),
+and its residuals are summed over chunks of positions, so no temporary as
+large as the data is allocated.
+
+Not ported (each raises NotImplementedError naming ROADMAP.md): meshes,
+joint probe recovery (``recover_prb``, ``joint_kernel`` and the Aitken
+probe refresh), ``nchunks > 1``. The TPU slab backstop
+(``_maybe_slab_partition``) and ``hostio`` are not ported by design.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import os
+
+import numpy as np
+import torch
+
+from tikejax_torch.geometry import Geometry
+from tikejax_torch.models import likelihoods
+from tikejax_torch.ops import diffraction, fused
+from tikejax_torch.ops import patches as _patches
+from tikejax_torch.solvers import cg as _cg
+from tikejax_torch.utils import checkpoint as _checkpoint
+
+# (kernel, exit-residual floor, default max iterations) per tier, as in the
+# JAX package. In this port every fused tier runs the same fp32 kernels.
+DEFAULT_TIERS = (
+    ("fused", diffraction.FUSED_RESIDUAL_FLOOR, 256),
+    ("fused_mx", diffraction.FUSED_MP_RESIDUAL_FLOOR, 1024),
+    ("fused_hp", 0.0, 8192),
+)
+
+# Per-segment residual contraction at or above which a segment counts as
+# FLAT for the floor stop (< 0.5% progress).
+_FLOOR_CONTRACTION = 0.995
+
+# Anderson (AA-II) default mixing depth over the split-segment iterates.
+_AA_DEPTH = 3
+
+# Base-farplane byte size above which the Anderson safeguard evaluates
+# both candidates' objectives with the frameless minf_fused kernel instead
+# of materializing their farplanes (and the base is kept as the split
+# (re, im) views): 3 GiB keeps the headline (a 2.1 GB farplane at 16384
+# positions of 128^2) on the farplane-reusing safeguard, while the 8.6 GB
+# farplane of 4 modes at that size never gets a second copy.
+_SAFEGUARD_FRAMELESS_BYTES = 3 << 30
+
+_ROADMAP = {
+    "mesh": "mesh= (multi-device runs; ROADMAP.md queue 1 item 9)",
+    "recover_prb": "recover_prb=True (joint probe recovery and its probe "
+                   "refresh; ROADMAP.md queue 1 item 7, queue 2 item 2.2)",
+    "joint_kernel": "joint_kernel= (joint probe recovery; ROADMAP.md queue "
+                    "1 item 7, queue 2 item 2.2)",
+    "nchunks": "nchunks > 1 (position streaming; ROADMAP.md queue 1 item 7)",
+}
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"reconstruct: "
+        f"{_ROADMAP.get(what, what + ' (see ROADMAP.md queue 1)')} is not "
+        "ported to tikejax_torch yet")
+
+
+def reconstruct(data, psi0, scan, prb0, geometry: Geometry,
+                target_residual: float = 1e-6,
+                tiers=DEFAULT_TIERS, method: str = "split",
+                segment: int = 256, max_segments: int = 48,
+                base_kernel: str | None = None,
+                fast_kernel: str | None = None,
+                joint_kernel: str | None = None,
+                segment_carry: bool = True,
+                floor_patience: int = 3,
+                accelerate: str | None = "anderson",
+                mesh=None,
+                checkpoint_path: str | None = None,
+                checkpoint_every: int = 4,
+                options: _cg.CGOptions | None = None, **kw):
+    """Reconstruct to a target relative residual.
+
+    Args:
+      target_residual: relative residual sqrt(minf / sum(data)) to stop
+        at (> 0).
+      method: 'split' (default; fast tier to its floor, then split-operator
+        refinement) or 'tiers' (escalate through ``tiers``).
+      tiers: sequence of (kernel, exit_floor, max_piter). For 'split' only
+        the first tier's floor and budget are used (stage 1).
+      segment / max_segments: split-mode refinement segment length (CG
+        iterations between base re-freezes) and budget.
+      base_kernel / fast_kernel: split-mode kernels (defaults: 'fused_hp'
+        / 'fused' when the tensors are on CUDA, the 'xla' oracle
+        elsewhere).
+      segment_carry: continue the CG trajectory across re-bases (the
+        terminal state seeds the next segment through cg's ``cg_init``);
+        segments that end early, and mixes the safeguard takes, restart
+        fresh.
+      floor_patience: stop after this many consecutive refinement
+        segments that each contracted the residual by less than 0.5%
+        (0 disables).
+      accelerate: 'anderson' (depth 3), 'anderson:<depth>' (2..8) or
+        None: safeguarded Anderson mixing over the segment iterates
+        (split mode only).
+      checkpoint_path / checkpoint_every: split mode saves its whole outer
+        state (atomically, ``tikejax_torch.utils.checkpoint``) every
+        ``checkpoint_every`` segments and right after stage 1; the same
+        call with the same path resumes from it and reproduces the rest
+        of the trajectory. The file is removed on success; a mismatched
+        call raises.
+      joint_kernel, mesh: not ported (NotImplementedError) unless None.
+      options / kw: base CGOptions (piter, kernel and target_residual are
+        set per stage). ``direction='auto'`` resolves to Dai-Yuan for
+        stage 1 and to L-BFGS (m=8) for the refinement segments.
+
+    Returns:
+      (psi, prb, stages): stages is a list of (stage_name, metrics);
+      metrics['iters_run'] holds each stage's iteration count.
+    """
+    for name, default in _cg._UNPORTED_FIELDS.items():
+        if name in kw:
+            value = kw.pop(name)
+            if value != default:
+                raise _not_ported(name if name in _ROADMAP
+                                  else f"{name}={value!r}")
+    if options is None:
+        options = _cg.CGOptions(**kw)
+    elif kw:
+        options = dataclasses.replace(options, **kw)
+    if target_residual <= 0:
+        raise ValueError("target_residual must be > 0; for fixed-count "
+                         "runs use tikejax_torch.solvers.run")
+    if method not in ("split", "tiers"):
+        raise ValueError(f"unknown method {method!r}")
+    if checkpoint_path is not None:
+        if method != "split":
+            raise ValueError("checkpoint_path applies to method='split' "
+                             "only (tier stages are single runs)")
+        if checkpoint_every < 1:
+            raise ValueError("checkpoint_every must be >= 1")
+    if accelerate is not None and _parse_anderson_depth(accelerate) is None:
+        raise ValueError(f"unknown accelerate {accelerate!r}; use None, "
+                         "'anderson', or 'anderson:<depth>'")
+    if mesh is not None:
+        raise _not_ported("mesh")
+    if joint_kernel is not None:
+        raise _not_ported("joint_kernel")
+    if method == "split":
+        return _reconstruct_split(data, psi0, scan, prb0, geometry,
+                                  target_residual, segment, max_segments,
+                                  base_kernel, fast_kernel, options, tiers,
+                                  segment_carry, floor_patience, accelerate,
+                                  checkpoint_path, checkpoint_every)
+
+    psi, prb = psi0, prb0
+    stages = []
+    for tier_i, (kernel, floor, max_piter) in enumerate(tiers):
+        tier_target = max(target_residual, floor)
+        # Runs of at most 512 iterations, as in the JAX package (there a
+        # longer device program risked the transport's deadline); a run
+        # started after the target was reached exits after one iteration.
+        remaining = max_piter
+        while remaining > 0:
+            seg = min(remaining, 512)
+            tier_opts = dataclasses.replace(
+                options, kernel=kernel, piter=seg,
+                target_residual=tier_target,
+                direction="dy" if tier_i == 0 else options.direction)
+            psi, prb, metrics = _cg.run(data, psi, scan, prb, geometry,
+                                        tier_opts)
+            stages.append((kernel, metrics))
+            remaining -= seg
+        if floor <= target_residual:
+            break  # this tier could reach the target; done
+    return psi, prb, stages
+
+
+def _reconstruct_split(data, psi0, scan, prb, g, target, segment,
+                       max_segments, base_kernel, fast_kernel, options,
+                       tiers, segment_carry=True, floor_patience=3,
+                       accelerate=None, checkpoint_path=None,
+                       checkpoint_every=4):
+    """Fast tier to its floor, then split-operator refinement segments."""
+    on_cuda = psi0.device.type == "cuda"
+    fast = fast_kernel or ("fused" if on_cuda else "xla")
+    base = base_kernel or ("fused_hp" if on_cuda else "xla")
+
+    def fwd_base(psi_, scan_, prb_):
+        return diffraction.fwd_raw(psi_, scan_, prb_, g.ndet, base)
+
+    floor = tiers[0][1] if tiers else diffraction.FUSED_RESIDUAL_FLOOR
+    stages = []
+
+    ck = None
+    if checkpoint_path is not None and os.path.exists(checkpoint_path):
+        ck = _checkpoint.load(checkpoint_path)
+        _ckpt_validate(ck, g, segment, target)
+
+    if ck is None:
+        # Stage 1: plain Dai-Yuan CG on the fast tier down to its floor
+        # (an L-BFGS-warmed flat start lands in bad basins).
+        opts1 = dataclasses.replace(options, kernel=fast, direction="dy",
+                                    piter=tiers[0][2] if tiers else 256,
+                                    target_residual=max(target, floor))
+        psi, prb, m = _cg.run(data, psi0, scan, prb, g, opts1)
+        stages.append((fast, m))
+        if target >= floor:
+            return psi, prb, stages
+    else:
+        psi = _to_tensor(ck["psi"], psi0.device)
+        prb = _to_tensor(ck["prb"], psi0.device)
+
+    # Stage 2: split-operator refinement with the fast kernels on the
+    # correction; 'auto' is L-BFGS here (and only here).
+    refine_dir = ("lbfgs" if options.direction == "auto"
+                  else options.direction)
+    opts2 = dataclasses.replace(options, kernel=fast, piter=segment,
+                                target_residual=target,
+                                carry_state=segment_carry,
+                                direction=refine_dir)
+    state = _cg.zero_cg_state(psi, opts2) if segment_carry else None
+
+    # Safeguard flavour by base-farplane size: the farplane-reusing
+    # safeguard materializes both candidates' farplanes and hands the
+    # winner's forward as the next base; above the threshold both
+    # objectives come from minf_fused and the base stays one tensor.
+    minf_base_fn = None
+    if (base.startswith("fused") and math.prod(g.farplane_shape)
+            * psi.element_size() > _SAFEGUARD_FRAMELESS_BYTES):
+        minf_base_fn = _make_minf_base(g)
+        fwd_base = _make_fwd_base_split(g)
+
+    prev = None
+    flat = 0
+    aa_hist = []  # Anderson history of (segment output, correction)
+    res_hist = []  # per-segment end residuals
+    budget = max_segments
+    aa_depth = (_parse_anderson_depth(accelerate) if accelerate is not None
+                else 0)
+    f_next = None  # chosen farplane handed forward by the Anderson step
+    if ck is not None:
+        flat, budget, res_hist, prev, aa_hist, state = _ckpt_restore(
+            ck, state, psi0.device)
+    elif checkpoint_path is not None:
+        _ckpt_save(checkpoint_path, g, segment, target, psi, prb, budget,
+                   flat, res_hist, prev, aa_hist, state)
+    seg_i = 0
+    while budget > 0:
+        budget -= 1
+        f_base = f_next if f_next is not None else fwd_base(psi, scan, prb)
+        f_next = None
+        delta0 = torch.zeros(g.psi_shape, dtype=psi.dtype, device=psi.device)
+        delta, _, m = _cg.run(data, delta0, scan, prb, g, opts2,
+                              f_base=f_base, cg_init=state)
+        f_base = None  # at scale the base IS the memory budget
+        psi = psi + delta
+        stages.append((f"split:{fast}", m))
+        if segment_carry:
+            state = _masked_state(m["cg_state"], m["iters_run"], segment)
+        if aa_depth:
+            # History holds raw segment outputs and their corrections; a
+            # taken mix never enters it.
+            aa_hist.append((psi, delta))
+            del aa_hist[:-aa_depth]
+            if len(aa_hist) >= 2:
+                if minf_base_fn is not None:
+                    psi, took, f_next = _anderson_step_frameless(
+                        [p for p, _ in aa_hist], [d for _, d in aa_hist],
+                        data, scan, prb, minf_base_fn)
+                else:
+                    psi, took, f_next = _anderson_step(
+                        [p for p, _ in aa_hist], [d for _, d in aa_hist],
+                        data, scan, prb, fwd_base)
+                if segment_carry:
+                    # A taken mix moves psi off the carried trajectory.
+                    state = _masked_state_flag(state, took)
+        # The termination test reads the PREVIOUS segment's status (the
+        # JAX package's one-deep speculation; see the module note).
+        if prev is not None:
+            reached, contraction, res_end = _segment_status(prev, segment,
+                                                            target)
+            if reached:
+                break
+            res_hist.append(res_end)
+            if contraction > _FLOOR_CONTRACTION:
+                flat += 1
+                if floor_patience > 0 and flat >= floor_patience:
+                    break  # pinned at the base kernel's or the data's floor
+            else:
+                flat = 0
+        prev = m
+        seg_i += 1
+        if checkpoint_path is not None and seg_i % checkpoint_every == 0:
+            _ckpt_save(checkpoint_path, g, segment, target, psi, prb,
+                       budget, flat, res_hist, prev, aa_hist, state)
+    _ckpt_done(checkpoint_path)
+    return psi, prb, stages
+
+
+def _masked_state(cg_state, iters_run, segment):
+    """The carried state, or all zeros (a fresh start) when the segment
+    ended early (stall or target): a stalled direction is one the line
+    search already rejected. Budget-exhausted segments always carry."""
+    return _masked_state_flag(cg_state, int(iters_run) < segment)
+
+
+def _masked_state_flag(cg_state, restart: bool):
+    """All zeros (what cg.run starts from without ``cg_init``) when
+    ``restart``, e.g. after a taken Anderson mix; else the state."""
+    if restart:
+        return tuple(torch.zeros_like(x) for x in cg_state)
+    return cg_state
+
+
+def _parse_anderson_depth(accelerate):
+    """Depth for 'anderson'/'anderson:<d>' (2..8), else None."""
+    if accelerate == "anderson":
+        return _AA_DEPTH
+    if isinstance(accelerate, str) and accelerate.startswith("anderson:"):
+        try:
+            d = int(accelerate.split(":", 1)[1])
+        except ValueError:
+            return None
+        if 2 <= d <= 8:
+            return d
+    return None
+
+
+def _anderson_mix(psis, deltas):
+    """x_mix = sum_j alpha_j G(x_j) with alpha minimizing ||sum_j alpha_j
+    r_j|| subject to sum_j alpha_j = 1, on the (Tikhonov-regularized) real
+    Gram matrix of the corrections r_j. The m x m solve runs on the host."""
+    m = len(deltas)
+    R = torch.stack([d.reshape(-1) for d in deltas])  # (m, N) complex
+    G = (R @ R.conj().T).real.cpu()
+    Greg = G + (1e-7 * torch.trace(G) / m + 1e-30) * torch.eye(
+        m, dtype=G.dtype)
+    alpha = torch.linalg.solve(Greg, torch.ones(m, dtype=G.dtype))
+    alpha = alpha / torch.sum(alpha)
+    stacked = torch.stack(psis)
+    return torch.einsum("i,i...->...", alpha.to(stacked.device,
+                                                stacked.dtype), stacked)
+
+
+def _anderson_step(psis, deltas, data, scan, prb, fwd_base):
+    """One safeguarded Anderson step: form the mix, compute both
+    candidates' farplanes with the base kernel and keep the candidate
+    with the smaller gaussian residual. Returns (chosen iterate, took-mix
+    flag, chosen farplane): the farplane is the next segment's base."""
+    psi_mix = _anderson_mix(psis, deltas)
+    psi_plain = psis[-1]
+    f_mix = fwd_base(psi_mix, scan, prb)
+    f_plain = fwd_base(psi_plain, scan, prb)
+    return _anderson_select(psi_mix, psi_plain, f_mix, f_plain, data)
+
+
+def _anderson_select(psi_mix, psi_plain, f_mix, f_plain, data):
+    sum_d = _cg._sum_over_positions(
+        lambda c: torch.sum(torch.clamp_min(c, 0.0)), data)
+
+    def res(f):
+        minf = _cg._sum_over_positions(likelihoods.gaussian_minf, f, data)
+        return torch.sqrt(torch.clamp_min(minf, 0.0) / sum_d)
+
+    if bool(res(f_mix) < res(f_plain)):
+        return psi_mix, True, f_mix
+    return psi_plain, False, f_plain
+
+
+def _make_minf_base(g: Geometry):
+    """The base kernel's frameless gaussian objective psi -> minf
+    (``fused.minf_fused``): nothing farplane-sized is allocated. Every
+    ``fused*`` base tier is the same fp32 kernel."""
+
+    def minf_base(psi_, scan_, prb_, data_):
+        return fused.minf_fused(psi_, data_, _patches.scan_to_int(scan_),
+                                prb_, g.ndet, "gaussian")
+
+    return minf_base
+
+
+def _make_fwd_base_split(g: Geometry):
+    """Base freeze as the (re, im) views of one complex farplane
+    (``fused.fwd(split_out=True)``), the form the JAX package keeps in
+    the memory-bound regime; the kernels read it without a copy."""
+
+    def fwd_base(psi_, scan_, prb_):
+        return fused.fwd(psi_, _patches.scan_to_int(scan_), prb_, g.ndet,
+                         split_out=True)
+
+    return fwd_base
+
+
+def _anderson_step_frameless(psis, deltas, data, scan, prb, minf_base):
+    """Memory-bound variant of :func:`_anderson_step`: both candidates'
+    gaussian objectives from the frameless base kernel (the residual is
+    monotone in minf, so the choice matches); the winner's farplane is not
+    handed forward (returns None)."""
+    psi_mix = _anderson_mix(psis, deltas)
+    psi_plain = psis[-1]
+    take = bool(minf_base(psi_mix, scan, prb, data)
+                < minf_base(psi_plain, scan, prb, data))
+    return (psi_mix if take else psi_plain), take, None
+
+
+def _segment_status(m, segment, target):
+    """(reached, contraction, res_end) of a completed split segment: an
+    early exit counts as reached only when the residual met the target (a
+    stalled segment gets a fresh base); contraction is res_end/res_start,
+    the floor-stop statistic."""
+    ran = int(m["iters_run"])
+    res = _to_numpy(m["residual"])
+    res_end = float(res[max(ran - 1, 0)])
+    reached = ran < segment and res_end <= target
+    contraction = res_end / max(float(res[0]), 1e-300)
+    return reached, contraction, res_end
+
+
+def _to_numpy(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _to_tensor(x, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(x)).to(device)
+
+
+# --- outer-loop checkpointing: the JAX package's file layout -------------
+
+
+def _ckpt_save(path, g, segment, target, psi, prb, budget, flat,
+               res_hist, prev, aa_hist, state):
+    tree = {
+        "meta": {
+            "version": np.int64(1),
+            "segment": np.int64(segment),
+            "target": np.float64(target),
+            "geom": np.asarray([g.ntheta, g.nz, g.n, g.nscan, g.ndet,
+                                g.nprb, g.nmodes], np.int64),
+        },
+        "psi": psi,
+        "prb": prb,
+        "ctl": {
+            "budget": np.int64(budget),
+            "flat": np.int64(flat),
+            # The JAX package's probe-refresh budget (joint recovery
+            # only, which this port does not run).
+            "refreshes": np.int64(0),
+            "res_hist": np.asarray(res_hist, np.float64),
+            "has_prev": np.int64(prev is not None),
+        },
+    }
+    if prev is not None:
+        # Everything _segment_status consumes from the previous segment.
+        tree["prev"] = {"iters_run": prev["iters_run"],
+                        "residual": prev["residual"]}
+    if aa_hist:
+        tree["aa"] = {
+            "psis": {str(i): p for i, (p, _) in enumerate(aa_hist)},
+            "deltas": {str(i): d for i, (_, d) in enumerate(aa_hist)},
+        }
+    if state is not None:
+        tree["state"] = {str(i): x for i, x in enumerate(state)}
+    _checkpoint.save(path, tree)
+
+
+def _ckpt_validate(ck, g, segment, target):
+    meta = ck.get("meta")
+    geom = np.asarray([g.ntheta, g.nz, g.n, g.nscan, g.ndet, g.nprb,
+                       g.nmodes], np.int64)
+    if meta is None or "geom" not in meta:
+        raise ValueError("checkpoint_path exists but is not a reconstruct "
+                         "split-mode checkpoint")
+    if (not np.array_equal(np.asarray(meta["geom"]), geom)
+            or int(meta["segment"]) != segment
+            or float(meta["target"]) != target):
+        raise ValueError(
+            "existing checkpoint was written by a DIFFERENT reconstruct "
+            "call (geometry/segment/target mismatch); remove it or pass "
+            "the original arguments to resume")
+
+
+def _ckpt_restore(ck, state, device):
+    """Loop state from a loaded checkpoint: complex arrays go to
+    ``device``, the state's host scalars stay on the CPU. ``state`` is the
+    fresh zero state, replaced only when the checkpoint carried one."""
+    ctl = ck["ctl"]
+    res_hist = [float(x) for x in np.asarray(ctl["res_hist"]).ravel()]
+    prev = None
+    if int(ctl["has_prev"]):
+        prev = {"iters_run": ck["prev"]["iters_run"],
+                "residual": ck["prev"]["residual"]}
+    aa_hist = []
+    if "aa" in ck:
+        psis, deltas = ck["aa"]["psis"], ck["aa"]["deltas"]
+        aa_hist = [(_to_tensor(psis[str(i)], device),
+                    _to_tensor(deltas[str(i)], device))
+                   for i in range(len(psis))]
+    if "state" in ck and state is not None:
+        st = ck["state"]
+        state = tuple(
+            _to_tensor(st[str(i)], device if np.iscomplexobj(st[str(i)])
+                       else "cpu") for i in range(len(st)))
+    return (int(ctl["flat"]), int(ctl["budget"]), res_hist, prev, aa_hist,
+            state)
+
+
+def _ckpt_done(path):
+    """Remove the checkpoint on successful completion, so re-running the
+    same call starts fresh instead of resuming a finished run."""
+    if path is not None and os.path.exists(path):
+        os.remove(path)

@@ -3,8 +3,10 @@
 Each ``tikejax_torch/csrc/<name>.cu`` exposes a plain C interface. At first
 use it is compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared
 library under ``build/kernels/`` at the root of the checkout and loaded with
-``ctypes``. The library's file name carries a hash of the source and the
-flags, so an edited source is rebuilt and a stale library is never loaded.
+``ctypes``. The library's file name carries a hash of the source, of every
+``csrc/`` header it includes (directly or through another header) and of
+the flags, so an edited source or header is rebuilt and a stale library is
+never loaded. :func:`build_all` starts one ``nvcc`` per source at once.
 Nothing here runs at import time: importing the package needs no compiler.
 """
 
@@ -13,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -23,7 +26,9 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+KERNELS = ("grad_fused", "fwd", "minf_fused")
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 _LOADED: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
@@ -44,30 +49,75 @@ def nvcc() -> str:
         "needs the kernel library; CPU tensors use the plain versions)")
 
 
+def sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` followed by every file it includes with
+    ``#include "..."``, directly or through another included file (paths
+    relative to the including file). System headers are not followed."""
+    todo = [CSRC / f"{name}.cu"]
+    seen: list[Path] = []
+    while todo:
+        path = todo.pop(0).resolve()
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            dep = path.parent / inc.decode()
+            if dep.is_file():
+                todo.append(dep)
+    return seen
+
+
+def library_key(name: str) -> str:
+    """Hash of the source, its included files and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    return h.hexdigest()
+
+
+def _library(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}-{library_key(name)[:16]}.so"
+
+
+def build_all(names=KERNELS) -> dict[str, tuple[Path, float, str]]:
+    """Compile every ``csrc/<name>.cu`` in ``names`` whose library does
+    not exist, one ``nvcc`` process per source, all started together.
+    Returns, per name, the library path, the seconds spent compiling (0
+    when it existed) and the compiler's report (registers, shared memory
+    and spills per kernel, from ``-Xptxas -v``; empty when it existed).
+    Raises RuntimeError naming every source that failed."""
+    out, started = {}, {}
+    for name in names:
+        lib = _library(name)
+        if lib.exists():
+            out[name] = (lib, 0.0, "")
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        started[name] = (lib, tmp, proc, time.perf_counter())
+    failed = []
+    for name, (lib, tmp, proc, t0) in started.items():
+        _, err = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed building {name}.cu (exit "
+                          f"{proc.returncode}):\n{err}")
+            continue
+        os.replace(tmp, lib)  # atomic: a concurrent build never sees half
+        out[name] = (lib, seconds, err)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
+
+
 def build(name: str) -> tuple[Path, float, str]:
-    """Compile ``csrc/<name>.cu`` unless its library exists. Returns the
-    library path, the seconds spent compiling (0 when it existed) and
-    the compiler's report (registers, shared memory and spills per kernel,
-    from ``-Xptxas -v``; empty when it existed)."""
-    src = CSRC / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = BUILD_DIR / f"lib{name}-{key[:16]}.so"
-    if out.exists():
-        return out, 0.0, ""
-    compiler = nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [compiler, *NVCC_FLAGS, "-o", str(tmp), str(src)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed building {name}.cu "
-                           f"(exit {proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
-    return out, seconds, proc.stderr
+    """Compile ``csrc/<name>.cu`` unless its library exists; see
+    :func:`build_all`."""
+    return build_all((name,))[name]
 
 
 def load(name: str) -> ctypes.CDLL:
