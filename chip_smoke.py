@@ -8,15 +8,17 @@ CPU path: without a card, or without the repository beside it, it fails.
 Phases, one line each or more (any failure exits non-zero; no phase's error
 is caught):
   1. device    -- the card (nvidia-smi name and power limit), torch, CUDA;
-  2. build     -- nvcc builds the grad_fused, fwd and minf_fused kernels
-                  from tikejax_torch/csrc, one process per source, in
-                  parallel;
+  2. build     -- nvcc builds the six kernels (grad_fused, fwd,
+                  minf_fused, grad_prb_fused, adj, adj_probe) from
+                  tikejax_torch/csrc, one process per source, in parallel;
   3. kernel    -- each kernel against its plain PyTorch version on a small
                   awkward case (2 angles, 2 modes, odd sizes, a masked
                   position, both models) and at the headline frame size:
                   grad_fused with and without a base, fwd with and without
                   a base and as split views, minf_fused with and without a
-                  base; kernel and plain times at the headline size;
+                  base, grad_prb_fused, adj and adj_probe (the two probe
+                  reductions also bitwise repeatable); kernel and plain
+                  times at the headline size beside each kernel's bound;
   4. solver    -- a small problem against the CPU complex128 oracle solver;
   5. main      -- the headline problem (512^2 object, 16384 positions, 128^2
                   probe and detector, Gaussian, solver defaults) through
@@ -38,7 +40,29 @@ is caught):
                   safeguard must launch
                   minf_fused twice per step, the residual must fall, and
                   peak extra memory must stay below one base farplane plus
-                  1.5 GiB.
+                  1.5 GiB;
+  8. joint     -- BASELINE config 3 (512^2 object, 4096 positions, 128^2
+                  probe and detector, Poisson) through solvers.run(
+                  recover_prb=True) for 128 iterations from psi0 = ones and
+                  a probe perturbed by complex Gaussian noise at 3% of its
+                  maximum: objective, residual and probe error (up to the
+                  complex scale that the joint objective cannot fix) must
+                  fall,
+                  grad_fused and grad_prb_fused must launch once an
+                  iteration and minf_fused once a candidate, and peak extra
+                  memory must stay below 256 MiB (frameless);
+  9. stream    -- the JAX package's quick start on the port: the same
+                  problem, Gaussian, recover_prb=True, nchunks=4, 128
+                  iterations: fwd, adj and adj_probe must launch on every
+                  chunk pass, the objective must fall, and peak extra
+                  memory must stay below the streamed statistics and two
+                  chunk farplanes (1.25 GiB);
+ 10. joint-deep -- the same problem (Gaussian) through reconstruct(
+                  recover_prb=True) with its defaults to a 1e-6 residual:
+                  a fused:joint stage 1, the fused_hp:joint escalation
+                  chain, grad_prb_fused once a joint iteration, the target
+                  reached and the probe error fallen.
+No phase may run a plain version on the main path.
 The line before the last is the card's nvidia-smi line; before it, one JSON
 line describing each kernel; the last line is the JSON result.
 """
@@ -71,12 +95,33 @@ FRAMELESS = dict(HEADLINE, nmodes=4)
 FRAMELESS_KW = dict(tiers=(("fused", 5e-3, 64),), segment=32,
                     max_segments=4)
 SCALE_CHUNK = 2048  # positions per plain-version chunk at 4 modes: 1 GiB
+CONFIG3 = dict(nz=512, n=512, nscan=4096, ndet=128, nprb=128)
+JOINT_ITERS = 128
+STREAM_CHUNKS = 4
+# The streamed (a, b, c) statistics of all positions (3 x 4096 x 128^2 x
+# 4 B = 0.75 GiB) plus two chunk farplanes (0.25 GiB) and some slack.
+STREAM_PEAK = 1.25 * 2**30
+# The joint path holds no farplane (0.5 GiB here) and no data-sized
+# temporary.
+JOINT_PEAK = 256 * 2**20
+# A joint-deep run that does not converge ends within about 2 minutes:
+# each probe refresh costs one segment of the budget and ~4 x 128 joint
+# iterations.
+JOINT_DEEP_MAX_SEGMENTS = 12
+# Published H100 SXM peaks (700 W): fp32 outside the tensor cores, memory.
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
 KERNEL_SOURCES = {
     "grad_fused": ("tikejax_torch/csrc/grad_fused.cu",
                    "tikejax/ops/pallas_fused.py:1283"),
     "fwd": ("tikejax_torch/csrc/fwd.cu", "tikejax/ops/pallas_fused.py:651"),
     "minf_fused": ("tikejax_torch/csrc/minf_fused.cu",
                    "tikejax/ops/pallas_fused.py:1424"),
+    "grad_prb_fused": ("tikejax_torch/csrc/grad_prb_fused.cu",
+                       "tikejax/ops/pallas_fused.py:1563"),
+    "adj": ("tikejax_torch/csrc/adj.cu", "tikejax/ops/pallas_fused.py:759"),
+    "adj_probe": ("tikejax_torch/csrc/adj_probe.cu",
+                  "tikejax/ops/pallas_fused.py:866"),
 }
 
 
@@ -141,6 +186,39 @@ def compare_minf(torch, fused, args, ndet, model, base=None):
     return err, abs(f_k - f_r)
 
 
+def compare_grad_prb(torch, fused, args, ndet, model):
+    """grad_prb_fused against its plain version, and bitwise repeatable:
+    (grad err, minf err, abs err)."""
+    g_k, f_k = fused.grad_prb_fused(*args, ndet, model)
+    g_2, f_2 = fused.grad_prb_fused(*args, ndet, model)
+    g_r, f_r = fused.grad_prb_fused_reference(*args, ndet, model)
+    g_err, abs_err = rel_err(torch, g_k, g_r)
+    f_err = abs(float(f_k) - float(f_r)) / abs(float(f_r))
+    check(bool(torch.isfinite(g_k).all()) and g_err <= GRAD_TOL
+          and f_err <= MINF_TOL, ("grad_prb_fused", model, g_err, f_err))
+    check(torch.equal(g_k, g_2) and float(f_k) == float(f_2),
+          "grad_prb_fused is not bitwise repeatable")
+    return g_err, f_err, abs_err
+
+
+def compare_adjoints(torch, fused, far, scan_i, prb, psi):
+    """adj and adj_probe against their plain versions (adj_probe also
+    bitwise repeatable): ((adj err, abs), (adj_probe err, abs))."""
+    nz, n = psi.shape[-2:]
+    a_k = fused.adj(far, scan_i, prb, nz, n)
+    a_err = rel_err(torch, a_k, fused.adj_reference(far, scan_i, prb, nz, n))
+    p_k = fused.adj_probe(far, scan_i, psi, prb.shape[-1])
+    p_2 = fused.adj_probe(far, scan_i, psi, prb.shape[-1])
+    p_err = rel_err(torch, p_k, fused.adj_probe_reference(far, scan_i, psi,
+                                                          prb.shape[-1]))
+    check(bool(torch.isfinite(a_k).all()) and a_err[0] <= GRAD_TOL,
+          ("adj", a_err))
+    check(bool(torch.isfinite(p_k).all()) and p_err[0] <= GRAD_TOL,
+          ("adj_probe", p_err))
+    check(torch.equal(p_k, p_2), "adj_probe is not bitwise repeatable")
+    return a_err, p_err
+
+
 def compare_at_scale(torch, fused, g, psi, data, scan_i, prb, base, chunk):
     """The kernels at full size, where the base's and the farplane's float
     offsets pass 2**31, against their plain versions taken over chunks of
@@ -200,6 +278,28 @@ def compare_at_scale(torch, fused, g, psi, data, scan_i, prb, base, chunk):
         del re, im
     return {k: (max(e for e, _ in v), max(a for _, a in v))
             for k, v in errs.items()}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def fft_flops(scan_i, nmodes: int, ndet: int, dfts: int) -> float:
+    """Real FLOPs of ``dfts`` 2-D FFTs of every valid (unmasked) frame and
+    mode of this run: 5 N log2 N per padded ndet^2 frame."""
+    frames = int((scan_i[..., 0] >= 0).sum())
+    n = ndet * ndet
+    return dfts * frames * nmodes * 5 * n * math.log2(n)
+
+
+def bound(flops: float, moved: int):
+    """(ms, what bounds it): the least time the card could take for
+    ``flops`` fp32 operations at the SIMT peak and ``moved`` bytes (each
+    input read once, each output written once) at the memory peak."""
+    flops_ms = 1e3 * flops / PEAK_FLOPS
+    bytes_ms = 1e3 * moved / PEAK_BYTES
+    return ((flops_ms, "operations") if flops_ms >= bytes_ms
+            else (bytes_ms, "bytes"))
 
 
 def final_residual(stages) -> float:
@@ -280,6 +380,15 @@ def main() -> None:
                           b)[0] for b in (None, base_s)]
     log("kernel", f"small {small}: fwd err {f_errs[0]:.2e}, with base "
         f"{f_errs[1]:.2e} (split views identical)")
+    for model in ("gaussian", "poisson"):
+        gp_err, fp_err, _ = compare_grad_prb(torch, fused, args_s, small.ndet,
+                                             model)
+        log("kernel", f"small {small} {model}: grad_prb_fused grad/minf err "
+            f"{gp_err:.2e}/{fp_err:.2e} (bitwise repeatable)")
+    (a_err, _), (p_err, _) = compare_adjoints(torch, fused, base_s, scan_si,
+                                              prb_s, psi_s)
+    log("kernel", f"small {small}: adj err {a_err:.2e}, adj_probe err "
+        f"{p_err:.2e} (bitwise repeatable)")
 
     g = Geometry(**HEADLINE)
     _, scan, prb, data = make_problem(gen, g, device=dev)
@@ -301,6 +410,9 @@ def main() -> None:
         *args, g.ndet, "gaussian"), 10)
     flops = 2 * 8 * g.ndet * g.nprb * (g.nprb + g.ndet) * g.nscan
     results["grad_fused"] = (abs_err, ms, plain_ms)
+    bounds = {"grad_fused": bound(fft_flops(scan_i, g.nmodes, g.ndet, 2),
+                                  nbytes(psi_r, prb, data, scan_i, psi_r)
+                                  + 4)}
     log("kernel", f"headline {g} grad_fused: grad/minf err {g_err:.2e}/"
         f"{f_err:.2e}, with base {gb_err:.2e}/{fb_err:.2e}; kernel "
         f"{ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s fp32), with base "
@@ -314,6 +426,8 @@ def main() -> None:
     plain_ms = median_ms(torch, lambda: fused.fwd_reference(
         psi_r, scan_i, prb, g.ndet), 10)
     results["fwd"] = (fw_abs, ms, plain_ms)
+    bounds["fwd"] = bound(fft_flops(scan_i, g.nmodes, g.ndet, 1),
+                          nbytes(psi_r, prb, scan_i, base))
     log("kernel", f"headline {g} fwd: err {fw_err:.2e}, with base "
         f"{fwb_err:.2e}; kernel {ms:.3f} ms ({flops / 2 / ms / 1e9:.1f} "
         f"TFLOP/s fp32), with base {base_ms:.3f} ms, plain "
@@ -328,9 +442,47 @@ def main() -> None:
     plain_ms = median_ms(torch, lambda: fused.minf_fused_reference(
         *args, g.ndet, "gaussian"), 10)
     results["minf_fused"] = (m_abs, ms, plain_ms)
+    bounds["minf_fused"] = bound(fft_flops(scan_i, g.nmodes, g.ndet, 1),
+                                 nbytes(psi_r, prb, data, scan_i) + 4)
     log("kernel", f"headline {g} minf_fused: err {m_err:.2e}, with base "
         f"{mb_err:.2e}; kernel {ms:.3f} ms, with base {base_ms:.3f} ms, "
         f"plain {plain_ms:.3f} ms, median of 10 on {card}")
+
+    gp_err, fp_err, gp_abs = compare_grad_prb(torch, fused, args, g.ndet,
+                                              "gaussian")
+    ms = median_ms(torch, lambda: fused.grad_prb_fused(*args, g.ndet,
+                                                       "gaussian"), 10)
+    plain_ms = median_ms(torch, lambda: fused.grad_prb_fused_reference(
+        *args, g.ndet, "gaussian"), 10)
+    results["grad_prb_fused"] = (gp_abs, ms, plain_ms)
+    bounds["grad_prb_fused"] = bound(
+        fft_flops(scan_i, g.nmodes, g.ndet, 2),
+        nbytes(psi_r, prb, data, scan_i, prb) + 4)
+    log("kernel", f"headline {g} grad_prb_fused: grad/minf err "
+        f"{gp_err:.2e}/{fp_err:.2e} (bitwise repeatable); kernel "
+        f"{ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s fp32), plain "
+        f"{plain_ms:.3f} ms, bound {bounds['grad_prb_fused'][0]:.3f} ms, "
+        f"median of 10 on {card}")
+    (a_err, a_abs), (p_err, p_abs) = compare_adjoints(torch, fused, base,
+                                                      scan_i, prb, psi_r)
+    for name, fn, plain_fn, other, err, abs_e in (
+            ("adj", lambda: fused.adj(base, scan_i, prb, g.nz, g.n),
+             lambda: fused.adj_reference(base, scan_i, prb, g.nz, g.n),
+             psi_r, a_err, a_abs),
+            ("adj_probe", lambda: fused.adj_probe(base, scan_i, psi_r, g.nprb),
+             lambda: fused.adj_probe_reference(base, scan_i, psi_r, g.nprb),
+             prb, p_err, p_abs)):
+        ms = median_ms(torch, fn, 10)
+        plain_ms = median_ms(torch, plain_fn, 10)
+        results[name] = (abs_e, ms, plain_ms)
+        moved = nbytes(base, scan_i, prb if name == "adj" else psi_r, other)
+        bounds[name] = bound(fft_flops(scan_i, g.nmodes, g.ndet, 1), moved)
+        log("kernel", f"headline {g} {name}: err {err:.2e}; kernel "
+            f"{ms:.3f} ms ({flops / 2 / ms / 1e9:.1f} TFLOP/s fp32), plain "
+            f"{plain_ms:.3f} ms, bound {bounds[name][0]:.3f} ms, median of "
+            f"10 on {card}")
+    log("kernel", "bounds (ms, by): " + ", ".join(
+        f"{k} {v[0]:.3f} {v[1]}" for k, v in bounds.items()))
     del base, psi_r, args
 
     # -- 4. small solve against the CPU oracle ----------------------------
@@ -351,9 +503,11 @@ def main() -> None:
     log("solver", f"small {sg} 20 iters: per-iteration minf within "
         f"{rel:.2e} of the CPU complex128 oracle solver")
 
-    counters = [fused.grad_fused, fused.fwd, fused.minf_fused]
+    counters = [fused.grad_fused, fused.fwd, fused.minf_fused,
+                fused.grad_prb_fused, fused.adj, fused.adj_probe]
     plain = [fused.grad_fused_reference, fused.fwd_reference,
-             fused.minf_fused_reference]
+             fused.minf_fused_reference, fused.grad_prb_fused_reference,
+             fused.adj_reference, fused.adj_probe_reference]
 
     def reset_counts():
         for fn in counters + plain:
@@ -497,14 +651,151 @@ def main() -> None:
         f"extra memory {peak / 2**30:.3f} GiB, launches {frameless}, on "
         f"{card}")
 
+    del psi4, st4, data4, scan4, prb4
+
+    # -- 8. joint: BASELINE config 3 through run(recover_prb=True) ---------
+    g3 = Geometry(**CONFIG3)
+    _, scan3, prb3, data3 = make_problem(gen, g3, device=dev)
+    # The perturbation comes from its own generator (3% of max|prb|).
+    gen3 = torch.Generator(device=dev).manual_seed(SEED + 2)
+    prb3_p = prb3 + 0.03 * prb3.abs().max() * crandn(*g3.prb_shape,
+                                                     generator=gen3)
+    psi3 = torch.ones(g3.psi_shape, dtype=torch.complex64, device=dev)
+
+    def probe_err(p):
+        """max|c p - prb_true| with the least-squares complex c: the joint
+        objective cannot tell (psi, prb) from (c psi, prb / c), so a
+        recovered probe is compared up to that scale and phase; the raw
+        max|p - prb_true| is printed beside it."""
+        c = torch.vdot(p.reshape(-1), prb3.reshape(-1)) / torch.vdot(
+            p.reshape(-1), p.reshape(-1))
+        return float((c * p - prb3).abs().max())
+
+    def raw_err(p):
+        return float((p - prb3).abs().max())
+
+    err0 = probe_err(prb3_p)
+    run(data3, psi3, scan3, prb3_p, g3, piter=2, model="poisson",
+        recover_prb=True)  # warm-up
+    held = reset_counts()
+    t0 = time.perf_counter()
+    psi, prb_j, m = run(data3, psi3, scan3, prb3_p, g3, piter=JOINT_ITERS,
+                        model="poisson", recover_prb=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - held
+    joint = {fn.__name__: fn.launches for fn in counters}
+    check(all(fn.launches == 0 for fn in plain), "plain version ran")
+    iters = int(m["iters_run"])
+    minf = m["minf"][:iters].cpu()
+    res = m["residual"][:iters].cpu()
+    check(bool(torch.isfinite(psi).all() and torch.isfinite(prb_j).all()),
+          "psi or prb finiteness")
+    check(float(minf[-1]) < float(minf[0]) and float(res[-1]) < float(res[0]),
+          (minf, res))
+    check(probe_err(prb_j) < err0, (probe_err(prb_j), err0))
+    check(joint["grad_fused"] == joint["grad_prb_fused"] == iters > 0, joint)
+    check(joint["minf_fused"] == m["evaluations"] - 2 * iters > 0,
+          (joint, m["evaluations"]))
+    check(peak < JOINT_PEAK, f"peak extra memory {peak} bytes")
+    log("joint", f"{g3} poisson, run(recover_prb=True), {iters} iters in "
+        f"{seconds:.3f} s: {iters / seconds:.2f} iters/s, "
+        f"{m['evaluations'] / iters:.2f} evals/iter, "
+        f"{m['host_syncs'] / iters:.2f} host syncs/iter, residual "
+        f"{float(res[0]):.4e} -> {float(res[-1]):.4e}, probe error "
+        f"{err0:.4e} -> {probe_err(prb_j):.4e} (raw {raw_err(prb3_p):.4e} "
+        f"-> {raw_err(prb_j):.4e}), peak extra memory "
+        f"{peak / 2**20:.1f} MiB, launches {joint}, on {card}")
+    del psi, prb_j, m
+
+    # -- 9. stream: the quick start, nchunks = 4 ----------------------------
+    run(data3, psi3, scan3, prb3_p, g3, piter=2, recover_prb=True,
+        nchunks=STREAM_CHUNKS)  # warm-up
+    held = reset_counts()
+    t0 = time.perf_counter()
+    psi, prb_s, m = run(data3, psi3, scan3, prb3_p, g3, piter=JOINT_ITERS,
+                        recover_prb=True, nchunks=STREAM_CHUNKS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - held
+    stream = {fn.__name__: fn.launches for fn in counters}
+    check(all(fn.launches == 0 for fn in plain), "plain version ran")
+    iters = int(m["iters_run"])
+    minf = m["minf"][:iters].cpu()
+    res = m["residual"][:iters].cpu()
+    passes = STREAM_CHUNKS * iters  # chunk passes of each step's gradient
+    check(bool(torch.isfinite(psi).all() and torch.isfinite(prb_s).all()),
+          "psi or prb finiteness")
+    check(float(minf[-1]) < float(minf[0]), minf)
+    check(stream["adj"] == stream["adj_probe"] == passes > 0
+          and stream["fwd"] == 6 * passes, (stream, passes))
+    check(stream["grad_fused"] == stream["grad_prb_fused"]
+          == stream["minf_fused"] == 0, stream)
+    check(peak < STREAM_PEAK, f"peak extra memory {peak} bytes")
+    log("stream", f"{g3} gaussian, run(recover_prb=True, nchunks="
+        f"{STREAM_CHUNKS}), {iters} iters in {seconds:.3f} s: "
+        f"{iters / seconds:.2f} iters/s, {m['evaluations'] / iters:.2f} "
+        f"evals/iter, {m['host_syncs'] / iters:.2f} host syncs/iter, "
+        f"residual {float(res[0]):.4e} -> {float(res[-1]):.4e}, "
+        f"probe error {err0:.4e} -> {probe_err(prb_s):.4e} (raw "
+        f"{raw_err(prb3_p):.4e} -> {raw_err(prb_s):.4e}), peak "
+        f"extra memory {peak / 2**30:.3f} GiB (limit "
+        f"{STREAM_PEAK / 2**30:.2f}), launches {stream}, on {card}")
+    del psi, prb_s, m
+
+    # -- 10. joint-deep: reconstruct(recover_prb=True) to 1e-6 --------------
+    held = reset_counts()
+    t0 = time.perf_counter()
+    psi, prb_d, stages = reconstruct(data3, psi3, scan3, prb3_p, g3,
+                                     target_residual=DEEP_TARGET,
+                                     recover_prb=True,
+                                     max_segments=JOINT_DEEP_MAX_SEGMENTS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - held
+    jdeep = {fn.__name__: fn.launches for fn in counters}
+    check(all(fn.launches == 0 for fn in plain), "plain version ran")
+    names = [name for name, _ in stages]
+    iters = [int(mm["iters_run"]) for _, mm in stages]
+    joint_iters = sum(k for name, k in zip(names, iters)
+                      if name.endswith(":joint"))
+    res_end = final_residual(stages)
+    first_split = (names.index("split:fused") if "split:fused" in names
+                   else len(names))
+    refreshes = sum(1 for i in range(first_split, len(names))
+                    if names[i].endswith(":joint")
+                    and not names[i - 1].endswith(":joint"))
+    check(bool(torch.isfinite(psi).all() and torch.isfinite(prb_d).all()),
+          "psi or prb finiteness")
+    check(names[0] == "fused:joint"
+          and names[1:5] == ["fused_hp:joint"] * 4, names)
+    check(jdeep["grad_prb_fused"] == joint_iters > 0, (jdeep, joint_iters))
+    check(probe_err(prb_d) < err0, (probe_err(prb_d), err0))
+    log("joint-deep", f"{g3} gaussian, reconstruct(recover_prb=True, "
+        f"target_residual={DEEP_TARGET:g}, max_segments="
+        f"{JOINT_DEEP_MAX_SEGMENTS}) from psi0 = ones: {seconds:.3f} s, "
+        f"{sum(iters)} iters ({joint_iters} joint) in {len(stages)} stages "
+        f"{[f'{n}:{k}' for n, k in zip(names, iters)]}, final residual "
+        f"{res_end:.4e}, probe refreshes {refreshes}, probe error "
+        f"{err0:.4e} -> {probe_err(prb_d):.4e} (raw {raw_err(prb3_p):.4e} "
+        f"-> {raw_err(prb_d):.4e}), peak extra memory "
+        f"{peak / 2**30:.3f} GiB, launches {jdeep}, on {card}")
+    check(res_end <= DEEP_TARGET, f"joint-deep residual {res_end:.4e} > "
+          f"{DEEP_TARGET:g} after {len(stages)} stages")
+
     launches = {"grad_fused": deep["grad_fused"], "fwd": deep["fwd"],
-                "minf_fused": frameless["minf_fused"]}
-    paths = {"grad_fused": "deep", "fwd": "deep", "minf_fused": "frameless"}
+                "minf_fused": frameless["minf_fused"],
+                "grad_prb_fused": joint["grad_prb_fused"],
+                "adj": stream["adj"], "adj_probe": stream["adj_probe"]}
+    paths = {"grad_fused": "deep", "fwd": "deep", "minf_fused": "frameless",
+             "grad_prb_fused": "joint", "adj": "stream",
+             "adj_probe": "stream"}
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src, "replaces": tpu,
         "launches": launches[name], "path": paths[name],
         "max_abs_err": results[name][0], "ms": results[name][1],
-        "plain_ms": results[name][2]}
+        "plain_ms": results[name][2], "bound_ms": bounds[name][0],
+        "bound_by": bounds[name][1], "library_ms": None}
         for name, (src, tpu) in KERNEL_SOURCES.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -28,6 +28,11 @@ from tikejax_torch.solvers import cg as tcg
 from tikejax_torch.utils import geometry_from, to_numpy, to_torch
 
 
+def cpu(x):
+    """The array as a CPU tensor: the bridge's default device is the card."""
+    return to_torch(x, device="cpu")
+
+
 @pytest.fixture(autouse=True, scope="module")
 def one_thread():
     """Small problems: one intra-op thread keeps the parallel test run
@@ -55,7 +60,7 @@ def run_both(problem, jax_kw, port_kw=None, psi0=None):
     p0 = p0 if psi0 is None else psi0
     pj, _, mj = jcg.run(*map(jnp.asarray, (data, p0, scan, prb)), GEOM,
                         **jax_kw)
-    pt, prb_t, mt = tcg.run(*map(to_torch, (data, p0, scan, prb)),
+    pt, prb_t, mt = tcg.run(*map(cpu, (data, p0, scan, prb)),
                             geometry_from(GEOM), **(port_kw or jax_kw))
     np.testing.assert_array_equal(to_numpy(prb_t), prb)
     return (np.asarray(pj), {k: np.asarray(v) for k, v in mj.items()},
@@ -137,21 +142,22 @@ def test_ported_options_mirror_jax():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(recover_prb=True), dict(nchunks=2),
+    dict(memory="materialized", recover_prb=True),
+    dict(fused_linesearch=True, nchunks=2),
     dict(memory="materialized"), dict(fused_linesearch=True),
     dict(precondition="illum_lowk"), dict(axis_name="scan"),
     dict(obj_slabs=2), dict(linesearch="parabolic"), dict(kernel="pallas"),
 ], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items())[:40])
 def test_unported_options_raise(problem, kw):
-    data, psi0, scan, prb, _ = map(to_torch, problem)
+    data, psi0, scan, prb, _ = map(cpu, problem)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tcg.run(data, psi0, scan, prb, geometry_from(GEOM), piter=2, **kw)
 
 
 def test_unported_fields_at_default_run(problem):
-    data, psi0, scan, prb, _ = map(to_torch, problem)
+    data, psi0, scan, prb, _ = map(cpu, problem)
     _, _, m = tcg.run(data, psi0, scan, prb, geometry_from(GEOM), piter=2,
-                      recover_prb=False, nchunks=1, carry_state=False)
+                      fused_linesearch=False, obj_slabs=1, carry_state=False)
     assert int(m["iters_run"]) == 2
     with pytest.raises(TypeError):
         tcg.run(data, psi0, scan, prb, geometry_from(GEOM), no_such=1)
@@ -167,10 +173,10 @@ def run_pair(problem, jax_kw, port_kw, psi0=None, f_base=None,
     data, p0, scan, prb, _ = problem
     p0 = p0 if psi0 is None else psi0
     jb = None if f_base is None else jnp.asarray(f_base)
-    tb = None if f_base is None else to_torch(f_base)
+    tb = None if f_base is None else cpu(f_base)
     pj, _, mj = jcg.run(*map(jnp.asarray, (data, p0, scan, prb)), GEOM,
                         f_base=jb, cg_init=init[0], **jax_kw)
-    pt, _, mt = tcg.run(*map(to_torch, (data, p0, scan, prb)),
+    pt, _, mt = tcg.run(*map(cpu, (data, p0, scan, prb)),
                         geometry_from(GEOM), f_base=tb, cg_init=init[1],
                         **port_kw)
     return pj, mj, pt, mt
@@ -269,7 +275,7 @@ def test_carry_lbfgs_ring_matches_jax(problem):
 @pytest.mark.parametrize("kw", [
     dict(direction="dy"), dict(direction="lbfgs:3", carry_lbfgs=True)])
 def test_zero_cg_state_is_a_fresh_start(problem, kw):
-    data, psi0, scan, prb, _ = map(to_torch, problem)
+    data, psi0, scan, prb, _ = map(cpu, problem)
     opts = tcg.normalize_options(tcg.CGOptions(piter=6, kernel="xla", **kw),
                                  "cpu")
     zero = tcg.zero_cg_state(psi0, opts)
@@ -283,14 +289,14 @@ def test_zero_cg_state_is_a_fresh_start(problem, kw):
 
 
 def test_solver_surface_validation(problem, f_base):
-    data, psi0, scan, prb, _ = map(to_torch, problem)
+    data, psi0, scan, prb, _ = map(cpu, problem)
     g = geometry_from(GEOM)
     for direction in ("bfgs", "lbfgs:0", "lbfgs:x"):
         with pytest.raises(ValueError, match="direction|memory"):
             tcg.run(data, psi0, scan, prb, g, piter=2, direction=direction)
     with pytest.raises(ValueError, match="frameless split-operator"):
         tcg.run(data, psi0, scan, prb, g, piter=2, kernel="xla",
-                memory="frameless", f_base=to_torch(f_base))
+                memory="frameless", f_base=cpu(f_base))
     state = tcg.zero_cg_state(psi0, tcg.CGOptions(direction="lbfgs",
                                                   carry_lbfgs=True))
     with pytest.raises(ValueError, match="8-entry"):

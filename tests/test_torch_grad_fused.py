@@ -19,6 +19,11 @@ from tikejax_torch.ops.patches import scan_to_int
 from tikejax_torch.utils import to_numpy, to_torch
 
 
+def cpu(x):
+    """The array as a CPU tensor: the bridge's default device is the card."""
+    return to_torch(x, device="cpu")
+
+
 @pytest.fixture(autouse=True, scope="module")
 def one_thread():
     """Small problems: one intra-op thread keeps the parallel test run
@@ -56,8 +61,8 @@ def make_inputs(g, dtype, seed=0):
 
 
 def port_grad_fused(psi, data, scan, prb, g, model):
-    grad, minf = fused.grad_fused(to_torch(psi), to_torch(data),
-                                  scan_to_int(to_torch(scan)), to_torch(prb),
+    grad, minf = fused.grad_fused(cpu(psi), cpu(data),
+                                  scan_to_int(cpu(scan)), cpu(prb),
                                   g.ndet, model)
     return to_numpy(grad), float(minf)
 
@@ -99,7 +104,7 @@ def test_plain_path_matches_pallas_kernel(model):
 def test_cpu_tensors_run_the_plain_version():
     """A CPU tensor runs grad_fused_reference and never the kernel; the
     precision tags of every tier are accepted and change nothing."""
-    psi, data, scan, prb = map(to_torch, make_inputs(GEOM, np.complex64))
+    psi, data, scan, prb = map(cpu, make_inputs(GEOM, np.complex64))
     before_kernel = fused.grad_fused.launches
     before_plain = fused.grad_fused_reference.launches
     g0, f0 = fused.grad_fused(psi, data, scan, prb, GEOM.ndet, "gaussian")
@@ -113,7 +118,7 @@ def test_cpu_tensors_run_the_plain_version():
 def test_unsupported_arguments_raise():
     """An unknown model raises in grad_fused and minf_fused; a zero base
     (the split-operator epilogue) changes nothing."""
-    psi, data, scan, prb = map(to_torch, make_inputs(GEOM, np.complex64))
+    psi, data, scan, prb = map(cpu, make_inputs(GEOM, np.complex64))
     g0, f0 = fused.grad_fused(psi, data, scan, prb, GEOM.ndet, "gaussian")
     g1, f1 = fused.grad_fused(psi, data, scan, prb, GEOM.ndet, "gaussian",
                               base=torch.zeros(GEOM.farplane_shape,

@@ -71,7 +71,8 @@ def rel(a, b):
 
 
 def t(x):
-    return to_torch(np.asarray(x))
+    """The array as a CPU tensor: the bridge's default device is the card."""
+    return to_torch(np.asarray(x), device="cpu")
 
 
 def test_fft_pad_crop_match_jax():
@@ -212,12 +213,13 @@ def test_deterministic_simulation_matches_jax(dtype):
     pj = np.asarray(jsim.make_probe(g.ntheta, g.nmodes, g.nprb,
                                     getattr(jnp, dtype)))
     pt = to_numpy(tsim.make_probe(g.ntheta, g.nmodes, g.nprb,
-                                  getattr(torch, dtype)))
+                                  getattr(torch, dtype), device="cpu"))
     assert pt.dtype == pj.dtype
     eps = np.finfo(pj.real.dtype).eps
     np.testing.assert_allclose(pt, pj, rtol=8 * eps, atol=8 * eps)
     sj = np.asarray(jsim.raster_scan(jax.random.PRNGKey(0), g, jitter=0))
-    st = to_numpy(tsim.raster_scan(None, geometry_from(g), jitter=0))
+    st = to_numpy(tsim.raster_scan(None, geometry_from(g), jitter=0,
+                                   device="cpu"))
     np.testing.assert_array_equal(st, sj)
 
 
@@ -227,23 +229,24 @@ def test_simulated_problem_is_consistent():
     g = geometry_from(tikejax.Geometry(nz=48, n=48, nscan=16, ndet=24,
                                        nprb=16, nmodes=2))
     gen = torch.Generator().manual_seed(0)
-    psi, scan, prb, data = tsim.make_problem(gen, g, dtype=torch.complex128)
+    psi, scan, prb, data = tsim.make_problem(gen, g, dtype=torch.complex128,
+                                             device="cpu")
     tpatch.check_scan_in_bounds(scan, g.nz, g.n, g.nprb)
     far = tdiff.fwd_raw(psi, scan, prb, g.ndet)
     assert rel(to_numpy(tlik.total_intensity(far)), to_numpy(data)) < 1e-12
     amp = psi.abs()
     assert 0.5 - 1e-9 <= float(amp.min()) and float(amp.max()) <= 1 + 1e-9
     noisy = tsim.make_problem(torch.Generator().manual_seed(0), g,
-                              poisson_photons=1e4)[3]
+                              poisson_photons=1e4, device="cpu")[3]
     assert noisy.shape == data.shape and bool((noisy >= 0).all())
 
 
 def test_kernel_resolution():
     """'auto' resolves with "on CUDA" in place of "on the TPU"; explicit
-    choices pass through; the fused tiers' forward operator runs the
-    ported fwd (its plain version on the CPU); unported operator kernels
-    (the fused adjoints, 'pallas') raise on every device instead of
-    rerouting to 'xla'."""
+    choices pass through; the fused tiers' operators run the ported fwd,
+    adj and adj_probe (their plain versions on the CPU); the unported
+    'pallas' operators raise on every device instead of rerouting to
+    'xla'."""
     assert tdiff.resolve_kernel("auto", "cuda") == "fused_mp"
     assert tdiff.resolve_kernel("auto", "cpu") == "xla"
     assert tdiff.resolve_kernel_for_target("auto", 0.0, "cuda") == "fused_mx"
@@ -262,13 +265,59 @@ def test_kernel_resolution():
                                                  kernel),
                                    tdiff.fwd_raw(psi, scan, prb, g.ndet),
                                    rtol=0, atol=0)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tdiff.adj_raw(farp, scan, prb, g.nz, g.n, kernel)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tdiff.adj_probe_raw(farp, scan, psi, g.nprb, kernel)
+        torch.testing.assert_close(
+            tdiff.adj_raw(farp, scan, prb, g.nz, g.n, kernel),
+            tdiff.adj_raw(farp, scan, prb, g.nz, g.n), rtol=0, atol=0)
+        torch.testing.assert_close(
+            tdiff.adj_probe_raw(farp, scan, psi, g.nprb, kernel),
+            tdiff.adj_probe_raw(farp, scan, psi, g.nprb), rtol=0, atol=0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tdiff.fwd_raw(psi, scan, prb, g.ndet, "pallas")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tdiff.adj_raw(farp, scan, prb, g.nz, g.n, "pallas")
     with pytest.raises(ValueError, match="unknown kernel"):
         tdiff.Ptycho(geometry_from(g), kernel="cufft")
+
+
+@pytest.mark.parametrize("op", ["adj", "adj_probe"])
+def test_pallas_adjoint_operators_raise(op):
+    """The hybrid 'pallas' adjoints are not ported (ROADMAP 2.5): they
+    raise, also through fwd's autograd, instead of rerouting."""
+    g = GEOMS[1]
+    psi, scan, prb, farp = map(t, make_inputs(g))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        if op == "adj":
+            tdiff.Ptycho(geometry_from(g), "pallas").adj(farp, scan, prb)
+        else:
+            tdiff.Ptycho(geometry_from(g), "pallas").adj_probe(farp, scan,
+                                                               psi)
+
+
+@pytest.mark.parametrize("kernel", ["fused", "fused_hp"])
+def test_fused_autograd_matches_oracle(kernel):
+    """fwd's autograd on a fused tier goes through fused.adj / adj_probe
+    (their plain versions here) and equals the oracle's."""
+    g = GEOMS[1]
+    psi, scan, prb, farp = make_inputs(g)
+    grads = []
+    for k in ("xla", kernel):
+        ps, pr = t(psi).requires_grad_(), t(prb).requires_grad_()
+        r = tdiff.fwd(ps, t(scan), pr, g.ndet, k) - t(farp)
+        (0.5 * torch.sum(r.abs()**2)).backward()
+        grads.append((ps.grad, pr.grad))
+    for a, b in zip(*grads):
+        assert rel(to_numpy(a), to_numpy(b)) < 1e-12
+
+
+def test_patch_power_map_matches_jax():
+    """The probe preconditioner's denominator: object power seen by each
+    probe pixel over the (unmasked) positions."""
+    g = GEOMS[1]
+    psi, scan, _, _ = make_inputs(g, sentinel=True)
+    power = np.abs(psi)**2
+    si = jpatch.scan_to_int(jnp.asarray(scan))
+    ref = jpatch.patch_power_map(si, power, g.nprb)
+    got = tpatch.patch_power_map(tpatch.scan_to_int(t(scan)), t(power),
+                                 g.nprb)
+    assert got.shape == (g.ntheta, g.nprb, g.nprb)
+    assert rel(ref, to_numpy(got)) < 1e-10

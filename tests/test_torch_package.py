@@ -1,6 +1,7 @@
 """Packaging properties of the port: it imports no jax, its bridge keeps
 dtypes, and a CUDA tensor never falls back to the plain path."""
 
+import inspect
 import pkgutil
 import re
 import subprocess
@@ -20,6 +21,11 @@ from tikejax_torch.utils import cuda_build, geometry_from, to_numpy, to_torch
 PKG = Path(tikejax_torch.__file__).parent
 MODULES = sorted(m.name for m in pkgutil.walk_packages(
     [str(PKG)], prefix="tikejax_torch."))
+
+
+def cpu(x):
+    """The array as a CPU tensor: the bridge's default device is the card."""
+    return to_torch(x, device="cpu")
 
 
 def test_every_module_imports_without_jax():
@@ -46,12 +52,35 @@ def test_no_jax_import_in_sources():
 def test_bridge_round_trip_keeps_dtype(dtype):
     x = (np.arange(24).reshape(2, 3, 4) * (1 + 0.5j
          if np.issubdtype(dtype, np.complexfloating) else 1)).astype(dtype)
-    t = to_torch(x)
+    t = cpu(x)
     back = to_numpy(t)
     assert back.dtype == x.dtype and t.device.type == "cpu"
     np.testing.assert_array_equal(back, x)
     t[0, 0, 0] = 7  # the tensor owns its memory
     assert x[0, 0, 0] == 0
+
+
+def test_simulation_and_bridge_default_to_the_card():
+    """make_problem (and the simulation functions under it) and to_torch
+    build on "cuda" unless the caller asks for another device; without a
+    card that raises, and nothing falls back to the CPU."""
+    from tikejax_torch.models import simulate
+
+    for fn in (simulate.make_object, simulate.make_probe,
+               simulate.raster_scan, simulate.make_problem, to_torch):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    g = tikejax_torch.Geometry(nz=32, n=32, nscan=4, ndet=16, nprb=16)
+    if torch.cuda.is_available():
+        assert to_torch(np.zeros(3)).device.type == "cuda"
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        assert simulate.make_problem(gen, g)[3].device.type == "cuda"
+        return
+    with pytest.raises((RuntimeError, AssertionError)):
+        to_torch(np.zeros(3))
+    with pytest.raises((RuntimeError, AssertionError)):
+        simulate.make_problem(torch.Generator().manual_seed(0), g)
+    assert simulate.make_problem(torch.Generator().manual_seed(0), g,
+                                 device="cpu")[3].device.type == "cpu"
 
 
 def test_geometry_from_any_object_with_the_fields():

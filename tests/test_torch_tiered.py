@@ -29,6 +29,11 @@ from tikejax_torch.solvers import reconstruct, tiered
 from tikejax_torch.utils import geometry_from, to_numpy, to_torch
 
 
+def cpu(x):
+    """The array as a CPU tensor: the bridge's default device is the card."""
+    return to_torch(x, device="cpu")
+
+
 @pytest.fixture(autouse=True, scope="module")
 def one_thread():
     """Small problems: one intra-op thread keeps the parallel test run
@@ -82,7 +87,7 @@ def jax_runs(problem):
 
 
 def port_run(problem, **kw):
-    return reconstruct(*map(to_torch, problem), geometry_from(GEOM), **kw)
+    return reconstruct(*map(cpu, problem), geometry_from(GEOM), **kw)
 
 
 def host(x):
@@ -207,9 +212,11 @@ def test_frameless_safeguard_reproduces_the_reuse_safeguard(problem,
 
 
 @pytest.mark.parametrize("kw", [
-    dict(mesh=object()), dict(recover_prb=True), dict(nchunks=2),
-    dict(joint_kernel="fused_hp"), dict(obj_slabs=2)],
-    ids=["mesh", "recover_prb", "nchunks", "joint_kernel", "obj_slabs"])
+    dict(mesh=object()), dict(memory="materialized"),
+    dict(fused_linesearch=True), dict(precondition="illum_lowk"),
+    dict(obj_slabs=2), dict(fast_kernel="pallas")],
+    ids=["mesh", "materialized", "fused_linesearch", "illum_lowk",
+         "obj_slabs", "pallas"])
 def test_unported_arguments_raise(problem, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_run(problem, **BASE, **kw)

@@ -1,11 +1,12 @@
 """tikejax_torch -- the PyTorch/CUDA port of tikejax.
 
 Far-field ptychography for one NVIDIA H100: the oracle diffraction
-operators, the object-only conjugate-gradient solver (Dai-Yuan or L-BFGS)
-with Gaussian and Poisson likelihoods, the split-operator deep-residual
-solver ``reconstruct``, and the hand-written CUDA kernels ``grad_fused``,
-``minf_fused`` and ``fwd`` that run their objective evaluations and
-farplanes.
+operators, the conjugate-gradient solver (Dai-Yuan or L-BFGS; the object,
+or the object and the probe; position streaming) with Gaussian and Poisson
+likelihoods, the split-operator deep-residual solver ``reconstruct`` with
+its joint probe chains, and the hand-written CUDA kernels ``grad_fused``,
+``minf_fused``, ``fwd``, ``grad_prb_fused``, ``adj`` and ``adj_probe`` that
+run their objective evaluations, gradients, farplanes and adjoints.
 It imports ``torch`` and never ``jax``; ``tikejax`` stays the reference.
 """
 

@@ -1,5 +1,6 @@
 // Device code shared by the far-field ptychography kernels (grad_fused.cu,
-// fwd.cu, minf_fused.cu) for NVIDIA Hopper (sm_90a).
+// fwd.cu, minf_fused.cu, grad_prb_fused.cu, adj.cu, adj_probe.cu) for
+// NVIDIA Hopper (sm_90a).
 //
 // The unitary DFT of a p x p patch zero-padded at the top left to d x d is
 //   far = F near F^T,  F[u, y] = e^{-2 pi i u y / d} / sqrt(d)   (d x p),
@@ -138,6 +139,40 @@ __device__ void forward_frame_mode(const float2* obj, int n,
         [&](int y, int v, float2 z) { a1[y * d + v] = z; }, sm);
   cgemm(d, d, p, [&](int u, int y) { return tw[(u * y) % d]; },
         [&](int y, int v) { return a1[y * d + v]; }, epi, sm);
+}
+
+// The adjoint DFT of one mode of one frame: a1 (p x d scratch) =
+// F^H far, then adj = a1 conj(F) (the crop of the inverse DFT to the top-left
+// p x p patch), each adj[y][x] handed to epi(y, x, z). far(u, v) loads the
+// d x d farplane frame.
+template <class Far, class Epi>
+__device__ void adjoint_frame_mode(Far far, int p, int d, const float2* tw,
+                                   float2* a1, Epi epi, Tiles& sm) {
+  // a1[y][v] = sum_u conj(F[u][y]) far[u][v]
+  cgemm(p, d, d, [&](int y, int u) { return conjf2(tw[(u * y) % d]); }, far,
+        [&](int y, int v, float2 z) { a1[y * d + v] = z; }, sm);
+  // adj[y][x] = sum_v a1[y][v] conj(F[v][x])
+  cgemm(p, p, d, [&](int y, int v) { return a1[y * d + v]; },
+        [&](int v, int x) { return conjf2(tw[(v * x) % d]); }, epi, sm);
+}
+
+// out[i] = sum over b = 0..blocks-1, in that order, of acc[b * n + i],
+// summed in double: the second pass of the probe reductions, whose blocks
+// each accumulate their own frames into a block-owned partial. The fixed
+// order makes the result bitwise reproducible.
+template <class Complex>
+__global__ void sum_block_partials(const Complex* acc, Complex* out,
+                                   int64_t n, int blocks) {
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+       i < n; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    double re = 0.0, im = 0.0;
+    for (int b = 0; b < blocks; ++b) {
+      const Complex v = acc[b * n + i];
+      re += v.x;
+      im += v.y;
+    }
+    out[i] = Complex{static_cast<float>(re), static_cast<float>(im)};
+  }
 }
 
 // Objective of one detector pixel from its mode-summed intensity and the

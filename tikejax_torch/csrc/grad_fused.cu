@@ -112,23 +112,18 @@ __global__ void __launch_bounds__(kThreads, 2)
 
     for (int mm = 0; mm < m; ++mm) {
       const float2* pr = prb + static_cast<int64_t>(mm) * p * p;
-      float2* a1 = s1 + mm * pd;
       const float2* a2 = s2 + mm * dd;
-      // Stage 3: a1[y][v] = sum_u conj(F[u][y]) a2[u][v].
-      cgemm(p, d, d, [&](int y, int u) { return conjf2(tw[(u * y) % d]); },
-            [&](int u, int v) { return a2[u * d + v]; },
-            [&](int y, int v, float2 z) { a1[y * d + v] = z; }, sm);
-      // Stage 4: adj[y][x] = sum_v a1[y][v] conj(F[v][x]); scatter
+      // Stages 3-4: the adjoint DFT of the weighted farplane; scatter
       // conj(prb) * adj into the gradient.
-      cgemm(p, p, d, [&](int y, int v) { return a1[y * d + v]; },
-            [&](int v, int x) { return conjf2(tw[(v * x) % d]); },
-            [&](int y, int x, float2 z) {
-              const float2 g = cmul(conjf2(pr[y * p + x]), z);
-              float* dst = q.grad + 2 * ((static_cast<int64_t>(th) * q.nz + sy + y) * q.n + sx + x);
-              atomicAdd(dst, g.x);
-              atomicAdd(dst + 1, g.y);
-            },
-            sm);
+      adjoint_frame_mode(
+          [&](int u, int v) { return a2[u * d + v]; }, p, d, tw, s1 + mm * pd,
+          [&](int y, int x, float2 z) {
+            const float2 g = cmul(conjf2(pr[y * p + x]), z);
+            float* dst = q.grad + 2 * ((static_cast<int64_t>(th) * q.nz + sy + y) * q.n + sx + x);
+            atomicAdd(dst, g.x);
+            atomicAdd(dst + 1, g.y);
+          },
+          sm);
     }
   }
 

@@ -5,7 +5,9 @@ Gaussian-envelope probe, a jittered raster scan and noise-free (or
 Poisson-noisy) intensities ``data = sum_m |fwd(psi)|^2``. Randomness comes
 from an explicit ``torch.Generator`` (on the device the arrays are made
 on), so the random arrays differ from the JAX package's; ``make_probe`` and
-``raster_scan(jitter=0)`` are deterministic and match it.
+``raster_scan(jitter=0)`` are deterministic and match it. Every function
+builds on the card (``device="cuda"``) unless the caller passes another
+device; without a card that raises, and nothing falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ def _real_dtype(dtype: torch.dtype) -> torch.dtype:
 
 
 def make_object(generator: torch.Generator, ntheta: int, nz: int, n: int,
-                dtype=torch.complex64, device="cpu") -> torch.Tensor:
+                dtype=torch.complex64, device="cuda") -> torch.Tensor:
     """Smooth synthetic complex object: low-pass-filtered random amplitude
     in [0.5, 1] and phase in [-pi/3, pi/3]."""
     real_dtype = _real_dtype(dtype)
@@ -46,7 +48,7 @@ def make_object(generator: torch.Generator, ntheta: int, nz: int, n: int,
 
 
 def make_probe(ntheta: int, nmodes: int, nprb: int, dtype=torch.complex64,
-               device="cpu") -> torch.Tensor:
+               device="cuda") -> torch.Tensor:
     """Gaussian-envelope probe with quadratic phase; higher modes are the
     envelope modulated by Hermite-like polynomials (power decaying ~4x per
     mode). Returns ``(ntheta, nmodes, nprb, nprb)``."""
@@ -68,7 +70,7 @@ def make_probe(ntheta: int, nmodes: int, nprb: int, dtype=torch.complex64,
 
 def raster_scan(generator: torch.Generator | None, geometry: Geometry,
                 jitter: float = 1.0, dtype=torch.float32,
-                device="cpu") -> torch.Tensor:
+                device="cuda") -> torch.Tensor:
     """Raster grid of ~sqrt(nscan) x sqrt(nscan) positions covering the
     object with uniform sub-step jitter in [-jitter, jitter), clipped in
     bounds. Returns ``(ntheta, nscan, 2)`` float (y, x) top-left corners;
@@ -119,9 +121,9 @@ def simulate_intensities(psi: torch.Tensor, scan: torch.Tensor,
 
 def make_problem(generator: torch.Generator, geometry: Geometry,
                  dtype=torch.complex64, poisson_photons: float | None = None,
-                 device="cpu"):
+                 device="cuda"):
     """Build a full synthetic problem: (psi_true, scan, prb, data), all on
-    ``device`` (which ``generator`` must belong to).
+    ``device`` (the card by default; ``generator`` must belong to it).
 
     If ``poisson_photons`` is given, data is scaled so the mean frame sum is
     that many photons and Poisson shot noise is applied."""

@@ -17,19 +17,19 @@ under ``<a, b> = sum(conj(a) * b)``.
 
 ``kernel`` names the implementation as in the JAX package. The ``'xla'``
 oracle path is gather -> probe multiply -> pad -> ``fft2o`` and its
-adjoints, in plain PyTorch. On the ``'fused*'`` tiers the forward operator
-goes through the ported ``fwd`` kernel (``tikejax_torch.ops.fused.fwd``:
-the CUDA kernel on a CUDA tensor, its plain version on a CPU tensor), as
-the JAX package's goes through ``pallas_fused.fwd``. The fused adjoint
-kernels (``adj``, ``adj_probe``) and the hybrid ``'pallas'`` kernels are
-not ported yet, so an operator-level ``adj``/``adj_probe`` on a fused tier,
-or any ``'pallas'`` operator call, raises NotImplementedError on every
-device instead of rerouting to ``'xla'``. ``'auto'`` resolves as in the JAX
-package, with "the tensor is on CUDA" in place of "the backend is the
-TPU": the symmetric ``'fused_mp'`` tier for operators, the solver's
-target-aware choice in :func:`resolve_kernel_for_target`. The solver's
-gradient and objective passes on the fused tiers run the ported
-``grad_fused`` and ``minf_fused`` kernels.
+adjoints, in plain PyTorch. On the ``'fused*'`` tiers the three operators go
+through the ported kernels ``fwd``, ``adj`` and ``adj_probe`` of
+``tikejax_torch.ops.fused`` (the CUDA kernel on a CUDA tensor, its plain
+version on a CPU tensor), as the JAX package's go through
+``pallas_fused``; so does :func:`fwd`'s autograd. The hybrid ``'pallas'``
+kernels are not ported yet, so any ``'pallas'`` operator call raises
+NotImplementedError on every device instead of rerouting to ``'xla'``.
+``'auto'`` resolves as in the JAX package, with "the tensor is on CUDA" in
+place of "the backend is the TPU": the symmetric ``'fused_mp'`` tier for
+operators, the solver's target-aware choice in
+:func:`resolve_kernel_for_target`. The solver's gradient and objective
+passes on the fused tiers run the ported ``grad_fused``,
+``grad_prb_fused`` and ``minf_fused`` kernels.
 """
 
 from __future__ import annotations
@@ -49,9 +49,9 @@ FUSED_RESIDUAL_FLOOR = 5e-3
 FUSED_MP_RESIDUAL_FLOOR = 1e-5
 
 _UNPORTED_OPERATOR = (
-    "kernel={kernel!r}: the fused adjoint kernels (adj/adj_probe, ROADMAP.md "
-    "queue 2 item 2.3) and the hybrid 'pallas' kernels (item 2.5) are not "
-    "ported to CUDA yet; pass kernel='xla' for the oracle operators")
+    "kernel={kernel!r}: the hybrid 'pallas' kernels (ROADMAP.md queue 2 "
+    "item 2.5) are not ported to CUDA yet; pass kernel='xla' for the oracle "
+    "operators or a 'fused*' tier for the ported kernels")
 
 
 def _backend(device) -> str:
@@ -110,11 +110,10 @@ def _check_kernel(kernel: str) -> None:
                          f"{_KERNELS}")
 
 
-def _operator_kernel(kernel: str, x: torch.Tensor,
-                     fused_ok: bool = False) -> str:
+def _operator_kernel(kernel: str, x: torch.Tensor) -> str:
     _check_kernel(kernel)
     kernel = resolve_kernel(kernel, _backend(x.device))
-    if kernel != "xla" and not (fused_ok and kernel.startswith("fused")):
+    if kernel == "pallas":
         raise NotImplementedError(_UNPORTED_OPERATOR.format(kernel=kernel))
     return kernel
 
@@ -122,7 +121,7 @@ def _operator_kernel(kernel: str, x: torch.Tensor,
 def fwd_raw(psi: torch.Tensor, scan: torch.Tensor, prb: torch.Tensor,
             ndet: int, kernel: str = "xla") -> torch.Tensor:
     """Forward diffraction. Returns ``(ntheta, nscan, nmodes, ndet, ndet)``."""
-    kernel = _operator_kernel(kernel, psi, fused_ok=True)
+    kernel = _operator_kernel(kernel, psi)
     scan_int = _patches.scan_to_int(scan)
     if kernel.startswith("fused"):
         from tikejax_torch.ops import fused
@@ -138,9 +137,14 @@ def fwd_raw(psi: torch.Tensor, scan: torch.Tensor, prb: torch.Tensor,
 def adj_raw(farplane: torch.Tensor, scan: torch.Tensor, prb: torch.Tensor,
             nz: int, n: int, kernel: str = "xla") -> torch.Tensor:
     """Adjoint w.r.t. the object. Returns ``(ntheta, nz, n)``."""
-    _operator_kernel(kernel, farplane)
+    kernel = _operator_kernel(kernel, farplane)
     nprb = prb.shape[-1]
     scan_int = _patches.scan_to_int(scan)
+    if kernel.startswith("fused"):
+        from tikejax_torch.ops import fused
+
+        return fused.adj(farplane, scan_int, prb, nz, n,
+                         precision=_fused_adj_precision(kernel))
     nearplane = crop_from_det(ifft2o(farplane), nprb)  # (t, s, m, p, p)
     patches = torch.sum(torch.conj(prb)[:, None] * nearplane, dim=2)
     return _patches.scatter_patches_add(patches, scan_int, nz, n)
@@ -150,8 +154,13 @@ def adj_probe_raw(farplane: torch.Tensor, scan: torch.Tensor,
                   psi: torch.Tensor, nprb: int,
                   kernel: str = "xla") -> torch.Tensor:
     """Adjoint w.r.t. the probe. Returns ``(ntheta, nmodes, nprb, nprb)``."""
-    _operator_kernel(kernel, farplane)
+    kernel = _operator_kernel(kernel, farplane)
     scan_int = _patches.scan_to_int(scan)
+    if kernel.startswith("fused"):
+        from tikejax_torch.ops import fused
+
+        return fused.adj_probe(farplane, scan_int, psi, nprb,
+                               precision=_fused_adj_precision(kernel))
     nearplane = crop_from_det(ifft2o(farplane), nprb)  # (t, s, m, p, p)
     patches = _patches.gather_patches(psi, scan_int, nprb)
     return torch.sum(torch.conj(patches)[:, :, None] * nearplane, dim=1)

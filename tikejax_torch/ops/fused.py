@@ -1,11 +1,11 @@
-"""Frameless fused operators: the hand-written ``grad_fused``, ``fwd`` and
-``minf_fused`` kernels.
+"""Fused operators: the hand-written ``grad_fused``, ``fwd``,
+``minf_fused``, ``grad_prb_fused``, ``adj`` and ``adj_probe`` kernels.
 
 Counterpart of ``tikejax.ops.pallas_fused`` for the kernels that the solver
-and ``reconstruct`` run. Each gathers the object patch of every (angle,
-position, mode) frame, multiplies by the probe and takes the unitary DFT of
-the zero-padded frame (plus, in split-operator mode, the frozen ``base``
-farplane's frame); then
+and ``reconstruct`` run. The first four gather the object patch of every
+(angle, position, mode) frame, multiply by the probe and take the unitary
+DFT of the zero-padded frame (plus, in split-operator mode, the frozen
+``base`` farplane's frame); then
 
 * ``grad_fused`` (replaces ``pallas_fused.py`` ``grad_fused``,
   ``_grad_kernel``) forms the likelihood factor and objective against the
@@ -17,20 +17,38 @@ farplane's frame); then
   objective: the frameless line search and the memory-bound Anderson
   safeguard evaluate candidates with it;
 * ``fwd`` (replaces ``fwd``, ``_fwd_kernel``) writes the farplane
-  ``(t, s, m, ndet, ndet)`` itself: the base freeze of the split refinement
-  and the Anderson safeguard's candidate farplanes.
+  ``(t, s, m, ndet, ndet)`` itself: the base freeze of the split refinement,
+  the Anderson safeguard's candidate farplanes and the streamed
+  (``nchunks > 1``) chunk farplanes;
+* ``grad_prb_fused`` (replaces ``grad_prb_fused``, ``_grad_prb_kernel``) is
+  ``grad_fused``'s twin for joint probe recovery: after the inverse DFT it
+  multiplies by the conj object patch and sums over the positions into the
+  probe gradient ``(t, m, nprb, nprb)``.
 
-``grad_fused`` and ``minf_fused`` never allocate a farplane or a nearplane,
-which is why they exist: at 16384 positions of 128^2 the farplane alone is
-2.1 GB (8.6 GB with 4 modes).
+The other two read a farplane and apply the inverse DFT, cropped to the
+probe window, to every frame:
 
-The CUDA sources are ``tikejax_torch/csrc/{grad_fused,fwd,minf_fused}.cu``
-with their shared DFT-GEMM device code in ``csrc/dft_frame.cuh`` (built by
+* ``adj`` (replaces ``adj``, ``_adj_kernel``) multiplies by the conj probe,
+  sums the modes and scatter-adds into the object ``(t, nz, n)``;
+* ``adj_probe`` (replaces ``adj_probe``, ``_adj_probe_kernel``) multiplies
+  by the conj object patch and sums over the positions into the probe
+  ``(t, m, nprb, nprb)``.
+
+They are the fused tiers' operator-level adjoints
+(``diffraction.adj_raw`` / ``adj_probe_raw``), which the streamed gradient
+pass runs chunk by chunk.
+
+``grad_fused``, ``grad_prb_fused`` and ``minf_fused`` never allocate a
+farplane or a nearplane, which is why they exist: at 16384 positions of
+128^2 the farplane alone is 2.1 GB (8.6 GB with 4 modes).
+
+The CUDA sources are ``tikejax_torch/csrc/<name>.cu`` with their shared
+DFT-GEMM device code in ``csrc/dft_frame.cuh`` (built by
 ``tikejax_torch.utils.cuda_build``). What bounds them on an H100: the DFT
 is computed as complex matrix products per frame and mode,
 ``ndet*nprb*(nprb+ndet)`` complex multiply-adds per DFT application --
-twice per frame in ``grad_fused`` (1.1e12 fp32 FLOPs per evaluation at
-16384 frames of 128^2), once in ``fwd`` and ``minf_fused`` -- all on the
+twice per frame in ``grad_fused`` and ``grad_prb_fused`` (1.1e12 fp32 FLOPs
+per evaluation at 16384 frames of 128^2), once in the others -- all on the
 SIMT fp32 units, in shared-memory tiled GEMMs whose per-frame
 intermediates sit in per-block scratch sized by the grid (never by the
 number of positions).
@@ -51,9 +69,12 @@ with plain fp32 multiply-adds, which meets or beats every tier's accuracy,
 so every ``fused*`` tier maps to them and the ``precision`` /
 ``adj_precision`` tags are accepted and ignored.
 
-Determinism: the gradient scatter uses fp32 atomics, deterministic up to
-summation order; every objective is summed in double in a fixed order and
-is bitwise reproducible.
+Determinism: the object scatters (``grad_fused``, ``adj``) use fp32
+atomics, deterministic up to summation order. The probe reductions
+(``grad_prb_fused``, ``adj_probe``) add each block's frames into a
+block-owned partial without atomics and sum the partials over the blocks in
+a fixed order, so they are bitwise reproducible, as is every objective
+(summed in double in a fixed order).
 
 Each function takes CPU or CUDA tensors. On a CUDA tensor it launches its
 kernel or raises; on a CPU tensor it runs its ``*_reference``, the plain
@@ -235,6 +256,92 @@ def fwd_reference(psi: torch.Tensor, scan_int: torch.Tensor,
 fwd_reference.launches = 0
 
 
+def grad_prb_fused(psi: torch.Tensor, data: torch.Tensor,
+                   scan_int: torch.Tensor, prb: torch.Tensor, ndet: int,
+                   model: str, precision=None, adj_precision=None):
+    """Likelihood gradient w.r.t. the probe plus the objective in one pass,
+    without a farplane in memory (joint probe recovery). Arguments as
+    :func:`grad_fused` (no base: the JAX package's joint recovery has no
+    split-operator mode). Returns (grad_prb ``(ntheta, nmodes, nprb,
+    nprb)`` like ``prb``, minf ``()`` real)."""
+    _check_model(model)
+    if not _route("grad_prb_fused", psi):
+        return grad_prb_fused_reference(psi, data, scan_int, prb, ndet,
+                                        model)
+    return _grad_prb_fused_cuda(psi, data, scan_int, prb, ndet, model)
+
+
+grad_prb_fused.launches = 0
+
+
+def grad_prb_fused_reference(psi: torch.Tensor, data: torch.Tensor,
+                             scan_int: torch.Tensor, prb: torch.Tensor,
+                             ndet: int, model: str, precision=None,
+                             adj_precision=None):
+    """Plain PyTorch version of :func:`grad_prb_fused`, on any device:
+    oracle forward, likelihood residual, oracle probe adjoint; the
+    objective skips masked positions (scan row < 0), as the kernel does."""
+    grad_prb_fused_reference.launches += 1
+    minf_fn, resid_fn = likelihoods.get_model(model)
+    far = diffraction.fwd_raw(psi, scan_int, prb, ndet, kernel="xla")
+    grad = diffraction.adj_probe_raw(resid_fn(far, data), scan_int, psi,
+                                     prb.shape[-1], kernel="xla")
+    return grad, _valid_minf(minf_fn, far, data, scan_int)
+
+
+grad_prb_fused_reference.launches = 0
+
+
+def adj(farplane: torch.Tensor, scan_int: torch.Tensor, prb: torch.Tensor,
+        nz: int, n: int, precision=None):
+    """Adjoint w.r.t. the object: inverse DFT of every frame of
+    ``farplane`` ``(ntheta, nscan, nmodes, ndet, ndet)``, crop, conj-probe
+    multiply, mode sum and overlap scatter-add. Returns ``(ntheta, nz,
+    n)``; a masked position (scan row < 0) adds nothing. ``precision`` is
+    the JAX package's tier tag, ignored."""
+    if not _route("adj", farplane):
+        return adj_reference(farplane, scan_int, prb, nz, n)
+    return _adj_cuda(farplane, scan_int, prb, nz, n)
+
+
+adj.launches = 0
+
+
+def adj_reference(farplane: torch.Tensor, scan_int: torch.Tensor,
+                  prb: torch.Tensor, nz: int, n: int, precision=None):
+    """Plain PyTorch version of :func:`adj`: the oracle adjoint."""
+    adj_reference.launches += 1
+    return diffraction.adj_raw(farplane, scan_int, prb, nz, n, kernel="xla")
+
+
+adj_reference.launches = 0
+
+
+def adj_probe(farplane: torch.Tensor, scan_int: torch.Tensor,
+              psi: torch.Tensor, nprb: int, precision=None):
+    """Adjoint w.r.t. the probe: inverse DFT of every frame of
+    ``farplane``, crop, conj(object patch) multiply and sum over the
+    positions. Returns ``(ntheta, nmodes, nprb, nprb)``; a masked position
+    adds nothing. ``precision`` is the JAX package's tier tag, ignored."""
+    if not _route("adj_probe", farplane):
+        return adj_probe_reference(farplane, scan_int, psi, nprb)
+    return _adj_probe_cuda(farplane, scan_int, psi, nprb)
+
+
+adj_probe.launches = 0
+
+
+def adj_probe_reference(farplane: torch.Tensor, scan_int: torch.Tensor,
+                        psi: torch.Tensor, nprb: int, precision=None):
+    """Plain PyTorch version of :func:`adj_probe`: the oracle adjoint."""
+    adj_probe_reference.launches += 1
+    return diffraction.adj_probe_raw(farplane, scan_int, psi, nprb,
+                                     kernel="xla")
+
+
+adj_probe_reference.launches = 0
+
+
 def _valid_minf(minf_fn, far, data, scan_int):
     """The objective over the positions whose scan row is >= 0."""
     valid = scan_int[..., 0] >= 0
@@ -252,6 +359,11 @@ _ARGTYPES = {
     "fwd": ("tk_fwd", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8),
     "minf_fused": ("tk_minf_fused", [ctypes.c_void_p] * 7
                    + [ctypes.c_int] * 9 + [ctypes.c_int64]),
+    "grad_prb_fused": ("tk_grad_prb_fused", [ctypes.c_void_p] * 8
+                       + [ctypes.c_int] * 9),
+    "adj": ("tk_adj", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8),
+    "adj_probe": ("tk_adj_probe", [ctypes.c_void_p] * 6
+                  + [ctypes.c_int] * 8),
 }
 
 
@@ -290,9 +402,28 @@ def _resident_blocks(name: str, device_index: int, ndet: int,
     return max(1, per_sm.value) * sms
 
 
+def _check_types(name, expect):
+    """Every tensor of ``expect`` ({what: (tensor, dtype)}) must lie on
+    the first one's device and have its dtype."""
+    device = next(iter(expect.values()))[0].device
+    for what, (x, dtype) in expect.items():
+        if x.device != device:
+            raise ValueError(f"{name}: {what} is on {x.device}, the other "
+                             f"inputs on {device}")
+        if x.dtype != dtype:
+            raise TypeError(f"{name}: the CUDA kernel takes {what} as "
+                            f"{dtype}, got {x.dtype}")
+
+
+def _check_sizes(name, nprb, ndet):
+    if not nprb <= ndet <= _MAX_NDET:
+        raise ValueError(f"{name}: need nprb <= ndet <= {_MAX_NDET}, "
+                         f"got nprb={nprb}, ndet={ndet}")
+
+
 def _check_inputs(name, psi, scan_int, prb, ndet, data=None):
-    """Device, dtype and shape checks of the kernels' common inputs;
-    returns (t, nz, n, nmodes, nprb, nscan)."""
+    """Device, dtype and shape checks of the forward kernels' common
+    inputs; returns (t, nz, n, nmodes, nprb, nscan)."""
     t, nz, n = psi.shape
     _, nmodes, nprb, _ = prb.shape
     s = scan_int.shape[1]
@@ -300,13 +431,7 @@ def _check_inputs(name, psi, scan_int, prb, ndet, data=None):
               "scan_int": (scan_int, torch.int32)}
     if data is not None:
         expect["data"] = (data, torch.float32)
-    for what, (x, dtype) in expect.items():
-        if x.device != psi.device:
-            raise ValueError(f"{name}: {what} is on {x.device}, psi on "
-                             f"{psi.device}")
-        if x.dtype != dtype:
-            raise TypeError(f"{name}: the CUDA kernel takes {what} as "
-                            f"{dtype}, got {x.dtype}")
+    _check_types(name, expect)
     if (prb.shape[0] != t or scan_int.shape != (t, s, 2)
             or prb.shape[-1] != nprb
             or (data is not None and data.shape != (t, s, ndet, ndet))):
@@ -315,10 +440,25 @@ def _check_inputs(name, psi, scan_int, prb, ndet, data=None):
             f"{tuple(prb.shape)}, scan_int {tuple(scan_int.shape)}"
             + (f", data {tuple(data.shape)}" if data is not None else "")
             + f", ndet {ndet}")
-    if not nprb <= ndet <= _MAX_NDET:
-        raise ValueError(f"{name}: need nprb <= ndet <= {_MAX_NDET}, "
-                         f"got nprb={nprb}, ndet={ndet}")
+    _check_sizes(name, nprb, ndet)
     return t, nz, n, nmodes, nprb, s
+
+
+def _check_farplane(name, farplane, scan_int, other, other_name, lead):
+    """Checks of the adjoint kernels' inputs: ``farplane`` (t, s, m, d,
+    d), ``scan_int`` (t, s, 2) and ``other`` (the probe or the object)
+    whose leading dimensions must be ``lead``; returns (t, s, m, d)."""
+    t, s, m, d, d2 = farplane.shape
+    _check_types(name, {"farplane": (farplane, torch.complex64),
+                        other_name: (other, torch.complex64),
+                        "scan_int": (scan_int, torch.int32)})
+    if d2 != d or scan_int.shape != (t, s, 2) or other.shape[:len(lead)] != (
+            lead):
+        raise ValueError(
+            f"{name}: inconsistent shapes farplane {tuple(farplane.shape)}, "
+            f"{other_name} {tuple(other.shape)}, scan_int "
+            f"{tuple(scan_int.shape)}")
+    return t, s, m, d
 
 
 def _base_ptr(name, base, shape, device):
@@ -339,8 +479,9 @@ def _base_ptr(name, base, shape, device):
 
 
 def _grid(name, device_index, frames, ndet, has_base, block_bytes):
-    return min(frames, _resident_blocks(name, device_index, ndet, has_base),
-               max(1, _SCRATCH_BYTES // block_bytes))
+    return max(1, min(frames,
+                      _resident_blocks(name, device_index, ndet, has_base),
+                      _SCRATCH_BYTES // block_bytes))
 
 
 def _device_index(psi):
@@ -426,4 +567,89 @@ def _fwd_cuda(psi, scan_int, prb, ndet, base):
             nprb, ndet, grid, stream)
     _check("fwd", err, "kernel launch")
     fwd.launches += 1
+    return out
+
+
+def _grad_prb_fused_cuda(psi, data, scan_int, prb, ndet, model):
+    t, nz, n, nmodes, nprb, s = _check_inputs("grad_prb_fused", psi,
+                                              scan_int, prb, ndet, data)
+    lib = _lib("grad_prb_fused")
+    dev = _device_index(psi)
+    per_block = nmodes * ndet * (nprb + ndet)  # complex elements
+    acc_block = t * nmodes * nprb * nprb       # complex elements
+    grid = _grid("grad_prb_fused", dev, t * s, ndet, False,
+                 8 * (per_block + acc_block))
+    psi, prb = psi.contiguous(), prb.contiguous()
+    data, scan_int = data.contiguous(), scan_int.contiguous()
+    grad = torch.empty((t, nmodes, nprb, nprb), dtype=torch.complex64,
+                       device=psi.device)
+    acc = torch.empty(2 * grid * acc_block, dtype=torch.float32,
+                      device=psi.device)
+    scratch = torch.empty(2 * grid * per_block, dtype=torch.float32,
+                          device=psi.device)
+    partial = torch.empty(grid, dtype=torch.float64, device=psi.device)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.tk_grad_prb_fused(
+            psi.data_ptr(), prb.data_ptr(), data.data_ptr(),
+            scan_int.data_ptr(), grad.data_ptr(), acc.data_ptr(),
+            scratch.data_ptr(), partial.data_ptr(), t, s, nz, n, nmodes,
+            nprb, ndet, _MODEL_CODE[model], grid, stream)
+    _check("grad_prb_fused", err, "kernel launch")
+    grad_prb_fused.launches += 1
+    return grad, partial.sum().to(torch.float32)
+
+
+def _adj_cuda(farplane, scan_int, prb, nz, n):
+    t, s, nmodes, ndet = _check_farplane("adj", farplane, scan_int, prb,
+                                         "prb", (farplane.shape[0],
+                                                 farplane.shape[2]))
+    nprb = prb.shape[-1]
+    _check_sizes("adj", nprb, ndet)
+    lib = _lib("adj")
+    dev = _device_index(farplane)
+    grid = _grid("adj", dev, t * s, ndet, False, 8 * nprb * ndet)
+    farplane, prb = farplane.contiguous(), prb.contiguous()
+    scan_int = scan_int.contiguous()
+    out = torch.zeros((t, nz, n), dtype=torch.complex64,
+                      device=farplane.device)
+    scratch = torch.empty(2 * grid * nprb * ndet, dtype=torch.float32,
+                          device=farplane.device)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.tk_adj(farplane.data_ptr(), prb.data_ptr(),
+                         scan_int.data_ptr(), out.data_ptr(),
+                         scratch.data_ptr(), t, s, nz, n, nmodes, nprb, ndet,
+                         grid, stream)
+    _check("adj", err, "kernel launch")
+    adj.launches += 1
+    return out
+
+
+def _adj_probe_cuda(farplane, scan_int, psi, nprb):
+    t, s, nmodes, ndet = _check_farplane("adj_probe", farplane, scan_int,
+                                         psi, "psi", (farplane.shape[0],))
+    _, nz, n = psi.shape
+    _check_sizes("adj_probe", nprb, ndet)
+    lib = _lib("adj_probe")
+    dev = _device_index(farplane)
+    acc_block = t * nmodes * nprb * nprb  # complex elements
+    grid = _grid("adj_probe", dev, t * s, ndet, False,
+                 8 * (nprb * ndet + acc_block))
+    farplane, psi = farplane.contiguous(), psi.contiguous()
+    scan_int = scan_int.contiguous()
+    out = torch.empty((t, nmodes, nprb, nprb), dtype=torch.complex64,
+                      device=farplane.device)
+    acc = torch.empty(2 * grid * acc_block, dtype=torch.float32,
+                      device=farplane.device)
+    scratch = torch.empty(2 * grid * nprb * ndet, dtype=torch.float32,
+                          device=farplane.device)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.tk_adj_probe(farplane.data_ptr(), psi.data_ptr(),
+                               scan_int.data_ptr(), out.data_ptr(),
+                               acc.data_ptr(), scratch.data_ptr(), t, s, nz,
+                               n, nmodes, nprb, ndet, grid, stream)
+    _check("adj_probe", err, "kernel launch")
+    adj_probe.launches += 1
     return out

@@ -113,6 +113,21 @@ def illumination_map(scan_int: torch.Tensor, kernel: torch.Tensor, nz: int,
     return conv[:, :nz, :n]
 
 
+def patch_power_map(scan_int: torch.Tensor, field_power: torch.Tensor,
+                    nprb: int) -> torch.Tensor:
+    """``out[dy, dx] = sum_k field_power[y_k + dy, x_k + dx]``: the object
+    power each probe pixel sees, summed over the scan positions, as an FFT
+    cross-correlation of the position delta map with the power map. Used
+    as the probe-gradient preconditioner denominator."""
+    _, nz, n = field_power.shape
+    h, w = nz + nprb, n + nprb
+    delta = _delta_map(scan_int, h, w, field_power.dtype)
+    fpad = torch.nn.functional.pad(field_power, (0, nprb, 0, nprb))
+    corr = torch.fft.irfft2(
+        torch.conj(torch.fft.rfft2(delta)) * torch.fft.rfft2(fpad), s=(h, w))
+    return corr[:, :nprb, :nprb]
+
+
 def overlap_counts(scan_int: torch.Tensor, nz: int, n: int, nprb: int,
                    dtype=torch.float32) -> torch.Tensor:
     """Per-pixel patch coverage count: scatter of all-ones patches."""

@@ -1,5 +1,6 @@
-"""Solvers: object-only conjugate-gradient reconstruction (Dai-Yuan or
-L-BFGS directions) and the deep-residual solver ``reconstruct``."""
+"""Solvers: conjugate-gradient reconstruction of the object, or of the
+object and the probe (Dai-Yuan or L-BFGS directions), and the
+deep-residual solver ``reconstruct``."""
 
 from tikejax_torch.solvers.cg import CGOptions, run
 from tikejax_torch.solvers.tiered import reconstruct

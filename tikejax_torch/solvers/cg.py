@@ -1,24 +1,35 @@
-"""Object-only conjugate-gradient ptychography solver.
+"""Conjugate-gradient ptychography solver: the object, and with
+``recover_prb`` the probe too.
 
-Counterpart of the object-only subset of ``tikejax.solvers.cg``: the same
-options (same names and defaults), the same Dai-Yuan and two-loop L-BFGS
-directions, warm-started backtracking (or interpolating) line search,
-illumination preconditioner, stopping rules and metrics, the
-split-operator mode (``f_base``) and the carried CG state (``cg_init`` /
-``carry_state`` / ``carry_lbfgs``) that ``solvers.reconstruct`` threads
-across its refinement segments. Three loop bodies, as in the JAX package:
+Counterpart of ``tikejax.solvers.cg``: the same options (same names and
+defaults), the same Dai-Yuan and two-loop L-BFGS directions, warm-started
+backtracking (or interpolating) line search, illumination preconditioners,
+stopping rules and metrics, joint object+probe recovery (an object step,
+then a Dai-Yuan probe step at the updated object), position streaming
+(``nchunks``), the split-operator mode (``f_base``) and the carried CG
+state (``cg_init`` / ``carry_state`` / ``carry_lbfgs``) that
+``solvers.reconstruct`` threads across its refinement segments. Three loop
+bodies, as in the JAX package:
 
-* the MERGED body (the main path on CUDA, ``kernel='fused*'``): every
-  line-search candidate is evaluated by one ``grad_fused`` pass, which
-  returns the objective and the gradient together, so the accepted
-  candidate's gradient seeds the next iteration;
+* the MERGED body (the main path on CUDA, ``kernel='fused*'``, object-only
+  and unstreamed): every line-search candidate is evaluated by one
+  ``grad_fused`` pass, which returns the objective and the gradient
+  together, so the accepted candidate's gradient seeds the next iteration;
 * the frameless CLASSIC body (``kernel='fused*'`` with
-  ``merged_linesearch='off'``): one ``grad_fused`` pass per iteration, then
+  ``merged_linesearch='off'`` or ``recover_prb``): one ``grad_fused`` pass
+  (and for the probe step one ``grad_prb_fused`` pass) per iteration, then
   a line search that evaluates every candidate with one ``minf_fused``
   pass -- nothing farplane-sized is allocated;
 * the materialized CLASSIC body (``kernel='xla'``, the 'auto' choice off
   CUDA): a gradient pass through the oracle operators, then a line search
   on the quadratic statistics of the two farplanes.
+
+With ``nchunks > 1`` the classic body streams both passes over
+``nchunks`` chunks of positions: the gradient pass sums the chunks'
+objectives and adjoints (on the fused tiers the ``fwd``, ``adj`` and
+``adj_probe`` kernels), and the line search keeps the per-pixel quadratic
+statistics ``(a, b, c)`` of every chunk and evaluates each candidate from
+them, as the JAX package does.
 
 Execution model. The JAX package runs the whole loop, data-dependent
 ``while_loop``s included, in one jit with no host round trip. Eager PyTorch
@@ -32,11 +43,10 @@ stays on the device. ``metrics['host_syncs']`` counts the reads and
 the carried state (steps, the L-BFGS curvature ring and count) are host
 values, kept as 0-d or 1-d CPU tensors.
 
-Not ported (each raises NotImplementedError naming ROADMAP.md): joint probe
-recovery, ``nchunks > 1``, ``memory='materialized'``, the fused line
-search, ``precondition='illum_lowk'``, mesh axes, the slab fields and the
-TPU slab planner / compile-retry ladder (``run`` calls ``run_impl``
-directly).
+Not ported (each raises NotImplementedError naming ROADMAP.md):
+``memory='materialized'``, the fused line search,
+``precondition='illum_lowk'``, mesh axes, the slab fields and the TPU slab
+planner / compile-retry ladder (``run`` calls ``run_impl`` directly).
 """
 
 from __future__ import annotations
@@ -67,9 +77,12 @@ class CGOptions:
         target_residual, 'fused' for a shallow one -- and 'xla'
         elsewhere), any 'fused*' tier (all run the fp32 kernels of
         ``tikejax_torch.ops.fused``), or 'xla' (the oracle operators).
-      precondition: 'illum' (divide the gradient by the probe-illumination
-        map, floored at 10% of its maximum), 'max' (the scalar
-        1/max sum_m |prb_m|^2) or 'none'.
+      precondition: 'illum' (divide the object gradient by the
+        probe-illumination map, and the probe gradient by the object power
+        each probe pixel sees, each floored at 10% of its maximum; under
+        recover_prb the object's map follows the current probe), 'max'
+        (the object gradient times the scalar 1/max sum_m |prb_m|^2) or
+        'none'.
       adaptive_step: warm-start the line search from the previous step.
       step_growth: warm-start regrow factor (>= 1).
       step_policy: 'regrow' (start from min(step0, growth * previous
@@ -87,6 +100,13 @@ class CGOptions:
       linesearch: 'backtracking', 'interp' (one safeguarded quadratic-
         interpolation step on the first rejection) or 'auto'
         (backtracking on the fused_mp/hp/mx/hx tiers, interp otherwise).
+      recover_prb: also recover the probe: after each object step, a
+        Dai-Yuan step on the probe at the updated object, with its own
+        warm-started line search (``metrics['gamma_prb']``).
+      nchunks: stream the passes over this many chunks of positions (it
+        must divide nscan): the gradient pass never holds more than one
+        chunk's farplane, and the line search keeps the quadratic
+        statistics of every chunk.
       memory: 'auto' or 'frameless' (no farplane on the fused path).
       merged_linesearch: 'auto' (evaluate every candidate with its
         gradient on the fused path) or 'off' (on the fused path: one
@@ -114,6 +134,8 @@ class CGOptions:
     direction: str = "auto"
     stop_on_stall: int = 2
     linesearch: str = "auto"
+    recover_prb: bool = False
+    nchunks: int = 1
     memory: str = "auto"
     merged_linesearch: str = "auto"
     carry_state: bool = False
@@ -123,7 +145,7 @@ class CGOptions:
 # The JAX package's remaining CGOptions fields with their defaults: a call
 # that keeps the default runs, any other value raises.
 _UNPORTED_FIELDS = {
-    "recover_prb": False, "nchunks": 1, "axis_name": None,
+    "axis_name": None,
     "theta_axis_name": None, "obj_axis_name": None, "obj_halo": 0,
     "obj_axis_size": 1, "verbose_every": 0, "lowk_boost": 4.0,
     "lowk_frac": 0.05, "fused_linesearch": False, "obj_slabs": 1,
@@ -219,6 +241,9 @@ class _Engine:
 
     def __init__(self, g: Geometry, o: CGOptions, backend: str,
                  f_base=None):
+        if o.nchunks < 1 or g.nscan % o.nchunks:
+            raise ValueError(
+                f"nchunks ({o.nchunks}) must divide nscan ({g.nscan})")
         if o.model not in likelihoods.MODELS:
             raise ValueError(f"unknown model {o.model!r}")
         if o.precondition == "illum_lowk":
@@ -262,12 +287,17 @@ class _Engine:
             deep = self.kernel in ("fused_mp", "fused_hp", "fused_mx",
                                    "fused_hx")
             self.ls = "backtracking" if deep else "interp"
-        self.merged = o.merged_linesearch == "auto" and self.fused
+        self.merged = (o.merged_linesearch == "auto" and self.fused
+                       and o.nchunks == 1 and not o.recover_prb)
         # Split-operator mode: psi is a small correction on a frozen base
         # whose farplane f_base was computed once with an accurate kernel.
         if f_base is not None and o.memory == "frameless" and not self.fused:
             raise ValueError("frameless split-operator mode needs the "
                              "fused kernels")
+        if f_base is not None and o.recover_prb:
+            raise ValueError("split-operator mode (f_base) does not "
+                             "support joint probe recovery; rebase "
+                             "the probe between segments instead")
         self.f_base = f_base
         self.g = g
         self.o = o
@@ -283,24 +313,69 @@ class _Engine:
 
     # -- objective and gradient passes ----------------------------------
 
-    def grad_pass(self, psi, prb, scan, scan_i, data):
-        """(minf, raw object gradient, farplane or None) at ``psi`` (the
-        farplane ``G psi + base`` on the materialized path)."""
+    def _fwd(self, psi, scan, prb):
+        return diffraction.fwd_raw(psi, scan, prb, self.g.ndet, self.kernel)
+
+    def _chunks(self, scan, data):
+        """(scan, data, base or None) of each chunk of positions, in
+        order: chunk c holds positions [c*s/k, (c+1)*s/k) of every angle,
+        as the JAX package's ``_chunked``."""
+        k = self.o.nchunks
+        step = scan.shape[1] // k
+        base = (None if self.f_base is None
+                else fused._base_complex(self.f_base))
+
+        def part(a, c):
+            return None if a is None else a[:, c * step:(c + 1) * step]
+
+        return [(part(scan, c), part(data, c), part(base, c))
+                for c in range(k)]
+
+    def grad_pass(self, psi, prb, scan, scan_i, data, want_psi=True,
+                  want_prb=False):
+        """(minf, raw object gradient, raw probe gradient, farplane or
+        None) at ``psi``: the gradients not asked for are None. On the
+        fused tiers, unstreamed, one ``grad_fused`` or ``grad_prb_fused``
+        pass; otherwise the operators, summed over the chunks in order (the
+        JAX package's ``lax.scan``) with one chunk's farplane at a time,
+        and unstreamed the farplane ``G psi + base`` is returned for the
+        line search to reuse."""
         self.evaluations += 1
-        if self.fused:
-            grad, f0 = fused.grad_fused(
-                psi, data, scan_i, prb, self.g.ndet, self.o.model,
-                precision=self.precision,
-                adj_precision=diffraction._fused_adj_precision(self.kernel),
-                base=self.f_base)
-            return f0, grad, None
-        fpsi = diffraction.fwd_raw(psi, scan, prb, self.g.ndet, "xla")
-        if self.f_base is not None:
-            fpsi = fpsi + fused._base_complex(self.f_base)
-        resid = self.resid_fn(fpsi, data)
-        grad = diffraction.adj_raw(resid, scan, prb, self.g.nz, self.g.n,
-                                   "xla")
-        return self.minf_fn(fpsi, data), grad, fpsi
+        o = self.o
+        if self.fused and o.nchunks == 1:
+            adj_precision = diffraction._fused_adj_precision(self.kernel)
+            if not want_prb:
+                grad, f0 = fused.grad_fused(
+                    psi, data, scan_i, prb, self.g.ndet, o.model,
+                    precision=self.precision, adj_precision=adj_precision,
+                    base=self.f_base)
+                return f0, grad, None, None
+            gprb, f0 = fused.grad_prb_fused(
+                psi, data, scan_i, prb, self.g.ndet, o.model,
+                precision=self.precision, adj_precision=adj_precision)
+            return f0, None, gprb, None
+        f0 = torch.zeros((), dtype=psi.real.dtype, device=psi.device)
+        gpsi = torch.zeros_like(psi) if want_psi else None
+        gprb = torch.zeros_like(prb) if want_prb else None
+        fpsi = None
+        for sc, dc, fb in self._chunks(scan, data):
+            fp = self._fwd(psi, sc, prb)
+            if fb is not None:
+                fp = fp + fb
+            f0 = f0 + self.minf_fn(fp, dc)
+            r = self.resid_fn(fp, dc)
+            if o.nchunks == 1:
+                fpsi = fp
+            del fp  # streamed: one chunk's farplane at a time
+            if want_psi:
+                gpsi = gpsi + diffraction.adj_raw(r, sc, prb, self.g.nz,
+                                                  self.g.n, self.kernel)
+            if want_prb:
+                gprb = gprb + diffraction.adj_probe_raw(r, sc, psi,
+                                                        self.g.nprb,
+                                                        self.kernel)
+            del r
+        return f0, gpsi, gprb, fpsi
 
     def minf_pass(self, psi, prb, scan_i, data):
         """The objective at ``psi`` (plus the base) through the frameless
@@ -310,6 +385,50 @@ class _Engine:
         return fused.minf_fused(psi, data, scan_i, prb, self.g.ndet,
                                 self.o.model, precision=self.precision,
                                 base=self.f_base)
+
+    def line_fn(self, psi, prb, scan, scan_i, data, fpsi, dpsi=None,
+                dprb=None):
+        """``f_of(gamma)`` -> (objective on the host, None) along the
+        object direction ``dpsi`` or the probe direction ``dprb``: one
+        ``minf_fused`` pass per candidate on the frameless fused path;
+        else the quadratic statistics of the farplane ``fpsi`` (or of every
+        chunk's, streamed) and of the direction's farplane, computed here
+        once and evaluated per candidate."""
+        o = self.o
+        if self.fused and o.nchunks == 1:
+            if dpsi is not None:
+                def f_of(gamma):
+                    return self.host(self.minf_pass(psi + gamma * dpsi, prb,
+                                                    scan_i, data)), None
+            else:
+                def f_of(gamma):
+                    return self.host(self.minf_pass(psi, prb + gamma * dprb,
+                                                    scan_i, data)), None
+            return f_of
+
+        def fwd_dir(sc):
+            return (self._fwd(dpsi, sc, prb) if dpsi is not None
+                    else self._fwd(psi, sc, dprb))
+
+        if o.nchunks == 1:
+            stats = [(_quad_stats(fpsi, fwd_dir(scan)), data)]
+        else:
+            stats = []
+            for sc, dc, fb in self._chunks(scan, data):
+                fp = self._fwd(psi, sc, prb)
+                if fb is not None:
+                    fp = fp + fb
+                stats.append((_quad_stats(fp, fwd_dir(sc)), dc))
+                del fp
+
+        def f_of(gamma):
+            self.evaluations += 1
+            total = 0.0
+            for (a, b, c), dc in stats:
+                total = total + _minf_of_gamma(o.model, a, b, c, dc, gamma)
+            return self.host(total), None
+
+        return f_of
 
     # -- step control ----------------------------------------------------
 
@@ -432,8 +551,10 @@ class _Engine:
                 q = q + (al[i] - b).to(q.dtype) * lb.S[i]
         return -q
 
-    def keep_going(self, i: int, residual: list, gamma: list) -> bool:
-        """The JAX package's loop condition, on the host metrics."""
+    def keep_going(self, i: int, residual: list, gamma: list,
+                   gamma_prb: list) -> bool:
+        """The JAX package's loop condition, on the host metrics: a stall
+        is an iteration in which neither the object nor the probe moved."""
         o = self.o
         if i >= o.piter:
             return False
@@ -441,13 +562,17 @@ class _Engine:
                 residual[i - 1] > o.target_residual):
             return False
         n = o.stop_on_stall
-        return not (n > 0 and i >= n and all(g == 0 for g in gamma[i - n:i]))
+        return not (n > 0 and i >= n and all(
+            g == 0 and gp == 0
+            for g, gp in zip(gamma[i - n:i], gamma_prb[i - n:i])))
 
 
-def _sum_over_positions(fn, *arrays, chunk_bytes=64 * 2**20):
+def _sum_over_positions(fn, *arrays, chunk_bytes=16 * 2**20):
     """``sum(fn(*chunks))`` over chunks of scan positions (axis 1) of
     ``arrays``, so that no data-sized temporary is allocated (the data are
-    the largest array of the problem: 1 GiB at 16384 frames of 128^2)."""
+    the largest array of the problem: 1 GiB at 16384 frames of 128^2; a
+    few chunk-sized temporaries stay far below the joint path's 256 MiB
+    of working memory at 4096 frames)."""
     frame_bytes = max(a.shape[0] * a[0, 0].numel() * a.element_size()
                       for a in arrays)
     step = max(1, chunk_bytes // frame_bytes)
@@ -455,20 +580,50 @@ def _sum_over_positions(fn, *arrays, chunk_bytes=64 * 2**20):
         *(a.split(step, dim=1) for a in arrays)))
 
 
-def _preconditioner(o: CGOptions, prb, scan_i, nz, n):
-    """The object-gradient preconditioner; for 'illum' its denominator is
-    computed once (the probe does not change in an object-only run)."""
-    power = torch.sum(prb.real**2 + prb.imag**2, dim=1)  # (t, nprb, nprb)
+def _probe_power(prb):
+    return torch.sum(prb.real**2 + prb.imag**2, dim=1)  # (t, nprb, nprb)
+
+
+def _illum_denominator(prb, scan_i, nz, n):
+    """The probe-illumination map, floored at 10% of its per-angle
+    maximum."""
+    illum = _patches.illumination_map(scan_i, _probe_power(prb), nz, n)
+    m = torch.amax(illum, dim=(-2, -1), keepdim=True)
+    return torch.maximum(illum, 0.1 * m)
+
+
+def _preconditioner(o: CGOptions, prb0, scan_i, nz, n):
+    """``precond(g, prb)``, the object-gradient preconditioner at the
+    probe ``prb``. For 'illum' without recover_prb the denominator is
+    computed once (the probe does not move); with it, it follows the
+    current probe, as in the JAX package."""
     if o.precondition == "illum":
-        illum = _patches.illumination_map(scan_i, power, nz, n)
-        m = torch.amax(illum, dim=(-2, -1), keepdim=True)
-        denom = torch.maximum(illum, 0.1 * m)
-        return lambda g: g / denom
+        if not o.recover_prb:
+            denom = _illum_denominator(prb0, scan_i, nz, n)
+            return lambda g, prb: g / denom
+        return lambda g, prb: g / _illum_denominator(prb, scan_i, nz, n)
     if o.precondition == "max":
-        pmax = torch.amax(power, dim=(-2, -1))
-        scale = 1.0 / torch.clamp_min(pmax, 1e-32)
-        return lambda g: g * scale[:, None, None]
-    return lambda g: g
+        def precond(g, prb):
+            pmax = torch.amax(_probe_power(prb), dim=(-2, -1))
+            return g * (1.0 / torch.clamp_min(pmax, 1e-32))[:, None, None]
+        return precond
+    return lambda g, prb: g
+
+
+def _probe_preconditioner(o: CGOptions, scan_i):
+    """``precond(gprb, psi)``, the probe-gradient preconditioner: for
+    'illum', divide by the object power each probe pixel sees over all
+    positions (``patches.patch_power_map``), floored at 10% of its
+    maximum; otherwise the identity."""
+    if o.precondition != "illum":
+        return lambda gprb, psi: gprb
+
+    def precond(gprb, psi):
+        seen = _patches.patch_power_map(scan_i, psi.abs()**2,
+                                        gprb.shape[-1])
+        floor = 0.1 * torch.amax(seen, dim=(-2, -1), keepdim=True)
+        return gprb / torch.maximum(seen, floor)[:, None]
+    return precond
 
 
 def _initial_state(eng: _Engine, o: CGOptions, psi0, cg_init):
@@ -518,6 +673,7 @@ def run_impl(geometry: Geometry, options: CGOptions, data, psi0, scan, prb0,
     device = psi0.device
     scan_i = _patches.scan_to_int(scan)
     precond = _preconditioner(o, prb0, scan_i, geometry.nz, geometry.n)
+    precond_prb = _probe_preconditioner(o, scan_i)
 
     sum_data = eng.host(_sum_over_positions(
         lambda c: torch.sum(torch.clamp_min(c, 0.0)), data))
@@ -528,14 +684,17 @@ def run_impl(geometry: Geometry, options: CGOptions, data, psi0, scan, prb0,
     def residual_of(f):
         return math.sqrt(max(f - minf_offset, 0.0) / sum_data)
 
-    minf, residual, gamma_hist, grad_norm = [], [], [], []
-    psi = psi0
+    minf, residual, gamma_hist, gamma_prb, grad_norm = [], [], [], [], []
+    psi, prb = psi0, prb0
     d, g_prev, gam_prev, gam0_prev, lb = _initial_state(eng, o, psi0,
                                                         cg_init)
+    # The probe's own Dai-Yuan state (joint recovery only).
+    d_prb, g_prb_prev = torch.zeros_like(prb0), torch.zeros_like(prb0)
+    gam_p_prev = gam0_p_prev = 0.0
     if eng.merged:
-        f_t, g_raw, _ = eng.grad_pass(psi0, prb0, scan, scan_i, data)
+        f_t, g_raw, _, _ = eng.grad_pass(psi0, prb0, scan, scan_i, data)
         f_cur = eng.host(f_t)
-        g_cur = precond(g_raw)
+        g_cur = precond(g_raw, prb0)
 
     def fp0():
         # Directional derivative along d: 2 Re<raw gradient, d> (the
@@ -554,15 +713,16 @@ def run_impl(geometry: Geometry, options: CGOptions, data, psi0, scan, prb0,
                 eng.lbfgs_gamma0(lb.count, gam_prev, gam0_prev))
 
     i = 0
-    while eng.keep_going(i, residual, gamma_hist):
+    while eng.keep_going(i, residual, gamma_hist, gamma_prb):
+        gamma_p = 0.0
         if eng.merged:
             # Every candidate is evaluated with its gradient; the accepted
             # one seeds the next iteration.
             d, gamma0 = direction(g_cur)
 
             def f_of(gamma):
-                fc, gc, _ = eng.grad_pass(psi + gamma * d, prb0, scan,
-                                          scan_i, data)
+                fc, gc, _, _ = eng.grad_pass(psi + gamma * d, prb, scan,
+                                             scan_i, data)
                 return eng.host(fc), gc
 
             gamma, fc, gc = eng.line_search(f_of, f_cur, gamma0, fp0)
@@ -570,35 +730,49 @@ def run_impl(geometry: Geometry, options: CGOptions, data, psi0, scan, prb0,
             g_prev = g_cur
             if fc <= f_cur:
                 psi = psi + gamma * d
-                g_cur, g_raw, f_cur = precond(gc), gc, fc
+                g_cur, g_raw, f_cur = precond(gc, prb), gc, fc
         else:
-            f_t, g_raw, fpsi = eng.grad_pass(psi, prb0, scan, scan_i, data)
+            # Object step.
+            f_t, g_raw, _, fpsi = eng.grad_pass(psi, prb, scan, scan_i,
+                                                data)
             f_iter = eng.host(f_t)
-            g_iter = precond(g_raw)
+            g_iter = precond(g_raw, prb)
             d, gamma0 = direction(g_iter)
-            if eng.fused:
-                # Frameless: one minf_fused pass per candidate.
-                def f_of(gamma):
-                    return eng.host(eng.minf_pass(psi + gamma * d, prb0,
-                                                  scan_i, data)), None
-            else:
-                fd = diffraction.fwd_raw(d, scan, prb0, geometry.ndet, "xla")
-                a, b, c = _quad_stats(fpsi, fd)
-
-                def f_of(gamma):
-                    eng.evaluations += 1
-                    f = _minf_of_gamma(o.model, a, b, c, data, gamma)
-                    return eng.host(f), None
-
+            f_of = eng.line_fn(psi, prb, scan, scan_i, data, fpsi, dpsi=d)
+            del fpsi
             gamma, _, _ = eng.line_search(f_of, f_iter, gamma0, fp0)
+            del f_of  # the line-search statistics
             if gamma != 0.0:
                 psi = psi + gamma * d
             g_prev = g_iter
+            if o.recover_prb:
+                # Probe step at the updated object: its gradient, a
+                # Dai-Yuan direction and a warm-started line search of its
+                # own (cg.py's joint body in the JAX package).
+                f_t, _, gp_raw, fpsi = eng.grad_pass(
+                    psi, prb, scan, scan_i, data, want_psi=False,
+                    want_prb=True)
+                f_p = eng.host(f_t)
+                gp = precond_prb(gp_raw, psi)
+                d_prb = eng.dy_direction(gp, g_prb_prev, d_prb)
+                gamma0_p = eng.gamma0(gam_p_prev, gam0_p_prev)
+                f_of = eng.line_fn(psi, prb, scan, scan_i, data, fpsi,
+                                   dprb=d_prb)
+                del fpsi
+                gamma_p, _, _ = eng.line_search(
+                    f_of, f_p, gamma0_p,
+                    lambda: 2.0 * eng.host(_rdot(gp_raw, d_prb)))
+                del f_of
+                if gamma_p != 0.0:
+                    prb = prb + gamma_p * d_prb
+                g_prb_prev = gp
+                gam_p_prev, gam0_p_prev = gamma_p, gamma0_p
         if lb is not None and gamma == 0.0:
             lb.count = 0  # a fully-failed search restarts from -grad
         minf.append(f_iter)
         residual.append(residual_of(f_iter))
         gamma_hist.append(gamma)
+        gamma_prb.append(gamma_p)
         grad_norm.append(torch.sqrt(_rdot(g_iter, g_iter)))
         gam_prev, gam0_prev = gamma, gamma0
         i += 1
@@ -614,7 +788,7 @@ def run_impl(geometry: Geometry, options: CGOptions, data, psi0, scan, prb0,
         "residual": padded(residual),
         "gamma": padded(gamma_hist),
         "grad_norm": padded(torch.stack(grad_norm) if grad_norm else []),
-        "gamma_prb": torch.zeros(o.piter, dtype=real_dtype, device=device),
+        "gamma_prb": padded(gamma_prb),
         "iters_run": torch.tensor(i, dtype=torch.int32),
         "host_syncs": eng.syncs,
         "evaluations": eng.evaluations,
@@ -629,7 +803,7 @@ def run_impl(geometry: Geometry, options: CGOptions, data, psi0, scan, prb0,
             cs += (lb.S, lb.Y, lb.sy.to(real_dtype),
                    torch.tensor(lb.count, dtype=torch.int32))
         metrics["cg_state"] = cs
-    return psi, prb0, metrics
+    return psi, prb, metrics
 
 
 def normalize_options(options: CGOptions, backend: str) -> CGOptions:
@@ -648,24 +822,27 @@ def normalize_options(options: CGOptions, backend: str) -> CGOptions:
 
 def run(data, psi0, scan, prb0, geometry: Geometry,
         options: CGOptions | None = None, f_base=None, cg_init=None, **kw):
-    """Reconstruct the object from measured intensities.
+    """Reconstruct the object (and with ``recover_prb`` the probe) from
+    measured intensities.
 
-    The port's counterpart of ``tikejax.solvers.run`` for object-only
-    runs; extra keyword arguments override CGOptions fields. The JAX
-    package's other fields are accepted at their defaults and raise
-    NotImplementedError otherwise. ``f_base`` (split-operator mode) and
-    ``cg_init`` (a carried ``metrics['cg_state']``) as in
-    :func:`run_impl`.
+    The port's counterpart of ``tikejax.solvers.run``; extra keyword
+    arguments override CGOptions fields. The JAX package's other fields are
+    accepted at their defaults and raise NotImplementedError otherwise.
+    ``f_base`` (split-operator mode) and ``cg_init`` (a carried
+    ``metrics['cg_state']``; with recover_prb it carries the object's
+    state only, as in the JAX package) as in :func:`run_impl`.
 
     Returns:
       (psi, prb, metrics): metrics holds per-iteration arrays {'minf',
       'residual', 'gamma', 'grad_norm', 'gamma_prb'} of shape (piter,),
-      zero past 'iters_run'; 'residual' is the relative misfit
+      zero past 'iters_run'; 'minf' and 'residual' are taken before the
+      object step, 'residual' is the relative misfit
       sqrt(max(minf - minf_perfect, 0) / sum(data)). 'host_syncs' counts
       the scalars the loop read on the host, 'evaluations' the objective
-      evaluations (on the fused tiers, the ``grad_fused`` and
-      ``minf_fused`` passes); 'cg_state' the carried state under
-      ``carry_state``.
+      evaluations (gradient passes, object and probe, and line-search
+      candidates: on the fused tiers the ``grad_fused``,
+      ``grad_prb_fused`` and ``minf_fused`` passes); 'cg_state' the
+      carried state under ``carry_state``.
     """
     for name, default in _UNPORTED_FIELDS.items():
         if name in kw:

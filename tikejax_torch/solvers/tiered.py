@@ -1,8 +1,8 @@
 """Deep-residual reconstruction: time to a target residual.
 
 Counterpart of ``tikejax.solvers.tiered`` (``reconstruct``) for
-single-device, object-only reconstructions. Two methods, as in the JAX
-package:
+single-device reconstructions, of the object or, with ``recover_prb``, of
+the object and the probe. Two methods, as in the JAX package:
 
 1. **Kernel-tier chaining** (``method='tiers'``): each tier of ``tiers``
    runs plain CG with an early-exit ``target_residual`` just above its
@@ -18,6 +18,16 @@ package:
    candidates with the base kernel, a floor stop ends runs that no longer
    contract, and the outer state can be checkpointed and resumed.
 
+   With ``recover_prb`` stage 1 is JOINT object+probe CG; for a target
+   below the fast tier's floor a chain of four 128-iteration joint runs on
+   the accurate tier (``joint_kernel``, default the base kernel) follows,
+   then the probe is frozen for the object-only refinement. When the
+   refinement stalls -- by the flat counter, or early, when two Aitken
+   extrapolations of the per-segment residuals both predict a limit above
+   1.2x the target -- the probe is re-opened with another joint chain (at
+   most 4 refreshes), and the Anderson history, the pending base and the
+   carried state start afresh.
+
 Port notes. Where the JAX package picks its default kernels "on the TPU"
 (fast 'fused', base 'fused_hp'), ``reconstruct`` picks them when the tensors
 are on CUDA, and the oracle 'xla' path elsewhere. The step control lives
@@ -30,10 +40,12 @@ one iteration. The safeguard's choice is read on the host (one scalar),
 and its residuals are summed over chunks of positions, so no temporary as
 large as the data is allocated.
 
-Not ported (each raises NotImplementedError naming ROADMAP.md): meshes,
-joint probe recovery (``recover_prb``, ``joint_kernel`` and the Aitken
-probe refresh), ``nchunks > 1``. The TPU slab backstop
-(``_maybe_slab_partition``) and ``hostio`` are not ported by design.
+The refinement inherits the caller's ``nchunks``: the frozen base is
+streamed through the chunks with the data.
+
+Not ported (raises NotImplementedError naming ROADMAP.md): meshes. The TPU
+slab backstop (``_maybe_slab_partition``) and ``hostio`` are not ported by
+design.
 """
 
 from __future__ import annotations
@@ -77,11 +89,6 @@ _SAFEGUARD_FRAMELESS_BYTES = 3 << 30
 
 _ROADMAP = {
     "mesh": "mesh= (multi-device runs; ROADMAP.md queue 1 item 9)",
-    "recover_prb": "recover_prb=True (joint probe recovery and its probe "
-                   "refresh; ROADMAP.md queue 1 item 7, queue 2 item 2.2)",
-    "joint_kernel": "joint_kernel= (joint probe recovery; ROADMAP.md queue "
-                    "1 item 7, queue 2 item 2.2)",
-    "nchunks": "nchunks > 1 (position streaming; ROADMAP.md queue 1 item 7)",
 }
 
 
@@ -120,6 +127,8 @@ def reconstruct(data, psi0, scan, prb0, geometry: Geometry,
       base_kernel / fast_kernel: split-mode kernels (defaults: 'fused_hp'
         / 'fused' when the tensors are on CUDA, the 'xla' oracle
         elsewhere).
+      joint_kernel: kernel of the joint escalation and probe-refresh
+        chains under recover_prb (default: base_kernel).
       segment_carry: continue the CG trajectory across re-bases (the
         terminal state seeds the next segment through cg's ``cg_init``);
         segments that end early, and mixes the safeguard takes, restart
@@ -136,10 +145,14 @@ def reconstruct(data, psi0, scan, prb0, geometry: Geometry,
         call with the same path resumes from it and reproduces the rest
         of the trajectory. The file is removed on success; a mismatched
         call raises.
-      joint_kernel, mesh: not ported (NotImplementedError) unless None.
+      mesh: not ported (NotImplementedError) unless None.
       options / kw: base CGOptions (piter, kernel and target_residual are
         set per stage). ``direction='auto'`` resolves to Dai-Yuan for
-        stage 1 and to L-BFGS (m=8) for the refinement segments.
+        stage 1 and the joint chains, and to L-BFGS (m=8) for the
+        refinement segments. With ``recover_prb=True`` split mode runs
+        stage 1 jointly, escalates the joint recovery to the accurate tier
+        for a target below the fast tier's floor, freezes the probe for
+        the refinement and re-opens it on a stall (see the module note).
 
     Returns:
       (psi, prb, stages): stages is a list of (stage_name, metrics);
@@ -171,14 +184,13 @@ def reconstruct(data, psi0, scan, prb0, geometry: Geometry,
                          "'anderson', or 'anderson:<depth>'")
     if mesh is not None:
         raise _not_ported("mesh")
-    if joint_kernel is not None:
-        raise _not_ported("joint_kernel")
     if method == "split":
         return _reconstruct_split(data, psi0, scan, prb0, geometry,
                                   target_residual, segment, max_segments,
                                   base_kernel, fast_kernel, options, tiers,
                                   segment_carry, floor_patience, accelerate,
-                                  checkpoint_path, checkpoint_every)
+                                  joint_kernel, checkpoint_path,
+                                  checkpoint_every)
 
     psi, prb = psi0, prb0
     stages = []
@@ -206,9 +218,10 @@ def reconstruct(data, psi0, scan, prb0, geometry: Geometry,
 def _reconstruct_split(data, psi0, scan, prb, g, target, segment,
                        max_segments, base_kernel, fast_kernel, options,
                        tiers, segment_carry=True, floor_patience=3,
-                       accelerate=None, checkpoint_path=None,
-                       checkpoint_every=4):
-    """Fast tier to its floor, then split-operator refinement segments."""
+                       accelerate=None, joint_kernel=None,
+                       checkpoint_path=None, checkpoint_every=4):
+    """Fast tier to its floor, then split-operator refinement segments;
+    with recover_prb, joint stages and probe refreshes around them."""
     on_cuda = psi0.device.type == "cuda"
     fast = fast_kernel or ("fused" if on_cuda else "xla")
     base = base_kernel or ("fused_hp" if on_cuda else "xla")
@@ -224,19 +237,33 @@ def _reconstruct_split(data, psi0, scan, prb, g, target, segment,
         ck = _checkpoint.load(checkpoint_path)
         _ckpt_validate(ck, g, segment, target)
 
+    recover = options.recover_prb
+    # The joint escalation and refresh chains: Dai-Yuan runs of 128 joint
+    # iterations on the accurate tier, four at a time.
+    joint_opts = dataclasses.replace(options, kernel=joint_kernel or base,
+                                     piter=128, target_residual=target,
+                                     direction="dy")
     if ck is None:
         # Stage 1: plain Dai-Yuan CG on the fast tier down to its floor
-        # (an L-BFGS-warmed flat start lands in bad basins).
+        # (an L-BFGS-warmed flat start lands in bad basins); joint with
+        # recover_prb.
         opts1 = dataclasses.replace(options, kernel=fast, direction="dy",
                                     piter=tiers[0][2] if tiers else 256,
                                     target_residual=max(target, floor))
         psi, prb, m = _cg.run(data, psi0, scan, prb, g, opts1)
-        stages.append((fast, m))
+        stages.append((fast + (":joint" if recover else ""), m))
+        if recover and target < floor:
+            # A probe frozen at the fast tier's accuracy would floor the
+            # refinement: escalate the joint recovery first.
+            psi, prb, _ = _joint_chain(data, psi, scan, prb, g, joint_opts,
+                                       stages)
         if target >= floor:
             return psi, prb, stages
     else:
         psi = _to_tensor(ck["psi"], psi0.device)
         prb = _to_tensor(ck["prb"], psi0.device)
+    if recover:
+        options = dataclasses.replace(options, recover_prb=False)
 
     # Stage 2: split-operator refinement with the fast kernels on the
     # correction; 'auto' is L-BFGS here (and only here).
@@ -263,15 +290,17 @@ def _reconstruct_split(data, psi0, scan, prb, g, target, segment,
     aa_hist = []  # Anderson history of (segment output, correction)
     res_hist = []  # per-segment end residuals
     budget = max_segments
+    # Probe refreshes left: a floor stall may be the frozen probe's error.
+    refreshes = 4 if recover else 0
     aa_depth = (_parse_anderson_depth(accelerate) if accelerate is not None
                 else 0)
     f_next = None  # chosen farplane handed forward by the Anderson step
     if ck is not None:
-        flat, budget, res_hist, prev, aa_hist, state = _ckpt_restore(
-            ck, state, psi0.device)
+        (flat, budget, refreshes, res_hist, prev, aa_hist,
+         state) = _ckpt_restore(ck, state, psi0.device)
     elif checkpoint_path is not None:
         _ckpt_save(checkpoint_path, g, segment, target, psi, prb, budget,
-                   flat, res_hist, prev, aa_hist, state)
+                   flat, refreshes, res_hist, prev, aa_hist, state)
     seg_i = 0
     while budget > 0:
         budget -= 1
@@ -310,19 +339,91 @@ def _reconstruct_split(data, psi0, scan, prb, g, target, segment,
             if reached:
                 break
             res_hist.append(res_end)
+            can_refresh = refreshes > 0 and budget > 0
+            want_refresh = False
             if contraction > _FLOOR_CONTRACTION:
                 flat += 1
                 if floor_patience > 0 and flat >= floor_patience:
-                    break  # pinned at the base kernel's or the data's floor
+                    if not can_refresh:
+                        break  # pinned at the base kernel's or data's floor
+                    want_refresh = True
             else:
                 flat = 0
+            if (not want_refresh and can_refresh
+                    and _probe_floor_predicted(res_hist, target)):
+                want_refresh = True  # approaching a frozen-probe floor
+            if want_refresh:
+                refreshes -= 1
+                budget -= 1
+                psi, prb, (r_reached, r_contr) = _joint_chain(
+                    data, psi, scan, prb, g, joint_opts, stages,
+                    target=target)
+                if r_reached:
+                    _ckpt_done(checkpoint_path)
+                    return psi, prb, stages
+                if r_contr > _FLOOR_CONTRACTION:
+                    break  # the probe refresh is flat too: genuine floor
+                # The joint run changed the map and the probe: restart the
+                # Anderson history, the pending base and the carried state.
+                flat, prev = 0, None
+                res_hist = []
+                aa_hist = []
+                f_next = None
+                state = (_cg.zero_cg_state(psi, opts2) if segment_carry
+                         else None)
+                continue
         prev = m
         seg_i += 1
         if checkpoint_path is not None and seg_i % checkpoint_every == 0:
             _ckpt_save(checkpoint_path, g, segment, target, psi, prb,
-                       budget, flat, res_hist, prev, aa_hist, state)
+                       budget, flat, refreshes, res_hist, prev, aa_hist,
+                       state)
     _ckpt_done(checkpoint_path)
     return psi, prb, stages
+
+
+def _joint_chain(data, psi, scan, prb, g, joint_opts, stages, target=None):
+    """Four joint runs one after the other, each appended as a
+    '<kernel>:joint' stage. With ``target``, the third element is (reached,
+    residual contraction across the chain); else None."""
+    ms = []
+    for _ in range(4):
+        psi, prb, m = _cg.run(data, psi, scan, prb, g, joint_opts)
+        stages.append((joint_opts.kernel + ":joint", m))
+        ms.append(m)
+    if target is None:
+        return psi, prb, None
+    kl = int(ms[-1]["iters_run"])
+    res_end = float(_to_numpy(ms[-1]["residual"])[max(kl - 1, 0)])
+    reached = kl < joint_opts.piter and res_end <= target
+    r0 = float(_to_numpy(ms[0]["residual"])[0])
+    return psi, prb, (reached, res_end / max(r0, 1e-300))
+
+
+def _aitken_limit(r0, r1, r2):
+    """Aitken delta-squared estimate of the limit of a near-geometric
+    residual sequence, or None when the three points are not a
+    decelerating monotone decay (ratio outside (0, 0.95))."""
+    d1, d2 = r1 - r0, r2 - r1
+    if d1 >= 0 or d2 >= 0:
+        return None
+    rho = d2 / d1
+    if not 0.0 < rho < 0.95:
+        return None
+    return r2 - d2 * d2 / (d2 - d1)
+
+
+def _probe_floor_predicted(res_hist, target):
+    """Early probe-floor detection on the per-segment end residuals: the
+    last two Aitken extrapolations both predict a limit above 1.2x the
+    target (the refinement is approaching the frozen probe's error, not
+    the target)."""
+    if len(res_hist) < 4:
+        return False
+    lim1 = _aitken_limit(*res_hist[-4:-1])
+    lim2 = _aitken_limit(*res_hist[-3:])
+    return (lim1 is not None and lim2 is not None
+            and lim1 > 1.2 * target and lim2 > 1.2 * target)
 
 
 def _masked_state(cg_state, iters_run, segment):
@@ -458,7 +559,7 @@ def _to_tensor(x, device) -> torch.Tensor:
 
 
 def _ckpt_save(path, g, segment, target, psi, prb, budget, flat,
-               res_hist, prev, aa_hist, state):
+               refreshes, res_hist, prev, aa_hist, state):
     tree = {
         "meta": {
             "version": np.int64(1),
@@ -472,9 +573,7 @@ def _ckpt_save(path, g, segment, target, psi, prb, budget, flat,
         "ctl": {
             "budget": np.int64(budget),
             "flat": np.int64(flat),
-            # The JAX package's probe-refresh budget (joint recovery
-            # only, which this port does not run).
-            "refreshes": np.int64(0),
+            "refreshes": np.int64(refreshes),
             "res_hist": np.asarray(res_hist, np.float64),
             "has_prev": np.int64(prev is not None),
         },
@@ -530,8 +629,8 @@ def _ckpt_restore(ck, state, device):
         state = tuple(
             _to_tensor(st[str(i)], device if np.iscomplexobj(st[str(i)])
                        else "cpu") for i in range(len(st)))
-    return (int(ctl["flat"]), int(ctl["budget"]), res_hist, prev, aa_hist,
-            state)
+    return (int(ctl["flat"]), int(ctl["budget"]), int(ctl["refreshes"]),
+            res_hist, prev, aa_hist, state)
 
 
 def _ckpt_done(path):

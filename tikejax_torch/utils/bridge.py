@@ -3,7 +3,8 @@
 The problem arrays (``psi``, ``scan``, ``prb``, ``data``) are built once in
 numpy and handed to both packages, so tests compare the same inputs. The
 bridge keeps the dtype (complex64 stays complex64, complex128 stays
-complex128) and takes an explicit device.
+complex128) and copies to the card unless the caller names another
+device (the CPU tests pass ``device="cpu"``).
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from tikejax_torch.geometry import Geometry
 _GEOMETRY_FIELDS = ("nz", "n", "nscan", "ndet", "nprb", "ntheta", "nmodes")
 
 
-def to_torch(x, device: str | torch.device = "cpu") -> torch.Tensor:
+def to_torch(x, device: str | torch.device = "cuda") -> torch.Tensor:
     """Copy an array-like (numpy array, or anything ``np.asarray`` takes,
     such as a jax array) into a tensor on ``device`` with the same dtype."""
     return torch.from_numpy(np.array(x, copy=True)).to(device)

@@ -26,7 +26,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("grad_fused", "fwd", "minf_fused")
+KERNELS = ("grad_fused", "fwd", "minf_fused", "grad_prb_fused", "adj",
+           "adj_probe")
 
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 _LOADED: dict[str, ctypes.CDLL] = {}
