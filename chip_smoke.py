@@ -8,17 +8,21 @@ CPU path: without a card, or without the repository beside it, it fails.
 Phases, one line each or more (any failure exits non-zero; no phase's error
 is caught):
   1. device    -- the card (nvidia-smi name and power limit), torch, CUDA;
-  2. build     -- nvcc builds the six kernels (grad_fused, fwd,
-                  minf_fused, grad_prb_fused, adj, adj_probe) from
-                  tikejax_torch/csrc, one process per source, in parallel;
+  2. build     -- nvcc builds the nine kernels (grad_fused, fwd,
+                  minf_fused, grad_prb_fused, adj, adj_probe, adj_residual,
+                  fwd_quad_stats, ls_objectives) from tikejax_torch/csrc,
+                  one process per source, in parallel;
   3. kernel    -- each kernel against its plain PyTorch version on a small
                   awkward case (2 angles, 2 modes, odd sizes, a masked
                   position, both models) and at the headline frame size:
                   grad_fused with and without a base, fwd with and without
                   a base and as split views, minf_fused with and without a
-                  base, grad_prb_fused, adj and adj_probe (the two probe
-                  reductions also bitwise repeatable); kernel and plain
-                  times at the headline size beside each kernel's bound;
+                  base, grad_prb_fused, adj, adj_probe, adj_residual,
+                  fwd_quad_stats for the object and the probe direction and
+                  ls_objectives at 17 steps (the probe reductions,
+                  fwd_quad_stats and ls_objectives also bitwise
+                  repeatable); kernel and plain times at the headline size
+                  beside each kernel's bound;
   4. solver    -- a small problem against the CPU complex128 oracle solver;
   5. main      -- the headline problem (512^2 object, 16384 positions, 128^2
                   probe and detector, Gaussian, solver defaults) through
@@ -31,7 +35,17 @@ is caught):
                   reached, fwd must freeze every base and make every
                   Anderson candidate, grad_fused must run every evaluation,
                   and no plain version may run;
-  7. frameless -- 4 modes x 16384 positions x 128^2 (an 8.6 GB farplane,
+  7. materialized -- the headline through solvers.run(memory=
+                  'materialized'), 100 iterations: fwd, adj_residual and
+                  fwd_quad_stats once an iteration, no grad_fused or
+                  minf_fused, the residual fallen tenfold, peak extra
+                  memory below G psi, the three statistics planes and
+                  0.5 GiB;
+  8. fused-ls  -- the same with fused_linesearch=True: two fwd, one
+                  adj_residual and one ls_objectives an iteration, no
+                  fwd_quad_stats, the residual fallen tenfold, peak extra
+                  memory below two farplanes and 0.5 GiB;
+  9. frameless -- 4 modes x 16384 positions x 128^2 (an 8.6 GB farplane,
                   past the 3 GiB threshold): first grad_fused, minf_fused
                   and fwd(split_out=True), each with and without a base
                   given as split views, against their plain versions at
@@ -41,7 +55,7 @@ is caught):
                   minf_fused twice per step, the residual must fall, and
                   peak extra memory must stay below one base farplane plus
                   1.5 GiB;
-  8. joint     -- BASELINE config 3 (512^2 object, 4096 positions, 128^2
+ 10. joint     -- BASELINE config 3 (512^2 object, 4096 positions, 128^2
                   probe and detector, Poisson) through solvers.run(
                   recover_prb=True) for 128 iterations from psi0 = ones and
                   a probe perturbed by complex Gaussian noise at 3% of its
@@ -51,13 +65,18 @@ is caught):
                   grad_fused and grad_prb_fused must launch once an
                   iteration and minf_fused once a candidate, and peak extra
                   memory must stay below 256 MiB (frameless);
-  9. stream    -- the JAX package's quick start on the port: the same
+ 11. materialized -- the same problem and start through run(
+                  recover_prb=True, memory='materialized') for 64
+                  iterations: adj_residual and adj_probe once an iteration,
+                  fwd and fwd_quad_stats twice, objective and probe error
+                  fallen, peak extra memory below 2 GiB;
+ 12. stream    -- the JAX package's quick start on the port: the same
                   problem, Gaussian, recover_prb=True, nchunks=4, 128
                   iterations: fwd, adj and adj_probe must launch on every
                   chunk pass, the objective must fall, and peak extra
                   memory must stay below the streamed statistics and two
                   chunk farplanes (1.25 GiB);
- 10. joint-deep -- the same problem (Gaussian) through reconstruct(
+ 13. joint-deep -- the same problem (Gaussian) through reconstruct(
                   recover_prb=True) with its defaults to a 1e-6 residual:
                   a fused:joint stage 1, the fused_hp:joint escalation
                   chain, grad_prb_fused once a joint iteration, the target
@@ -97,6 +116,8 @@ FRAMELESS_KW = dict(tiers=(("fused", 5e-3, 64),), segment=32,
 SCALE_CHUNK = 2048  # positions per plain-version chunk at 4 modes: 1 GiB
 CONFIG3 = dict(nz=512, n=512, nscan=4096, ndet=128, nprb=128)
 JOINT_ITERS = 128
+MATERIALIZED_JOINT_ITERS = 64
+MATERIALIZED_JOINT_PEAK = 2 * 2**30
 STREAM_CHUNKS = 4
 # The streamed (a, b, c) statistics of all positions (3 x 4096 x 128^2 x
 # 4 B = 0.75 GiB) plus two chunk farplanes (0.25 GiB) and some slack.
@@ -122,7 +143,14 @@ KERNEL_SOURCES = {
     "adj": ("tikejax_torch/csrc/adj.cu", "tikejax/ops/pallas_fused.py:759"),
     "adj_probe": ("tikejax_torch/csrc/adj_probe.cu",
                   "tikejax/ops/pallas_fused.py:866"),
+    "adj_residual": ("tikejax_torch/csrc/adj_residual.cu",
+                     "tikejax/ops/pallas_fused.py:1011"),
+    "fwd_quad_stats": ("tikejax_torch/csrc/fwd_quad_stats.cu",
+                       "tikejax/ops/pallas_fused.py:1123"),
+    "ls_objectives": ("tikejax_torch/csrc/ls_objectives.cu",
+                      "tikejax/ops/pallas_linesearch.py:65"),
 }
+LS_STEPS = [0.5 ** k for k in range(17)]  # the solver's default K
 
 
 def log(phase: str, msg: str) -> None:
@@ -219,6 +247,52 @@ def compare_adjoints(torch, fused, far, scan_i, prb, psi):
     return a_err, p_err
 
 
+def compare_adj_residual(torch, fused, far, data, scan_i, prb, nz, n,
+                         model):
+    """adj_residual against its plain version, its objective bitwise
+    repeatable: (grad err, minf err, abs err)."""
+    g_k, f_k = fused.adj_residual(far, data, scan_i, prb, nz, n, model)
+    f_2 = fused.adj_residual(far, data, scan_i, prb, nz, n, model)[1]
+    g_r, f_r = fused.adj_residual_reference(far, data, scan_i, prb, nz, n,
+                                            model)
+    g_err, abs_err = rel_err(torch, g_k, g_r)
+    f_err = abs(float(f_k) - float(f_r)) / abs(float(f_r))
+    check(bool(torch.isfinite(g_k).all()) and g_err <= GRAD_TOL
+          and f_err <= MINF_TOL, ("adj_residual", model, g_err, f_err))
+    check(float(f_k) == float(f_2), "adj_residual's objective is not "
+          "bitwise repeatable")
+    return g_err, f_err, abs_err
+
+
+def compare_quad_stats(torch, fused, x, scan_i, p, fpsi):
+    """fwd_quad_stats against its plain version (each of a, b, c within
+    FAR_TOL of its scale) and bitwise repeatable: (worst err, abs err)."""
+    got = fused.fwd_quad_stats(x, scan_i, p, fpsi)
+    again = fused.fwd_quad_stats(x, scan_i, p, fpsi)
+    ref = fused.fwd_quad_stats_reference(x, scan_i, p, fpsi)
+    errs = [rel_err(torch, t, r) for t, r in zip(got, ref)]
+    check(all(bool(torch.isfinite(t).all()) for t in got)
+          and max(e for e, _ in errs) <= FAR_TOL, ("fwd_quad_stats", errs))
+    check(all(torch.equal(t, u) for t, u in zip(got, again)),
+          "fwd_quad_stats is not bitwise repeatable")
+    return max(e for e, _ in errs), max(a for _, a in errs)
+
+
+def compare_ls(torch, linesearch, fpsi, fd, data, model):
+    """ls_objectives at LS_STEPS against its plain version, each value
+    within MINF_TOL, and bitwise repeatable: (worst err, abs err)."""
+    v_k = linesearch.ls_objectives(fpsi, fd, data, LS_STEPS, model)
+    v_2 = linesearch.ls_objectives(fpsi, fd, data, LS_STEPS, model)
+    v_r = linesearch.ls_objectives_reference(fpsi, fd, data, LS_STEPS,
+                                             model)
+    torch.cuda.synchronize()
+    err = float(((v_k - v_r).abs() / v_r.abs()).max())
+    check(bool(torch.isfinite(v_k).all()) and err <= MINF_TOL,
+          ("ls_objectives", model, err))
+    check(torch.equal(v_k, v_2), "ls_objectives is not bitwise repeatable")
+    return err, float((v_k - v_r).abs().max())
+
+
 def compare_at_scale(torch, fused, g, psi, data, scan_i, prb, base, chunk):
     """The kernels at full size, where the base's and the farplane's float
     offsets pass 2**31, against their plain versions taken over chunks of
@@ -292,6 +366,14 @@ def fft_flops(scan_i, nmodes: int, ndet: int, dfts: int) -> float:
     return dfts * frames * nmodes * 5 * n * math.log2(n)
 
 
+def ls_flops(data, nmodes: int, steps: int) -> float:
+    """fp32 operations of ls_objectives on ``data``'s pixels: a, b, c (12
+    a mode), max(d, 0) and sqrt(d) (2), and per step two FMAs, the clamp,
+    the square root (or logarithm), a difference, a square and the sum
+    (9)."""
+    return data.numel() * (12 * nmodes + 2 + 9 * steps)
+
+
 def bound(flops: float, moved: int):
     """(ms, what bounds it): the least time the card could take for
     ``flops`` fp32 operations at the SIMT peak and ``moved`` bytes (each
@@ -316,7 +398,7 @@ def main() -> None:
 
     from tikejax_torch import Geometry
     from tikejax_torch.models import make_problem
-    from tikejax_torch.ops import fused
+    from tikejax_torch.ops import fused, linesearch
     from tikejax_torch.ops.patches import scan_to_int
     from tikejax_torch.solvers import cg, reconstruct, run
     from tikejax_torch.utils import cuda_build
@@ -353,6 +435,8 @@ def main() -> None:
     # The bases and perturbations of this phase come from their own
     # stream, so that the problems of the later phases stay the same.
     gen2 = torch.Generator(device=dev).manual_seed(SEED + 1)
+    # The directions of the materialized kernels' checks, likewise.
+    gen4 = torch.Generator(device=dev).manual_seed(SEED + 3)
 
     def crandn(*shape, generator=gen):
         return torch.complex(
@@ -389,6 +473,24 @@ def main() -> None:
                                               prb_s, psi_s)
     log("kernel", f"small {small}: adj err {a_err:.2e}, adj_probe err "
         f"{p_err:.2e} (bitwise repeatable)")
+    far_s = fused.fwd(psi_s, scan_si, prb_s, small.ndet)
+    dpsi_s = 0.1 * crandn(*small.psi_shape, generator=gen4)
+    dprb_s = 0.1 * crandn(*small.prb_shape, generator=gen4)
+    fd_s = fused.fwd(dpsi_s, scan_si, prb_s, small.ndet)
+    for model in ("gaussian", "poisson"):
+        ar_err, arf_err, _ = compare_adj_residual(
+            torch, fused, far_s, data_s, scan_si, prb_s, small.nz, small.n,
+            model)
+        ls_err, _ = compare_ls(torch, linesearch, far_s, fd_s, data_s, model)
+        log("kernel", f"small {small} {model}: adj_residual grad/minf err "
+            f"{ar_err:.2e}/{arf_err:.2e}; ls_objectives err {ls_err:.2e} "
+            f"at {len(LS_STEPS)} steps (bitwise repeatable)")
+    q_errs = [compare_quad_stats(torch, fused, x, scan_si, p, far_s)[0]
+              for x, p in ((dpsi_s, prb_s), (psi_s, dprb_s))]
+    log("kernel", f"small {small}: fwd_quad_stats err {q_errs[0]:.2e} "
+        f"(object direction), {q_errs[1]:.2e} (probe direction), bitwise "
+        "repeatable")
+    del far_s, fd_s
 
     g = Geometry(**HEADLINE)
     _, scan, prb, data = make_problem(gen, g, device=dev)
@@ -481,9 +583,56 @@ def main() -> None:
             f"{ms:.3f} ms ({flops / 2 / ms / 1e9:.1f} TFLOP/s fp32), plain "
             f"{plain_ms:.3f} ms, bound {bounds[name][0]:.3f} ms, median of "
             f"10 on {card}")
+    # The materialized mode's kernels on G psi_r and a direction.
+    far = fused.fwd(psi_r, scan_i, prb, g.ndet)
+    dpsi_h = 0.05 * crandn(*g.psi_shape, generator=gen4)
+    ar_err, arf_err, ar_abs = compare_adj_residual(
+        torch, fused, far, data, scan_i, prb, g.nz, g.n, "gaussian")
+    ms = median_ms(torch, lambda: fused.adj_residual(
+        far, data, scan_i, prb, g.nz, g.n, "gaussian"), 10)
+    plain_ms = median_ms(torch, lambda: fused.adj_residual_reference(
+        far, data, scan_i, prb, g.nz, g.n, "gaussian"), 10)
+    results["adj_residual"] = (ar_abs, ms, plain_ms)
+    bounds["adj_residual"] = bound(fft_flops(scan_i, g.nmodes, g.ndet, 1),
+                                   nbytes(far, data, scan_i, prb, psi_r) + 4)
+    log("kernel", f"headline {g} adj_residual: grad/minf err {ar_err:.2e}/"
+        f"{arf_err:.2e}; kernel {ms:.3f} ms ({flops / 2 / ms / 1e9:.1f} "
+        f"TFLOP/s fp32), plain {plain_ms:.3f} ms, bound "
+        f"{bounds['adj_residual'][0]:.3f} ms, median of 10 on {card}")
+    q_err, q_abs = compare_quad_stats(torch, fused, dpsi_h, scan_i, prb, far)
+    ms = median_ms(torch, lambda: fused.fwd_quad_stats(dpsi_h, scan_i, prb,
+                                                       far), 10)
+    plain_ms = median_ms(torch, lambda: fused.fwd_quad_stats_reference(
+        dpsi_h, scan_i, prb, far), 10)
+    results["fwd_quad_stats"] = (q_abs, ms, plain_ms)
+    bounds["fwd_quad_stats"] = bound(
+        fft_flops(scan_i, g.nmodes, g.ndet, 1),
+        nbytes(dpsi_h, scan_i, prb, far) + 3 * nbytes(data))
+    log("kernel", f"headline {g} fwd_quad_stats: err {q_err:.2e} (bitwise "
+        f"repeatable); kernel {ms:.3f} ms ({flops / 2 / ms / 1e9:.1f} "
+        f"TFLOP/s fp32), plain {plain_ms:.3f} ms, bound "
+        f"{bounds['fwd_quad_stats'][0]:.3f} ms, median of 10 on {card}")
+    fd = fused.fwd(dpsi_h, scan_i, prb, g.ndet)
+    ls_err, ls_abs = compare_ls(torch, linesearch, far, fd, data, "gaussian")
+    ms = median_ms(torch, lambda: linesearch.ls_objectives(
+        far, fd, data, LS_STEPS, "gaussian"), 10)
+    plain_ms = median_ms(torch, lambda: linesearch.ls_objectives_reference(
+        far, fd, data, LS_STEPS, "gaussian"), 10)
+    # One step: the same read of both farplanes and the data, so the
+    # difference is the per-step work.
+    one_ms = median_ms(torch, lambda: linesearch.ls_objectives(
+        far, fd, data, LS_STEPS[:1], "gaussian"), 10)
+    results["ls_objectives"] = (ls_abs, ms, plain_ms)
+    bounds["ls_objectives"] = bound(
+        ls_flops(data, g.nmodes, len(LS_STEPS)),
+        nbytes(far, fd, data) + 8 * len(LS_STEPS))
+    log("kernel", f"headline {g} ls_objectives at {len(LS_STEPS)} steps: "
+        f"err {ls_err:.2e} (bitwise repeatable); kernel {ms:.3f} ms (at one "
+        f"step {one_ms:.3f} ms), plain {plain_ms:.3f} ms, bound "
+        f"{bounds['ls_objectives'][0]:.3f} ms, median of 10 on {card}")
     log("kernel", "bounds (ms, by): " + ", ".join(
         f"{k} {v[0]:.3f} {v[1]}" for k, v in bounds.items()))
-    del base, psi_r, args
+    del base, psi_r, args, far, fd, dpsi_h
 
     # -- 4. small solve against the CPU oracle ----------------------------
     sg = Geometry(nz=96, n=96, nscan=64, ndet=32, nprb=24)
@@ -504,10 +653,14 @@ def main() -> None:
         f"{rel:.2e} of the CPU complex128 oracle solver")
 
     counters = [fused.grad_fused, fused.fwd, fused.minf_fused,
-                fused.grad_prb_fused, fused.adj, fused.adj_probe]
+                fused.grad_prb_fused, fused.adj, fused.adj_probe,
+                fused.adj_residual, fused.fwd_quad_stats,
+                linesearch.ls_objectives]
     plain = [fused.grad_fused_reference, fused.fwd_reference,
              fused.minf_fused_reference, fused.grad_prb_fused_reference,
-             fused.adj_reference, fused.adj_probe_reference]
+             fused.adj_reference, fused.adj_probe_reference,
+             fused.adj_residual_reference, fused.fwd_quad_stats_reference,
+             linesearch.ls_objectives_reference]
 
     def reset_counts():
         for fn in counters + plain:
@@ -601,9 +754,75 @@ def main() -> None:
         f"{split_iters / split_s:.2f} iters/s ({split_iters} iters in "
         f"{split_s:.3f} s), stage 1 {timed[-len(stages)]:.3f} s, peak "
         f"extra memory {peak / 2**30:.3f} GiB, launches {deep}, on {card}")
-    del psi, stages, data, scan, prb
+    del psi, stages
 
-    # -- 7. frameless: 4 modes, the memory-bound safeguard -----------------
+    # -- 7. materialized: G psi kept, fwd + adj_residual + fwd_quad_stats ---
+    far_bytes = math.prod(g.farplane_shape) * 8
+    mat_peak = far_bytes + 3 * nbytes(data) + 2**29
+    run(data, psi0, scan, prb, g, piter=3, memory="materialized")  # warm-up
+    held = reset_counts()
+    t0 = time.perf_counter()
+    psi, _, m = run(data, psi0, scan, prb, g, piter=MAIN_ITERS,
+                    memory="materialized")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - held
+    mat = {fn.__name__: fn.launches for fn in counters}
+    check(all(fn.launches == 0 for fn in plain), "plain version ran")
+    iters = int(m["iters_run"])
+    res = m["residual"][:iters].cpu()
+    check(psi.shape == g.psi_shape and bool(torch.isfinite(psi).all()),
+          "psi shape or finiteness")
+    check(mat["fwd"] == mat["adj_residual"] == mat["fwd_quad_stats"]
+          == iters > 0, mat)
+    check(mat["grad_fused"] == mat["minf_fused"]
+          == mat["ls_objectives"] == 0, mat)
+    check(float(res[-1]) <= 0.1 * float(res[0]), res)
+    check(peak < mat_peak, f"peak extra memory {peak} bytes")
+    log("materialized", f"{g} gaussian, run(memory='materialized'), {iters} "
+        f"iters in {seconds:.3f} s: {iters / seconds:.2f} iters/s, "
+        f"{1e3 * seconds / iters:.2f} ms/iter, "
+        f"{m['evaluations'] / iters:.2f} evals/iter, "
+        f"{m['host_syncs'] / iters:.2f} host syncs/iter, residual "
+        f"{float(res[0]):.4e} -> {float(res[-1]):.4e}, peak extra memory "
+        f"{peak / 2**30:.3f} GiB (limit {mat_peak / 2**30:.2f}), launches "
+        f"{mat}, on {card}")
+    del psi, m
+
+    # -- 8. fused-ls: one ls_objectives pass a line search -----------------
+    fls_peak = 2 * far_bytes + 2**29
+    run(data, psi0, scan, prb, g, piter=3, memory="materialized",
+        fused_linesearch=True)  # warm-up
+    held = reset_counts()
+    t0 = time.perf_counter()
+    psi, _, m = run(data, psi0, scan, prb, g, piter=MAIN_ITERS,
+                    memory="materialized", fused_linesearch=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - held
+    fls = {fn.__name__: fn.launches for fn in counters}
+    check(all(fn.launches == 0 for fn in plain), "plain version ran")
+    iters = int(m["iters_run"])
+    res = m["residual"][:iters].cpu()
+    check(psi.shape == g.psi_shape and bool(torch.isfinite(psi).all()),
+          "psi shape or finiteness")
+    check(fls["ls_objectives"] == fls["adj_residual"] == iters > 0
+          and fls["fwd"] == 2 * iters, fls)
+    check(fls["fwd_quad_stats"] == fls["grad_fused"] == fls["minf_fused"]
+          == 0, fls)
+    check(float(res[-1]) <= 0.1 * float(res[0]), res)
+    check(peak < fls_peak, f"peak extra memory {peak} bytes")
+    log("fused-ls", f"{g} gaussian, run(memory='materialized', "
+        f"fused_linesearch=True), {iters} iters in {seconds:.3f} s: "
+        f"{iters / seconds:.2f} iters/s, {1e3 * seconds / iters:.2f} "
+        f"ms/iter, {m['evaluations'] / iters:.2f} evals/iter, "
+        f"{m['host_syncs'] / iters:.2f} host syncs/iter, residual "
+        f"{float(res[0]):.4e} -> {float(res[-1]):.4e}, peak extra memory "
+        f"{peak / 2**30:.3f} GiB (limit {fls_peak / 2**30:.2f}), launches "
+        f"{fls}, on {card}")
+    del psi, m, data, scan, prb
+
+    # -- 9. frameless: 4 modes, the memory-bound safeguard -----------------
     g4 = Geometry(**FRAMELESS)
     _, scan4, prb4, data4 = make_problem(gen, g4, device=dev)
     psi4 = torch.ones(g4.psi_shape, dtype=torch.complex64, device=dev)
@@ -653,7 +872,7 @@ def main() -> None:
 
     del psi4, st4, data4, scan4, prb4
 
-    # -- 8. joint: BASELINE config 3 through run(recover_prb=True) ---------
+    # -- 10. joint: BASELINE config 3 through run(recover_prb=True) --------
     g3 = Geometry(**CONFIG3)
     _, scan3, prb3, data3 = make_problem(gen, g3, device=dev)
     # The perturbation comes from its own generator (3% of max|prb|).
@@ -708,7 +927,43 @@ def main() -> None:
         f"{peak / 2**20:.1f} MiB, launches {joint}, on {card}")
     del psi, prb_j, m
 
-    # -- 9. stream: the quick start, nchunks = 4 ----------------------------
+    # -- 11. materialized, joint: config 3 with G psi kept ------------------
+    run(data3, psi3, scan3, prb3_p, g3, piter=2, model="poisson",
+        recover_prb=True, memory="materialized")  # warm-up
+    held = reset_counts()
+    t0 = time.perf_counter()
+    psi, prb_m, m = run(data3, psi3, scan3, prb3_p, g3,
+                        piter=MATERIALIZED_JOINT_ITERS, model="poisson",
+                        recover_prb=True, memory="materialized")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - held
+    matj = {fn.__name__: fn.launches for fn in counters}
+    check(all(fn.launches == 0 for fn in plain), "plain version ran")
+    iters = int(m["iters_run"])
+    minf = m["minf"][:iters].cpu()
+    res = m["residual"][:iters].cpu()
+    check(bool(torch.isfinite(psi).all() and torch.isfinite(prb_m).all()),
+          "psi or prb finiteness")
+    check(float(minf[-1]) < float(minf[0]), minf)
+    check(probe_err(prb_m) < err0, (probe_err(prb_m), err0))
+    check(matj["adj_residual"] == matj["adj_probe"] == iters > 0
+          and matj["fwd"] == matj["fwd_quad_stats"] == 2 * iters, matj)
+    check(matj["grad_fused"] == matj["grad_prb_fused"] == matj["minf_fused"]
+          == matj["ls_objectives"] == 0, matj)
+    check(peak < MATERIALIZED_JOINT_PEAK, f"peak extra memory {peak} bytes")
+    log("materialized", f"{g3} poisson, run(recover_prb=True, memory="
+        f"'materialized'), {iters} iters in {seconds:.3f} s: "
+        f"{iters / seconds:.2f} iters/s, {m['evaluations'] / iters:.2f} "
+        f"evals/iter, {m['host_syncs'] / iters:.2f} host syncs/iter, "
+        f"residual {float(res[0]):.4e} -> {float(res[-1]):.4e}, probe error "
+        f"{err0:.4e} -> {probe_err(prb_m):.4e} (raw {raw_err(prb3_p):.4e} "
+        f"-> {raw_err(prb_m):.4e}), peak extra memory "
+        f"{peak / 2**30:.3f} GiB (limit "
+        f"{MATERIALIZED_JOINT_PEAK / 2**30:.2f}), launches {matj}, on {card}")
+    del psi, prb_m, m
+
+    # -- 12. stream: the quick start, nchunks = 4 ---------------------------
     run(data3, psi3, scan3, prb3_p, g3, piter=2, recover_prb=True,
         nchunks=STREAM_CHUNKS)  # warm-up
     held = reset_counts()
@@ -730,7 +985,9 @@ def main() -> None:
     check(stream["adj"] == stream["adj_probe"] == passes > 0
           and stream["fwd"] == 6 * passes, (stream, passes))
     check(stream["grad_fused"] == stream["grad_prb_fused"]
-          == stream["minf_fused"] == 0, stream)
+          == stream["minf_fused"] == stream["adj_residual"]
+          == stream["fwd_quad_stats"] == stream["ls_objectives"] == 0,
+          stream)
     check(peak < STREAM_PEAK, f"peak extra memory {peak} bytes")
     log("stream", f"{g3} gaussian, run(recover_prb=True, nchunks="
         f"{STREAM_CHUNKS}), {iters} iters in {seconds:.3f} s: "
@@ -743,7 +1000,7 @@ def main() -> None:
         f"{STREAM_PEAK / 2**30:.2f}), launches {stream}, on {card}")
     del psi, prb_s, m
 
-    # -- 10. joint-deep: reconstruct(recover_prb=True) to 1e-6 --------------
+    # -- 13. joint-deep: reconstruct(recover_prb=True) to 1e-6 --------------
     held = reset_counts()
     t0 = time.perf_counter()
     psi, prb_d, stages = reconstruct(data3, psi3, scan3, prb3_p, g3,
@@ -786,10 +1043,14 @@ def main() -> None:
     launches = {"grad_fused": deep["grad_fused"], "fwd": deep["fwd"],
                 "minf_fused": frameless["minf_fused"],
                 "grad_prb_fused": joint["grad_prb_fused"],
-                "adj": stream["adj"], "adj_probe": stream["adj_probe"]}
+                "adj": stream["adj"], "adj_probe": stream["adj_probe"],
+                "adj_residual": mat["adj_residual"],
+                "fwd_quad_stats": mat["fwd_quad_stats"],
+                "ls_objectives": fls["ls_objectives"]}
     paths = {"grad_fused": "deep", "fwd": "deep", "minf_fused": "frameless",
              "grad_prb_fused": "joint", "adj": "stream",
-             "adj_probe": "stream"}
+             "adj_probe": "stream", "adj_residual": "materialized",
+             "fwd_quad_stats": "materialized", "ls_objectives": "fused-ls"}
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src, "replaces": tpu,
         "launches": launches[name], "path": paths[name],

@@ -142,9 +142,6 @@ def test_ported_options_mirror_jax():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(memory="materialized", recover_prb=True),
-    dict(fused_linesearch=True, nchunks=2),
-    dict(memory="materialized"), dict(fused_linesearch=True),
     dict(precondition="illum_lowk"), dict(axis_name="scan"),
     dict(obj_slabs=2), dict(linesearch="parabolic"), dict(kernel="pallas"),
 ], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items())[:40])

@@ -1,5 +1,6 @@
 """The CUDA kernels ``grad_fused`` (with and without a base), ``fwd``,
-``minf_fused``, ``grad_prb_fused``, ``adj`` and ``adj_probe`` against their
+``minf_fused``, ``grad_prb_fused``, ``adj``, ``adj_probe``,
+``adj_residual``, ``fwd_quad_stats`` and ``ls_objectives`` against their
 plain PyTorch versions, on the card. Marked ``cuda``: without a CUDA device
 every test here skips. On a machine with a card (the JAX package need not
 be installed there):
@@ -10,8 +11,9 @@ be installed there):
 Tolerances: the JAX package's fused parity bound for the gradients, the
 adjoints and the farplane (1e-4 of their scale) and 1e-5 relative for the
 objective -- both sides are fp32 and sum in different orders. The probe
-reductions (``grad_prb_fused``, ``adj_probe``) are bitwise reproducible;
-the object scatters (``grad_fused``, ``adj``) only up to summation order.
+reductions (``grad_prb_fused``, ``adj_probe``), ``fwd_quad_stats`` and
+``ls_objectives`` are bitwise reproducible; the object scatters
+(``grad_fused``, ``adj``, ``adj_residual``) only up to summation order.
 """
 
 import pytest
@@ -19,7 +21,7 @@ import torch
 
 from tikejax_torch import Geometry
 from tikejax_torch.models import make_problem
-from tikejax_torch.ops import diffraction, fused
+from tikejax_torch.ops import diffraction, fused, linesearch
 from tikejax_torch.ops.patches import scan_to_int
 
 pytestmark = pytest.mark.cuda
@@ -245,3 +247,112 @@ def test_fused_operators_launch_the_kernels(dev):
                                                        g.nprb, "xla"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         diffraction.adj_raw(ref, scan_i, prb, g.nz, g.n, "pallas")
+
+
+# -- the materialized mode's kernels: adj_residual, fwd_quad_stats,
+# ls_objectives ---------------------------------------------------------------
+
+GAMMAS = [0.5 ** k for k in range(17)]
+
+
+def materialized_inputs(g, dev):
+    """psi, data, scan (one masked position), prb, the farplane G psi and
+    small object and probe directions."""
+    psi, data, scan_i, prb = inputs(g, dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def crandn(shape):
+        return 0.1 * torch.complex(
+            torch.randn(shape, generator=gen, device=dev),
+            torch.randn(shape, generator=gen, device=dev))
+
+    fpsi = fused.fwd_reference(psi, scan_i, prb, g.ndet)
+    return psi, data, scan_i, prb, fpsi, crandn(g.psi_shape), crandn(
+        g.prb_shape)
+
+
+@pytest.mark.parametrize("model", ["gaussian", "poisson"])
+@pytest.mark.parametrize("g", GEOMS, ids=str)
+def test_adj_residual_matches_plain_version(dev, g, model):
+    psi, data, scan_i, prb, fpsi, _, _ = materialized_inputs(g, dev)
+    launches = fused.adj_residual.launches
+    g_k, f_k = fused.adj_residual(fpsi, data, scan_i, prb, g.nz, g.n, model)
+    g_r, f_r = fused.adj_residual_reference(fpsi, data, scan_i, prb, g.nz,
+                                            g.n, model)
+    assert fused.adj_residual.launches == launches + 1
+    assert g_k.dtype == torch.complex64 and g_k.shape == g.psi_shape
+    assert close(g_k, g_r)
+    assert abs(float(f_k) - float(f_r)) <= 1e-5 * abs(float(f_r))
+    again = fused.adj_residual(fpsi, data, scan_i, prb, g.nz, g.n, model)
+    assert float(again[1]) == float(f_k)  # the objective is bitwise
+
+
+@pytest.mark.parametrize("which", ["object", "probe"])
+@pytest.mark.parametrize("g", GEOMS, ids=str)
+def test_fwd_quad_stats_matches_plain_version(dev, g, which):
+    psi, _, scan_i, prb, fpsi, dpsi, dprb = materialized_inputs(g, dev)
+    x, p = (dpsi, prb) if which == "object" else (psi, dprb)
+    launches = fused.fwd_quad_stats.launches
+    got = fused.fwd_quad_stats(x, scan_i, p, fpsi)
+    ref = fused.fwd_quad_stats_reference(x, scan_i, p, fpsi)
+    assert fused.fwd_quad_stats.launches == launches + 1
+    for t, r in zip(got, ref):
+        assert t.dtype == torch.float32 and t.shape == g.data_shape
+        assert close(t, r)
+    masked = scan_i[..., 0] < 0
+    assert all(float(t[masked].abs().max()) == 0.0 for t in got)
+    again = fused.fwd_quad_stats(x, scan_i, p, fpsi)
+    assert all(torch.equal(t, u) for t, u in zip(got, again))
+
+
+@pytest.mark.parametrize("model", ["gaussian", "poisson"])
+@pytest.mark.parametrize("g", GEOMS, ids=str)
+def test_ls_objectives_matches_plain_version(dev, g, model):
+    psi, data, scan_i, prb, fpsi, dpsi, _ = materialized_inputs(g, dev)
+    fd = fused.fwd_reference(dpsi, scan_i, prb, g.ndet)
+    launches = linesearch.ls_objectives.launches
+    got = linesearch.ls_objectives(fpsi, fd, data, GAMMAS, model)
+    ref = linesearch.ls_objectives_reference(fpsi, fd, data, GAMMAS, model)
+    assert linesearch.ls_objectives.launches == launches + 1
+    assert got.dtype == torch.float32 and got.shape == (len(GAMMAS),)
+    assert float(((got - ref).abs() / ref.abs()).max()) <= 1e-5
+    again = linesearch.ls_objectives(fpsi, fd, data, GAMMAS, model)
+    assert torch.equal(got, again)  # bitwise reproducible
+
+
+def test_ls_objectives_takes_1_to_33_steps(dev):
+    g = GEOMS[1]
+    psi, data, scan_i, prb, fpsi, _, _ = materialized_inputs(g, dev)
+    for k in (1, 33):
+        steps = [0.9 ** j for j in range(k)]
+        got = linesearch.ls_objectives(fpsi, fpsi, data, steps, "gaussian")
+        ref = linesearch.ls_objectives_reference(fpsi, fpsi, data, steps,
+                                                 "gaussian")
+        assert float(((got - ref).abs() / ref.abs()).max()) <= 1e-5
+    with pytest.raises(ValueError, match="steps"):
+        linesearch.ls_objectives(fpsi, fpsi, data, [0.5] * 34, "gaussian")
+
+
+def test_materialized_run_launches_the_kernels(dev):
+    """run(memory='materialized'), with and without the fused line search,
+    goes through the kernels and never through a plain version."""
+    from tikejax_torch.solvers import run
+
+    g = GEOMS[1]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    _, scan, prb, data = make_problem(gen, g, device=dev)
+    psi0 = torch.ones(g.psi_shape, dtype=torch.complex64, device=dev)
+    fns = [fused.fwd, fused.adj_residual, fused.fwd_quad_stats,
+           linesearch.ls_objectives]
+    plain = [fused.fwd_reference, fused.adj_residual_reference,
+             fused.fwd_quad_stats_reference,
+             linesearch.ls_objectives_reference]
+    for fls, expect in ((False, [1, 1, 1, 0]), (True, [2, 1, 0, 1])):
+        k0, p0 = [f.launches for f in fns], [f.launches for f in plain]
+        _, _, m = run(data, psi0, scan, prb, g, piter=8,
+                      memory="materialized", fused_linesearch=fls)
+        n = int(m["iters_run"])
+        assert [f.launches - b for f, b in zip(fns, k0)] == [
+            e * n for e in expect]
+        assert [f.launches for f in plain] == p0
+        assert float(m["minf"][n - 1]) < float(m["minf"][0])

@@ -212,11 +212,9 @@ def test_frameless_safeguard_reproduces_the_reuse_safeguard(problem,
 
 
 @pytest.mark.parametrize("kw", [
-    dict(mesh=object()), dict(memory="materialized"),
-    dict(fused_linesearch=True), dict(precondition="illum_lowk"),
+    dict(mesh=object()), dict(precondition="illum_lowk"),
     dict(obj_slabs=2), dict(fast_kernel="pallas")],
-    ids=["mesh", "materialized", "fused_linesearch", "illum_lowk",
-         "obj_slabs", "pallas"])
+    ids=["mesh", "illum_lowk", "obj_slabs", "pallas"])
 def test_unported_arguments_raise(problem, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_run(problem, **BASE, **kw)

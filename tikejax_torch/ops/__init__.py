@@ -1,6 +1,7 @@
 """Operator layer: patch gather/scatter, batched FFT, diffraction fwd/adj,
-and the fused kernels (``ops.fused``: grad_fused, minf_fused, fwd,
-grad_prb_fused, adj, adj_probe)."""
+the fused kernels (``ops.fused``: grad_fused, minf_fused, fwd,
+grad_prb_fused, adj, adj_probe, adj_residual, fwd_quad_stats) and the fused
+line search (``ops.linesearch``: ls_objectives)."""
 
 from tikejax_torch.ops.diffraction import (Ptycho, adj_probe_raw, adj_raw,
                                            fwd, fwd_raw)

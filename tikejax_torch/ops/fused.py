@@ -1,5 +1,6 @@
 """Fused operators: the hand-written ``grad_fused``, ``fwd``,
-``minf_fused``, ``grad_prb_fused``, ``adj`` and ``adj_probe`` kernels.
+``minf_fused``, ``grad_prb_fused``, ``adj``, ``adj_probe``,
+``adj_residual`` and ``fwd_quad_stats`` kernels.
 
 Counterpart of ``tikejax.ops.pallas_fused`` for the kernels that the solver
 and ``reconstruct`` run. The first four gather the object patch of every
@@ -38,6 +39,18 @@ They are the fused tiers' operator-level adjoints
 (``diffraction.adj_raw`` / ``adj_probe_raw``), which the streamed gradient
 pass runs chunk by chunk.
 
+Two more serve the materialized memory mode of the solver, which keeps
+``G psi`` in memory between the forward pass and the gradient tail:
+
+* ``adj_residual`` (replaces ``adj_residual``, ``_adj_residual_kernel``)
+  is ``grad_fused``'s second half reading that farplane: the likelihood
+  factor and objective, the inverse DFT, the conj-probe multiply, the mode
+  sum and the scatter into the object gradient;
+* ``fwd_quad_stats`` (replaces ``fwd_quad_stats``, ``_fwd_quad_kernel``)
+  is ``fwd``'s forward frame of a direction, reduced at once against the
+  held farplane into the line search's per-pixel statistics ``a``, ``b``,
+  ``c`` (the direction farplane is never stored).
+
 ``grad_fused``, ``grad_prb_fused`` and ``minf_fused`` never allocate a
 farplane or a nearplane, which is why they exist: at 16384 positions of
 128^2 the farplane alone is 2.1 GB (8.6 GB with 4 modes).
@@ -69,12 +82,13 @@ with plain fp32 multiply-adds, which meets or beats every tier's accuracy,
 so every ``fused*`` tier maps to them and the ``precision`` /
 ``adj_precision`` tags are accepted and ignored.
 
-Determinism: the object scatters (``grad_fused``, ``adj``) use fp32
-atomics, deterministic up to summation order. The probe reductions
-(``grad_prb_fused``, ``adj_probe``) add each block's frames into a
-block-owned partial without atomics and sum the partials over the blocks in
-a fixed order, so they are bitwise reproducible, as is every objective
-(summed in double in a fixed order).
+Determinism: the object scatters (``grad_fused``, ``adj``,
+``adj_residual``) use fp32 atomics, deterministic up to summation order.
+The probe reductions (``grad_prb_fused``, ``adj_probe``) add each block's
+frames into a block-owned partial without atomics and sum the partials over
+the blocks in a fixed order, so they are bitwise reproducible, as is every
+objective (summed in double in a fixed order) and ``fwd_quad_stats`` (no
+reduction over frames).
 
 Each function takes CPU or CUDA tensors. On a CUDA tensor it launches its
 kernel or raises; on a CPU tensor it runs its ``*_reference``, the plain
@@ -342,6 +356,88 @@ def adj_probe_reference(farplane: torch.Tensor, scan_int: torch.Tensor,
 adj_probe_reference.launches = 0
 
 
+def adj_residual(farplane: torch.Tensor, data: torch.Tensor,
+                 scan_int: torch.Tensor, prb: torch.Tensor, nz: int, n: int,
+                 model: str, precision=None):
+    """The gradient tail from a farplane held in memory, in one pass: the
+    likelihood factor and objective of ``farplane`` ``(ntheta, nscan,
+    nmodes, ndet, ndet)`` against ``data``, the inverse DFT of ``factor *
+    farplane``, the conj-probe multiply, the mode sum and the overlap
+    scatter. A masked position (scan row < 0) adds nothing to either
+    output. ``precision`` is the JAX package's tier tag, ignored.
+
+    Returns:
+      (grad ``(ntheta, nz, n)`` like ``farplane``, minf ``()`` real), with
+      ``grad = G^H(factor * farplane)`` (no factor 2).
+    """
+    _check_model(model)
+    if not _route("adj_residual", farplane):
+        return adj_residual_reference(farplane, data, scan_int, prb, nz, n,
+                                      model)
+    return _adj_residual_cuda(farplane, data, scan_int, prb, nz, n, model)
+
+
+adj_residual.launches = 0
+
+
+def adj_residual_reference(farplane: torch.Tensor, data: torch.Tensor,
+                           scan_int: torch.Tensor, prb: torch.Tensor,
+                           nz: int, n: int, model: str, precision=None):
+    """Plain PyTorch version of :func:`adj_residual`: the likelihood
+    residual, the oracle adjoint and the objective over the unmasked
+    positions."""
+    adj_residual_reference.launches += 1
+    minf_fn, resid_fn = likelihoods.get_model(model)
+    grad = diffraction.adj_raw(resid_fn(farplane, data), scan_int, prb, nz,
+                               n, kernel="xla")
+    return grad, _valid_minf(minf_fn, farplane, data, scan_int)
+
+
+adj_residual_reference.launches = 0
+
+
+def fwd_quad_stats(dpsi: torch.Tensor, scan_int: torch.Tensor,
+                   prb: torch.Tensor, fpsi: torch.Tensor, precision=None):
+    """Line-search statistics in one pass: the farplane ``fd`` of
+    ``(dpsi, prb)``, reduced against the held farplane ``fpsi``
+    ``(ntheta, nscan, nmodes, ndet, ndet)`` into the per-pixel
+    coefficients of ``|fpsi + gamma fd|^2`` summed over the modes,
+
+        a = sum_m |fpsi|^2,  b = sum_m Re(conj(fpsi) fd),  c = sum_m |fd|^2,
+
+    without storing ``fd``. For the probe direction pass ``(psi, dprb)``
+    in place of ``(dpsi, prb)``. At a masked position (scan row < 0) the
+    direction frame is zero and ``a`` is masked. ``precision`` is the JAX
+    package's tier tag, ignored.
+
+    Returns:
+      (a, b, c), each ``(ntheta, nscan, ndet, ndet)`` real.
+    """
+    if not _route("fwd_quad_stats", dpsi):
+        return fwd_quad_stats_reference(dpsi, scan_int, prb, fpsi)
+    return _fwd_quad_stats_cuda(dpsi, scan_int, prb, fpsi)
+
+
+fwd_quad_stats.launches = 0
+
+
+def fwd_quad_stats_reference(dpsi: torch.Tensor, scan_int: torch.Tensor,
+                             prb: torch.Tensor, fpsi: torch.Tensor,
+                             precision=None):
+    """Plain PyTorch version of :func:`fwd_quad_stats`: the oracle forward
+    of the direction and the three statistics, ``a`` masked."""
+    fwd_quad_stats_reference.launches += 1
+    fd = diffraction.fwd_raw(dpsi, scan_int, prb, fpsi.shape[-1],
+                             kernel="xla")
+    valid = (scan_int[..., 0] >= 0)[..., None, None]
+    a = likelihoods.total_intensity(fpsi) * valid
+    b = torch.sum((torch.conj(fpsi) * fd).real, dim=2)
+    return a, b, likelihoods.total_intensity(fd)
+
+
+fwd_quad_stats_reference.launches = 0
+
+
 def _valid_minf(minf_fn, far, data, scan_int):
     """The objective over the positions whose scan row is >= 0."""
     valid = scan_int[..., 0] >= 0
@@ -364,6 +460,12 @@ _ARGTYPES = {
     "adj": ("tk_adj", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8),
     "adj_probe": ("tk_adj_probe", [ctypes.c_void_p] * 6
                   + [ctypes.c_int] * 8),
+    "adj_residual": ("tk_adj_residual", [ctypes.c_void_p] * 7
+                     + [ctypes.c_int] * 9 + [ctypes.c_int64]),
+    "fwd_quad_stats": ("tk_fwd_quad_stats", [ctypes.c_void_p] * 8
+                       + [ctypes.c_int] * 8),
+    "ls_objectives": ("tk_ls_objectives", [ctypes.c_void_p] * 6
+                      + [ctypes.c_int64] + [ctypes.c_int] * 5),
 }
 
 
@@ -653,3 +755,66 @@ def _adj_probe_cuda(farplane, scan_int, psi, nprb):
     _check("adj_probe", err, "kernel launch")
     adj_probe.launches += 1
     return out
+
+
+def _adj_residual_cuda(farplane, data, scan_int, prb, nz, n, model):
+    t, s, nmodes, ndet = _check_farplane("adj_residual", farplane, scan_int,
+                                         prb, "prb", (farplane.shape[0],
+                                                      farplane.shape[2]))
+    _check_types("adj_residual", {"farplane": (farplane, torch.complex64),
+                                  "data": (data, torch.float32)})
+    if data.shape != (t, s, ndet, ndet):
+        raise ValueError(f"adj_residual: inconsistent shapes farplane "
+                         f"{tuple(farplane.shape)}, data {tuple(data.shape)}")
+    nprb = prb.shape[-1]
+    _check_sizes("adj_residual", nprb, ndet)
+    lib = _lib("adj_residual")
+    dev = _device_index(farplane)
+    stride = 2 * nprb * ndet + ndet * ndet  # floats: p x d complex, d x d
+    stride += stride % 2
+    grid = _grid("adj_residual", dev, t * s, ndet, False, 4 * stride)
+    farplane, prb = farplane.contiguous(), prb.contiguous()
+    data, scan_int = data.contiguous(), scan_int.contiguous()
+    grad = torch.zeros((t, nz, n), dtype=torch.complex64,
+                       device=farplane.device)
+    scratch = torch.empty(grid * stride, dtype=torch.float32,
+                          device=farplane.device)
+    partial = torch.empty(grid, dtype=torch.float64, device=farplane.device)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.tk_adj_residual(
+            farplane.data_ptr(), data.data_ptr(), prb.data_ptr(),
+            scan_int.data_ptr(), grad.data_ptr(), scratch.data_ptr(),
+            partial.data_ptr(), t, s, nz, n, nmodes, nprb, ndet,
+            _MODEL_CODE[model], grid, stride, stream)
+    _check("adj_residual", err, "kernel launch")
+    adj_residual.launches += 1
+    return grad, partial.sum().to(torch.float32)
+
+
+def _fwd_quad_stats_cuda(dpsi, scan_int, prb, fpsi):
+    t, s, nmodes, ndet = _check_farplane("fwd_quad_stats", fpsi, scan_int,
+                                         prb, "prb", (fpsi.shape[0],
+                                                      fpsi.shape[2]))
+    _, nz, n, _, nprb, _ = _check_inputs("fwd_quad_stats", dpsi, scan_int,
+                                         prb, ndet)
+    lib = _lib("fwd_quad_stats")
+    dev = _device_index(fpsi)
+    grid = _grid("fwd_quad_stats", dev, t * s, ndet, False,
+                 8 * nprb * ndet)
+    dpsi, prb = dpsi.contiguous(), prb.contiguous()
+    fpsi, scan_int = fpsi.contiguous(), scan_int.contiguous()
+    a, b, c = torch.empty((3, t, s, ndet, ndet), dtype=torch.float32,
+                          device=fpsi.device)
+    scratch = torch.empty(2 * grid * nprb * ndet, dtype=torch.float32,
+                          device=fpsi.device)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.tk_fwd_quad_stats(
+            dpsi.data_ptr(), prb.data_ptr(), scan_int.data_ptr(),
+            fpsi.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
+            scratch.data_ptr(), t, s, nz, n, nmodes, nprb, ndet, grid,
+            stream)
+    _check("fwd_quad_stats", err, "kernel launch")
+    fwd_quad_stats.launches += 1
+    return a, b, c

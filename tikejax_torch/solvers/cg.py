@@ -6,23 +6,32 @@ defaults), the same Dai-Yuan and two-loop L-BFGS directions, warm-started
 backtracking (or interpolating) line search, illumination preconditioners,
 stopping rules and metrics, joint object+probe recovery (an object step,
 then a Dai-Yuan probe step at the updated object), position streaming
-(``nchunks``), the split-operator mode (``f_base``) and the carried CG
-state (``cg_init`` / ``carry_state`` / ``carry_lbfgs``) that
-``solvers.reconstruct`` threads across its refinement segments. Three loop
-bodies, as in the JAX package:
+(``nchunks``), the split-operator mode (``f_base``), the two memory
+regimes (``memory``), the fused one-pass line search
+(``fused_linesearch``) and the carried CG state (``cg_init`` /
+``carry_state`` / ``carry_lbfgs``) that ``solvers.reconstruct`` threads
+across its refinement segments. Three loop bodies, as in the JAX package:
 
-* the MERGED body (the main path on CUDA, ``kernel='fused*'``, object-only
-  and unstreamed): every line-search candidate is evaluated by one
-  ``grad_fused`` pass, which returns the objective and the gradient
+* the MERGED body (the main path on CUDA, ``kernel='fused*'``, frameless,
+  object-only and unstreamed): every line-search candidate is evaluated by
+  one ``grad_fused`` pass, which returns the objective and the gradient
   together, so the accepted candidate's gradient seeds the next iteration;
 * the frameless CLASSIC body (``kernel='fused*'`` with
-  ``merged_linesearch='off'`` or ``recover_prb``): one ``grad_fused`` pass
-  (and for the probe step one ``grad_prb_fused`` pass) per iteration, then
-  a line search that evaluates every candidate with one ``minf_fused``
-  pass -- nothing farplane-sized is allocated;
-* the materialized CLASSIC body (``kernel='xla'``, the 'auto' choice off
-  CUDA): a gradient pass through the oracle operators, then a line search
-  on the quadratic statistics of the two farplanes.
+  ``merged_linesearch='off'``, ``recover_prb`` or ``fused_linesearch``):
+  one ``grad_fused`` pass (and for the probe step one ``grad_prb_fused``
+  pass) per iteration, then a line search that evaluates every candidate
+  with one ``minf_fused`` pass -- nothing farplane-sized is allocated;
+* the materialized CLASSIC body (``memory='materialized'`` on the fused
+  tiers, and ``kernel='xla'``, the 'auto' choice off CUDA): the farplane
+  ``G psi`` (plus the base) is kept between the gradient pass and the line
+  search. On the fused tiers the object gradient is one ``fwd`` and one
+  ``adj_residual`` pass, the probe gradient ``fwd`` then ``adj_probe``, and
+  the line search evaluates its candidates on the per-pixel statistics
+  ``(a, b, c)`` that one ``fwd_quad_stats`` pass makes from ``G psi`` and
+  the direction -- or, with ``fused_linesearch``, takes the first accepted
+  of all ``max_halvings + 1`` steps from one ``ls_objectives`` pass over
+  ``G psi`` and the direction's farplane (``fwd``). On ``'xla'`` both passes
+  run the oracle operators.
 
 With ``nchunks > 1`` the classic body streams both passes over
 ``nchunks`` chunks of positions: the gradient pass sums the chunks'
@@ -39,26 +48,29 @@ line-search candidate (plus the directional derivative when the 'interp'
 step needs it, the three curvature products of an L-BFGS pair after an
 accepted step, and two scalars at the start). Everything array-valued
 stays on the device. ``metrics['host_syncs']`` counts the reads and
-``metrics['evaluations']`` the objective evaluations. The scalar slots of
+``metrics['evaluations']`` the objective evaluations; a fused line search
+(one ``ls_objectives`` pass) counts as one evaluation and one read, since
+it reads its K values at once. The scalar slots of
 the carried state (steps, the L-BFGS curvature ring and count) are host
 values, kept as 0-d or 1-d CPU tensors.
 
 Not ported (each raises NotImplementedError naming ROADMAP.md):
-``memory='materialized'``, the fused line search,
-``precondition='illum_lowk'``, mesh axes, the slab fields and the TPU slab
-planner / compile-retry ladder (``run`` calls ``run_impl`` directly).
+``linesearch='parabolic'``, ``precondition='illum_lowk'``,
+``kernel='pallas'``, mesh axes, the slab fields and the TPU slab planner /
+compile-retry ladder (``run`` calls ``run_impl`` directly).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
 
 from tikejax_torch.geometry import Geometry
 from tikejax_torch.models import likelihoods
-from tikejax_torch.ops import diffraction, fused
+from tikejax_torch.ops import diffraction, fused, linesearch
 from tikejax_torch.ops import patches as _patches
 
 
@@ -88,6 +100,16 @@ class CGOptions:
       step_policy: 'regrow' (start from min(step0, growth * previous
         accepted step)), 'track' (grow only after an outright accept) or
         'auto' (= 'regrow').
+      fused_linesearch: evaluate the whole backtracking candidate set
+        {gamma0 * step_shrink^k, k = 0..max_halvings} in one
+        ``ls_objectives`` pass over the two farplanes and take the first
+        step that does not raise the objective (gamma = 0 if none), instead
+        of the candidate-by-candidate search; the 'interp' step plays no
+        part in it. It applies only in the materialized regime, unstreamed,
+        on a fused tier; it also switches the merged body off (so in the
+        frameless regime it runs the classic body, one ``minf_fused`` pass
+        per candidate). Off by default, as in the JAX package, which
+        measured it slower on its TPU.
       target_residual: stop once the relative residual reaches this
         (0 disables).
       direction: 'auto' (= 'dy' here; ``solvers.reconstruct`` resolves it
@@ -107,7 +129,10 @@ class CGOptions:
         must divide nscan): the gradient pass never holds more than one
         chunk's farplane, and the line search keeps the quadratic
         statistics of every chunk.
-      memory: 'auto' or 'frameless' (no farplane on the fused path).
+      memory: 'frameless' (the fused kernels never store a farplane),
+        'materialized' (keep ``G psi`` in memory between the forward pass
+        and the gradient tail, for the line search to reuse) or 'auto'
+        (frameless on the fused tiers; 'xla' has no frameless path).
       merged_linesearch: 'auto' (evaluate every candidate with its
         gradient on the fused path) or 'off' (on the fused path: one
         gradient pass per iteration and one ``minf_fused`` pass per
@@ -130,6 +155,7 @@ class CGOptions:
     adaptive_step: bool = True
     step_growth: float = 4.0
     step_policy: str = "auto"
+    fused_linesearch: bool = False
     target_residual: float = 0.0
     direction: str = "auto"
     stop_on_stall: int = 2
@@ -148,7 +174,7 @@ _UNPORTED_FIELDS = {
     "axis_name": None,
     "theta_axis_name": None, "obj_axis_name": None, "obj_halo": 0,
     "obj_axis_size": 1, "verbose_every": 0, "lowk_boost": 4.0,
-    "lowk_frac": 0.05, "fused_linesearch": False, "obj_slabs": 1,
+    "lowk_frac": 0.05, "obj_slabs": 1,
     "obj_slabs_partitioned": False, "obj_slab_rows": None,
     "obj_slab_cols": 1, "kernel_frames": None,
 }
@@ -212,6 +238,13 @@ def _quad_stats(fpsi, fd):
     return a, b, c
 
 
+def _direction_pair(psi, prb, dpsi, dprb):
+    """(object, probe) whose farplane is the direction's: G is linear in
+    each, so the object direction is (dpsi, prb), the probe direction
+    (psi, dprb)."""
+    return (dpsi, prb) if dpsi is not None else (psi, dprb)
+
+
 def _minf_of_gamma(model, a, b, c, data, gamma):
     """Objective at psi + gamma*d from quadratic statistics."""
     intensity = torch.clamp_min(a + 2.0 * gamma * b + gamma * gamma * c, 0.0)
@@ -252,9 +285,7 @@ class _Engine:
             raise ValueError(f"unknown precondition {o.precondition!r}; "
                              "expected 'illum', 'illum_lowk', 'max', or "
                              "'none'")
-        if o.memory == "materialized":
-            raise _not_ported("memory='materialized'")
-        if o.memory not in ("auto", "frameless"):
+        if o.memory not in ("auto", "materialized", "frameless"):
             raise ValueError(f"unknown memory policy {o.memory!r}")
         if o.linesearch == "parabolic":
             raise _not_ported("linesearch='parabolic'")
@@ -287,11 +318,20 @@ class _Engine:
             deep = self.kernel in ("fused_mp", "fused_hp", "fused_mx",
                                    "fused_hx")
             self.ls = "backtracking" if deep else "interp"
-        self.merged = (o.merged_linesearch == "auto" and self.fused
-                       and o.nchunks == 1 and not o.recover_prb)
+        # 'auto' is frameless on the fused tiers; 'xla' has no frameless
+        # path.
+        self.frameless = o.memory == "frameless" or (o.memory == "auto"
+                                                     and self.fused)
+        self.merged = (o.merged_linesearch == "auto" and self.frameless
+                       and o.nchunks == 1 and not o.recover_prb
+                       and self.ls in ("backtracking", "interp")
+                       and not o.fused_linesearch and self.fused)
+        # The one-pass line search needs both farplanes in memory.
+        self.fused_linesearch = (o.fused_linesearch and o.nchunks == 1
+                                 and not self.frameless and self.fused)
         # Split-operator mode: psi is a small correction on a frozen base
         # whose farplane f_base was computed once with an accurate kernel.
-        if f_base is not None and o.memory == "frameless" and not self.fused:
+        if f_base is not None and self.frameless and not self.fused:
             raise ValueError("frameless split-operator mode needs the "
                              "fused kernels")
         if f_base is not None and o.recover_prb:
@@ -335,25 +375,35 @@ class _Engine:
                   want_prb=False):
         """(minf, raw object gradient, raw probe gradient, farplane or
         None) at ``psi``: the gradients not asked for are None. On the
-        fused tiers, unstreamed, one ``grad_fused`` or ``grad_prb_fused``
-        pass; otherwise the operators, summed over the chunks in order (the
-        JAX package's ``lax.scan``) with one chunk's farplane at a time,
-        and unstreamed the farplane ``G psi + base`` is returned for the
-        line search to reuse."""
+        fused tiers, unstreamed: frameless, one ``grad_fused`` or
+        ``grad_prb_fused`` pass; materialized, the object gradient is the
+        farplane ``G psi + base`` (one ``fwd`` pass with the base epilogue)
+        and one ``adj_residual`` pass over it. Otherwise the operators,
+        summed over the chunks in order (the JAX package's ``lax.scan``)
+        with one chunk's farplane at a time. Unstreamed and materialized,
+        the farplane is returned for the line search to reuse."""
         self.evaluations += 1
         o = self.o
         if self.fused and o.nchunks == 1:
             adj_precision = diffraction._fused_adj_precision(self.kernel)
-            if not want_prb:
+            if not want_prb and self.frameless:
                 grad, f0 = fused.grad_fused(
                     psi, data, scan_i, prb, self.g.ndet, o.model,
                     precision=self.precision, adj_precision=adj_precision,
                     base=self.f_base)
                 return f0, grad, None, None
-            gprb, f0 = fused.grad_prb_fused(
-                psi, data, scan_i, prb, self.g.ndet, o.model,
-                precision=self.precision, adj_precision=adj_precision)
-            return f0, None, gprb, None
+            if not want_prb:
+                fpsi = fused.fwd(psi, scan_i, prb, self.g.ndet,
+                                 precision=self.precision, base=self.f_base)
+                grad, f0 = fused.adj_residual(
+                    fpsi, data, scan_i, prb, self.g.nz, self.g.n, o.model,
+                    precision=adj_precision)
+                return f0, grad, None, fpsi
+            if self.frameless:
+                gprb, f0 = fused.grad_prb_fused(
+                    psi, data, scan_i, prb, self.g.ndet, o.model,
+                    precision=self.precision, adj_precision=adj_precision)
+                return f0, None, gprb, None
         f0 = torch.zeros((), dtype=psi.real.dtype, device=psi.device)
         gpsi = torch.zeros_like(psi) if want_psi else None
         gprb = torch.zeros_like(prb) if want_prb else None
@@ -362,8 +412,10 @@ class _Engine:
             fp = self._fwd(psi, sc, prb)
             if fb is not None:
                 fp = fp + fb
-            f0 = f0 + self.minf_fn(fp, dc)
-            r = self.resid_fn(fp, dc)
+            # Over chunks of positions: no data-sized temporary beside the
+            # farplane and its residual.
+            f0 = f0 + _sum_over_positions(self.minf_fn, fp, dc)
+            r = _map_over_positions(self.resid_fn, fp, dc)
             if o.nchunks == 1:
                 fpsi = fp
             del fp  # streamed: one chunk's farplane at a time
@@ -393,9 +445,10 @@ class _Engine:
         ``minf_fused`` pass per candidate on the frameless fused path;
         else the quadratic statistics of the farplane ``fpsi`` (or of every
         chunk's, streamed) and of the direction's farplane, computed here
-        once and evaluated per candidate."""
+        once (materialized on a fused tier, by one ``fwd_quad_stats``
+        pass) and evaluated per candidate over chunks of positions."""
         o = self.o
-        if self.fused and o.nchunks == 1:
+        if self.fused and o.nchunks == 1 and self.frameless:
             if dpsi is not None:
                 def f_of(gamma):
                     return self.host(self.minf_pass(psi + gamma * dpsi, prb,
@@ -406,29 +459,67 @@ class _Engine:
                                                     scan_i, data)), None
             return f_of
 
-        def fwd_dir(sc):
-            return (self._fwd(dpsi, sc, prb) if dpsi is not None
-                    else self._fwd(psi, sc, dprb))
-
-        if o.nchunks == 1:
-            stats = [(_quad_stats(fpsi, fwd_dir(scan)), data)]
+        x, p = _direction_pair(psi, prb, dpsi, dprb)
+        if self.fused and o.nchunks == 1:
+            stats = [(fused.fwd_quad_stats(x, scan_i, p, fpsi,
+                                           precision=self.precision), data)]
+        elif o.nchunks == 1:
+            stats = [(_quad_stats(fpsi, self._fwd(x, scan, p)), data)]
         else:
             stats = []
             for sc, dc, fb in self._chunks(scan, data):
                 fp = self._fwd(psi, sc, prb)
                 if fb is not None:
                     fp = fp + fb
-                stats.append((_quad_stats(fp, fwd_dir(sc)), dc))
+                stats.append((_quad_stats(fp, self._fwd(x, sc, p)), dc))
                 del fp
 
         def f_of(gamma):
             self.evaluations += 1
-            total = 0.0
-            for (a, b, c), dc in stats:
-                total = total + _minf_of_gamma(o.model, a, b, c, dc, gamma)
+            minf_at = functools.partial(_minf_of_gamma, o.model, gamma=gamma)
+            total = sum(_sum_over_positions(minf_at, a, b, c, dc)
+                        for (a, b, c), dc in stats)
             return self.host(total), None
 
         return f_of
+
+    def searcher(self, psi, prb, scan, scan_i, data, fpsi, dpsi=None,
+                 dprb=None):
+        """``search(f0, gamma0, fp0)`` -> the accepted step along the object
+        direction ``dpsi`` or the probe direction ``dprb``: the fused
+        one-pass search (:meth:`line_search_all`) on the direction's
+        farplane and ``fpsi`` when it applies, else :meth:`line_search`
+        over :meth:`line_fn`. The closure holds what the search reads (the
+        statistics, or both farplanes), so the caller may drop ``fpsi``."""
+        if self.fused_linesearch:
+            x, p = _direction_pair(psi, prb, dpsi, dprb)
+            fd = self._fwd(x, scan_i, p)
+            return lambda f0, gamma0, fp0: self.line_search_all(
+                fpsi, fd, data, f0, gamma0)
+        f_of = self.line_fn(psi, prb, scan, scan_i, data, fpsi, dpsi, dprb)
+        return lambda f0, gamma0, fp0: self.line_search(f_of, f0, gamma0,
+                                                        fp0)[0]
+
+    def line_search_all(self, fpsi, fd, data, f0, gamma0):
+        """One-pass line search: the objectives of the whole backtracking
+        candidate set {gamma0 * shrink^k, k = 0..max_halvings} (float32, as
+        in the JAX package) from one ``ls_objectives`` pass over the two
+        farplanes and the data, read on the host at once; the first step
+        whose objective does not exceed ``f0`` wins, gamma = 0 if none
+        does. Counts one evaluation and one host read."""
+        o = self.o
+        f32 = torch.float32
+        gammas = torch.tensor(gamma0, dtype=f32) * torch.tensor(
+            o.step_shrink, dtype=f32) ** torch.arange(o.max_halvings + 1,
+                                                       dtype=f32)
+        self.evaluations += 1
+        self.syncs += 1
+        values = linesearch.ls_objectives(fpsi, fd, data, gammas,
+                                          o.model).tolist()
+        for gamma, f in zip(gammas.tolist(), values):
+            if f <= f0:
+                return gamma
+        return 0.0
 
     # -- step control ----------------------------------------------------
 
@@ -573,11 +664,27 @@ def _sum_over_positions(fn, *arrays, chunk_bytes=16 * 2**20):
     the largest array of the problem: 1 GiB at 16384 frames of 128^2; a
     few chunk-sized temporaries stay far below the joint path's 256 MiB
     of working memory at 4096 frames)."""
+    return sum(fn(*chunks) for chunks in _position_chunks(arrays,
+                                                          chunk_bytes))
+
+
+def _map_over_positions(fn, far, data, chunk_bytes=16 * 2**20):
+    """``fn(far, data)`` for a farplane-shaped result, computed over chunks
+    of scan positions into one output, so that no data-sized temporary is
+    allocated beside it (see :func:`_sum_over_positions`)."""
+    out = torch.empty_like(far)
+    for o, f, d in _position_chunks((out, far, data), chunk_bytes):
+        o.copy_(fn(f, d))
+    return out
+
+
+def _position_chunks(arrays, chunk_bytes):
+    """Matching chunks of scan positions (axis 1) of ``arrays``, each
+    chunk of the largest array about ``chunk_bytes``."""
     frame_bytes = max(a.shape[0] * a[0, 0].numel() * a.element_size()
                       for a in arrays)
     step = max(1, chunk_bytes // frame_bytes)
-    return sum(fn(*chunks) for chunks in zip(
-        *(a.split(step, dim=1) for a in arrays)))
+    return zip(*(a.split(step, dim=1) for a in arrays))
 
 
 def _probe_power(prb):
@@ -738,10 +845,11 @@ def run_impl(geometry: Geometry, options: CGOptions, data, psi0, scan, prb0,
             f_iter = eng.host(f_t)
             g_iter = precond(g_raw, prb)
             d, gamma0 = direction(g_iter)
-            f_of = eng.line_fn(psi, prb, scan, scan_i, data, fpsi, dpsi=d)
+            search = eng.searcher(psi, prb, scan, scan_i, data, fpsi,
+                                  dpsi=d)
             del fpsi
-            gamma, _, _ = eng.line_search(f_of, f_iter, gamma0, fp0)
-            del f_of  # the line-search statistics
+            gamma = search(f_iter, gamma0, fp0)
+            del search  # the line-search statistics or farplanes
             if gamma != 0.0:
                 psi = psi + gamma * d
             g_prev = g_iter
@@ -756,13 +864,12 @@ def run_impl(geometry: Geometry, options: CGOptions, data, psi0, scan, prb0,
                 gp = precond_prb(gp_raw, psi)
                 d_prb = eng.dy_direction(gp, g_prb_prev, d_prb)
                 gamma0_p = eng.gamma0(gam_p_prev, gam0_p_prev)
-                f_of = eng.line_fn(psi, prb, scan, scan_i, data, fpsi,
-                                   dprb=d_prb)
+                search = eng.searcher(psi, prb, scan, scan_i, data, fpsi,
+                                      dprb=d_prb)
                 del fpsi
-                gamma_p, _, _ = eng.line_search(
-                    f_of, f_p, gamma0_p,
-                    lambda: 2.0 * eng.host(_rdot(gp_raw, d_prb)))
-                del f_of
+                gamma_p = search(f_p, gamma0_p,
+                                 lambda: 2.0 * eng.host(_rdot(gp_raw, d_prb)))
+                del search
                 if gamma_p != 0.0:
                     prb = prb + gamma_p * d_prb
                 g_prb_prev = gp
@@ -840,9 +947,10 @@ def run(data, psi0, scan, prb0, geometry: Geometry,
       sqrt(max(minf - minf_perfect, 0) / sum(data)). 'host_syncs' counts
       the scalars the loop read on the host, 'evaluations' the objective
       evaluations (gradient passes, object and probe, and line-search
-      candidates: on the fused tiers the ``grad_fused``,
-      ``grad_prb_fused`` and ``minf_fused`` passes); 'cg_state' the
-      carried state under ``carry_state``.
+      candidates: on the frameless fused tiers the ``grad_fused``,
+      ``grad_prb_fused`` and ``minf_fused`` passes; a fused line search
+      counts once and reads its K values in one host read); 'cg_state'
+      the carried state under ``carry_state``.
     """
     for name, default in _UNPORTED_FIELDS.items():
         if name in kw:
