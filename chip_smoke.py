@@ -8,21 +8,26 @@ CPU path: without a card, or without the repository beside it, it fails.
 Phases, one line each or more (any failure exits non-zero; no phase's error
 is caught):
   1. device    -- the card (nvidia-smi name and power limit), torch, CUDA;
-  2. build     -- nvcc builds the nine kernels (grad_fused, fwd,
+  2. build     -- nvcc builds the twelve kernels (grad_fused, fwd,
                   minf_fused, grad_prb_fused, adj, adj_probe, adj_residual,
-                  fwd_quad_stats, ls_objectives) from tikejax_torch/csrc,
-                  one process per source, in parallel;
+                  fwd_quad_stats, ls_objectives, gather_probe_mul,
+                  scatter_conj_probe, adj_probe_reduce) from
+                  tikejax_torch/csrc, one process per source, in parallel;
   3. kernel    -- each kernel against its plain PyTorch version on a small
                   awkward case (2 angles, 2 modes, odd sizes, a masked
                   position, both models) and at the headline frame size:
                   grad_fused with and without a base, fwd with and without
                   a base and as split views, minf_fused with and without a
                   base, grad_prb_fused, adj, adj_probe, adj_residual,
-                  fwd_quad_stats for the object and the probe direction and
-                  ls_objectives at 17 steps (the probe reductions,
-                  fwd_quad_stats and ls_objectives also bitwise
-                  repeatable); kernel and plain times at the headline size
-                  beside each kernel's bound;
+                  fwd_quad_stats for the object and the probe direction,
+                  ls_objectives at 17 steps, and the hybrid tier's
+                  gather_probe_mul, scatter_conj_probe and adj_probe_reduce
+                  (the adjoints on the strided crop of 72^2 frames to
+                  56^2); the probe reductions, fwd_quad_stats,
+                  ls_objectives, gather_probe_mul and adj_probe_reduce also
+                  bitwise repeatable, scatter_conj_probe (fp32 atomics)
+                  repeatable to 1e-5 of scale; kernel and plain times at
+                  the headline size beside each kernel's bound;
   4. solver    -- a small problem against the CPU complex128 oracle solver;
   5. main      -- the headline problem (512^2 object, 16384 positions, 128^2
                   probe and detector, Gaussian, solver defaults) through
@@ -45,17 +50,25 @@ is caught):
                   adj_residual and one ls_objectives an iteration, no
                   fwd_quad_stats, the residual fallen tenfold, peak extra
                   memory below two farplanes and 0.5 GiB;
-  9. frameless -- 4 modes x 16384 positions x 128^2 (an 8.6 GB farplane,
+  9. hybrid    -- the headline through solvers.run(kernel='pallas'), 100
+                  iterations: cuFFT between gather_probe_mul (at least
+                  twice an iteration) and scatter_conj_probe (once), no
+                  fused kernel and no plain version, the residual fallen
+                  tenfold, peak extra memory below G psi, the direction's
+                  farplane, the three statistics planes, one cuFFT
+                  workspace and 0.5 GiB;
+ 10. frameless -- 4 modes x 16384 positions x 128^2 (an 8.6 GB farplane,
                   past the 3 GiB threshold): first grad_fused, minf_fused
                   and fwd(split_out=True), each with and without a base
-                  given as split views, against their plain versions at
+                  given as split views, and the three hybrid kernels,
+                  against their plain versions at
                   this full size (float offsets past 2^31); then
                   reconstruct at a cut depth: the frameless Anderson
                   safeguard must launch
                   minf_fused twice per step, the residual must fall, and
                   peak extra memory must stay below one base farplane plus
                   1.5 GiB;
- 10. joint     -- BASELINE config 3 (512^2 object, 4096 positions, 128^2
+ 11. joint     -- BASELINE config 3 (512^2 object, 4096 positions, 128^2
                   probe and detector, Poisson) through solvers.run(
                   recover_prb=True) for 128 iterations from psi0 = ones and
                   a probe perturbed by complex Gaussian noise at 3% of its
@@ -65,22 +78,32 @@ is caught):
                   grad_fused and grad_prb_fused must launch once an
                   iteration and minf_fused once a candidate, and peak extra
                   memory must stay below 256 MiB (frameless);
- 11. materialized -- the same problem and start through run(
+ 12. materialized -- the same problem and start through run(
                   recover_prb=True, memory='materialized') for 64
                   iterations: adj_residual and adj_probe once an iteration,
                   fwd and fwd_quad_stats twice, objective and probe error
                   fallen, peak extra memory below 2 GiB;
- 12. stream    -- the JAX package's quick start on the port: the same
+ 13. stream    -- the JAX package's quick start on the port: the same
                   problem, Gaussian, recover_prb=True, nchunks=4, 128
                   iterations: fwd, adj and adj_probe must launch on every
                   chunk pass, the objective must fall, and peak extra
                   memory must stay below the streamed statistics and two
                   chunk farplanes (1.25 GiB);
- 13. joint-deep -- the same problem (Gaussian) through reconstruct(
+ 14. joint-deep -- the same problem (Gaussian) through reconstruct(
                   recover_prb=True) with its defaults to a 1e-6 residual:
                   a fused:joint stage 1, the fused_hp:joint escalation
                   chain, grad_prb_fused once a joint iteration, the target
-                  reached and the probe error fallen.
+                  reached and the probe error fallen;
+ 15. facade    -- the same problem (Poisson) and start as phase 11, handed
+                  over as NUMPY arrays to compat.CGPtychoSolver(...,
+                  kernel='pallas').run(recover_prb=True, piter=64): numpy
+                  comes back, objective and probe error fall, per iteration
+                  four gather_probe_mul, one scatter_conj_probe and one
+                  adj_probe_reduce launch; the facade's fwd/adj/adj_probe
+                  adjoint identities to 1e-5 on the small awkward case;
+ 16. options   -- precondition='illum_lowk' and linesearch='parabolic', 32
+                  iterations each on the hybrid tier at config 3's size
+                  (Gaussian): the objective falls.
 No phase may run a plain version on the main path.
 The line before the last is the card's nvidia-smi line; before it, one JSON
 line describing each kernel; the last line is the JSON result.
@@ -149,7 +172,20 @@ KERNEL_SOURCES = {
                        "tikejax/ops/pallas_fused.py:1123"),
     "ls_objectives": ("tikejax_torch/csrc/ls_objectives.cu",
                       "tikejax/ops/pallas_linesearch.py:65"),
+    "gather_probe_mul": ("tikejax_torch/csrc/gather_probe_mul.cu",
+                         "tikejax/ops/pallas_kernels.py:261"),
+    "scatter_conj_probe": ("tikejax_torch/csrc/scatter_conj_probe.cu",
+                           "tikejax/ops/pallas_kernels.py:349"),
+    "adj_probe_reduce": ("tikejax_torch/csrc/adj_probe_reduce.cu",
+                         "tikejax/ops/pallas_kernels.py:436"),
 }
+# Two runs of the atomic scatter, of scale: each object pixel sums about a
+# thousand overlapping patches in an order that changes from run to run,
+# ~sqrt(1000) x fp32 epsilon = 2e-6 of its value (1.02e-6 of scale seen).
+SCATTER_REPEAT = 1e-5
+HYBRID_ITERS = 100
+FACADE_ITERS = 64
+OPTION_ITERS = 32
 LS_STEPS = [0.5 ** k for k in range(17)]  # the solver's default K
 
 
@@ -354,6 +390,76 @@ def compare_at_scale(torch, fused, g, psi, data, scan_i, prb, base, chunk):
             for k, v in errs.items()}
 
 
+def compare_hybrid(torch, kernels, psi, scan_i, prb, frames):
+    """gather_probe_mul, scatter_conj_probe and adj_probe_reduce against
+    their plain versions; ``frames`` (t, s, m, p, p), possibly a strided
+    crop, feeds the two adjoints. The gather and the probe reduction must
+    be bitwise repeatable, two runs of the scatter within SCATTER_REPEAT of
+    scale (fp32 atomics: deterministic up to summation order). Returns
+    {kernel: (relative error, absolute error)}."""
+    nz, n = psi.shape[-2:]
+    g_k = kernels.gather_probe_mul(psi, scan_i, prb)
+    s_k = kernels.scatter_conj_probe(frames, scan_i, prb, nz, n)
+    p_k = kernels.adj_probe_reduce(frames, scan_i, psi)
+    errs = {
+        "gather_probe_mul": rel_err(
+            torch, g_k, kernels.gather_probe_mul_reference(psi, scan_i, prb)),
+        "scatter_conj_probe": rel_err(
+            torch, s_k, kernels.scatter_conj_probe_reference(
+                frames, scan_i, prb, nz, n)),
+        "adj_probe_reduce": rel_err(
+            torch, p_k, kernels.adj_probe_reduce_reference(frames, scan_i,
+                                                           psi)),
+    }
+    for name, out in (("gather_probe_mul", g_k), ("scatter_conj_probe", s_k),
+                      ("adj_probe_reduce", p_k)):
+        check(bool(torch.isfinite(out).all())
+              and errs[name][0] <= GRAD_TOL, (name, errs[name]))
+    check(torch.equal(g_k, kernels.gather_probe_mul(psi, scan_i, prb)),
+          "gather_probe_mul is not bitwise repeatable")
+    check(torch.equal(p_k, kernels.adj_probe_reduce(frames, scan_i, psi)),
+          "adj_probe_reduce is not bitwise repeatable")
+    again = rel_err(torch, kernels.scatter_conj_probe(frames, scan_i, prb,
+                                                      nz, n), s_k)
+    check(again[0] <= SCATTER_REPEAT, ("scatter_conj_probe repeat", again))
+    return errs
+
+
+def compare_hybrid_at_scale(torch, kernels, g, psi, scan_i, prb, frames,
+                            chunk):
+    """The three hybrid kernels at full size, where the nearplane's float
+    offsets pass 2**31, against their plain versions taken over chunks of
+    positions: compared chunk by chunk (gather_probe_mul) or summed over
+    the chunks (the two adjoints). Returns {kernel: (relative error,
+    absolute error)}."""
+    parts = [slice(i, min(i + chunk, g.nscan))
+             for i in range(0, g.nscan, chunk)]
+    out = kernels.gather_probe_mul(psi, scan_i, prb)
+    abs_err = scale = 0.0
+    for c in parts:
+        ref = kernels.gather_probe_mul_reference(psi, scan_i[:, c], prb)
+        abs_err = max(abs_err, float((out[:, c] - ref).abs().max()))
+        scale = max(scale, float(ref.abs().max()))
+        del ref
+    check(bool(torch.isfinite(out).all()) and abs_err <= GRAD_TOL * scale,
+          ("gather_probe_mul at scale", abs_err / scale))
+    errs = {"gather_probe_mul": (abs_err / scale, abs_err)}
+    del out
+    s_k = kernels.scatter_conj_probe(frames, scan_i, prb, g.nz, g.n)
+    s_r = sum(kernels.scatter_conj_probe_reference(
+        frames[:, c], scan_i[:, c], prb, g.nz, g.n) for c in parts)
+    p_k = kernels.adj_probe_reduce(frames, scan_i, psi)
+    p_r = sum(kernels.adj_probe_reduce_reference(
+        frames[:, c], scan_i[:, c], psi) for c in parts)
+    for name, got, ref in (("scatter_conj_probe", s_k, s_r),
+                           ("adj_probe_reduce", p_k, p_r)):
+        errs[name] = rel_err(torch, got, ref)
+        check(bool(torch.isfinite(got).all())
+              and errs[name][0] <= GRAD_TOL, (name + " at scale",
+                                                errs[name]))
+    return errs
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -394,11 +500,13 @@ def main() -> None:
         raise SystemExit("chip_smoke.py: tikejax_torch/ is not beside this "
                          "script; run it from a checkout of the repository")
     sys.path.insert(0, str(ROOT))
+    import numpy as np
     import torch
 
     from tikejax_torch import Geometry
-    from tikejax_torch.models import make_problem
-    from tikejax_torch.ops import fused, linesearch
+    from tikejax_torch.models import likelihoods, make_problem
+    from tikejax_torch import compat, native
+    from tikejax_torch.ops import diffraction, fused, kernels, linesearch
     from tikejax_torch.ops.patches import scan_to_int
     from tikejax_torch.solvers import cg, reconstruct, run
     from tikejax_torch.utils import cuda_build
@@ -491,6 +599,18 @@ def main() -> None:
         f"(object direction), {q_errs[1]:.2e} (probe direction), bitwise "
         "repeatable")
     del far_s, fd_s
+    # The adjoints' frames as the operators hand them over: the 56^2 crop
+    # of 72^2 frames, a strided view.
+    near_s = base_s[..., :small.nprb, :small.nprb]
+    check(not near_s.is_contiguous(), "the small crop should be strided")
+    # The same arrays on the host, for the facade's operators (phase 15).
+    small_np = tuple(x.cpu().numpy() for x in (psi_s, base_s, prb_s, scan_s))
+    h_errs = compare_hybrid(torch, kernels, psi_s, scan_si, prb_s, near_s)
+    log("kernel", f"small {small}: " + ", ".join(
+        f"{k} err {e:.2e}" for k, (e, _) in h_errs.items())
+        + " (adjoints on the strided crop; gather_probe_mul and "
+        "adj_probe_reduce bitwise repeatable, scatter_conj_probe within "
+        f"{SCATTER_REPEAT:g} of scale between two runs)")
 
     g = Geometry(**HEADLINE)
     _, scan, prb, data = make_problem(gen, g, device=dev)
@@ -630,6 +750,34 @@ def main() -> None:
         f"err {ls_err:.2e} (bitwise repeatable); kernel {ms:.3f} ms (at one "
         f"step {one_ms:.3f} ms), plain {plain_ms:.3f} ms, bound "
         f"{bounds['ls_objectives'][0]:.3f} ms, median of 10 on {card}")
+    # The hybrid tier's kernels on the same object, probe and frames (the
+    # detector is the probe's size here, so the frames are contiguous).
+    h_errs = compare_hybrid(torch, kernels, psi_r, scan_i, prb, base)
+    pixels = base.numel()  # frame pixels of every mode
+    for name, fn, plain_fn, moved, flop in (
+            ("gather_probe_mul",
+             lambda: kernels.gather_probe_mul(psi_r, scan_i, prb),
+             lambda: kernels.gather_probe_mul_reference(psi_r, scan_i, prb),
+             nbytes(psi_r, prb, scan_i, base), 6),
+            ("scatter_conj_probe",
+             lambda: kernels.scatter_conj_probe(base, scan_i, prb, g.nz, g.n),
+             lambda: kernels.scatter_conj_probe_reference(base, scan_i, prb,
+                                                          g.nz, g.n),
+             nbytes(base, prb, scan_i, psi_r), 8),
+            ("adj_probe_reduce",
+             lambda: kernels.adj_probe_reduce(base, scan_i, psi_r),
+             lambda: kernels.adj_probe_reduce_reference(base, scan_i, psi_r),
+             nbytes(base, psi_r, scan_i, prb), 8)):
+        ms = median_ms(torch, fn, 10)
+        plain_ms = median_ms(torch, plain_fn, 10)
+        results[name] = (h_errs[name][1], ms, plain_ms)
+        # One complex multiply (6 operations), and for the adjoints one
+        # complex add (2), per frame pixel and mode.
+        bounds[name] = bound(flop * pixels, moved)
+        log("kernel", f"headline {g} {name}: err {h_errs[name][0]:.2e}; "
+            f"kernel {ms:.3f} ms ({moved / ms / 1e9:.3f} TB/s of its bytes), "
+            f"plain {plain_ms:.3f} ms, bound {bounds[name][0]:.3f} ms, "
+            f"median of 10 on {card}")
     log("kernel", "bounds (ms, by): " + ", ".join(
         f"{k} {v[0]:.3f} {v[1]}" for k, v in bounds.items()))
     del base, psi_r, args, far, fd, dpsi_h
@@ -652,15 +800,21 @@ def main() -> None:
     log("solver", f"small {sg} 20 iters: per-iteration minf within "
         f"{rel:.2e} of the CPU complex128 oracle solver")
 
-    counters = [fused.grad_fused, fused.fwd, fused.minf_fused,
-                fused.grad_prb_fused, fused.adj, fused.adj_probe,
-                fused.adj_residual, fused.fwd_quad_stats,
-                linesearch.ls_objectives]
+    fused_counters = [fused.grad_fused, fused.fwd, fused.minf_fused,
+                      fused.grad_prb_fused, fused.adj, fused.adj_probe,
+                      fused.adj_residual, fused.fwd_quad_stats,
+                      linesearch.ls_objectives]
+    counters = fused_counters + [kernels.gather_probe_mul,
+                                 kernels.scatter_conj_probe,
+                                 kernels.adj_probe_reduce]
     plain = [fused.grad_fused_reference, fused.fwd_reference,
              fused.minf_fused_reference, fused.grad_prb_fused_reference,
              fused.adj_reference, fused.adj_probe_reference,
              fused.adj_residual_reference, fused.fwd_quad_stats_reference,
-             linesearch.ls_objectives_reference]
+             linesearch.ls_objectives_reference,
+             kernels.gather_probe_mul_reference,
+             kernels.scatter_conj_probe_reference,
+             kernels.adj_probe_reduce_reference]
 
     def reset_counts():
         for fn in counters + plain:
@@ -820,9 +974,72 @@ def main() -> None:
         f"{float(res[0]):.4e} -> {float(res[-1]):.4e}, peak extra memory "
         f"{peak / 2**30:.3f} GiB (limit {fls_peak / 2**30:.2f}), launches "
         f"{fls}, on {card}")
-    del psi, m, data, scan, prb
+    del psi, m
 
-    # -- 9. frameless: 4 modes, the memory-bound safeguard -----------------
+    # -- 9. hybrid: cuFFT between the patch kernels -------------------------
+    # The classic body's peak is the line search: G psi (one farplane), the
+    # direction's farplane (a second one) and the three statistics planes
+    # made from the two: 2 + 2 + 3 GiB. Before that the gradient pass holds
+    # G psi, its residual and the residual's inverse FFT, and each forward
+    # pass a nearplane and its FFT beside G psi: three farplanes, less.
+    # cuFFT takes no workspace worth counting at 128^2 (7.042 GiB measured).
+    # The sum allowed is two farplanes, the statistics and 0.5 GiB.
+    hyb_peak = 2 * far_bytes + 3 * nbytes(data) + 2**29
+    run(data, psi0, scan, prb, g, piter=3, kernel="pallas")  # warm-up
+    held = reset_counts()
+    t0 = time.perf_counter()
+    psi, _, m = run(data, psi0, scan, prb, g, piter=HYBRID_ITERS,
+                    kernel="pallas")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - held
+    hyb = {fn.__name__: fn.launches for fn in counters}
+    check(all(fn.launches == 0 for fn in plain), "plain version ran")
+    check(all(fn.launches == 0 for fn in fused_counters), hyb)
+    iters = int(m["iters_run"])
+    res = m["residual"][:iters].cpu()
+    check(psi.shape == g.psi_shape and bool(torch.isfinite(psi).all()),
+          "psi shape or finiteness")
+    check(hyb["gather_probe_mul"] >= 2 * iters > 0
+          and hyb["scatter_conj_probe"] == iters
+          and hyb["adj_probe_reduce"] == 0, hyb)
+    check(float(res[-1]) <= 0.1 * float(res[0]), res)
+    check(peak < hyb_peak, f"peak extra memory {peak} bytes")
+    log("hybrid", f"{g} gaussian, run(kernel='pallas'), {iters} iters in "
+        f"{seconds:.3f} s: {iters / seconds:.2f} iters/s, "
+        f"{1e3 * seconds / iters:.2f} ms/iter, "
+        f"{m['evaluations'] / iters:.2f} evals/iter, "
+        f"{m['host_syncs'] / iters:.2f} host syncs/iter, residual "
+        f"{float(res[0]):.4e} -> {float(res[-1]):.4e}, peak extra memory "
+        f"{peak / 2**30:.3f} GiB (limit {hyb_peak / 2**30:.2f}), launches "
+        f"{hyb}, on {card}")
+    # Where a hybrid iteration's time goes: the tier's three operators
+    # (cuFFT between the patch kernels) and the classic body's PyTorch
+    # passes between them, each alone at the headline size.
+    far_h = diffraction.fwd_raw(psi, scan, prb, g.ndet, "pallas")
+    minf_fn, resid_fn = likelihoods.get_model("gaussian")
+    stats_h = cg._quad_stats(far_h, far_h)
+    parts_ms = {
+        "fwd": lambda: diffraction.fwd_raw(psi, scan, prb, g.ndet, "pallas"),
+        "adj": lambda: diffraction.adj_raw(far_h, scan, prb, g.nz, g.n,
+                                           "pallas"),
+        "adj_probe": lambda: diffraction.adj_probe_raw(far_h, scan, psi,
+                                                       g.nprb, "pallas"),
+        "objective": lambda: cg._sum_over_positions(minf_fn, far_h, data),
+        "residual": lambda: cg._map_over_positions(resid_fn, far_h, data),
+        "statistics": lambda: cg._quad_stats(far_h, far_h),
+        "candidate": lambda: cg._sum_over_positions(
+            lambda a, b, c, d: cg._minf_of_gamma("gaussian", a, b, c, d,
+                                                 0.5), *stats_h, data),
+    }
+    parts_ms = {k: median_ms(torch, fn, 5) for k, fn in parts_ms.items()}
+    check(all(fn.launches == 0 for fn in plain), "plain version ran")
+    log("hybrid", "one pass of each part at the headline size, ms (median "
+        "of 5): " + ", ".join(f"{k} {v:.3f}" for k, v in parts_ms.items())
+        + f"; on {card}")
+    del psi, m, data, scan, prb, far_h, stats_h
+
+    # -- 10. frameless: 4 modes, the memory-bound safeguard ----------------
     g4 = Geometry(**FRAMELESS)
     _, scan4, prb4, data4 = make_problem(gen, g4, device=dev)
     psi4 = torch.ones(g4.psi_shape, dtype=torch.complex64, device=dev)
@@ -834,6 +1051,9 @@ def main() -> None:
     base4 = fused.fwd(0.5 * psi_r4, scan4_i, prb4, g4.ndet, split_out=True)
     scale_errs = compare_at_scale(torch, fused, g4, psi_r4, data4, scan4_i,
                                   prb4, base4, SCALE_CHUNK)
+    scale_errs.update(compare_hybrid_at_scale(
+        torch, kernels, g4, psi_r4, scan4_i, prb4,
+        fused._base_complex(base4), SCALE_CHUNK))
     del base4, psi_r4
     for name, (err, abs_err) in scale_errs.items():
         results[name] = (max(results[name][0], abs_err),) + results[name][1:]
@@ -872,7 +1092,7 @@ def main() -> None:
 
     del psi4, st4, data4, scan4, prb4
 
-    # -- 10. joint: BASELINE config 3 through run(recover_prb=True) --------
+    # -- 11. joint: BASELINE config 3 through run(recover_prb=True) --------
     g3 = Geometry(**CONFIG3)
     _, scan3, prb3, data3 = make_problem(gen, g3, device=dev)
     # The perturbation comes from its own generator (3% of max|prb|).
@@ -927,7 +1147,7 @@ def main() -> None:
         f"{peak / 2**20:.1f} MiB, launches {joint}, on {card}")
     del psi, prb_j, m
 
-    # -- 11. materialized, joint: config 3 with G psi kept ------------------
+    # -- 12. materialized, joint: config 3 with G psi kept ------------------
     run(data3, psi3, scan3, prb3_p, g3, piter=2, model="poisson",
         recover_prb=True, memory="materialized")  # warm-up
     held = reset_counts()
@@ -963,7 +1183,7 @@ def main() -> None:
         f"{MATERIALIZED_JOINT_PEAK / 2**30:.2f}), launches {matj}, on {card}")
     del psi, prb_m, m
 
-    # -- 12. stream: the quick start, nchunks = 4 ---------------------------
+    # -- 13. stream: the quick start, nchunks = 4 ---------------------------
     run(data3, psi3, scan3, prb3_p, g3, piter=2, recover_prb=True,
         nchunks=STREAM_CHUNKS)  # warm-up
     held = reset_counts()
@@ -1000,7 +1220,7 @@ def main() -> None:
         f"{STREAM_PEAK / 2**30:.2f}), launches {stream}, on {card}")
     del psi, prb_s, m
 
-    # -- 13. joint-deep: reconstruct(recover_prb=True) to 1e-6 --------------
+    # -- 14. joint-deep: reconstruct(recover_prb=True) to 1e-6 --------------
     held = reset_counts()
     t0 = time.perf_counter()
     psi, prb_d, stages = reconstruct(data3, psi3, scan3, prb3_p, g3,
@@ -1040,17 +1260,112 @@ def main() -> None:
     check(res_end <= DEEP_TARGET, f"joint-deep residual {res_end:.4e} > "
           f"{DEEP_TARGET:g} after {len(stages)} stages")
 
+    del psi, prb_d, stages
+
+    # -- 15. facade: numpy in, numpy out, on the hybrid tier ----------------
+    dims = dict(ntheta=g3.ntheta, nz=g3.nz, n=g3.n, nscan=g3.nscan,
+                ndet=g3.ndet, nprb=g3.nprb, nmodes=g3.nmodes)
+    solver = compat.CGPtychoSolver(**dims, kernel="pallas")
+    data_np, psi_np, scan_np, prb_np = (x.cpu().numpy() for x in (
+        data3, psi3, scan3, prb3_p[:, 0]))  # a mode-less probe
+    solver.run(data_np, psi_np, scan_np, prb_np, piter=2, model="poisson",
+               recover_prb=True)  # warm-up
+    reset_counts()
+    t0 = time.perf_counter()
+    out = solver.run(data_np, psi_np, scan_np, prb_np, piter=FACADE_ITERS,
+                     model="poisson", recover_prb=True)
+    seconds = time.perf_counter() - t0  # ends on the host: numpy came back
+    fac = {fn.__name__: fn.launches for fn in counters}
+    check(all(fn.launches == 0 for fn in plain), "plain version ran")
+    check(all(fn.launches == 0 for fn in fused_counters), fac)
+    check(all(type(v).__module__ == "numpy" for v in out.values()),
+          {k: type(v) for k, v in out.items()})
+    iters = int(out["iters_run"])
+    prb_f = torch.from_numpy(out["prb"]).to(dev)
+    check(out["psi"].shape == g3.psi_shape and out["prb"].shape
+          == g3.prb_shape and bool(np.isfinite(out["psi"]).all()
+                                   and np.isfinite(out["prb"]).all()),
+          "psi or prb shape or finiteness")
+    check(out["minf"][iters - 1] < out["minf"][0]
+          and out["residual"][iters - 1] < out["residual"][0],
+          (out["minf"], out["residual"]))
+    check(probe_err(prb_f) < err0, (probe_err(prb_f), err0))
+    check(fac["gather_probe_mul"] == 4 * iters > 0
+          and fac["scatter_conj_probe"] == fac["adj_probe_reduce"] == iters,
+          fac)
+    log("facade", f"{g3} poisson, compat.CGPtychoSolver(kernel='pallas')"
+        f".run(recover_prb=True) from numpy arrays (scan checked by "
+        f"native.have_native() = {native.have_native()}), {iters} iters in "
+        f"{seconds:.3f} s with both copies: {iters / seconds:.2f} iters/s, "
+        f"{int(out['evaluations']) / iters:.2f} evals/iter, "
+        f"{int(out['host_syncs']) / iters:.2f} host syncs/iter, residual "
+        f"{out['residual'][0]:.4e} -> {out['residual'][iters - 1]:.4e}, "
+        f"probe error {err0:.4e} -> {probe_err(prb_f):.4e}, launches {fac}, "
+        f"on {card}")
+    del out, prb_f, data_np, psi_np
+    # The facade's operators on the small awkward case (the crop strided),
+    # numpy in and out; the inner products in complex128 on the host.
+    op = compat.CGPtychoSolver(
+        ntheta=small.ntheta, nz=small.nz, n=small.n, nscan=small.nscan,
+        ndet=small.ndet, nprb=small.nprb, nmodes=small.nmodes,
+        kernel="pallas")
+    psi_n, far_n, prb_n, scan_n = small_np
+
+    def vdot(a, b):
+        return np.vdot(a.astype(np.complex128), b.astype(np.complex128))
+
+    lhs = vdot(op.fwd(psi_n, scan_n, prb_n), far_n)
+    id_obj = abs(lhs - vdot(psi_n, op.adj(far_n, scan_n, prb_n))) / abs(lhs)
+    id_prb = abs(lhs - vdot(prb_n, op.adj_probe(far_n, scan_n, psi_n))) / abs(
+        lhs)
+    check(id_obj <= 1e-5 and id_prb <= 1e-5, (id_obj, id_prb))
+    log("facade", f"small {small}: <G psi, f> = <psi, G^H f> to "
+        f"{id_obj:.2e}, = <prb, G_p^H f> to {id_prb:.2e} through "
+        "fwd/adj/adj_probe (numpy in, numpy out)")
+
+    # -- 16. options: illum_lowk and parabolic on the hybrid tier -----------
+    for label, kw in (("precondition='illum_lowk'",
+                       dict(precondition="illum_lowk")),
+                      ("linesearch='parabolic'",
+                       dict(linesearch="parabolic"))):
+        run(data3, psi3, scan3, prb3, g3, piter=2, kernel="pallas", **kw)
+        reset_counts()
+        t0 = time.perf_counter()
+        psi, _, m = run(data3, psi3, scan3, prb3, g3, piter=OPTION_ITERS,
+                        kernel="pallas", **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        opt = {fn.__name__: fn.launches for fn in counters}
+        check(all(fn.launches == 0 for fn in plain), "plain version ran")
+        iters = int(m["iters_run"])
+        res = m["residual"][:iters].cpu()
+        check(bool(torch.isfinite(psi).all())
+              and float(res[-1]) < 0.5 * float(res[0]), res)
+        check(opt["gather_probe_mul"] >= 2 * iters > 0
+              and opt["scatter_conj_probe"] == iters, opt)
+        log("options", f"{g3} gaussian, run(kernel='pallas', {label}), "
+            f"{iters} iters in {seconds:.3f} s: {iters / seconds:.2f} "
+            f"iters/s, {m['evaluations'] / iters:.2f} evals/iter, "
+            f"{m['host_syncs'] / iters:.2f} host syncs/iter, residual "
+            f"{float(res[0]):.4e} -> {float(res[-1]):.4e}, on {card}")
+        del psi, m
+
     launches = {"grad_fused": deep["grad_fused"], "fwd": deep["fwd"],
                 "minf_fused": frameless["minf_fused"],
                 "grad_prb_fused": joint["grad_prb_fused"],
                 "adj": stream["adj"], "adj_probe": stream["adj_probe"],
                 "adj_residual": mat["adj_residual"],
                 "fwd_quad_stats": mat["fwd_quad_stats"],
-                "ls_objectives": fls["ls_objectives"]}
+                "ls_objectives": fls["ls_objectives"],
+                "gather_probe_mul": hyb["gather_probe_mul"],
+                "scatter_conj_probe": hyb["scatter_conj_probe"],
+                "adj_probe_reduce": fac["adj_probe_reduce"]}
     paths = {"grad_fused": "deep", "fwd": "deep", "minf_fused": "frameless",
              "grad_prb_fused": "joint", "adj": "stream",
              "adj_probe": "stream", "adj_residual": "materialized",
-             "fwd_quad_stats": "materialized", "ls_objectives": "fused-ls"}
+             "fwd_quad_stats": "materialized", "ls_objectives": "fused-ls",
+             "gather_probe_mul": "hybrid", "scatter_conj_probe": "hybrid",
+             "adj_probe_reduce": "facade"}
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src, "replaces": tpu,
         "launches": launches[name], "path": paths[name],

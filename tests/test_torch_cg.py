@@ -142,8 +142,86 @@ def test_ported_options_mirror_jax():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(precondition="illum_lowk"), dict(axis_name="scan"),
-    dict(obj_slabs=2), dict(linesearch="parabolic"), dict(kernel="pallas"),
+    dict(precondition="illum_lowk"),
+    dict(precondition="illum_lowk", lowk_boost=1.5, lowk_frac=0.2),
+    dict(precondition="illum_lowk", direction="lbfgs"),
+], ids=["defaults", "boost-frac", "lbfgs"])
+def test_illum_lowk_matches_jax(problem, kw):
+    """The low-frequency-boosted illumination preconditioner, on the
+    oracle path in float64: the trajectory of the JAX package to 1e-8."""
+    kw = dict(piter=ITERS, kernel="xla", **kw)
+    pj, mj, pt, mt = run_both(problem, kw)
+    assert_same_trajectory(pj, mj, pt, mt, tol=1e-8)
+    plain = run_both(problem, dict(kw, precondition="illum"))[3]
+    assert not np.allclose(plain["minf"], mt["minf"])  # the filter acted
+
+
+def test_illum_lowk_validation(problem):
+    """The JAX package's validity checks: object-only, boost >= 0, the
+    crossover in (0, 0.5]."""
+    data, psi0, scan, prb, _ = map(cpu, problem)
+    g = geometry_from(GEOM)
+    for kw, match in [(dict(recover_prb=True), "object-only"),
+                      (dict(lowk_boost=-1.0), "lowk_boost"),
+                      (dict(lowk_frac=0.0), "lowk_frac"),
+                      (dict(lowk_frac=0.6), "lowk_frac")]:
+        with pytest.raises(ValueError, match=match):
+            tcg.run(data, psi0, scan, prb, g, piter=2, kernel="xla",
+                    precondition="illum_lowk", **kw)
+        with pytest.raises(ValueError, match=match):
+            jcg.run(*map(jnp.asarray, problem[:4]), GEOM, piter=2,
+                    kernel="xla", precondition="illum_lowk", **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(), dict(direction="lbfgs"), dict(step0=4.0, adaptive_step=False),
+], ids=["dy", "lbfgs", "long-fixed-step"])
+def test_parabolic_linesearch_matches_jax(problem, kw):
+    """linesearch='parabolic' (Gaussian: a Poisson run with backtracking
+    drifts from the JAX package past 1e-8 on this problem), on the oracle
+    path in float64 to 1e-8. The refinement costs at most two evaluations
+    and two host reads per accepted search."""
+    kw = dict(piter=ITERS, kernel="xla", linesearch="parabolic", **kw)
+    pj, mj, pt, mt = run_both(problem, kw)
+    assert_same_trajectory(pj, mj, pt, mt, tol=1e-8)
+    back = run_both(problem, dict(kw, linesearch="backtracking"))[3]
+    assert not np.allclose(back["gamma"], mt["gamma"])  # it refined
+    extra = mt["evaluations"] - back["evaluations"]
+    assert 0 < extra and mt["host_syncs"] - back["host_syncs"] == extra
+
+
+def test_parabolic_runs_the_classic_body_on_a_fused_tier(problem):
+    """'parabolic' switches the merged body off, as in the JAX package: on
+    a fused tier every candidate and both refinement samples are
+    minf_fused passes (here the plain version), and the trajectory is the
+    oracle path's."""
+    before = fused.minf_fused_reference.launches
+    pj, mj, pt, mt = run_both(
+        problem, dict(piter=ITERS, kernel="xla", linesearch="parabolic"),
+        dict(piter=ITERS, kernel="fused_mx", linesearch="parabolic"))
+    assert_same_trajectory(pj, mj, pt, mt, tol=1e-8)
+    candidates = fused.minf_fused_reference.launches - before
+    assert candidates == mt["evaluations"] - ITERS > ITERS
+
+
+def test_verbose_every_prints(problem, capsys):
+    """verbose_every=N prints iteration, minf and gamma every N iterations
+    in the JAX package's format."""
+    data, psi0, scan, prb, _ = map(cpu, problem)
+    _, _, m = tcg.run(data, psi0, scan, prb, geometry_from(GEOM), piter=7,
+                      kernel="xla", verbose_every=3)
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 3
+    for line, i in zip(lines, (0, 3, 6)):
+        assert line == (f"iter {i}: minf={float(m['minf'][i]):.6e} "
+                        f"gamma={float(m['gamma'][i]):.4f}")
+    tcg.run(data, psi0, scan, prb, geometry_from(GEOM), piter=3,
+            kernel="xla")
+    assert capsys.readouterr().out == ""
+
+
+@pytest.mark.parametrize("kw", [
+    dict(axis_name="scan"), dict(obj_slabs=2),
 ], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items())[:40])
 def test_unported_options_raise(problem, kw):
     data, psi0, scan, prb, _ = map(cpu, problem)

@@ -1,19 +1,22 @@
 """The CUDA kernels ``grad_fused`` (with and without a base), ``fwd``,
 ``minf_fused``, ``grad_prb_fused``, ``adj``, ``adj_probe``,
-``adj_residual``, ``fwd_quad_stats`` and ``ls_objectives`` against their
-plain PyTorch versions, on the card. Marked ``cuda``: without a CUDA device
-every test here skips. On a machine with a card (the JAX package need not
-be installed there):
+``adj_residual``, ``fwd_quad_stats``, ``ls_objectives`` and the hybrid
+tier's ``gather_probe_mul``, ``scatter_conj_probe`` and
+``adj_probe_reduce`` against their plain PyTorch versions, on the card.
+Marked ``cuda``: without a CUDA device every test here skips. On a machine
+with a card (the JAX package need not be installed there):
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda.py
 
 Tolerances: the JAX package's fused parity bound for the gradients, the
 adjoints and the farplane (1e-4 of their scale) and 1e-5 relative for the
-objective -- both sides are fp32 and sum in different orders. The probe
-reductions (``grad_prb_fused``, ``adj_probe``), ``fwd_quad_stats`` and
-``ls_objectives`` are bitwise reproducible; the object scatters
-(``grad_fused``, ``adj``, ``adj_residual``) only up to summation order.
+objective -- both sides are fp32 and sum in different orders; the hybrid
+tier's kernels have no DFT in them and are held to 1e-5 of scale. The probe
+reductions (``grad_prb_fused``, ``adj_probe``, ``adj_probe_reduce``),
+``gather_probe_mul``, ``fwd_quad_stats`` and ``ls_objectives`` are bitwise
+reproducible; the object scatters (``grad_fused``, ``adj``,
+``adj_residual``, ``scatter_conj_probe``) only up to summation order.
 """
 
 import pytest
@@ -21,7 +24,7 @@ import torch
 
 from tikejax_torch import Geometry
 from tikejax_torch.models import make_problem
-from tikejax_torch.ops import diffraction, fused, linesearch
+from tikejax_torch.ops import diffraction, fused, kernels, linesearch
 from tikejax_torch.ops.patches import scan_to_int
 
 pytestmark = pytest.mark.cuda
@@ -229,7 +232,7 @@ def test_new_kernels_skip_masked_positions(dev):
 
 def test_fused_operators_launch_the_kernels(dev):
     """On a fused tier the operator-level adjoints (and fwd's autograd)
-    run the kernels; 'pallas' still raises."""
+    run the kernels."""
     g = GEOMS[2]
     psi, _, scan_i, prb = inputs(g, dev)
     counts = [fused.fwd.launches, fused.adj.launches,
@@ -245,8 +248,144 @@ def test_fused_operators_launch_the_kernels(dev):
                                                  g.n, "xla"))
     assert close(prb_g.grad, diffraction.adj_probe_raw(2 * ref, scan_i, psi,
                                                        g.nprb, "xla"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        diffraction.adj_raw(ref, scan_i, prb, g.nz, g.n, "pallas")
+
+
+# -- the hybrid tier's kernels: gather_probe_mul, scatter_conj_probe,
+# adj_probe_reduce ------------------------------------------------------------
+
+
+def cropped_frames(g, dev):
+    """(t, s, m, nprb, nprb) frames as the adjoint operators hand them
+    over: the top-left crop of ndet^2 frames, strided when ndet > nprb."""
+    return base_for(g, dev)[..., :g.nprb, :g.nprb]
+
+
+@pytest.mark.parametrize("g", GEOMS, ids=str)
+def test_gather_probe_mul_matches_plain_version(dev, g):
+    psi, _, scan_i, prb = inputs(g, dev)
+    launches = kernels.gather_probe_mul.launches
+    got = kernels.gather_probe_mul(psi, scan_i, prb)
+    ref = kernels.gather_probe_mul_reference(psi, scan_i, prb)
+    assert kernels.gather_probe_mul.launches == launches + 1
+    assert got.dtype == torch.complex64
+    assert got.shape == (g.ntheta, g.nscan, g.nmodes, g.nprb, g.nprb)
+    assert close(got, ref, 1e-5)
+    masked = scan_i[..., 0] < 0
+    assert float(got[masked].abs().max()) == 0.0
+    assert torch.equal(got, kernels.gather_probe_mul(psi, scan_i, prb))
+
+
+@pytest.mark.parametrize("g", GEOMS, ids=str)
+def test_hybrid_adjoints_match_plain_versions(dev, g):
+    """scatter_conj_probe and adj_probe_reduce on a strided crop and on its
+    contiguous copy; adj_probe_reduce bitwise repeatable, the scatter to
+    1e-5 of scale between two runs (its atomics' order)."""
+    psi, _, scan_i, prb = inputs(g, dev)
+    near = cropped_frames(g, dev)
+    assert near.is_contiguous() == (g.ndet == g.nprb)
+    s0, p0 = (kernels.scatter_conj_probe.launches,
+              kernels.adj_probe_reduce.launches)
+    for frames in (near, near.contiguous()):
+        a_k = kernels.scatter_conj_probe(frames, scan_i, prb, g.nz, g.n)
+        p_k = kernels.adj_probe_reduce(frames, scan_i, psi)
+        assert a_k.shape == g.psi_shape and p_k.shape == g.prb_shape
+        assert a_k.dtype == p_k.dtype == torch.complex64
+        assert close(a_k, kernels.scatter_conj_probe_reference(
+            frames, scan_i, prb, g.nz, g.n), 1e-5)
+        assert close(p_k, kernels.adj_probe_reduce_reference(
+            frames, scan_i, psi), 1e-5)
+        assert torch.equal(p_k, kernels.adj_probe_reduce(frames, scan_i, psi))
+        assert close(kernels.scatter_conj_probe(frames, scan_i, prb, g.nz,
+                                                g.n), a_k, 1e-5)
+    assert kernels.scatter_conj_probe.launches == s0 + 4
+    assert kernels.adj_probe_reduce.launches == p0 + 4
+
+
+def test_hybrid_kernels_skip_masked_positions(dev):
+    """All positions masked: zero frames and zero adjoints, whatever the
+    frames hold."""
+    g = GEOMS[0]
+    psi, _, scan_i, prb = inputs(g, dev)
+    scan_i[..., 0] = -1
+    near = cropped_frames(g, dev)
+    assert float(kernels.gather_probe_mul(psi, scan_i, prb).abs().max()) == 0
+    assert float(kernels.scatter_conj_probe(near, scan_i, prb, g.nz,
+                                            g.n).abs().max()) == 0.0
+    assert float(kernels.adj_probe_reduce(near, scan_i, psi).abs().max()) == 0
+
+
+def test_hybrid_kernels_wrong_inputs_raise(dev):
+    """A CUDA tensor launches the kernel or raises: no other type, no
+    tensor on another device, no frames whose innermost stride is not 1."""
+    g = GEOMS[1]
+    psi, _, scan_i, prb = inputs(g, dev)
+    near = cropped_frames(g, dev)
+    with pytest.raises(TypeError, match="complex64"):
+        kernels.gather_probe_mul(psi.to(torch.complex128), scan_i,
+                                 prb.to(torch.complex128))
+    with pytest.raises(TypeError, match="int32"):
+        kernels.gather_probe_mul(psi, scan_i.long(), prb)
+    with pytest.raises(ValueError, match="is on"):
+        kernels.scatter_conj_probe(near, scan_i.cpu(), prb, g.nz, g.n)
+    with pytest.raises(ValueError, match="shapes"):
+        kernels.adj_probe_reduce(near, scan_i[:, :-1], psi)
+    with pytest.raises(ValueError, match="innermost stride"):
+        kernels.scatter_conj_probe(near.transpose(-1, -2), scan_i, prb, g.nz,
+                                   g.n)
+    with pytest.raises(TypeError, match="complex64"):
+        kernels.adj_probe_reduce(near.to(torch.complex128), scan_i, psi)
+
+
+def test_pallas_operators_launch_the_kernels(dev):
+    """On the hybrid tier the operators and fwd's autograd run the three
+    kernels (the adjoints on the strided crop of the inverse FFT) and no
+    plain version; values as the oracle's."""
+    g = GEOMS[0]
+    psi, _, scan_i, prb = inputs(g, dev)
+    fns = [kernels.gather_probe_mul, kernels.scatter_conj_probe,
+           kernels.adj_probe_reduce]
+    plain = [kernels.gather_probe_mul_reference,
+             kernels.scatter_conj_probe_reference,
+             kernels.adj_probe_reduce_reference]
+    counts, p_counts = [f.launches for f in fns], [f.launches for f in plain]
+    psi_g = psi.clone().requires_grad_()
+    prb_g = prb.clone().requires_grad_()
+    far = diffraction.fwd(psi_g, scan_i, prb_g, g.ndet, "pallas")
+    (far.abs()**2).sum().backward()
+    assert [f.launches for f in fns] == [c + 1 for c in counts]
+    assert [f.launches for f in plain] == p_counts
+    ref = diffraction.fwd_raw(psi, scan_i, prb, g.ndet, "xla")
+    assert close(far.detach(), ref, 1e-5)
+    assert close(psi_g.grad, diffraction.adj_raw(2 * ref, scan_i, prb, g.nz,
+                                                 g.n, "xla"), 1e-5)
+    assert close(prb_g.grad, diffraction.adj_probe_raw(2 * ref, scan_i, psi,
+                                                       g.nprb, "xla"), 1e-5)
+
+
+def test_pallas_run_launches_the_kernels(dev):
+    """run(kernel='pallas'), joint: every operator of the classic body is a
+    hybrid kernel, and no plain version and no fused kernel runs."""
+    from tikejax_torch.solvers import run
+
+    g = GEOMS[1]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    _, scan, prb, data = make_problem(gen, g, device=dev)
+    psi0 = torch.ones(g.psi_shape, dtype=torch.complex64, device=dev)
+    fns = [kernels.gather_probe_mul, kernels.scatter_conj_probe,
+           kernels.adj_probe_reduce]
+    others = [kernels.gather_probe_mul_reference,
+              kernels.scatter_conj_probe_reference,
+              kernels.adj_probe_reduce_reference, fused.fwd, fused.adj,
+              fused.adj_probe, fused.grad_fused, fused.minf_fused]
+    k0, o0 = [f.launches for f in fns], [f.launches for f in others]
+    _, _, m = run(data, psi0, scan, 1.05 * prb, g, piter=8, kernel="pallas",
+                  recover_prb=True)
+    n = int(m["iters_run"])
+    # Per iteration: G psi twice (object and probe pass) and a direction's
+    # farplane twice; one object adjoint, one probe adjoint.
+    assert [f.launches - b for f, b in zip(fns, k0)] == [4 * n, n, n]
+    assert [f.launches for f in others] == o0
+    assert float(m["minf"][n - 1]) < float(m["minf"][0])
 
 
 # -- the materialized mode's kernels: adj_residual, fwd_quad_stats,

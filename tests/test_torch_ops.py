@@ -244,9 +244,9 @@ def test_simulated_problem_is_consistent():
 def test_kernel_resolution():
     """'auto' resolves with "on CUDA" in place of "on the TPU"; explicit
     choices pass through; the fused tiers' operators run the ported fwd,
-    adj and adj_probe (their plain versions on the CPU); the unported
-    'pallas' operators raise on every device instead of rerouting to
-    'xla'."""
+    adj and adj_probe, and the hybrid 'pallas' tier's the ported
+    gather_probe_mul, scatter_conj_probe and adj_probe_reduce (their
+    plain versions on the CPU, which are the oracle's arithmetic)."""
     assert tdiff.resolve_kernel("auto", "cuda") == "fused_mp"
     assert tdiff.resolve_kernel("auto", "cpu") == "xla"
     assert tdiff.resolve_kernel_for_target("auto", 0.0, "cuda") == "fused_mx"
@@ -260,7 +260,7 @@ def test_kernel_resolution():
         assert tdiff._fused_adj_precision(k) == jdiff._fused_adj_precision(k)
     g = GEOMS[0]
     psi, scan, prb, farp = map(t, make_inputs(g)[:4])
-    for kernel in ("fused_mp", "fused_mx"):
+    for kernel in ("fused_mp", "fused_mx", "pallas"):
         torch.testing.assert_close(tdiff.fwd_raw(psi, scan, prb, g.ndet,
                                                  kernel),
                                    tdiff.fwd_raw(psi, scan, prb, g.ndet),
@@ -271,26 +271,31 @@ def test_kernel_resolution():
         torch.testing.assert_close(
             tdiff.adj_probe_raw(farp, scan, psi, g.nprb, kernel),
             tdiff.adj_probe_raw(farp, scan, psi, g.nprb), rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdiff.fwd_raw(psi, scan, prb, g.ndet, "pallas")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdiff.adj_raw(farp, scan, prb, g.nz, g.n, "pallas")
     with pytest.raises(ValueError, match="unknown kernel"):
         tdiff.Ptycho(geometry_from(g), kernel="cufft")
 
 
 @pytest.mark.parametrize("op", ["adj", "adj_probe"])
-def test_pallas_adjoint_operators_raise(op):
-    """The hybrid 'pallas' adjoints are not ported (ROADMAP 2.5): they
-    raise, also through fwd's autograd, instead of rerouting."""
+def test_pallas_adjoint_operators(op):
+    """The hybrid 'pallas' adjoints go through scatter_conj_probe and
+    adj_probe_reduce (counted; on the CPU their plain versions) and equal
+    the oracle's, masked position included."""
+    from tikejax_torch.ops import kernels
+
     g = GEOMS[1]
-    psi, scan, prb, farp = map(t, make_inputs(g))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if op == "adj":
-            tdiff.Ptycho(geometry_from(g), "pallas").adj(farp, scan, prb)
-        else:
-            tdiff.Ptycho(geometry_from(g), "pallas").adj_probe(farp, scan,
-                                                               psi)
+    psi, scan, prb, farp = map(t, make_inputs(g, sentinel=True))
+    bundle = tdiff.Ptycho(geometry_from(g), "pallas")
+    oracle = tdiff.Ptycho(geometry_from(g), "xla")
+    plain = (kernels.scatter_conj_probe_reference if op == "adj"
+             else kernels.adj_probe_reduce_reference)
+    before = plain.launches
+    if op == "adj":
+        got, ref = bundle.adj(farp, scan, prb), oracle.adj(farp, scan, prb)
+    else:
+        got = bundle.adj_probe(farp, scan, psi)
+        ref = oracle.adj_probe(farp, scan, psi)
+    assert plain.launches == before + 1
+    assert rel(to_numpy(ref), to_numpy(got)) < 1e-12
 
 
 @pytest.mark.parametrize("kernel", ["fused", "fused_hp"])

@@ -212,9 +212,7 @@ def test_frameless_safeguard_reproduces_the_reuse_safeguard(problem,
 
 
 @pytest.mark.parametrize("kw", [
-    dict(mesh=object()), dict(precondition="illum_lowk"),
-    dict(obj_slabs=2), dict(fast_kernel="pallas")],
-    ids=["mesh", "illum_lowk", "obj_slabs", "pallas"])
+    dict(mesh=object()), dict(obj_slabs=2)], ids=["mesh", "obj_slabs"])
 def test_unported_arguments_raise(problem, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_run(problem, **BASE, **kw)

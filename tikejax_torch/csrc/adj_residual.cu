@@ -96,9 +96,7 @@ __global__ void __launch_bounds__(kThreads, 2) adj_residual_kernel(Params q) {
           p, d, tw, a1,
           [&](int y, int x, float2 z) {
             const float2 g = cmul(conjf2(pr[y * p + x]), z);
-            float* dst = q.grad + 2 * ((static_cast<int64_t>(th) * q.nz + sy + y) * q.n + sx + x);
-            atomicAdd(dst, g.x);
-            atomicAdd(dst + 1, g.y);
+            scatter_add_pixel(q.grad, th, q.nz, q.n, sy + y, sx + x, g);
           },
           sm);
     }

@@ -1,6 +1,9 @@
-// Device code shared by the far-field ptychography kernels (grad_fused.cu,
-// fwd.cu, minf_fused.cu, grad_prb_fused.cu, adj.cu, adj_probe.cu) for
-// NVIDIA Hopper (sm_90a).
+// Device code shared by the far-field ptychography kernels for NVIDIA
+// Hopper (sm_90a): the DFT kernels (grad_fused.cu, fwd.cu, minf_fused.cu,
+// grad_prb_fused.cu, adj.cu, adj_probe.cu, adj_residual.cu,
+// fwd_quad_stats.cu) and, for the complex helpers, the position test, the
+// object scatter and the block-partial sum, the hybrid tier's
+// gather_probe_mul.cu, scatter_conj_probe.cu and adj_probe_reduce.cu.
 //
 // The unitary DFT of a p x p patch zero-padded at the top left to d x d is
 //   far = F near F^T,  F[u, y] = e^{-2 pi i u y / d} / sqrt(d)   (d x p),
@@ -63,6 +66,17 @@ __device__ inline void load_twiddles(float2* tw, int d) {
 __device__ __forceinline__ bool frame_valid(int sy, int sx, int nz, int n,
                                             int p) {
   return sy >= 0 && sy <= nz - p && sx >= 0 && sx <= n - p;
+}
+
+// out[th, row, col] += g for an object (t, nz, n) held as interleaved re/im
+// floats: the overlap scatter of every object adjoint. fp32 atomics, so a
+// sum over overlapping patches is deterministic only up to its order.
+__device__ __forceinline__ void scatter_add_pixel(float* out, int th, int nz,
+                                                  int n, int row, int col,
+                                                  float2 g) {
+  float* dst = out + 2 * ((static_cast<int64_t>(th) * nz + row) * n + col);
+  atomicAdd(dst, g.x);
+  atomicAdd(dst + 1, g.y);
 }
 
 // C (R x C) = A (R x K) . B (K x C) for the whole block. A and B elements

@@ -1,7 +1,9 @@
 """Operator layer: patch gather/scatter, batched FFT, diffraction fwd/adj,
 the fused kernels (``ops.fused``: grad_fused, minf_fused, fwd,
-grad_prb_fused, adj, adj_probe, adj_residual, fwd_quad_stats) and the fused
-line search (``ops.linesearch``: ls_objectives)."""
+grad_prb_fused, adj, adj_probe, adj_residual, fwd_quad_stats), the fused
+line search (``ops.linesearch``: ls_objectives) and the hybrid tier's patch
+kernels (``ops.kernels``: gather_probe_mul, scatter_conj_probe,
+adj_probe_reduce)."""
 
 from tikejax_torch.ops.diffraction import (Ptycho, adj_probe_raw, adj_raw,
                                            fwd, fwd_raw)

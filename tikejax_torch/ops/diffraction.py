@@ -17,18 +17,20 @@ under ``<a, b> = sum(conj(a) * b)``.
 
 ``kernel`` names the implementation as in the JAX package. The ``'xla'``
 oracle path is gather -> probe multiply -> pad -> ``fft2o`` and its
-adjoints, in plain PyTorch. On the ``'fused*'`` tiers the three operators go
-through the ported kernels ``fwd``, ``adj`` and ``adj_probe`` of
-``tikejax_torch.ops.fused`` (the CUDA kernel on a CUDA tensor, its plain
-version on a CPU tensor), as the JAX package's go through
-``pallas_fused``; so does :func:`fwd`'s autograd. The hybrid ``'pallas'``
-kernels are not ported yet, so any ``'pallas'`` operator call raises
-NotImplementedError on every device instead of rerouting to ``'xla'``.
-``'auto'`` resolves as in the JAX package, with "the tensor is on CUDA" in
-place of "the backend is the TPU": the symmetric ``'fused_mp'`` tier for
-operators, the solver's target-aware choice in
-:func:`resolve_kernel_for_target`. The solver's gradient and objective
-passes on the fused tiers run the ported ``grad_fused``,
+adjoints, in plain PyTorch. The hybrid ``'pallas'`` tier keeps the FFTs
+(cuFFT through ``torch.fft``) and runs everything around them through the
+ported ``gather_probe_mul``, ``scatter_conj_probe`` and
+``adj_probe_reduce`` of ``tikejax_torch.ops.kernels``; the two adjoints
+read the crop of the inverse FFT in place, as a strided view. On the
+``'fused*'`` tiers the three operators go through the ported kernels
+``fwd``, ``adj`` and ``adj_probe`` of ``tikejax_torch.ops.fused``, as the
+JAX package's go through ``pallas_fused``. On either tier a CUDA tensor
+launches the CUDA kernel and a CPU tensor runs its plain version, and so
+does :func:`fwd`'s autograd. ``'auto'`` resolves as in the JAX package,
+with "the tensor is on CUDA" in place of "the backend is the TPU": the
+symmetric ``'fused_mp'`` tier for operators, the solver's target-aware
+choice in :func:`resolve_kernel_for_target`. The solver's gradient and
+objective passes on the fused tiers run the ported ``grad_fused``,
 ``grad_prb_fused`` and ``minf_fused`` kernels.
 """
 
@@ -47,11 +49,6 @@ _KERNELS = ("xla", "pallas", "fused", "fused_mp", "fused_hp", "fused_mx",
 # its target-aware 'auto' resolution.
 FUSED_RESIDUAL_FLOOR = 5e-3
 FUSED_MP_RESIDUAL_FLOOR = 1e-5
-
-_UNPORTED_OPERATOR = (
-    "kernel={kernel!r}: the hybrid 'pallas' kernels (ROADMAP.md queue 2 "
-    "item 2.5) are not ported to CUDA yet; pass kernel='xla' for the oracle "
-    "operators or a 'fused*' tier for the ported kernels")
 
 
 def _backend(device) -> str:
@@ -112,10 +109,38 @@ def _check_kernel(kernel: str) -> None:
 
 def _operator_kernel(kernel: str, x: torch.Tensor) -> str:
     _check_kernel(kernel)
-    kernel = resolve_kernel(kernel, _backend(x.device))
+    return resolve_kernel(kernel, _backend(x.device))
+
+
+def _nearplane_fwd(psi, scan_int, prb, kernel):
+    """Gather patches at scan offsets and multiply by all probe modes:
+    (t, s, m, nprb, nprb)."""
     if kernel == "pallas":
-        raise NotImplementedError(_UNPORTED_OPERATOR.format(kernel=kernel))
-    return kernel
+        from tikejax_torch.ops import kernels
+
+        return kernels.gather_probe_mul(psi, scan_int, prb)
+    patches = _patches.gather_patches(psi, scan_int, prb.shape[-1])
+    return patches[:, :, None] * prb[:, None]
+
+
+def _adj_object(nearplane, scan_int, prb, nz, n, kernel):
+    """conj(prb)-multiply, mode-sum, overlap scatter-add into the object."""
+    if kernel == "pallas":
+        from tikejax_torch.ops import kernels
+
+        return kernels.scatter_conj_probe(nearplane, scan_int, prb, nz, n)
+    patches = torch.sum(torch.conj(prb)[:, None] * nearplane, dim=2)
+    return _patches.scatter_patches_add(patches, scan_int, nz, n)
+
+
+def _adj_probe_acc(nearplane, scan_int, psi, kernel):
+    """conj(patch)-multiply and reduce over scan positions into the probe."""
+    if kernel == "pallas":
+        from tikejax_torch.ops import kernels
+
+        return kernels.adj_probe_reduce(nearplane, scan_int, psi)
+    patches = _patches.gather_patches(psi, scan_int, nearplane.shape[-1])
+    return torch.sum(torch.conj(patches)[:, :, None] * nearplane, dim=1)
 
 
 def fwd_raw(psi: torch.Tensor, scan: torch.Tensor, prb: torch.Tensor,
@@ -128,9 +153,7 @@ def fwd_raw(psi: torch.Tensor, scan: torch.Tensor, prb: torch.Tensor,
 
         return fused.fwd(psi, scan_int, prb, ndet,
                          precision=_fused_precision(kernel))
-    nprb = prb.shape[-1]
-    patches = _patches.gather_patches(psi, scan_int, nprb)
-    nearplane = patches[:, :, None] * prb[:, None]  # (t, s, m, p, p)
+    nearplane = _nearplane_fwd(psi, scan_int, prb, kernel)  # (t, s, m, p, p)
     return fft2o(pad_to_det(nearplane, ndet))
 
 
@@ -146,8 +169,7 @@ def adj_raw(farplane: torch.Tensor, scan: torch.Tensor, prb: torch.Tensor,
         return fused.adj(farplane, scan_int, prb, nz, n,
                          precision=_fused_adj_precision(kernel))
     nearplane = crop_from_det(ifft2o(farplane), nprb)  # (t, s, m, p, p)
-    patches = torch.sum(torch.conj(prb)[:, None] * nearplane, dim=2)
-    return _patches.scatter_patches_add(patches, scan_int, nz, n)
+    return _adj_object(nearplane, scan_int, prb, nz, n, kernel)
 
 
 def adj_probe_raw(farplane: torch.Tensor, scan: torch.Tensor,
@@ -162,8 +184,7 @@ def adj_probe_raw(farplane: torch.Tensor, scan: torch.Tensor,
         return fused.adj_probe(farplane, scan_int, psi, nprb,
                                precision=_fused_adj_precision(kernel))
     nearplane = crop_from_det(ifft2o(farplane), nprb)  # (t, s, m, p, p)
-    patches = _patches.gather_patches(psi, scan_int, nprb)
-    return torch.sum(torch.conj(patches)[:, :, None] * nearplane, dim=1)
+    return _adj_probe_acc(nearplane, scan_int, psi, kernel)
 
 
 class _Fwd(torch.autograd.Function):

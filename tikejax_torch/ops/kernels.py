@@ -1,0 +1,272 @@
+"""The hybrid tier's patch kernels: the hand-written ``gather_probe_mul``,
+``scatter_conj_probe`` and ``adj_probe_reduce``.
+
+Counterpart of ``tikejax.ops.pallas_kernels`` (same three functions, same
+argument order). They are the operators of ``kernel='pallas'`` with the FFT
+left to the library (cuFFT through ``torch.fft``, as the JAX package leaves
+it to XLA's FFT outside any Pallas kernel):
+
+* :func:`gather_probe_mul` -- forward, before the FFT: gather the object
+  patch of every scan position and multiply it by every probe mode;
+* :func:`scatter_conj_probe` -- object adjoint, after the inverse FFT:
+  conj-probe multiply, mode sum and overlap scatter-add into the object;
+* :func:`adj_probe_reduce` -- probe adjoint, after the inverse FFT: gather
+  the object patches, conj-multiply with the frames and sum over the
+  positions.
+
+A position whose scan row is < 0 is a masked dummy: its gathered frames are
+zero and it adds nothing to either adjoint.
+
+The CUDA sources are ``tikejax_torch/csrc/gather_probe_mul.cu``,
+``scatter_conj_probe.cu`` and ``adj_probe_reduce.cu`` (built by
+``tikejax_torch.utils.cuda_build``); their notes say what bounds each on an
+H100 (the one pass over the nearplane). The TPU kernels' addressing scheme
+(aligned power-of-two windows, object padding, sublane/lane rotates, split
+re/im planes) serves Mosaic's alignment rules and is not carried over. The
+kernels take complex64 and int32 only. The two adjoints read their frames
+in place through the tensor's strides (the innermost must be 1), because
+their caller hands them ``crop_from_det(ifft2o(farplane), nprb)``, a strided
+view whenever ``ndet > nprb``: a contiguous copy would be one more pass over
+all frames.
+
+Determinism: ``scatter_conj_probe`` uses fp32 atomics, so it is
+deterministic only up to the order in which overlapping patches are summed
+(the TPU kernel's in-order grid is bitwise deterministic; this is the
+contract of the port's other object scatters). ``gather_probe_mul`` has no
+reduction, and ``adj_probe_reduce`` sums fixed runs of positions in
+registers and the runs in a fixed order: both are bitwise reproducible.
+
+Each function takes CPU or CUDA tensors. On a CUDA tensor it launches its
+kernel or raises; on a CPU tensor it runs its ``*_reference``, the plain
+PyTorch version (the oracle operators' few lines), which also takes
+complex128. Each keeps an integer count of its runs in its ``launches``
+attribute.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from tikejax_torch.ops import fused
+from tikejax_torch.ops import patches as _patches
+from tikejax_torch.utils import cuda_build
+
+# adj_probe_reduce cuts the positions of an angle into runs so that about
+# this many blocks are in flight (132 SMs x 8 blocks of 256 threads, twice).
+_TARGET_BLOCKS = 2048
+_MAX_GRID_YZ = 65535
+
+
+def gather_probe_mul(psi: torch.Tensor, scan_int: torch.Tensor,
+                     prb: torch.Tensor) -> torch.Tensor:
+    """Fused gather+multiply: ``nearplane[t, s, m] = psi[patch(s)] *
+    prb[m]``; zero frames for a masked position (scan row < 0).
+
+    Args:
+      psi: ``(ntheta, nz, n)`` complex object.
+      scan_int: ``(ntheta, nscan, 2)`` int32 (y, x) offsets.
+      prb: ``(ntheta, nmodes, nprb, nprb)`` complex probe.
+
+    Returns:
+      ``(ntheta, nscan, nmodes, nprb, nprb)`` like ``psi``.
+    """
+    if not fused._route("gather_probe_mul", psi):
+        return gather_probe_mul_reference(psi, scan_int, prb)
+    return _gather_probe_mul_cuda(psi, scan_int, prb)
+
+
+gather_probe_mul.launches = 0
+
+
+def gather_probe_mul_reference(psi: torch.Tensor, scan_int: torch.Tensor,
+                               prb: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`gather_probe_mul`, on any device."""
+    gather_probe_mul_reference.launches += 1
+    patches = _patches.gather_patches(psi, scan_int, prb.shape[-1])
+    return patches[:, :, None] * prb[:, None]
+
+
+gather_probe_mul_reference.launches = 0
+
+
+def scatter_conj_probe(nearplane: torch.Tensor, scan_int: torch.Tensor,
+                       prb: torch.Tensor, nz: int, n: int) -> torch.Tensor:
+    """Adjoint-to-object accumulation: ``psi_acc[patch(s)] += sum_m
+    conj(prb[m]) * nearplane[s, m]``; a masked position adds nothing.
+
+    Args:
+      nearplane: ``(ntheta, nscan, nmodes, nprb, nprb)`` complex frames
+        (inverse-FFT'd and cropped; any strides with the innermost 1).
+
+    Returns:
+      ``(ntheta, nz, n)`` like ``nearplane``.
+    """
+    if not fused._route("scatter_conj_probe", nearplane):
+        return scatter_conj_probe_reference(nearplane, scan_int, prb, nz, n)
+    return _scatter_conj_probe_cuda(nearplane, scan_int, prb, nz, n)
+
+
+scatter_conj_probe.launches = 0
+
+
+def scatter_conj_probe_reference(nearplane: torch.Tensor,
+                                 scan_int: torch.Tensor, prb: torch.Tensor,
+                                 nz: int, n: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`scatter_conj_probe`, on any
+    device."""
+    scatter_conj_probe_reference.launches += 1
+    patches = torch.sum(torch.conj(prb)[:, None] * nearplane, dim=2)
+    return _patches.scatter_patches_add(patches, scan_int, nz, n)
+
+
+scatter_conj_probe_reference.launches = 0
+
+
+def adj_probe_reduce(nearplane: torch.Tensor, scan_int: torch.Tensor,
+                     psi: torch.Tensor) -> torch.Tensor:
+    """Probe adjoint: ``prb_acc[m] = sum_s conj(psi[patch(s)]) *
+    nearplane[s, m]``; a masked position adds nothing. ``nearplane`` as in
+    :func:`scatter_conj_probe`.
+
+    Returns:
+      ``(ntheta, nmodes, nprb, nprb)`` like ``nearplane``.
+    """
+    if not fused._route("adj_probe_reduce", nearplane):
+        return adj_probe_reduce_reference(nearplane, scan_int, psi)
+    return _adj_probe_reduce_cuda(nearplane, scan_int, psi)
+
+
+adj_probe_reduce.launches = 0
+
+
+def adj_probe_reduce_reference(nearplane: torch.Tensor,
+                               scan_int: torch.Tensor,
+                               psi: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`adj_probe_reduce`, on any device."""
+    adj_probe_reduce_reference.launches += 1
+    patches = _patches.gather_patches(psi, scan_int, nearplane.shape[-1])
+    return torch.sum(torch.conj(patches)[:, :, None] * nearplane, dim=1)
+
+
+adj_probe_reduce_reference.launches = 0
+
+
+# -- the CUDA path -------------------------------------------------------
+
+_STRIDES = [ctypes.c_int64] * 4
+_ARGTYPES = {
+    # pointers, ints (and the frames' four strides), then the stream.
+    "gather_probe_mul": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6,
+    "scatter_conj_probe": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+    + _STRIDES,
+    "adj_probe_reduce": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+    + _STRIDES,
+}
+
+
+@functools.cache
+def _lib(name: str) -> ctypes.CDLL:
+    lib = cuda_build.load(name)
+    entry = getattr(lib, f"tk_{name}")
+    entry.argtypes = _ARGTYPES[name] + [ctypes.c_void_p]
+    entry.restype = ctypes.c_int
+    lib.tk_error_string.argtypes = [ctypes.c_int]
+    lib.tk_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch(name: str, device_index: int, *args) -> None:
+    """Call ``tk_<name>(*args, stream)`` on the current stream of the
+    device; raise on a refused launch."""
+    lib = _lib(name)
+    with torch.cuda.device(device_index):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, f"tk_{name}")(*args, stream)
+    if err:
+        raise RuntimeError(f"{name}: kernel launch failed: "
+                           f"{lib.tk_error_string(err).decode()}")
+
+
+def _check_frames(name, nearplane, scan_int, other, other_name):
+    """Checks of the adjoints' inputs: ``nearplane`` (t, s, m, p, p) with
+    innermost stride 1, ``scan_int`` (t, s, 2) and ``other`` (the probe
+    (t, m, p, p) or the object (t, nz, n)); returns (t, s, m, p)."""
+    t, s, m, p, p2 = nearplane.shape
+    fused._check_types(name, {"nearplane": (nearplane, torch.complex64),
+                              other_name: (other, torch.complex64),
+                              "scan_int": (scan_int, torch.int32)})
+    lead = (t, m, p, p) if other_name == "prb" else (t,)
+    if (p2 != p or scan_int.shape != (t, s, 2)
+            or tuple(other.shape[:len(lead)]) != lead):
+        raise ValueError(
+            f"{name}: inconsistent shapes nearplane "
+            f"{tuple(nearplane.shape)}, {other_name} {tuple(other.shape)}, "
+            f"scan_int {tuple(scan_int.shape)}")
+    if nearplane.numel() and nearplane.stride(-1) != 1:
+        raise ValueError(
+            f"{name}: the kernel reads the frames in place and needs their "
+            f"innermost stride to be 1, got strides {nearplane.stride()}")
+    return t, s, m, p
+
+
+def _gather_probe_mul_cuda(psi, scan_int, prb):
+    name = "gather_probe_mul"
+    t, nz, n = psi.shape
+    _, m, p, p2 = prb.shape
+    s = scan_int.shape[1]
+    fused._check_types(name, {"psi": (psi, torch.complex64),
+                              "prb": (prb, torch.complex64),
+                              "scan_int": (scan_int, torch.int32)})
+    if prb.shape[0] != t or p2 != p or scan_int.shape != (t, s, 2):
+        raise ValueError(
+            f"{name}: inconsistent shapes psi {tuple(psi.shape)}, prb "
+            f"{tuple(prb.shape)}, scan_int {tuple(scan_int.shape)}")
+    out = torch.empty((t, s, m, p, p), dtype=torch.complex64,
+                      device=psi.device)
+    psi, prb, scan_int = psi.contiguous(), prb.contiguous(), (
+        scan_int.contiguous())
+    _launch(name, fused._device_index(psi), psi.data_ptr(), prb.data_ptr(),
+            scan_int.data_ptr(), out.data_ptr(), t, s, nz, n, m, p)
+    gather_probe_mul.launches += 1
+    return out
+
+
+def _scatter_conj_probe_cuda(nearplane, scan_int, prb, nz, n):
+    name = "scatter_conj_probe"
+    t, s, m, p = _check_frames(name, nearplane, scan_int, prb, "prb")
+    out = torch.zeros((t, nz, n), dtype=torch.complex64,
+                      device=nearplane.device)
+    prb, scan_int = prb.contiguous(), scan_int.contiguous()
+    _launch(name, fused._device_index(nearplane), nearplane.data_ptr(),
+            prb.data_ptr(), scan_int.data_ptr(), out.data_ptr(), t, s, nz,
+            n, m, p, *nearplane.stride()[:4])
+    scatter_conj_probe.launches += 1
+    return out
+
+
+def _adj_probe_reduce_cuda(nearplane, scan_int, psi):
+    name = "adj_probe_reduce"
+    t, s, m, p = _check_frames(name, nearplane, scan_int, psi, "psi")
+    _, nz, n = psi.shape
+    out = torch.empty((t, m, p, p), dtype=torch.complex64,
+                      device=nearplane.device)
+    if t == 0 or s == 0 or m == 0 or p == 0:
+        return out.zero_()
+    if t > _MAX_GRID_YZ:
+        raise ValueError(f"{name}: at most {_MAX_GRID_YZ} angles, got {t}")
+    per_block = _lib(name).tk_adj_probe_reduce_pixels_per_block()
+    chunks = -(-p * p // per_block)
+    groups = max(1, min(s, _MAX_GRID_YZ, -(-_TARGET_BLOCKS // (chunks * t))))
+    groups = -(-s // -(-s // groups))  # no empty run of positions
+    acc = torch.empty((groups, t, m, p, p), dtype=torch.complex64,
+                      device=nearplane.device)
+    psi, scan_int = psi.contiguous(), scan_int.contiguous()
+    _launch(name, fused._device_index(nearplane), nearplane.data_ptr(),
+            psi.data_ptr(), scan_int.data_ptr(), out.data_ptr(),
+            acc.data_ptr(), t, s, nz, n, m, p, groups,
+            *nearplane.stride()[:4])
+    adj_probe_reduce.launches += 1
+    return out

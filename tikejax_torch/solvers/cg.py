@@ -3,7 +3,8 @@
 
 Counterpart of ``tikejax.solvers.cg``: the same options (same names and
 defaults), the same Dai-Yuan and two-loop L-BFGS directions, warm-started
-backtracking (or interpolating) line search, illumination preconditioners,
+backtracking (or interpolating, or parabola-refined) line search,
+illumination preconditioners (with the optional low-frequency boost),
 stopping rules and metrics, joint object+probe recovery (an object step,
 then a Dai-Yuan probe step at the updated object), position streaming
 (``nchunks``), the split-operator mode (``f_base``), the two memory
@@ -22,7 +23,8 @@ across its refinement segments. Three loop bodies, as in the JAX package:
   pass) per iteration, then a line search that evaluates every candidate
   with one ``minf_fused`` pass -- nothing farplane-sized is allocated;
 * the materialized CLASSIC body (``memory='materialized'`` on the fused
-  tiers, and ``kernel='xla'``, the 'auto' choice off CUDA): the farplane
+  tiers, ``kernel='xla'``, the 'auto' choice off CUDA, and the hybrid
+  ``kernel='pallas'``): the farplane
   ``G psi`` (plus the base) is kept between the gradient pass and the line
   search. On the fused tiers the object gradient is one ``fwd`` and one
   ``adj_residual`` pass, the probe gradient ``fwd`` then ``adj_probe``, and
@@ -31,7 +33,9 @@ across its refinement segments. Three loop bodies, as in the JAX package:
   the direction -- or, with ``fused_linesearch``, takes the first accepted
   of all ``max_halvings + 1`` steps from one ``ls_objectives`` pass over
   ``G psi`` and the direction's farplane (``fwd``). On ``'xla'`` both passes
-  run the oracle operators.
+  run the oracle operators; on ``'pallas'`` the same operators with cuFFT
+  between the ``gather_probe_mul``, ``scatter_conj_probe`` and
+  ``adj_probe_reduce`` kernels of ``tikejax_torch.ops.kernels``.
 
 With ``nchunks > 1`` the classic body streams both passes over
 ``nchunks`` chunks of positions: the gradient pass sums the chunks'
@@ -54,10 +58,9 @@ it reads its K values at once. The scalar slots of
 the carried state (steps, the L-BFGS curvature ring and count) are host
 values, kept as 0-d or 1-d CPU tensors.
 
-Not ported (each raises NotImplementedError naming ROADMAP.md):
-``linesearch='parabolic'``, ``precondition='illum_lowk'``,
-``kernel='pallas'``, mesh axes, the slab fields and the TPU slab planner /
-compile-retry ladder (``run`` calls ``run_impl`` directly).
+Not ported (each raises NotImplementedError naming ROADMAP.md): mesh axes,
+the slab fields and the TPU slab planner / compile-retry ladder (``run``
+calls ``run_impl`` directly).
 """
 
 from __future__ import annotations
@@ -88,13 +91,21 @@ class CGOptions:
       kernel: 'auto' (fused_mx on CUDA -- fused_hp for a deep
         target_residual, 'fused' for a shallow one -- and 'xla'
         elsewhere), any 'fused*' tier (all run the fp32 kernels of
-        ``tikejax_torch.ops.fused``), or 'xla' (the oracle operators).
+        ``tikejax_torch.ops.fused``), 'pallas' (the hybrid tier: cuFFT
+        between the kernels of ``tikejax_torch.ops.kernels``) or 'xla' (the
+        oracle operators).
       precondition: 'illum' (divide the object gradient by the
         probe-illumination map, and the probe gradient by the object power
         each probe pixel sees, each floored at 10% of its maximum; under
-        recover_prb the object's map follows the current probe), 'max'
-        (the object gradient times the scalar 1/max sum_m |prb_m|^2) or
-        'none'.
+        recover_prb the object's map follows the current probe),
+        'illum_lowk' ('illum', then the gradient's spectrum times the real
+        positive symbol 1 + lowk_boost * k0^2 / (k0^2 + |k|^2), k0 =
+        lowk_frac * Nyquist; object-only), 'max' (the object gradient times
+        the scalar 1/max sum_m |prb_m|^2) or 'none'.
+      verbose_every: if > 0, print (iteration, minf, gamma) every N
+        iterations.
+      lowk_boost, lowk_frac: the 'illum_lowk' filter's boost amplitude
+        (>= 0) and crossover as a fraction of Nyquist (in (0, 0.5]).
       adaptive_step: warm-start the line search from the previous step.
       step_growth: warm-start regrow factor (>= 1).
       step_policy: 'regrow' (start from min(step0, growth * previous
@@ -120,8 +131,11 @@ class CGOptions:
       stop_on_stall: stop after this many consecutive fully-failed line
         searches (0 disables).
       linesearch: 'backtracking', 'interp' (one safeguarded quadratic-
-        interpolation step on the first rejection) or 'auto'
-        (backtracking on the fused_mp/hp/mx/hx tiers, interp otherwise).
+        interpolation step on the first rejection), 'parabolic'
+        (backtracking, then the accepted step refined to the vertex of the
+        parabola through the objective at 0, gamma/2 and gamma: two more
+        evaluations; it runs the classic body) or 'auto' (backtracking on
+        the fused_mp/hp/mx/hx tiers, interp otherwise).
       recover_prb: also recover the probe: after each object step, a
         Dai-Yuan step on the probe at the updated object, with its own
         warm-started line search (``metrics['gamma_prb']``).
@@ -152,6 +166,9 @@ class CGOptions:
     max_halvings: int = 16
     kernel: str = "auto"
     precondition: str = "illum"
+    verbose_every: int = 0
+    lowk_boost: float = 4.0
+    lowk_frac: float = 0.05
     adaptive_step: bool = True
     step_growth: float = 4.0
     step_policy: str = "auto"
@@ -173,8 +190,7 @@ class CGOptions:
 _UNPORTED_FIELDS = {
     "axis_name": None,
     "theta_axis_name": None, "obj_axis_name": None, "obj_halo": 0,
-    "obj_axis_size": 1, "verbose_every": 0, "lowk_boost": 4.0,
-    "lowk_frac": 0.05, "obj_slabs": 1,
+    "obj_axis_size": 1, "obj_slabs": 1,
     "obj_slabs_partitioned": False, "obj_slab_rows": None,
     "obj_slab_cols": 1, "kernel_frames": None,
 }
@@ -183,8 +199,8 @@ _UNPORTED_FIELDS = {
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to tikejax_torch yet; see ROADMAP.md "
-        "(queue 1, 'the rest of the solver surface', and queue 2 for its "
-        "kernels)")
+        "(queue 1 item 9 for the mesh axes; the slab fields are under 'Not "
+        "to port')")
 
 
 def _lbfgs_memory(direction: str) -> int:
@@ -231,10 +247,17 @@ def _rdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def _quad_stats(fpsi, fd):
     """Per-pixel quadratic coefficients of |fpsi + gamma*fd|^2 summed over
-    modes: (a, b, c) of shape (ntheta, nscan, nd, nd)."""
-    a = likelihoods.total_intensity(fpsi)
-    b = torch.sum((torch.conj(fpsi) * fd).real, dim=2)
-    c = likelihoods.total_intensity(fd)
+    modes: (a, b, c) of shape (ntheta, nscan, nd, nd), computed over
+    chunks of positions so that no farplane-sized temporary is allocated
+    beside them."""
+    t, s, _, nd, _ = fpsi.shape
+    a, b, c = (torch.empty((t, s, nd, nd), dtype=fpsi.real.dtype,
+                           device=fpsi.device) for _ in range(3))
+    for ac, bc, cc, fp, d in _position_chunks((a, b, c, fpsi, fd),
+                                              16 * 2**20):
+        ac.copy_(likelihoods.total_intensity(fp))
+        bc.copy_(torch.sum((torch.conj(fp) * d).real, dim=2))
+        cc.copy_(likelihoods.total_intensity(d))
     return a, b, c
 
 
@@ -279,17 +302,23 @@ class _Engine:
                 f"nchunks ({o.nchunks}) must divide nscan ({g.nscan})")
         if o.model not in likelihoods.MODELS:
             raise ValueError(f"unknown model {o.model!r}")
-        if o.precondition == "illum_lowk":
-            raise _not_ported("precondition='illum_lowk'")
-        if o.precondition not in ("illum", "max", "none"):
+        if o.precondition not in ("illum", "illum_lowk", "max", "none"):
             raise ValueError(f"unknown precondition {o.precondition!r}; "
                              "expected 'illum', 'illum_lowk', 'max', or "
                              "'none'")
+        if o.precondition == "illum_lowk":
+            if o.recover_prb:
+                raise ValueError("precondition='illum_lowk' is "
+                                 "object-only (the low-k filter has no "
+                                 "probe analogue); run joint recovery "
+                                 "with 'illum' first")
+            if o.lowk_boost < 0 or not (0 < o.lowk_frac <= 0.5):
+                raise ValueError("lowk_boost must be >= 0 and lowk_frac "
+                                 "in (0, 0.5]")
         if o.memory not in ("auto", "materialized", "frameless"):
             raise ValueError(f"unknown memory policy {o.memory!r}")
-        if o.linesearch == "parabolic":
-            raise _not_ported("linesearch='parabolic'")
-        if o.linesearch not in ("auto", "interp", "backtracking"):
+        if o.linesearch not in ("auto", "interp", "backtracking",
+                                "parabolic"):
             raise ValueError(f"unknown linesearch {o.linesearch!r}; "
                              "expected 'auto', 'interp', 'backtracking',"
                              " or 'parabolic'")
@@ -310,16 +339,14 @@ class _Engine:
             raise ValueError("stop_on_stall must be >= 0")
         diffraction._check_kernel(o.kernel)
         self.kernel = diffraction.resolve_kernel(o.kernel, backend)
-        if self.kernel == "pallas":
-            raise _not_ported("kernel='pallas' (the hybrid kernels)")
         self.fused = self.kernel.startswith("fused")
         self.ls = o.linesearch
         if self.ls == "auto":
             deep = self.kernel in ("fused_mp", "fused_hp", "fused_mx",
                                    "fused_hx")
             self.ls = "backtracking" if deep else "interp"
-        # 'auto' is frameless on the fused tiers; 'xla' has no frameless
-        # path.
+        # 'auto' is frameless on the fused tiers; 'xla' and 'pallas' have
+        # no frameless path.
         self.frameless = o.memory == "frameless" or (o.memory == "auto"
                                                      and self.fused)
         self.merged = (o.merged_linesearch == "auto" and self.frameless
@@ -567,8 +594,9 @@ class _Engine:
         first halving replaced by the interpolation step under 'interp');
         gamma = 0 if none within max_halvings. ``f_of(gamma)`` returns
         (objective on the host, payload); ``fp0()`` the directional
-        derivative on the host. Returns (gamma, f, payload) of the last
-        candidate evaluated."""
+        derivative on the host. Returns (gamma, f, payload) with f and
+        payload of the last backtracking candidate evaluated; under
+        'parabolic' gamma is the refined step."""
         o = self.o
         gamma = gamma0
         fg, payload = f_of(gamma)
@@ -581,7 +609,35 @@ class _Engine:
             gamma = gamma * o.step_shrink
             fg, payload = f_of(gamma)
             k += 1
-        return (gamma if fg <= f0 else 0.0), fg, payload
+        gamma = gamma if fg <= f0 else 0.0
+        if self.ls == "parabolic":
+            gamma = self.parabolic_refine(f_of, f0, gamma, fg)
+        return gamma, fg, payload
+
+    def parabolic_refine(self, f_of, f0, gamma, fg):
+        """Refine an accepted backtracking step to the vertex of the
+        parabola through (0, f0), (gamma/2, fm), (gamma, fg), clipped to
+        [gamma/8, 2 gamma]: the best of the three sampled steps, taken only
+        when it does not exceed ``fg``, so the search stays monotone. A
+        rejected search (gamma = 0) and a parabola without positive
+        curvature pass through untouched. Each extra sample is one
+        evaluation and one host read (the JAX package evaluates both in
+        every case, inside its jit; the accepted step is the same)."""
+        if not gamma > 0:
+            return gamma
+        fm, _ = f_of(0.5 * gamma)
+        curv = f0 - 2.0 * fm + fg  # = f'' gamma^2 / 2
+        if not curv > 0:
+            return gamma
+        vertex = 0.25 * gamma * (3.0 * f0 + fg - 4.0 * fm) / curv
+        vertex = min(max(vertex, 0.125 * gamma), 2.0 * gamma)
+        fv, _ = f_of(vertex)
+        # The first of the smallest, as argmin over (fg, fm, fv).
+        f_best, g_best = fg, gamma
+        for f, g in ((fm, 0.5 * gamma), (fv, vertex)):
+            if f < f_best:
+                f_best, g_best = f, g
+        return g_best
 
     # -- search directions -----------------------------------------------
 
@@ -691,6 +747,16 @@ def _probe_power(prb):
     return torch.sum(prb.real**2 + prb.imag**2, dim=1)  # (t, nprb, nprb)
 
 
+def _lowk_symbol(nz, n, boost, frac, dtype, device):
+    """Real positive Fourier symbol 1 + boost * k0^2 / (k0^2 + |k|^2) with
+    k0 = frac * Nyquist, ``(nz, n)``: self-adjoint and positive-definite as
+    a real-linear operator, so a valid CG preconditioner factor."""
+    fy = torch.fft.fftfreq(nz, dtype=dtype, device=device)[:, None]
+    fx = torch.fft.fftfreq(n, dtype=dtype, device=device)[None, :]
+    k02 = (0.5 * frac) ** 2
+    return 1.0 + boost * k02 / (k02 + fy**2 + fx**2)
+
+
 def _illum_denominator(prb, scan_i, nz, n):
     """The probe-illumination map, floored at 10% of its per-angle
     maximum."""
@@ -703,7 +769,15 @@ def _preconditioner(o: CGOptions, prb0, scan_i, nz, n):
     """``precond(g, prb)``, the object-gradient preconditioner at the
     probe ``prb``. For 'illum' without recover_prb the denominator is
     computed once (the probe does not move); with it, it follows the
-    current probe, as in the JAX package."""
+    current probe, as in the JAX package. 'illum_lowk' (object-only)
+    multiplies the spectrum of the 'illum' result by :func:`_lowk_symbol`:
+    two 2-D FFTs of the object per application."""
+    if o.precondition == "illum_lowk":
+        denom = _illum_denominator(prb0, scan_i, nz, n)
+        lowk = _lowk_symbol(nz, n, o.lowk_boost, o.lowk_frac,
+                            prb0.real.dtype, prb0.device)
+        return lambda g, prb: torch.fft.ifft2(torch.fft.fft2(g / denom)
+                                              * lowk)
     if o.precondition == "illum":
         if not o.recover_prb:
             denom = _illum_denominator(prb0, scan_i, nz, n)
@@ -882,6 +956,9 @@ def run_impl(geometry: Geometry, options: CGOptions, data, psi0, scan, prb0,
         gamma_prb.append(gamma_p)
         grad_norm.append(torch.sqrt(_rdot(g_iter, g_iter)))
         gam_prev, gam0_prev = gamma, gamma0
+        if o.verbose_every > 0 and i % o.verbose_every == 0:
+            print(f"iter {i}: minf={f_iter:.6e} gamma={gamma:.4f}",
+                  flush=True)
         i += 1
 
     def padded(values):

@@ -126,7 +126,9 @@ def reconstruct(data, psi0, scan, prb0, geometry: Geometry,
         iterations between base re-freezes) and budget.
       base_kernel / fast_kernel: split-mode kernels (defaults: 'fused_hp'
         / 'fused' when the tensors are on CUDA, the 'xla' oracle
-        elsewhere).
+        elsewhere); the hybrid 'pallas' tier serves as either, as in the
+        JAX package (its refinement segments keep the base farplane and
+        ``G psi`` in memory).
       joint_kernel: kernel of the joint escalation and probe-refresh
         chains under recover_prb (default: base_kernel).
       segment_carry: continue the CG trajectory across re-bases (the

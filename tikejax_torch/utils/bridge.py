@@ -28,6 +28,20 @@ def to_numpy(x: torch.Tensor) -> np.ndarray:
     return x.detach().cpu().numpy()
 
 
+def to_numpy_tree(x):
+    """``x`` with every tensor in it copied to a host numpy array: dicts,
+    tuples and lists are rebuilt, any other leaf goes through
+    ``np.asarray`` (a solver's metrics, carried state included, as the JAX
+    package's facade returns them)."""
+    if isinstance(x, torch.Tensor):
+        return to_numpy(x)
+    if isinstance(x, dict):
+        return {k: to_numpy_tree(v) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(to_numpy_tree(v) for v in x)
+    return np.asarray(x)
+
+
 def geometry_from(obj) -> Geometry:
     """This package's :class:`Geometry` from any object carrying the seven
     geometry fields (for example a ``tikejax.Geometry``)."""

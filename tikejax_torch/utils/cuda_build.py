@@ -27,7 +27,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNELS = ("grad_fused", "fwd", "minf_fused", "grad_prb_fused", "adj",
-           "adj_probe", "adj_residual", "fwd_quad_stats", "ls_objectives")
+           "adj_probe", "adj_residual", "fwd_quad_stats", "ls_objectives",
+           "gather_probe_mul", "scatter_conj_probe", "adj_probe_reduce")
 
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 _LOADED: dict[str, ctypes.CDLL] = {}
