@@ -12,7 +12,11 @@ is caught):
                   minf_fused, grad_prb_fused, adj, adj_probe, adj_residual,
                   fwd_quad_stats, ls_objectives, gather_probe_mul,
                   scatter_conj_probe, adj_probe_reduce) from
-                  tikejax_torch/csrc, one process per source, in parallel;
+                  tikejax_torch/csrc, one process per source, in parallel,
+                  into the build directory it prints; beside them the four
+                  kernels that have an FFT variant once more on the
+                  unpadded frame layout (TK_FFT_PAD=0), for the
+                  bank-conflict measurement;
   3. kernel    -- each kernel against its plain PyTorch version on a small
                   awkward case (2 angles, 2 modes, odd sizes, a masked
                   position, both models) and at the headline frame size:
@@ -27,19 +31,36 @@ is caught):
                   ls_objectives, gather_probe_mul and adj_probe_reduce also
                   bitwise repeatable, scatter_conj_probe (fp32 atomics)
                   repeatable to 1e-5 of scale; kernel and plain times at
-                  the headline size beside each kernel's bound;
+                  the headline size beside each kernel's bound. grad_fused,
+                  minf_fused, grad_prb_fused and adj_probe have two kernels
+                  each (ops.fused dft_variant): the small case above (72^2)
+                  runs 'gemm', the headline 'fft'; both variants, forced,
+                  are also held to the plain versions on a power-of-two
+                  awkward case (2 angles, 2 modes, 48^2 probe in a 64^2
+                  detector, a masked position, both models, with and
+                  without a base) and at the headline: every objective and
+                  both probe sums bitwise repeatable, two runs of
+                  grad_fused's gradient within 1e-5 of scale, and on 'fft'
+                  the three objectives equal bit for bit (a line search
+                  compares them); then one line per redesigned kernel: FFT
+                  and forced 'gemm' times taken in turns in this run, 512
+                  against 1024 threads, the data prefetch on and off, the
+                  padded against the unpadded frame layout, registers,
+                  spills, shared memory, resident blocks and the share of
+                  the bound;
   4. solver    -- a small problem against the CPU complex128 oracle solver;
   5. main      -- the headline problem (512^2 object, 16384 positions, 128^2
                   probe and detector, Gaussian, solver defaults) through
                   solvers.run, checking that every evaluation launched the
-                  kernel, that the residual fell tenfold and that nothing
-                  farplane-sized was allocated;
+                  kernel (its 'fft' variant), that the residual fell tenfold
+                  and that peak extra memory stayed below 83.4 MiB (what the
+                  'gemm' variant's scratch made it);
   6. deep      -- the headline through solvers.reconstruct with its defaults
                   to a 1e-6 relative residual from psi0 = ones, timed
                   between two torch.cuda.synchronize(): the target must be
                   reached, fwd must freeze every base and make every
-                  Anderson candidate, grad_fused must run every evaluation,
-                  and no plain version may run;
+                  Anderson candidate, grad_fused ('fft') must run every
+                  evaluation, and no plain version may run;
   7. materialized -- the headline through solvers.run(memory=
                   'materialized'), 100 iterations: fwd, adj_residual and
                   fwd_quad_stats once an iteration, no grad_fused or
@@ -60,7 +81,9 @@ is caught):
  10. frameless -- 4 modes x 16384 positions x 128^2 (an 8.6 GB farplane,
                   past the 3 GiB threshold): first grad_fused, minf_fused
                   and fwd(split_out=True), each with and without a base
-                  given as split views, and the three hybrid kernels,
+                  given as split views, adj_probe on the 8 GiB farplane
+                  (grad_fused, minf_fused and adj_probe on 'fft'),
+                  and the three hybrid kernels,
                   against their plain versions at
                   this full size (float offsets past 2^31); then
                   reconstruct at a cut depth: the frameless Anderson
@@ -76,7 +99,8 @@ is caught):
                   complex scale that the joint objective cannot fix) must
                   fall,
                   grad_fused and grad_prb_fused must launch once an
-                  iteration and minf_fused once a candidate, and peak extra
+                  iteration and minf_fused once a candidate, all three on
+                  their 'fft' variant, and peak extra
                   memory must stay below 256 MiB (frameless);
  12. materialized -- the same problem and start through run(
                   recover_prb=True, memory='materialized') for 64
@@ -85,8 +109,8 @@ is caught):
                   fallen, peak extra memory below 2 GiB;
  13. stream    -- the JAX package's quick start on the port: the same
                   problem, Gaussian, recover_prb=True, nchunks=4, 128
-                  iterations: fwd, adj and adj_probe must launch on every
-                  chunk pass, the objective must fall, and peak extra
+                  iterations: fwd, adj and adj_probe ('fft') must launch on
+                  every chunk pass, the objective must fall, and peak extra
                   memory must stay below the streamed statistics and two
                   chunk farplanes (1.25 GiB);
  14. joint-deep -- the same problem (Gaussian) through reconstruct(
@@ -129,6 +153,27 @@ SOLVE_TOL = 1e-4
 SEED = 0
 HEADLINE = dict(nz=512, n=512, nscan=16384, ndet=128, nprb=128)
 MAIN_ITERS = 100
+# Phase main's peak extra memory with the 'gemm' grad_fused, whose per-block
+# scratch was most of it; the 'fft' variant has none and must stay below.
+MAIN_PEAK = 83.4 * 2**20
+# The power-of-two awkward case of the FFT variants.
+POW2_SMALL = dict(nz=97, n=101, nscan=37, ndet=64, nprb=48, ntheta=2,
+                  nmodes=2)
+UNPADDED = ("TK_FFT_PAD=0",)
+# The kernels that have an FFT variant beside their DFT-GEMM one.
+REDESIGNED = ("grad_fused", "minf_fused", "grad_prb_fused", "adj_probe")
+# Part of the mangled name of the instantiation the headline runs (side 128,
+# 1024 threads, no base) and of the 'gemm' kernel, for the compiler's report.
+HEADLINE_ENTRIES = {
+    "grad_fused": ("grad_fused_fft_kernelILi128ELi1024ELb0",
+                   "grad_fused_kernelILb0"),
+    "minf_fused": ("minf_fused_fft_kernelILi128ELi1024ELb0",
+                   "minf_fused_kernelILb0"),
+    "grad_prb_fused": ("grad_prb_fused_fft_kernelILi128ELi1024EE",
+                       "grad_prb_fused_kernelE"),
+    "adj_probe": ("adj_probe_fft_kernelILi128ELi1024EE",
+                  "adj_probe_kernelE"),
+}
 DEEP_TARGET = 1e-6
 # About 11 s a 256-iteration segment: a run that does not converge ends
 # within ~3 minutes.
@@ -148,10 +193,14 @@ STREAM_PEAK = 1.25 * 2**30
 # The joint path holds no farplane (0.5 GiB here) and no data-sized
 # temporary.
 JOINT_PEAK = 256 * 2**20
-# A joint-deep run that does not converge ends within about 2 minutes:
-# each probe refresh costs one segment of the budget and ~4 x 128 joint
-# iterations.
-JOINT_DEEP_MAX_SEGMENTS = 12
+# A joint-deep run that does not converge ends within about a minute: each
+# probe refresh costs one segment of the budget and ~4 x 128 joint
+# iterations. The joint trajectory is chaotic (its rounding differences grow
+# ~1.3x an iteration, and the gradient's atomics change them from run to
+# run): of eight runs on an H100 seven reached 1e-6 after one probe refresh
+# (14-16 stages, 10-16 s) and one after two (23 stages, 21 s), which the 12
+# segments allowed while a run took a minute would only just have covered.
+JOINT_DEEP_MAX_SEGMENTS = 24
 # Published H100 SXM peaks (700 W): fp32 outside the tensor cores, memory.
 PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -283,6 +332,88 @@ def compare_adjoints(torch, fused, far, scan_i, prb, psi):
     return a_err, p_err
 
 
+def compare_variant(torch, fused, args, ndet, model, base, far, variant):
+    """One forced variant of grad_fused and minf_fused (with ``base``),
+    grad_prb_fused, and adj_probe (on ``far``) against the plain versions;
+    every objective and the two probe sums bitwise repeatable, two runs of
+    grad_fused's gradient within SCATTER_REPEAT. With the 'fft' variant the
+    three objectives are one number, bit for bit: a line search compares
+    them. Returns the relative errors {kernel: (value err, objective err)}."""
+    psi, _, scan_i, prb = args
+    nprb = prb.shape[-1]
+
+    def twice(fn):
+        return fn(), fn()
+
+    (g_k, f_k), (g_2, f_2) = twice(lambda: fused._grad_fused_cuda(
+        *args, ndet, model, base, variant=variant))
+    g_r, f_r = fused.grad_fused_reference(*args, ndet, model, base=base)
+    m_k, m_2 = twice(lambda: fused._minf_fused_cuda(
+        *args, ndet, model, base, variant=variant))
+    (q_k, h_k), (q_2, h_2) = twice(lambda: fused._grad_prb_fused_cuda(
+        *args, ndet, model, variant=variant))
+    q_r, h_r = fused.grad_prb_fused_reference(*args, ndet, model)
+    p_k, p_2 = twice(lambda: fused._adj_probe_cuda(far, scan_i, psi, nprb,
+                                                   variant=variant))
+    p_r = fused.adj_probe_reference(far, scan_i, psi, nprb)
+
+    def obj_err(got, ref):
+        return abs(float(got) - float(ref)) / abs(float(ref))
+
+    errs = {"grad_fused": (rel_err(torch, g_k, g_r)[0], obj_err(f_k, f_r)),
+            "minf_fused": (0.0, obj_err(m_k, f_r)),
+            "grad_prb_fused": (rel_err(torch, q_k, q_r)[0],
+                               obj_err(h_k, h_r)),
+            "adj_probe": (rel_err(torch, p_k, p_r)[0], 0.0)}
+    for name, (err, f_err) in errs.items():
+        check(err <= GRAD_TOL and f_err <= MINF_TOL,
+              (name, variant, model, err, f_err))
+    check(all(bool(torch.isfinite(x).all()) for x in (g_k, q_k, p_k)),
+          ("not finite", variant))
+    check(float(f_k) == float(f_2) and float(m_k) == float(m_2)
+          and float(h_k) == float(h_2) and torch.equal(q_k, q_2)
+          and torch.equal(p_k, p_2),
+          f"variant {variant}: an objective or a probe sum is not bitwise "
+          "repeatable")
+    again, _ = rel_err(torch, g_2, g_k)
+    check(again <= SCATTER_REPEAT, ("grad_fused repeat", variant, again))
+    if variant == "fft":
+        check(float(m_k) == float(f_k) and (base is not None
+                                            or float(h_k) == float(f_k)),
+              ("the 'fft' objectives differ", float(f_k), float(m_k),
+               float(h_k)))
+    return errs
+
+
+def show_errs(errs) -> str:
+    return ", ".join(f"{k} {e:.2e}/{f:.2e}" for k, (e, f) in errs.items())
+
+
+def in_turns_ms(torch, timer, label, fft_fn, gemm_fn, reps=5):
+    """(fft ms, gemm ms): ``reps`` back-to-back launches of each, in the
+    order gemm, fft, fft, gemm, each run between two synchronises (the
+    port's ``utils.Timer``); the two runs of a variant are averaged."""
+    for fn in (fft_fn, gemm_fn):
+        fn()  # warm-up
+    for key, fn in (("gemm 1", gemm_fn), ("fft 1", fft_fn),
+                    ("fft 2", fft_fn), ("gemm 2", gemm_fn)):
+        with timer(f"{label} {key}"):
+            for _ in range(reps):
+                fn()
+    t = timer.times
+    return tuple(1e3 * (t[f"{label} {v} 1"] + t[f"{label} {v} 2"])
+                 / (2 * reps) for v in ("fft", "gemm"))
+
+
+def kernel_report(cuda_build, report: str, pattern: str) -> dict:
+    """nvcc's register and spill report of the one kernel instantiation
+    whose mangled name contains ``pattern``."""
+    found = [v for k, v in cuda_build.kernel_reports(report).items()
+             if pattern in k]
+    check(len(found) == 1, (pattern, len(found)))
+    return found[0]
+
+
 def compare_adj_residual(torch, fused, far, data, scan_i, prb, nz, n,
                          model):
     """adj_residual against its plain version, its objective bitwise
@@ -335,7 +466,8 @@ def compare_at_scale(torch, fused, g, psi, data, scan_i, prb, base, chunk):
     positions and summed (grad_fused, minf_fused) or compared chunk by
     chunk (fwd): the plain farplane of every position at once would need
     several base-sized temporaries. ``base`` is an (re, im) view pair, the
-    form the frameless path hands the kernels. Returns {kernel: (worst
+    form the frameless path hands the kernels; adj_probe takes it as its
+    farplane. Returns {kernel: (worst
     relative error, worst absolute error)} over the cases checked."""
     parts = [slice(i, min(i + chunk, g.nscan))
              for i in range(0, g.nscan, chunk)]
@@ -386,6 +518,18 @@ def compare_at_scale(torch, fused, g, psi, data, scan_i, prb, base, chunk):
               ("fwd at scale", b is not None, abs_err / scale))
         errs["fwd"].append((abs_err / scale, abs_err))
         del re, im
+    # adj_probe on the base as a farplane (the 'fft' variant at this size).
+    far = fused._base_complex(base)
+    p_k = fused.adj_probe(far, scan_i, psi, g.nprb)
+    p_r = sum(fused.adj_probe_reference(far[:, c], scan_i[:, c], psi, g.nprb)
+              for c in parts)
+    errs["adj_probe"] = [rel_err(torch, p_k, p_r)]
+    check(bool(torch.isfinite(p_k).all())
+          and errs["adj_probe"][0][0] <= GRAD_TOL
+          and fused.adj_probe.variant == fused.grad_fused.variant == "fft",
+          ("adj_probe at scale", errs["adj_probe"]))
+    check(torch.equal(p_k, fused.adj_probe(far, scan_i, psi, g.nprb)),
+          "adj_probe at scale is not bitwise repeatable")
     return {k: (max(e for e, _ in v), max(a for _, a in v))
             for k, v in errs.items()}
 
@@ -509,7 +653,7 @@ def main() -> None:
     from tikejax_torch.ops import diffraction, fused, kernels, linesearch
     from tikejax_torch.ops.patches import scan_to_int
     from tikejax_torch.solvers import cg, reconstruct, run
-    from tikejax_torch.utils import cuda_build
+    from tikejax_torch.utils import Timer, cuda_build
 
     # -- 1. device -------------------------------------------------------
     if not torch.cuda.is_available():
@@ -528,15 +672,31 @@ def main() -> None:
     dev = torch.device("cuda", 0)
 
     # -- 2. build --------------------------------------------------------
-    t0 = time.perf_counter()
-    built = cuda_build.build_all(tuple(KERNEL_SOURCES))
+    from concurrent.futures import ThreadPoolExecutor
+
+    timer = Timer()
+    log("build", f"build directory {cuda_build.BUILD_DIR} (the checkout's "
+        "build/kernels where it can be written, else the user's cache)")
+    with timer("build"), ThreadPoolExecutor(2) as pool:
+        # The unpadded measurement build of the four FFT kernels starts
+        # together with the twelve libraries: every nvcc runs at once.
+        unpadded_job = pool.submit(cuda_build.build_all, REDESIGNED,
+                                   UNPADDED)
+        built = cuda_build.build_all(tuple(KERNEL_SOURCES))
+        unpadded = unpadded_job.result()
     for name, (path, seconds, report) in built.items():
-        ptxas = [ln.strip() for ln in report.splitlines()
-                 if "registers" in ln or "spill" in ln]
+        regs = cuda_build.kernel_reports(report).values()
+        spills = sum(v["spill_stores"] + v["spill_loads"] for v in regs)
         log("build", f"{path.relative_to(ROOT)} in {seconds:.1f} s; "
-            + " | ".join(ptxas))
-    log("build", f"{len(built)} libraries in "
-        f"{time.perf_counter() - t0:.1f} s wall (parallel nvcc)")
+            f"{len(regs)} kernels, registers "
+            f"{sorted({v['registers'] for v in regs})}, spill bytes {spills}")
+    log("build", f"{len(built)} libraries and {len(unpadded)} unpadded "
+        f"measurement builds in {timer.times['build']:.1f} s wall "
+        "(parallel nvcc)")
+    fft_regs = {name: kernel_report(cuda_build, built[name][2], entry)
+                for name, (entry, _) in HEADLINE_ENTRIES.items()}
+    gemm_regs = {name: kernel_report(cuda_build, built[name][2], entry)
+                 for name, (_, entry) in HEADLINE_ENTRIES.items()}
 
     # -- 3. kernels vs plain versions --------------------------------------
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -581,6 +741,35 @@ def main() -> None:
                                               prb_s, psi_s)
     log("kernel", f"small {small}: adj err {a_err:.2e}, adj_probe err "
         f"{p_err:.2e} (bitwise repeatable)")
+    ran = [fn.variant for fn in (fused.grad_fused, fused.minf_fused,
+                                 fused.grad_prb_fused, fused.adj_probe)]
+    check(ran == ["gemm"] * 4 and fused.dft_variant(
+        small.nprb, small.ndet, small.nmodes) == "gemm", ran)
+    log("kernel", f"small {small}: grad_fused, minf_fused, grad_prb_fused "
+        "and adj_probe ran their 'gemm' variant (72 is no power of two)")
+    # The FFT variants on a power-of-two awkward case.
+    pow2 = Geometry(**POW2_SMALL)
+    _, scan_p, prb_p, data_p = make_problem(gen2, pow2, device=dev)
+    scan_pi = scan_to_int(scan_p)
+    scan_pi[1, 5, 0] = -1
+    args_p = (crandn(*pow2.psi_shape, generator=gen2), data_p, scan_pi, prb_p)
+    base_p = crandn(*pow2.farplane_shape, generator=gen2)
+    check(fused.dft_variant(pow2.nprb, pow2.ndet, pow2.nmodes) == "fft",
+          "the power-of-two case should take the FFT variant")
+    for model in ("gaussian", "poisson"):
+        for v in ("fft", "gemm"):
+            for b in (None, base_p):
+                errs = compare_variant(torch, fused, args_p, pow2.ndet, model,
+                                       b, base_p, v)
+                log("kernel", f"small {pow2} {model} '{v}' variant"
+                    f"{' with base' if b is not None else ''}, value/"
+                    f"objective err: {show_errs(errs)}")
+    log("kernel", f"small {pow2}: on both variants every objective and both "
+        "probe sums bitwise repeatable, grad_fused's gradient within "
+        f"{SCATTER_REPEAT:g} of scale between two runs; on 'fft' the "
+        "objectives of grad_fused, minf_fused and grad_prb_fused equal bit "
+        "for bit")
+    del args_p, base_p, data_p
     far_s = fused.fwd(psi_s, scan_si, prb_s, small.ndet)
     dpsi_s = 0.1 * crandn(*small.psi_shape, generator=gen4)
     dprb_s = 0.1 * crandn(*small.prb_shape, generator=gen4)
@@ -630,15 +819,17 @@ def main() -> None:
         *args, g.ndet, "gaussian", base=base), 10)
     plain_ms = median_ms(torch, lambda: fused.grad_fused_reference(
         *args, g.ndet, "gaussian"), 10)
+    # The DFT-GEMM kernels' arithmetic (four, or two, matrix products).
     flops = 2 * 8 * g.ndet * g.nprb * (g.nprb + g.ndet) * g.nscan
     results["grad_fused"] = (abs_err, ms, plain_ms)
     bounds = {"grad_fused": bound(fft_flops(scan_i, g.nmodes, g.ndet, 2),
                                   nbytes(psi_r, prb, data, scan_i, psi_r)
                                   + 4)}
-    log("kernel", f"headline {g} grad_fused: grad/minf err {g_err:.2e}/"
-        f"{f_err:.2e}, with base {gb_err:.2e}/{fb_err:.2e}; kernel "
-        f"{ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s fp32), with base "
-        f"{base_ms:.3f} ms, plain {plain_ms:.3f} ms, median of 10 on {card}")
+    check(fused.grad_fused.variant == "fft", fused.grad_fused.variant)
+    log("kernel", f"headline {g} grad_fused ('fft' variant): grad/minf err "
+        f"{g_err:.2e}/{f_err:.2e}, with base {gb_err:.2e}/{fb_err:.2e}; "
+        f"kernel {ms:.3f} ms, with base {base_ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, median of 10 on {card}")
 
     fw_err, fw_abs = compare_fwd(torch, fused, psi_r, scan_i, prb, g.ndet)
     fwb_err, _ = compare_fwd(torch, fused, psi_r, scan_i, prb, g.ndet, base)
@@ -666,8 +857,9 @@ def main() -> None:
     results["minf_fused"] = (m_abs, ms, plain_ms)
     bounds["minf_fused"] = bound(fft_flops(scan_i, g.nmodes, g.ndet, 1),
                                  nbytes(psi_r, prb, data, scan_i) + 4)
-    log("kernel", f"headline {g} minf_fused: err {m_err:.2e}, with base "
-        f"{mb_err:.2e}; kernel {ms:.3f} ms, with base {base_ms:.3f} ms, "
+    check(fused.minf_fused.variant == "fft", fused.minf_fused.variant)
+    log("kernel", f"headline {g} minf_fused ('fft' variant): err "
+        f"{m_err:.2e}, with base {mb_err:.2e}; kernel {ms:.3f} ms, with base {base_ms:.3f} ms, "
         f"plain {plain_ms:.3f} ms, median of 10 on {card}")
 
     gp_err, fp_err, gp_abs = compare_grad_prb(torch, fused, args, g.ndet,
@@ -680,9 +872,10 @@ def main() -> None:
     bounds["grad_prb_fused"] = bound(
         fft_flops(scan_i, g.nmodes, g.ndet, 2),
         nbytes(psi_r, prb, data, scan_i, prb) + 4)
-    log("kernel", f"headline {g} grad_prb_fused: grad/minf err "
-        f"{gp_err:.2e}/{fp_err:.2e} (bitwise repeatable); kernel "
-        f"{ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s fp32), plain "
+    check(fused.grad_prb_fused.variant == "fft", fused.grad_prb_fused.variant)
+    log("kernel", f"headline {g} grad_prb_fused ('fft' variant): grad/minf "
+        f"err {gp_err:.2e}/{fp_err:.2e} (bitwise repeatable); kernel "
+        f"{ms:.3f} ms, plain "
         f"{plain_ms:.3f} ms, bound {bounds['grad_prb_fused'][0]:.3f} ms, "
         f"median of 10 on {card}")
     (a_err, a_abs), (p_err, p_abs) = compare_adjoints(torch, fused, base,
@@ -699,10 +892,71 @@ def main() -> None:
         results[name] = (abs_e, ms, plain_ms)
         moved = nbytes(base, scan_i, prb if name == "adj" else psi_r, other)
         bounds[name] = bound(fft_flops(scan_i, g.nmodes, g.ndet, 1), moved)
+        rate = (f" ({flops / 2 / ms / 1e9:.1f} TFLOP/s fp32)"
+                if name == "adj" else " ('fft' variant)")
         log("kernel", f"headline {g} {name}: err {err:.2e}; kernel "
-            f"{ms:.3f} ms ({flops / 2 / ms / 1e9:.1f} TFLOP/s fp32), plain "
+            f"{ms:.3f} ms{rate}, plain "
             f"{plain_ms:.3f} ms, bound {bounds[name][0]:.3f} ms, median of "
             f"10 on {card}")
+    check(fused.adj_probe.variant == "fft", fused.adj_probe.variant)
+    # Both variants of the two redesigned kernels at the headline: the
+    # 'gemm' variant, forced, still agrees with the plain version; then
+    # the times, taken in turns within this run.
+    for v in ("gemm", "fft"):
+        errs = compare_variant(torch, fused, args, g.ndet, "gaussian", None,
+                               base, v)
+        log("kernel", f"headline {g} forced '{v}' variant, value/objective "
+            f"err: {show_errs(errs)} (objectives and probe sums bitwise "
+            f"repeatable, gradient within {SCATTER_REPEAT:g} of scale "
+            "between two runs)")
+    dev_i = dev.index
+    variant_lines = {}
+    for name, run_variant in (
+            ("grad_fused", lambda **kw: fused._grad_fused_cuda(
+                *args, g.ndet, "gaussian", None, **kw)),
+            ("minf_fused", lambda **kw: fused._minf_fused_cuda(
+                *args, g.ndet, "gaussian", None, **kw)),
+            ("grad_prb_fused", lambda **kw: fused._grad_prb_fused_cuda(
+                *args, g.ndet, "gaussian", **kw)),
+            ("adj_probe", lambda **kw: fused._adj_probe_cuda(
+                base, scan_i, psi_r, g.nprb, **kw))):
+        fft_ms, gemm_ms = in_turns_ms(
+            torch, timer, name, lambda: run_variant(variant="fft"),
+            lambda: run_variant(variant="gemm"))
+        t512 = median_ms(torch, lambda: run_variant(variant="fft",
+                                                    threads=512), 5)
+        t1024 = median_ms(torch, lambda: run_variant(variant="fft",
+                                                     threads=1024), 5)
+        plain_layout = median_ms(torch, lambda: run_variant(
+            variant="fft_unpadded"), 5)
+        planes = 0 if name == "adj_probe" else 1  # the prefetch buffer
+        per_sm, smem = fused.fft_launch_config(name, dev_i, g.ndet, planes)
+        regs, old = fft_regs[name], gemm_regs[name]
+        check(fft_ms < gemm_ms, (name, fft_ms, gemm_ms))
+        extra = ""
+        if name != "adj_probe":
+            on = median_ms(torch, lambda: run_variant(variant="fft",
+                                                      prefetch=True), 5)
+            off = median_ms(torch, lambda: run_variant(variant="fft",
+                                                       prefetch=False), 5)
+            extra = (f"data prefetch (cp.async, one frame ahead) on "
+                     f"{on:.3f} / off {off:.3f} ms; ")
+        variant_lines[name] = gemm_ms
+        log("kernel", f"headline {g} {name}: variant 'fft' {fft_ms:.3f} ms, "
+            f"forced 'gemm' {gemm_ms:.3f} ms (5 back-to-back launches each, "
+            f"in turns gemm, fft, fft, gemm: {gemm_ms / fft_ms:.1f}x), "
+            f"bound {bounds[name][0]:.3f} ms by {bounds[name][1]} "
+            f"({100 * bounds[name][0] / fft_ms:.1f}% of it reached, 'gemm' "
+            f"{100 * bounds[name][0] / gemm_ms:.1f}%), plain "
+            f"{results[name][2]:.3f} ms; 512 threads {t512:.3f} / 1024 "
+            f"threads {t1024:.3f} ms; {extra}padded frame layout "
+            f"{t1024:.3f} / unpadded (every row-pass access on one bank) "
+            f"{plain_layout:.3f} ms; 'fft' {regs['registers']} registers, "
+            f"{regs['spill_stores'] + regs['spill_loads']} spill bytes, "
+            f"{smem} B dynamic + {regs['smem']} B static shared memory, "
+            f"{per_sm} block/SM; 'gemm' {old['registers']} registers, "
+            f"{old['spill_stores'] + old['spill_loads']} spill bytes; on "
+            f"{card}")
     # The materialized mode's kernels on G psi_r and a direction.
     far = fused.fwd(psi_r, scan_i, prb, g.ndet)
     dpsi_h = 0.05 * crandn(*g.psi_shape, generator=gen4)
@@ -844,14 +1098,17 @@ def main() -> None:
           "psi shape or finiteness")
     check(float(minf[-1]) < float(minf[0]), minf)
     check(float(res[-1]) <= 0.1 * float(res[0]), res)
-    check(peak < 1024**3, f"peak extra memory {peak} bytes")
-    log("main", f"{g} gaussian, solver defaults, {iters} iters in "
+    check(peak <= MAIN_PEAK, f"peak extra memory {peak} bytes")
+    check(fused.grad_fused.variant == "fft", fused.grad_fused.variant)
+    log("main", f"{g} gaussian, solver defaults, grad_fused variant "
+        f"'{fused.grad_fused.variant}', {iters} iters in "
         f"{seconds:.3f} s: {iters / seconds:.2f} iters/s, "
         f"{1e3 * seconds / iters:.2f} ms/iter, "
         f"{m['evaluations'] / iters:.2f} evals/iter, "
         f"{m['host_syncs'] / iters:.2f} host syncs/iter, residual "
         f"{float(res[0]):.4e} -> {float(res[-1]):.4e}, peak extra memory "
-        f"{peak / 2**20:.1f} MiB, grad_fused launches {main_launches}, on "
+        f"{peak / 2**20:.1f} MiB (limit {MAIN_PEAK / 2**20:.1f}, the "
+        f"'gemm' variant's), grad_fused launches {main_launches}, on "
         f"{card}")
     del psi, m
 
@@ -890,6 +1147,7 @@ def main() -> None:
     check(res_end <= DEEP_TARGET, f"deep residual {res_end:.4e} > "
           f"{DEEP_TARGET:g} after {len(stages)} stages")
     check(deep["grad_fused"] == evals > 0, (deep, evals))
+    check(fused.grad_fused.variant == "fft", fused.grad_fused.variant)
     # The reuse safeguard: the first two segments freeze their base, then
     # every Anderson step makes both candidates' farplanes and hands the
     # winner forward as the next base.
@@ -900,7 +1158,8 @@ def main() -> None:
     split_iters = sum(k for (name, _), k in zip(stages, iters)
                       if name.startswith("split:"))
     log("deep", f"{g} gaussian, reconstruct(target_residual="
-        f"{DEEP_TARGET:g}) defaults from psi0 = ones: {seconds:.3f} s, "
+        f"{DEEP_TARGET:g}) defaults from psi0 = ones, grad_fused variant "
+        f"'{fused.grad_fused.variant}': {seconds:.3f} s, "
         f"{sum(iters)} iters in {len(stages)} stages "
         f"{[f'{n}:{k}' for (n, _), k in zip(stages, iters)]}, final "
         f"residual {res_end:.4e}, {evals / sum(iters):.3f} evals/iter, "
@@ -1137,7 +1396,12 @@ def main() -> None:
     check(joint["minf_fused"] == m["evaluations"] - 2 * iters > 0,
           (joint, m["evaluations"]))
     check(peak < JOINT_PEAK, f"peak extra memory {peak} bytes")
-    log("joint", f"{g3} poisson, run(recover_prb=True), {iters} iters in "
+    check(fused.grad_fused.variant == fused.minf_fused.variant
+          == fused.grad_prb_fused.variant == "fft",
+          (fused.grad_fused.variant, fused.minf_fused.variant,
+           fused.grad_prb_fused.variant))
+    log("joint", f"{g3} poisson, run(recover_prb=True), grad_fused, "
+        f"minf_fused and grad_prb_fused on 'fft', {iters} iters in "
         f"{seconds:.3f} s: {iters / seconds:.2f} iters/s, "
         f"{m['evaluations'] / iters:.2f} evals/iter, "
         f"{m['host_syncs'] / iters:.2f} host syncs/iter, residual "
@@ -1209,8 +1473,10 @@ def main() -> None:
           == stream["fwd_quad_stats"] == stream["ls_objectives"] == 0,
           stream)
     check(peak < STREAM_PEAK, f"peak extra memory {peak} bytes")
+    check(fused.adj_probe.variant == "fft", fused.adj_probe.variant)
     log("stream", f"{g3} gaussian, run(recover_prb=True, nchunks="
-        f"{STREAM_CHUNKS}), {iters} iters in {seconds:.3f} s: "
+        f"{STREAM_CHUNKS}), adj_probe variant '{fused.adj_probe.variant}', "
+        f"{iters} iters in {seconds:.3f} s: "
         f"{iters / seconds:.2f} iters/s, {m['evaluations'] / iters:.2f} "
         f"evals/iter, {m['host_syncs'] / iters:.2f} host syncs/iter, "
         f"residual {float(res[0]):.4e} -> {float(res[-1]):.4e}, "
@@ -1371,7 +1637,9 @@ def main() -> None:
         "launches": launches[name], "path": paths[name],
         "max_abs_err": results[name][0], "ms": results[name][1],
         "plain_ms": results[name][2], "bound_ms": bounds[name][0],
-        "bound_by": bounds[name][1], "library_ms": None}
+        "bound_by": bounds[name][1], "library_ms": None,
+        **({"variant": "fft", "gemm_ms": variant_lines[name]}
+           if name in variant_lines else {})}
         for name, (src, tpu) in KERNEL_SOURCES.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

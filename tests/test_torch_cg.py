@@ -380,3 +380,44 @@ def test_solver_surface_validation(problem, f_base):
     with pytest.raises(ValueError, match="8-tuple"):
         tcg.run(data, psi0, scan, prb, g, piter=2, kernel="xla",
                 direction="lbfgs", carry_lbfgs=True, cg_init=state[:4])
+
+
+# -- more than one angle and more than one mode -----------------------------
+
+GEOM2 = tikejax.Geometry(nz=48, n=48, nscan=16, ndet=32, nprb=16, ntheta=2,
+                         nmodes=2)
+ITERS2 = 12
+
+
+@pytest.fixture(scope="module")
+def problem2():
+    _, scan, prb, data = make_problem(jax.random.PRNGKey(1), GEOM2,
+                                      dtype=jnp.complex128)
+    psi0 = np.ones(GEOM2.psi_shape, np.complex128)
+    return tuple(np.asarray(x) for x in (data, psi0, scan, prb))
+
+
+@pytest.mark.parametrize("jax_kw, port_kw, tol", [
+    (dict(), None, 1e-8),
+    (dict(model="poisson"), None, 1e-8),
+    (dict(direction="lbfgs"), None, 1e-8),
+    (dict(precondition="illum_lowk"), None, 1e-8),
+    (dict(linesearch="backtracking"), dict(kernel="fused_mx"), 1e-7),
+    (dict(linesearch="backtracking"),
+     dict(kernel="fused_mx", memory="materialized"), 1e-8),
+    (dict(), dict(kernel="pallas"), 1e-8),
+], ids=["gaussian", "poisson", "lbfgs", "illum_lowk", "merged-fused_mx",
+        "materialized", "pallas"])
+def test_two_angles_two_modes_match_jax(problem2, jax_kw, port_kw, tol):
+    """ntheta = 2, nmodes = 2 in float64: every object-only body of the
+    port against the JAX package's oracle path, as the one-angle, one-mode
+    cases above (the merged body to rounding, the others to 1e-8)."""
+    jax_kw = dict(piter=ITERS2, kernel="xla", **jax_kw)
+    port_kw = jax_kw if port_kw is None else dict(piter=ITERS2, **port_kw)
+    data, psi0, scan, prb = problem2
+    pj, _, mj = jcg.run(*map(jnp.asarray, problem2), GEOM2, **jax_kw)
+    pt, prb_t, mt = tcg.run(*map(cpu, problem2), geometry_from(GEOM2),
+                            **port_kw)
+    np.testing.assert_array_equal(to_numpy(prb_t), prb)
+    assert pt.shape == GEOM2.psi_shape
+    assert_same_trajectory(*as_numpy(pj, mj, pt, mt), tol=tol)

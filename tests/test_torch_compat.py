@@ -207,3 +207,43 @@ def test_mesh_raises_and_device_defaults_to_the_card(problem):
     assert st.kernel == "pallas" and st.geometry.nprb == GEOM.nprb
     with pytest.raises(ValueError, match="unknown kernel"):
         tcompat.CGPtychoSolver(**DIMS, kernel="cufft")
+
+
+# -- more than one angle and more than one mode -----------------------------
+
+GEOM2 = tikejax.Geometry(nz=48, n=48, nscan=16, ndet=32, nprb=16, ntheta=2,
+                         nmodes=2)
+DIMS2 = dict(ntheta=2, nz=48, n=48, nscan=16, ndet=32, nprb=16, nmodes=2)
+
+
+@pytest.mark.parametrize("recover_prb", [False, True],
+                         ids=["object", "joint"])
+def test_two_angles_two_modes_facade_matches_jax(recover_prb):
+    """The facade at ntheta = 2, nmodes = 2 (complex64 in both packages,
+    so the tolerances of the one-angle, one-mode cases): the operators and
+    a Gaussian run on the hybrid tier against the JAX facade's oracle."""
+    _, scan, prb, data = make_problem(jax.random.PRNGKey(6), GEOM2,
+                                      dtype=jnp.complex64)
+    data, scan, prb = (np.asarray(x) for x in (data, scan, prb))
+    rng = np.random.default_rng(3)
+    psi = crand(rng, GEOM2.psi_shape)
+    farp = crand(rng, GEOM2.farplane_shape)
+    sj, st = facades("pallas", **DIMS2)
+    for name, args in (("fwd", (psi, scan, prb)), ("adj", (farp, scan, prb)),
+                       ("adj_probe", (farp, scan, psi))):
+        ref, got = getattr(sj, name)(*args), getattr(st, name)(*args)
+        assert got.shape == ref.shape and close(got, ref, 2e-6), name
+    start = prb + 0.03 * np.abs(prb).max() * crand(rng, prb.shape) if (
+        recover_prb) else prb
+    psi0 = np.ones(GEOM2.psi_shape, np.complex64)
+    rj = sj.run(data, psi0, scan, start, piter=ITERS,
+                recover_prb=recover_prb)
+    rt = st.run(data, psi0, scan, start, piter=ITERS,
+                recover_prb=recover_prb)
+    assert int(rt["iters_run"]) == int(rj["iters_run"]) == ITERS
+    np.testing.assert_allclose(rt["minf"], rj["minf"], rtol=2e-4)
+    np.testing.assert_allclose(rt["residual"], rj["residual"], rtol=2e-3)
+    assert rt["psi"].shape == GEOM2.psi_shape
+    assert rt["prb"].shape == GEOM2.prb_shape
+    assert close(rt["psi"], rj["psi"], 1e-3)
+    assert close(rt["prb"], rj["prb"], 1e-3)

@@ -17,6 +17,12 @@ reductions (``grad_prb_fused``, ``adj_probe``, ``adj_probe_reduce``),
 ``gather_probe_mul``, ``fwd_quad_stats`` and ``ls_objectives`` are bitwise
 reproducible; the object scatters (``grad_fused``, ``adj``,
 ``adj_residual``, ``scatter_conj_probe``) only up to summation order.
+
+``grad_fused``, ``minf_fused``, ``grad_prb_fused`` and ``adj_probe`` have two
+kernels each: ``GEOMS`` runs their
+``'gemm'`` variant (but for its 32^2 detector), ``POW2_GEOMS`` their
+``'fft'`` variant, and one shape runs both, forced through the private
+wrappers' ``variant`` argument.
 """
 
 import pytest
@@ -495,3 +501,184 @@ def test_materialized_run_launches_the_kernels(dev):
             e * n for e in expect]
         assert [f.launches for f in plain] == p0
         assert float(m["minf"][n - 1]) < float(m["minf"][0])
+
+
+# -- the two variants of grad_fused, minf_fused, grad_prb_fused, adj_probe ---
+
+POW2_GEOMS = [
+    Geometry(nz=97, n=101, nscan=37, ndet=64, nprb=48, ntheta=2, nmodes=2),
+    Geometry(nz=64, n=64, nscan=9, ndet=16, nprb=12),
+    Geometry(nz=64, n=64, nscan=9, ndet=32, nprb=20, nmodes=3),
+    Geometry(nz=70, n=66, nscan=20, ndet=64, nprb=64),
+    Geometry(nz=200, n=180, nscan=50, ndet=128, nprb=100),
+    Geometry(nz=140, n=150, nscan=30, ndet=128, nprb=128, ntheta=2,
+             nmodes=2),
+]
+
+
+def test_geometries_cover_both_variants():
+    assert [fused.dft_variant(g.nprb, g.ndet, g.nmodes) for g in GEOMS] == [
+        "gemm", "fft", "gemm", "gemm"]
+    assert {fused.dft_variant(g.nprb, g.ndet, g.nmodes)
+            for g in POW2_GEOMS} == {"fft"}
+
+
+@pytest.mark.parametrize("with_base", [False, True])
+@pytest.mark.parametrize("model", ["gaussian", "poisson"])
+@pytest.mark.parametrize("g", POW2_GEOMS, ids=str)
+def test_fft_grad_fused_matches_plain_version(dev, g, model, with_base):
+    args = inputs(g, dev)
+    base = base_for(g, dev) if with_base else None
+    launches = fused.grad_fused.launches
+    g_k, f_k = fused.grad_fused(*args, g.ndet, model, base=base)
+    assert fused.grad_fused.launches == launches + 1
+    assert fused.grad_fused.variant == "fft"
+    g_r, f_r = fused.grad_fused_reference(*args, g.ndet, model, base=base)
+    assert g_k.dtype == torch.complex64 and g_k.shape == g.psi_shape
+    assert close(g_k, g_r)
+    assert abs(float(f_k) - float(f_r)) <= 1e-5 * abs(float(f_r))
+    # The objective is bitwise repeatable, the gradient up to the order of
+    # its atomics.
+    g_2, f_2 = fused.grad_fused(*args, g.ndet, model, base=base)
+    assert float(f_2) == float(f_k) and close(g_2, g_k, 1e-5)
+
+
+@pytest.mark.parametrize("g", POW2_GEOMS, ids=str)
+def test_fft_adj_probe_matches_plain_version(dev, g):
+    psi, _, scan_i, prb = inputs(g, dev)
+    far = base_for(g, dev)
+    launches = fused.adj_probe.launches
+    p_k = fused.adj_probe(far, scan_i, psi, g.nprb)
+    assert fused.adj_probe.launches == launches + 1
+    assert fused.adj_probe.variant == "fft"
+    assert p_k.dtype == torch.complex64 and p_k.shape == g.prb_shape
+    assert close(p_k, fused.adj_probe_reference(far, scan_i, psi, g.nprb))
+    for _ in range(2):  # bitwise repeatable
+        assert torch.equal(p_k, fused.adj_probe(far, scan_i, psi, g.nprb))
+
+
+@pytest.mark.parametrize("with_base", [False, True])
+@pytest.mark.parametrize("model", ["gaussian", "poisson"])
+@pytest.mark.parametrize("g", POW2_GEOMS, ids=str)
+def test_fft_minf_fused_matches_plain_version(dev, g, model, with_base):
+    """The FFT minf_fused against its plain version, bitwise repeatable,
+    and equal bit for bit to grad_fused's objective on the same inputs: a
+    line search compares the two."""
+    psi, data, scan_i, prb = inputs(g, dev)
+    base = base_for(g, dev) if with_base else None
+    launches = fused.minf_fused.launches
+    f_k = fused.minf_fused(psi, data, scan_i, prb, g.ndet, model, base=base)
+    assert fused.minf_fused.launches == launches + 1
+    assert fused.minf_fused.variant == "fft"
+    f_r = fused.minf_fused_reference(psi, data, scan_i, prb, g.ndet, model,
+                                     base=base)
+    assert abs(float(f_k) - float(f_r)) <= 1e-5 * abs(float(f_r))
+    again = fused.minf_fused(psi, data, scan_i, prb, g.ndet, model, base=base)
+    assert float(again) == float(f_k)
+    f_g = fused.grad_fused(psi, data, scan_i, prb, g.ndet, model,
+                           base=base)[1]
+    assert float(f_g) == float(f_k)
+    if g.nmodes == 1:  # with and without the data prefetch: the same sum
+        for prefetch in (False, True):
+            assert float(fused._minf_fused_cuda(
+                psi, data, scan_i, prb, g.ndet, model, base,
+                prefetch=prefetch)) == float(f_k)
+
+
+@pytest.mark.parametrize("model", ["gaussian", "poisson"])
+@pytest.mark.parametrize("g", POW2_GEOMS, ids=str)
+def test_fft_grad_prb_fused_matches_plain_version(dev, g, model):
+    args = inputs(g, dev)
+    launches = fused.grad_prb_fused.launches
+    g_k, f_k = fused.grad_prb_fused(*args, g.ndet, model)
+    assert fused.grad_prb_fused.launches == launches + 1
+    assert fused.grad_prb_fused.variant == "fft"
+    g_r, f_r = fused.grad_prb_fused_reference(*args, g.ndet, model)
+    assert g_k.dtype == torch.complex64 and g_k.shape == g.prb_shape
+    assert close(g_k, g_r)
+    assert abs(float(f_k) - float(f_r)) <= 1e-5 * abs(float(f_r))
+    g_2, f_2 = fused.grad_prb_fused(*args, g.ndet, model)
+    assert torch.equal(g_2, g_k) and float(f_2) == float(f_k)  # bitwise
+    assert float(fused.minf_fused(*args, g.ndet, model)) == float(f_k)
+
+
+@pytest.mark.parametrize("threads", [512, 1024])
+def test_both_variants_agree_at_one_shape(dev, threads):
+    """The same inputs through both kernels of each function, forced: equal
+    to 1e-5 of scale (both are fp32; the FFT sums log2(d) terms where the
+    matrix product sums d)."""
+    g = POW2_GEOMS[-1]
+    psi, data, scan_i, prb = inputs(g, dev)
+    far = base_for(g, dev)
+    for base in (None, far):
+        g_f, f_f = fused._grad_fused_cuda(psi, data, scan_i, prb, g.ndet,
+                                          "gaussian", base, variant="fft",
+                                          threads=threads)
+        assert fused.grad_fused.variant == "fft"
+        g_g, f_g = fused._grad_fused_cuda(psi, data, scan_i, prb, g.ndet,
+                                          "gaussian", base, variant="gemm")
+        assert fused.grad_fused.variant == "gemm"
+        assert close(g_f, g_g, 1e-5)
+        assert abs(float(f_f) - float(f_g)) <= 1e-5 * abs(float(f_g))
+        m_f = fused._minf_fused_cuda(psi, data, scan_i, prb, g.ndet,
+                                     "gaussian", base, variant="fft",
+                                     threads=threads)
+        m_g = fused._minf_fused_cuda(psi, data, scan_i, prb, g.ndet,
+                                     "gaussian", base, variant="gemm")
+        assert (fused.minf_fused.variant, float(m_f)) == ("gemm", float(f_f))
+        assert abs(float(m_f) - float(m_g)) <= 1e-5 * abs(float(m_g))
+    q_f, h_f = fused._grad_prb_fused_cuda(psi, data, scan_i, prb, g.ndet,
+                                          "gaussian", variant="fft",
+                                          threads=threads)
+    q_g, h_g = fused._grad_prb_fused_cuda(psi, data, scan_i, prb, g.ndet,
+                                          "gaussian", variant="gemm")
+    assert close(q_f, q_g, 1e-5)
+    assert abs(float(h_f) - float(h_g)) <= 1e-5 * abs(float(h_g))
+    p_f = fused._adj_probe_cuda(far, scan_i, psi, g.nprb, variant="fft",
+                                threads=threads)
+    p_g = fused._adj_probe_cuda(far, scan_i, psi, g.nprb, variant="gemm")
+    assert close(p_f, p_g, 1e-5)
+
+
+def test_fft_variants_skip_masked_positions(dev):
+    g = POW2_GEOMS[0]
+    psi, data, scan_i, prb = inputs(g, dev)
+    scan_i[..., 0] = -1
+    grad, minf = fused.grad_fused(psi, data, scan_i, prb, g.ndet, "poisson")
+    assert float(grad.abs().max()) == 0.0 and float(minf) == 0.0
+    far = base_for(g, dev)
+    assert float(fused.adj_probe(far, scan_i, psi, g.nprb).abs().max()) == 0
+    assert float(fused.minf_fused(psi, data, scan_i, prb, g.ndet,
+                                  "gaussian")) == 0.0
+    grad, minf = fused.grad_prb_fused(psi, data, scan_i, prb, g.ndet,
+                                      "gaussian")
+    assert float(grad.abs().max()) == 0.0 and float(minf) == 0.0
+
+
+def test_wrong_variant_raises(dev):
+    """A variant that cannot run the shapes, an unknown one, or a block
+    size without a kernel raises; nothing gives way to another path."""
+    g = GEOMS[1]  # ndet = 32 is a power of two, GEOMS[0] is not
+    psi, data, scan_i, prb = inputs(GEOMS[0], dev)
+    far = base_for(GEOMS[0], dev)
+    launches = (fused.grad_fused.launches, fused.adj_probe.launches)
+    with pytest.raises(ValueError, match="'fft' variant takes ndet"):
+        fused._grad_fused_cuda(psi, data, scan_i, prb, GEOMS[0].ndet,
+                               "gaussian", None, variant="fft")
+    with pytest.raises(ValueError, match="'fft' variant takes ndet"):
+        fused._adj_probe_cuda(far, scan_i, psi, GEOMS[0].nprb, variant="fft")
+    psi, data, scan_i, prb = inputs(g, dev)
+    with pytest.raises(ValueError, match="unknown variant"):
+        fused._grad_fused_cuda(psi, data, scan_i, prb, g.ndet, "gaussian",
+                               None, variant="cufft")
+    with pytest.raises(RuntimeError, match="occupancy query"):
+        fused._grad_fused_cuda(psi, data, scan_i, prb, g.ndet, "gaussian",
+                               None, variant="fft", threads=1024)
+    with pytest.raises(RuntimeError, match="occupancy query"):
+        fused._adj_probe_cuda(base_for(g, dev), scan_i, psi, g.nprb,
+                              variant="fft", threads=256)
+    with pytest.raises(ValueError, match="prefetch needs one mode"):
+        g3 = POW2_GEOMS[2]  # three modes
+        fused._minf_fused_cuda(*inputs(g3, dev), g3.ndet, "gaussian", None,
+                               prefetch=True)
+    assert (fused.grad_fused.launches, fused.adj_probe.launches) == launches

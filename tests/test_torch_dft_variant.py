@@ -1,0 +1,104 @@
+"""Which of their two hand-written kernels ``grad_fused``, ``minf_fused``,
+``grad_prb_fused`` and ``adj_probe`` launch on the card is one pure function
+of the shapes (one, because a line search compares the objectives of the
+first three, which must share their arithmetic), pinned here on the
+CPU: ``'fft'`` (the frame's FFT in shared memory) for a detector side of 16,
+32, 64 or 128, ``'gemm'`` (DFT matrix products) for every other size. The
+choice is made before the launch and never changed after it; on a CPU
+tensor neither runs (the plain version does)."""
+
+import inspect
+
+import pytest
+import torch
+
+from tikejax_torch import Geometry
+from tikejax_torch.models import make_problem
+from tikejax_torch.ops import fused
+from tikejax_torch.ops.patches import scan_to_int
+
+
+@pytest.mark.parametrize("nprb, ndet, nmodes", [
+    (128, 128, 1), (64, 128, 2), (128, 128, 4), (48, 64, 2), (16, 16, 1),
+    (20, 32, 3)])
+def test_power_of_two_sides_take_the_fft_kernel(nprb, ndet, nmodes):
+    assert fused.dft_variant(nprb, ndet, nmodes) == "fft"
+
+
+@pytest.mark.parametrize("nprb, ndet, nmodes", [
+    (56, 72, 2), (100, 130, 1), (128, 256, 1), (8, 8, 1), (48, 48, 3),
+    (256, 512, 1)])
+def test_other_sides_take_the_gemm_kernel(nprb, ndet, nmodes):
+    assert fused.dft_variant(nprb, ndet, nmodes) == "gemm"
+
+
+@pytest.mark.parametrize("nprb, ndet, nmodes", [
+    (129, 128, 1), (64, 32, 2), (64, 4096, 1), (16, 16, 0)])
+def test_sizes_no_kernel_takes_raise(nprb, ndet, nmodes):
+    with pytest.raises(ValueError, match="nprb <= ndet|nmodes"):
+        fused.dft_variant(nprb, ndet, nmodes)
+
+
+def test_forced_variant_is_checked_before_any_launch():
+    """The private CUDA wrappers take ``variant``: None follows the
+    shapes, 'gemm' runs every size, 'fft' only its own, anything else
+    raises -- all decided from the shapes, with no device in play."""
+    pick = fused._pick_variant
+    assert pick("grad_fused", None, 128, 128, 1) == ("fft", ())
+    assert pick("grad_fused", "gemm", 128, 128, 1) == ("gemm", ())
+    assert pick("adj_probe", None, 56, 72, 2) == ("gemm", ())
+    assert pick("adj_probe", "fft", 48, 64, 2) == ("fft", ())
+    # The measurement build on the plain frame layout: the FFT kernel with
+    # one macro set.
+    assert pick("adj_probe", "fft_unpadded", 128, 128, 1) == (
+        "fft", ("TK_FFT_PAD=0",))
+    with pytest.raises(ValueError, match="'fft' variant takes ndet"):
+        pick("grad_fused", "fft_unpadded", 56, 72, 2)
+    with pytest.raises(ValueError, match="'fft' variant takes ndet"):
+        fused._pick_variant("adj_probe", "fft", 56, 72, 2)
+    with pytest.raises(ValueError, match="unknown variant"):
+        fused._pick_variant("grad_fused", "fast", 128, 128, 1)
+    with pytest.raises(ValueError, match="grad_fused: need nprb <= ndet"):
+        fused._pick_variant("grad_fused", None, 130, 128, 1)
+    for fn in (fused._grad_fused_cuda, fused._minf_fused_cuda,
+               fused._grad_prb_fused_cuda, fused._adj_probe_cuda):
+        assert inspect.signature(fn).parameters["variant"].default is None
+    assert fused.fft_threads(128) == 1024 and fused.fft_threads(64) == 512
+
+
+def test_public_signatures_are_the_reference_ones():
+    """No public signature gained a variant argument."""
+    assert list(inspect.signature(fused.grad_fused).parameters) == [
+        "psi", "data", "scan_int", "prb", "ndet", "model", "precision",
+        "adj_precision", "base"]
+    assert list(inspect.signature(fused.adj_probe).parameters) == [
+        "farplane", "scan_int", "psi", "nprb", "precision"]
+    assert list(inspect.signature(fused.minf_fused).parameters) == [
+        "psi", "data", "scan_int", "prb", "ndet", "model", "precision",
+        "base"]
+    assert list(inspect.signature(fused.grad_prb_fused).parameters) == [
+        "psi", "data", "scan_int", "prb", "ndet", "model", "precision",
+        "adj_precision"]
+
+
+def test_cpu_tensors_run_the_plain_version_at_fft_sizes():
+    """At a size whose CUDA kernel would be the FFT one, a CPU tensor still
+    runs the plain version and launches nothing."""
+    g = Geometry(nz=40, n=40, nscan=6, ndet=32, nprb=16, nmodes=2)
+    assert fused.dft_variant(g.nprb, g.ndet, g.nmodes) == "fft"
+    gen = torch.Generator().manual_seed(0)
+    _, scan, prb, data = make_problem(gen, g, device="cpu")
+    psi = torch.ones(g.psi_shape, dtype=torch.complex64)
+    counts = (fused.grad_fused.launches, fused.adj_probe.launches,
+              fused.grad_fused_reference.launches,
+              fused.adj_probe_reference.launches)
+    grad, minf = fused.grad_fused(psi, data, scan_to_int(scan), prb, g.ndet,
+                                  "gaussian")
+    far = fused.fwd(psi, scan_to_int(scan), prb, g.ndet)
+    probe = fused.adj_probe(far, scan_to_int(scan), psi, g.nprb)
+    assert grad.shape == g.psi_shape and probe.shape == g.prb_shape
+    assert bool(torch.isfinite(minf))
+    assert (fused.grad_fused.launches, fused.adj_probe.launches,
+            fused.grad_fused_reference.launches,
+            fused.adj_probe_reference.launches) == (
+        counts[0], counts[1], counts[2] + 1, counts[3] + 1)

@@ -356,3 +356,65 @@ def test_joint_checkpoint_resumes_across_packages(deep_problem, monkeypatch,
                                checkpoint_path=path, checkpoint_every=1)
     assert_same_stages(s_ref[crash:], s_res, tol=0)
     assert not os.path.exists(path)
+
+
+# -- more than one angle and more than one mode -----------------------------
+
+GEOM2 = tikejax.Geometry(nz=48, n=48, nscan=16, ndet=32, nprb=16, ntheta=2,
+                         nmodes=2)
+DEEP2 = tikejax.Geometry(nz=64, n=64, nscan=36, ndet=32, nprb=16, ntheta=2,
+                         nmodes=2)
+
+
+@pytest.fixture(scope="module")
+def problem2():
+    return perturbed_problem(GEOM2, 1, 11)
+
+
+@pytest.mark.parametrize("jax_kw, port_kw", [
+    (dict(), None),
+    (dict(model="poisson"), None),
+    (dict(linesearch="backtracking"), dict(kernel="fused_mx")),
+], ids=["gaussian", "poisson", "fused_mx"])
+def test_two_angles_two_modes_joint_run_matches_jax(problem2, jax_kw,
+                                                    port_kw):
+    """ntheta = 2, nmodes = 2: the joint oracle body and the fused tiers'
+    joint body (plain versions) against the JAX package's oracle body, 12
+    iterations in float64 to 1e-8."""
+    jax_kw = dict(piter=12, kernel="xla", recover_prb=True, **jax_kw)
+    port_kw = jax_kw if port_kw is None else dict(
+        piter=12, recover_prb=True, **port_kw)
+    data, p0, scan, prb0, _ = problem2
+    pj, prj, mj = jcg.run(*map(jnp.asarray, (data, p0, scan, prb0)), GEOM2,
+                          **jax_kw)
+    pt, prt, mt = tcg.run(*map(cpu, (data, p0, scan, prb0)),
+                          geometry_from(GEOM2), **port_kw)
+    assert prt.shape == GEOM2.prb_shape
+    assert_same_joint_trajectory(
+        (np.asarray(pj), np.asarray(prj),
+         {k: np.asarray(v) for k, v in mj.items()}),
+        (to_numpy(pt), to_numpy(prt),
+         {k: (to_numpy(v) if torch.is_tensor(v) else v)
+          for k, v in mt.items()}), tol=1e-8)
+    assert np.count_nonzero(to_numpy(mt["gamma_prb"])) > 6  # the probe moved
+
+
+def test_two_angles_two_modes_joint_reconstruct_matches_jax():
+    """reconstruct(recover_prb=True) at ntheta = 2, nmodes = 2: the joint
+    stage 1, the escalation chain and the refinement with the probe
+    frozen, stage for stage."""
+    problem = perturbed_problem(DEEP2, 4, 13)
+    # A shallow target keeps the joint stages short (32 iterations in all):
+    # joint trajectories are chaotic past ~50.
+    kw = dict(DEEP_KW, target_residual=1.5e-2, segment=8, max_segments=6,
+              tiers=(("xla", 4e-2, 24),))
+    pj, prj, sj = jreconstruct(*map(jnp.asarray, problem[:4]), DEEP2,
+                               recover_prb=True, **kw)
+    pt, prt, st = reconstruct(*map(cpu, problem[:4]), geometry_from(DEEP2),
+                              recover_prb=True, **kw)
+    assert_same_stages(sj, st)
+    names = [n for n, _ in st]
+    assert names[:5] == ["xla:joint"] * 5 and names[5:] == (
+        ["split:xla"] * (len(names) - 5)) and len(names) > 5
+    np.testing.assert_allclose(to_numpy(prt), np.asarray(prj), rtol=0,
+                               atol=1e-8 * np.abs(prj).max())

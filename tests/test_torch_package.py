@@ -153,3 +153,105 @@ def test_every_kernel_source_uses_the_shared_header():
     for name in cuda_build.KERNELS:
         names = [p.name for p in cuda_build.sources(name)]
         assert names == [f"{name}.cu", "dft_frame.cuh"], names
+
+
+def test_options_fields_follow_the_reference_order():
+    """The port's CGOptions fields are, in order, a subsequence of the JAX
+    package's: a positional construction means the same in both."""
+    import dataclasses
+
+    from tikejax.solvers.cg import CGOptions as Reference
+    from tikejax_torch.solvers.cg import CGOptions
+
+    ref = [f.name for f in dataclasses.fields(Reference)]
+    port = [f.name for f in dataclasses.fields(CGOptions)]
+    assert [name for name in ref if name in port] == port
+    assert port[2] == "recover_prb" and port[6] == "nchunks"
+    positional = CGOptions(8, "poisson", True, 0.5, 0.25, 4, 2, "xla")
+    reference = Reference(8, "poisson", True, 0.5, 0.25, 4, 2, "xla")
+    for name in port[:8]:
+        assert getattr(positional, name) == getattr(reference, name), name
+
+
+def test_cuda_sources_are_package_data(monkeypatch, tmp_path):
+    """Every kernel source and the shared header are found through
+    importlib.resources, are named as package data, and a change to the
+    header changes every kernel's library key."""
+    import tomllib
+    from importlib import resources
+
+    csrc = resources.files("tikejax_torch") / "csrc"
+    for name in cuda_build.KERNELS:
+        assert (csrc / f"{name}.cu").is_file(), name
+    assert (csrc / "dft_frame.cuh").is_file()
+    meta = tomllib.loads((PKG.parent / "pyproject.toml").read_text())
+    patterns = meta["tool"]["setuptools"]["package-data"]["tikejax_torch"]
+    assert set(patterns) == {"csrc/*.cu", "csrc/*.cuh"}
+    shipped = {p.name for pat in patterns for p in PKG.glob(pat)}
+    assert shipped == {p.name for p in (PKG / "csrc").iterdir()}
+    copy = tmp_path / "csrc"
+    copy.mkdir()
+    for path in (PKG / "csrc").iterdir():
+        (copy / path.name).write_bytes(path.read_bytes())
+    monkeypatch.setattr(cuda_build, "CSRC", copy)
+    before = {k: cuda_build.library_key(k) for k in cuda_build.KERNELS}
+    assert before == {k: cuda_build.library_key(k) for k in cuda_build.KERNELS}
+    with open(copy / "dft_frame.cuh", "a") as f:
+        f.write("// edited\n")
+    after = {k: cuda_build.library_key(k) for k in cuda_build.KERNELS}
+    assert all(before[k] != after[k] for k in cuda_build.KERNELS)
+
+
+def test_build_directory_is_the_checkout_or_a_user_cache(monkeypatch,
+                                                         tmp_path):
+    """build/kernels under the directory that holds the package while that
+    can be written; a per-user cache directory otherwise."""
+    assert cuda_build.BUILD_DIR == cuda_build.default_build_dir()
+    assert cuda_build.default_build_dir(tmp_path) == (
+        tmp_path / "build" / "kernels")
+    monkeypatch.setattr(cuda_build.os, "access", lambda path, mode: False)
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "cache"))
+    assert cuda_build.default_build_dir(tmp_path) == (
+        tmp_path / "cache" / "tikejax_torch" / "kernels")
+    monkeypatch.delenv("XDG_CACHE_HOME")
+    monkeypatch.setenv("HOME", str(tmp_path / "home"))
+    assert cuda_build.default_build_dir(tmp_path) == (
+        tmp_path / "home" / ".cache" / "tikejax_torch" / "kernels")
+
+
+def test_library_key_covers_the_build_macros():
+    """A source built with other -D macros is another library."""
+    plain = cuda_build.library_key("adj_probe")
+    assert cuda_build.library_key("adj_probe", ()) == plain
+    assert cuda_build.library_key("adj_probe", ("TK_FFT_PAD=0",)) != plain
+
+
+def test_kernel_reports_reads_the_compiler_output():
+    report = """
+ptxas info    : Compiling entry function '_Z3fooILi128EEvv' for 'sm_90a'
+ptxas info    : Function properties for _Z3fooILi128EEvv
+    24 bytes stack frame, 48 bytes spill stores, 52 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 24 bytes cumulative stack size, 18560 bytes smem
+ptxas info    : Compiling entry function '_Z3barv' for 'sm_90a'
+ptxas info    : Function properties for _Z3barv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers
+"""
+    assert cuda_build.kernel_reports(report) == {
+        "_Z3fooILi128EEvv": dict(registers=128, spill_stores=48,
+                                 spill_loads=52, stack=24, smem=18560),
+        "_Z3barv": dict(registers=64, spill_stores=0, spill_loads=0,
+                        stack=0, smem=0)}
+
+
+def test_fft_probe_patches_match_the_sources():
+    """utils.fft_probe times kernels built from patched copies of csrc/;
+    each patch must find its text exactly once in today's sources."""
+    from tikejax_torch.utils import fft_probe
+
+    assert len(fft_probe.PATCHES) >= 6
+    for label, (name, edits) in fft_probe.PATCHES.items():
+        assert name in cuda_build.KERNELS
+        for source, old, new in edits:
+            text = (PKG / "csrc" / source).read_text()
+            assert text.count(old) == 1 and old != new, (label, source)

@@ -169,3 +169,38 @@ def test_nchunks_must_divide_nscan(problem, nchunks):
     with pytest.raises(ValueError, match="must divide"):
         tcg.run(*map(cpu, problem), geometry_from(GEOM), piter=2,
                 kernel="xla", nchunks=nchunks)
+
+
+# -- more than one angle and more than one mode -----------------------------
+
+GEOM2 = tikejax.Geometry(nz=48, n=48, nscan=16, ndet=32, nprb=16, ntheta=2,
+                         nmodes=2)
+
+
+@pytest.mark.parametrize("kw, port_kw", [
+    (dict(model="poisson", recover_prb=True), dict(kernel="xla")),
+    (dict(recover_prb=True), dict(kernel="fused_mx", linesearch="interp")),
+    (dict(), dict(kernel="xla")),
+], ids=["joint-poisson", "joint-fused_mx", "object"])
+def test_two_angles_two_modes_streamed_run_matches_jax(kw, port_kw):
+    """ntheta = 2, nmodes = 2, nchunks = 4: the streamed bodies against the
+    JAX package's streamed oracle body, 12 iterations in float64 to 1e-8
+    (a joint trajectory's rounding differences grow ~1.3x an iteration)."""
+    _, scan, prb, data = make_problem(jax.random.PRNGKey(2), GEOM2,
+                                      dtype=jnp.complex128)
+    prb = np.asarray(prb)
+    rng = np.random.default_rng(9)
+    prb0 = prb + 0.03 * np.abs(prb).max() * (
+        rng.standard_normal(prb.shape) + 1j * rng.standard_normal(prb.shape))
+    problem = tuple(np.asarray(x) for x in (
+        data, np.ones(GEOM2.psi_shape, np.complex128), scan, prb0))
+    kw = dict(piter=ITERS, nchunks=4, **kw)
+    pj, prj, mj = jcg.run(*map(jnp.asarray, problem), GEOM2, kernel="xla",
+                          **kw)
+    pt, prt, mt = tcg.run(*map(cpu, problem), geometry_from(GEOM2),
+                          **dict(kw, **port_kw))
+    assert_same((np.asarray(pj), np.asarray(prj),
+                 {k: np.asarray(v) for k, v in mj.items()}),
+                (to_numpy(pt), to_numpy(prt),
+                 {k: (to_numpy(v) if torch.is_tensor(v) else v)
+                  for k, v in mt.items()}))

@@ -248,3 +248,32 @@ def test_default_kernels_follow_the_device(problem, monkeypatch):
     port_run(problem, **dict(BASE, target_residual=1e-4, max_segments=2))
     assert set(seen) == {"xla"}
     assert torch.device("cpu").type != "cuda"
+
+
+# -- more than one angle and more than one mode -----------------------------
+
+GEOM2 = tikejax.Geometry(nz=64, n=64, nscan=36, ndet=32, nprb=16, ntheta=2,
+                         nmodes=2)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(BASE, target_residual=1e-4, direction="dy"),
+    dict(target_residual=1e-3, method="tiers",
+         tiers=(("xla", 1e-2, 40), ("xla", 0.0, 96))),
+], ids=["split", "tiers"])
+def test_two_angles_two_modes_reconstruct_matches_jax(kw):
+    """reconstruct at ntheta = 2, nmodes = 2 in float64: the split
+    refinement (Anderson, carried state) and the tier schedule, stage for
+    stage with the JAX package (Dai-Yuan: see the note above BASE)."""
+    _, scan, prb, data = make_problem(jax.random.PRNGKey(5), GEOM2,
+                                      dtype=jnp.complex128)
+    problem = tuple(np.asarray(x) for x in (
+        data, np.ones(GEOM2.psi_shape, np.complex128), scan, prb))
+    pj, _, sj = jreconstruct(*map(jnp.asarray, problem), GEOM2, **kw)
+    pt, prb_t, st = reconstruct(*map(cpu, problem), geometry_from(GEOM2),
+                                **kw)
+    assert_same_stages(sj, st)
+    assert_same_object(pj, pt)
+    np.testing.assert_array_equal(to_numpy(prb_t), problem[3])
+    assert final_residual(st) <= kw["target_residual"]
+    assert len(st) >= (4 if "method" not in kw else 2)

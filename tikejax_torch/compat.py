@@ -111,7 +111,7 @@ class CGPtychoSolver:
         """
         if mesh is not None:
             raise NotImplementedError(
-                "mesh= (multi-device runs; ROADMAP.md queue 1 item 9) is "
+                "mesh= (multi-device runs; ROADMAP.md queue 1 item 3) is "
                 "not ported to tikejax_torch yet")
         kw.setdefault("kernel", self.kernel)
         kw.update(piter=piter, model=model, recover_prb=recover_prb)

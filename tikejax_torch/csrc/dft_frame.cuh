@@ -14,6 +14,14 @@
 // table in shared memory, indexed by (u*y) mod d. A frame's p x d
 // intermediate lives in per-block scratch sized by the grid, never by the
 // number of positions, so no kernel allocates anything farplane-sized.
+//
+// For a power-of-two detector side d = 16..128 the same transform is also
+// here as an FFT of the whole frame in shared memory (fft2_frame, at the end
+// of this file): 2.3 MFLOP a frame at 128^2 where the two matrix products
+// are 67 MFLOP. grad_fused.cu, minf_fused.cu, grad_prb_fused.cu and
+// adj_probe.cu run it (and keep their cgemm kernel for every other size);
+// fwd.cu, adj.cu, adj_residual.cu and fwd_quad_stats.cu still run cgemm
+// alone.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -206,17 +214,509 @@ __device__ __forceinline__ float pixel_objective(int model, float inten,
   return inten - dv * logf(inten + 1e-8f);
 }
 
-// Sums v over the block's threads in double in a fixed order; thread 0
-// stores the result in *out.
-__device__ inline void block_sum_store(double v, double* out) {
-  __shared__ double red[kThreads];
+// Sums v over the kT threads of the block in double in a fixed order;
+// thread 0 stores the result in *out.
+template <int kT>
+__device__ inline void block_sum_store_n(double v, double* out) {
+  __shared__ double red[kT];
   red[threadIdx.x] = v;
   __syncthreads();
-  for (int w = kThreads / 2; w > 0; w >>= 1) {
+  for (int w = kT / 2; w > 0; w >>= 1) {
     if (threadIdx.x < w) red[threadIdx.x] += red[threadIdx.x + w];
     __syncthreads();
   }
   if (threadIdx.x == 0) *out = red[0];
+}
+
+// The same for the DFT-GEMM kernels' blocks of kThreads.
+__device__ inline void block_sum_store(double v, double* out) {
+  block_sum_store_n<kThreads>(v, out);
+}
+
+// ---------------------------------------------------------------------------
+// The frame's FFT in shared memory, for d = 16, 32, 64 or 128.
+//
+// What bounds it: not arithmetic (5 N log2 N = 1.1 MFLOP for one 128^2
+// transform) but sweeps over the frame in shared memory, so the design
+// spends as few as it can: a 1-D transform of length d = N1 * N2 is two
+// in-place stages, in each of which a thread holds N1 (or N2) points of one
+// line in registers, runs a radix-2 butterfly network on them with
+// compile-time twiddles, and writes them back where it read them; between
+// the stages the points are multiplied by W_d^(n2 k1) from a d-entry table.
+// One read and one write of the frame per stage, four stages per 2-D
+// transform, one barrier after each.
+//
+// Nothing is reordered. The forward transform takes its input in natural
+// order and leaves frequency k of a line at position
+//   fft_pos(k) = N2 * (k mod N1) + k / N1;
+// the inverse transform takes its input in that order and returns natural
+// order. What sits between the two (the likelihood factor, a per-pixel
+// multiply) reads the measured pixel (u, v) from device memory in natural,
+// coalesced order and the frame at (fft_pos(u), fft_pos(v)).
+//
+// Bank conflicts. A float2 access is served half a warp at a time, 16 lanes
+// on 16 eight-byte banks. The lanes of a warp always run ACROSS the lines of
+// a pass (neighbouring rows in the row pass, neighbouring columns in the
+// column pass), never along one, and the row pitch is odd, so every
+// butterfly load and store is conflict-free: a transposed exchange is not
+// needed. Each row also carries one pad element after every 16 (fft_col):
+// without it the 8 neighbouring frequencies v = 8a .. 8a+7 that one 32-byte
+// sector of the measured frame holds would all fall on one bank in the
+// likelihood pass (fft_pos(v) = 16 (v mod 8) + a); with it they fall on 8.
+// At 128^2 the frame takes 128 * 137 * 8 = 140,288 bytes.
+
+template <int kD> struct FftSplit;
+template <> struct FftSplit<16> { static constexpr int n1 = 4, n2 = 4; };
+template <> struct FftSplit<32> { static constexpr int n1 = 4, n2 = 8; };
+template <> struct FftSplit<64> { static constexpr int n1 = 8, n2 = 8; };
+template <> struct FftSplit<128> { static constexpr int n1 = 8, n2 = 16; };
+
+template <int kN> struct Log2 {
+  static constexpr int value = 1 + Log2<kN / 2>::value;
+};
+template <> struct Log2<1> { static constexpr int value = 0; };
+
+// TK_FFT_PAD = 0 builds the same code on the plain kD x kD layout (pitch kD,
+// no pads), where the lanes of every row-pass access share one bank. It
+// exists to measure what the padding buys (chip_smoke.py prints both
+// times); nothing else builds it.
+#ifndef TK_FFT_PAD
+#define TK_FFT_PAD 1
+#endif
+
+template <int kD> struct FftFrame {
+  // One pad element every 16, and an odd pitch: rows fall on all banks.
+  static constexpr int row = TK_FFT_PAD ? kD + kD / 16 : kD;
+  static constexpr int pitch = TK_FFT_PAD ? (row | 1) : row;
+  static constexpr int size = kD * pitch;  // float2 elements
+};
+
+// Column of a frame row where element c of the row is kept.
+__device__ __forceinline__ int fft_col(int c) {
+  return TK_FFT_PAD ? c + (c >> 4) : c;
+}
+
+// Position along a line where the forward transform leaves frequency k.
+template <int kD>
+__device__ __forceinline__ int fft_pos(int k) {
+  constexpr int n1 = FftSplit<kD>::n1, n2 = FftSplit<kD>::n2;
+  return n2 * (k & (n1 - 1)) + (k >> Log2<n1>::value);
+}
+
+// Index into the frame of the farplane pixel (u, v) after the forward
+// transform (and before the inverse one).
+template <int kD>
+__device__ __forceinline__ int fft_far_index(int u, int v) {
+  return fft_pos<kD>(u) * FftFrame<kD>::pitch + fft_col(fft_pos<kD>(v));
+}
+
+// Index into the frame of the near-field pixel (y, x).
+template <int kD>
+__device__ __forceinline__ int fft_near_index(int y, int x) {
+  return y * FftFrame<kD>::pitch + fft_col(x);
+}
+
+// tw[k] = e^{-2 pi i k / d} and tws[k] = tw[k] / d (the unitary scale of the
+// 2-D transform, applied once, in the row pass), computed in double; ends
+// with a barrier.
+template <int kD, int kT>
+__device__ inline void fft_load_twiddles(float2* tw, float2* tws) {
+  for (int k = threadIdx.x; k < kD; k += kT) {
+    double sn, cs;
+    sincospi(-2.0 * k / kD, &sn, &cs);
+    tw[k] = make_float2(static_cast<float>(cs), static_cast<float>(sn));
+    tws[k] = make_float2(static_cast<float>(cs / kD),
+                         static_cast<float>(sn / kD));
+  }
+  __syncthreads();
+}
+
+// e^{-2 pi i k / 16}, k = 0..7; k is a compile-time value wherever this is
+// called, so the switch folds to two constants.
+__device__ __forceinline__ float2 fft_w16(int k) {
+  switch (k) {
+    case 0: return make_float2(1.f, 0.f);
+    case 1: return make_float2(0.92387953251128674f, -0.38268343236508977f);
+    case 2: return make_float2(0.70710678118654752f, -0.70710678118654752f);
+    case 3: return make_float2(0.38268343236508977f, -0.92387953251128674f);
+    case 4: return make_float2(0.f, -1.f);
+    case 5: return make_float2(-0.38268343236508977f, -0.92387953251128674f);
+    case 6: return make_float2(-0.70710678118654752f, -0.70710678118654752f);
+    default: return make_float2(-0.92387953251128674f, -0.38268343236508977f);
+  }
+}
+
+// t * e^{-+ 2 pi i k / 16} (the conjugate for the inverse transform).
+template <bool kInverse>
+__device__ __forceinline__ float2 fft_mul_w16(float2 t, int k) {
+  if (k == 0) return t;
+  if (k == 4) {
+    return kInverse ? make_float2(-t.y, t.x) : make_float2(t.y, -t.x);
+  }
+  float2 w = fft_w16(k);
+  if (kInverse) w.y = -w.y;
+  return cmul(t, w);
+}
+
+template <int kBits>
+__device__ __forceinline__ int fft_bitrev(int i) {
+  int r = 0;
+#pragma unroll
+  for (int b = 0; b < kBits; ++b) r |= ((i >> b) & 1) << (kBits - 1 - b);
+  return r;
+}
+
+// The DFT of kR = 2, 4, 8 or 16 points held in registers (radix-2,
+// decimation in frequency): natural order in, v[i] = X[fft_bitrev(i)] out.
+// Every index is a compile-time value once the loops are unrolled.
+template <int kR, bool kInverse>
+__device__ __forceinline__ void fft_regs(float2 (&v)[kR]) {
+#pragma unroll
+  for (int st = 0; st < Log2<kR>::value; ++st) {
+    const int s = (kR / 2) >> st;
+#pragma unroll
+    for (int i = 0; i < kR / 2; ++i) {
+      const int j = i & (s - 1);
+      const int i0 = ((i - j) << 1) + j, i1 = i0 + s;
+      const float2 a = v[i0], c = v[i1];
+      v[i0] = make_float2(a.x + c.x, a.y + c.y);
+      v[i1] = fft_mul_w16<kInverse>(make_float2(a.x - c.x, a.y - c.y),
+                                    j * (8 / s));
+    }
+  }
+}
+
+// Forward 1-D transforms of `nlines` lines of the frame, in place; element
+// e of line l is fr[at(l, e)]. Elements e >= nin of a line are taken as
+// zero and not read (the padding). Natural order in, fft_pos order out.
+// Needs a barrier before it; ends with one.
+template <int kD, int kT, class At>
+__device__ void fft_lines_forward(float2* fr, At at, int nlines, int nin,
+                                  const float2* tw) {
+  constexpr int n1 = FftSplit<kD>::n1, n2 = FftSplit<kD>::n2;
+  for (int task = threadIdx.x; task < nlines * n2; task += kT) {
+    const int line = task % nlines, j2 = task / nlines;
+    float2 v[n1];
+#pragma unroll
+    for (int j1 = 0; j1 < n1; ++j1) {
+      const int e = n2 * j1 + j2;
+      v[j1] = e < nin ? fr[at(line, e)] : make_float2(0.f, 0.f);
+    }
+    fft_regs<n1, false>(v);
+#pragma unroll
+    for (int i = 0; i < n1; ++i) {
+      const int k1 = fft_bitrev<Log2<n1>::value>(i);
+      fr[at(line, n2 * k1 + j2)] = cmul(v[i], tw[j2 * k1]);
+    }
+  }
+  __syncthreads();
+  for (int task = threadIdx.x; task < nlines * n1; task += kT) {
+    const int line = task % nlines, k1 = task / nlines;
+    float2 v[n2];
+#pragma unroll
+    for (int j2 = 0; j2 < n2; ++j2) v[j2] = fr[at(line, n2 * k1 + j2)];
+    fft_regs<n2, false>(v);
+#pragma unroll
+    for (int i = 0; i < n2; ++i) {
+      fr[at(line, n2 * k1 + fft_bitrev<Log2<n2>::value>(i))] = v[i];
+    }
+  }
+  __syncthreads();
+}
+
+// Inverse 1-D transforms of `nlines` lines, in place: fft_pos order in,
+// natural order out; only the elements e < nout of a line are written (the
+// crop). Needs a barrier before it; ends with one.
+template <int kD, int kT, class At>
+__device__ void fft_lines_inverse(float2* fr, At at, int nlines, int nout,
+                                  const float2* tw) {
+  constexpr int n1 = FftSplit<kD>::n1, n2 = FftSplit<kD>::n2;
+  for (int task = threadIdx.x; task < nlines * n1; task += kT) {
+    const int line = task % nlines, k1 = task / nlines;
+    float2 v[n2];
+#pragma unroll
+    for (int k2 = 0; k2 < n2; ++k2) v[k2] = fr[at(line, n2 * k1 + k2)];
+    fft_regs<n2, true>(v);
+#pragma unroll
+    for (int i = 0; i < n2; ++i) {
+      const int j2 = fft_bitrev<Log2<n2>::value>(i);
+      fr[at(line, n2 * k1 + j2)] = cmul(v[i], conjf2(tw[j2 * k1]));
+    }
+  }
+  __syncthreads();
+  for (int task = threadIdx.x; task < nlines * n2; task += kT) {
+    const int line = task % nlines, j2 = task / nlines;
+    float2 v[n1];
+#pragma unroll
+    for (int k1 = 0; k1 < n1; ++k1) v[k1] = fr[at(line, n2 * k1 + j2)];
+    fft_regs<n1, true>(v);
+#pragma unroll
+    for (int i = 0; i < n1; ++i) {
+      const int e = n2 * fft_bitrev<Log2<n1>::value>(i) + j2;
+      if (e < nout) fr[at(line, e)] = v[i];
+    }
+  }
+  __syncthreads();
+}
+
+// The unitary 2-D transform of the frame `fr` (FftFrame<kD>::size float2 in
+// shared memory), in place, by the whole block of kT threads.
+//   forward (kInverse = false): the p x p patch at fft_near_index(y, x),
+//     zero-padded to kD x kD without the zeros ever being written: only the
+//     p rows that hold the patch are transformed along the row, and both
+//     passes take the elements past p as zero. Farplane pixel (u, v) ends
+//     at fft_far_index(u, v).
+//   inverse (kInverse = true): farplane pixel (u, v) at fft_far_index(u, v);
+//     the top-left p x p crop of the inverse transform ends at
+//     fft_near_index(y, x); the column pass writes only rows < p and the
+//     row pass runs on those rows alone.
+// Needs a barrier before it; ends with one.
+template <int kD, int kT, bool kInverse>
+__device__ void fft2_frame(float2* fr, int p, const float2* tw,
+                           const float2* tws) {
+  auto row_at = [](int r, int e) {
+    return r * FftFrame<kD>::pitch + fft_col(e);
+  };
+  auto col_at = [](int c, int e) {
+    return e * FftFrame<kD>::pitch + fft_col(c);
+  };
+  if constexpr (kInverse) {
+    fft_lines_inverse<kD, kT>(fr, col_at, kD, p, tw);
+    fft_lines_inverse<kD, kT>(fr, row_at, p, p, tws);
+  } else {
+    fft_lines_forward<kD, kT>(fr, row_at, p, p, tws);
+    fft_lines_forward<kD, kT>(fr, col_at, kD, p, tw);
+  }
+}
+
+// 16 bytes from device memory straight into shared memory, without a
+// register in between (cp.async); both addresses 16-byte aligned.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Waits for this thread's copies; a barrier must follow before another
+// thread reads what they wrote.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Dynamic shared memory of an FFT kernel: the two twiddle tables, the
+// frame and, for `planes` > 0, that many kD x kD float planes.
+template <int kD>
+constexpr size_t fft_smem_bytes(int planes) {
+  return sizeof(float2) * (2 * kD + FftFrame<kD>::size)
+         + sizeof(float) * static_cast<size_t>(planes) * kD * kD;
+}
+
+// -- the forward half of a frame, shared by grad_fused, minf_fused and
+// grad_prb_fused. The three must compute a frame's farplane and objective
+// with the same arithmetic: a line search compares the objective of a
+// gradient pass with the objectives of its candidates (minf_fused), and at
+// a 1e-6 residual the objective is of the size of its own fp32 rounding.
+// Computed the same way the rounding cancels between the two; computed two
+// ways it does not, and the search stalls (a joint run to 1e-6 then takes
+// 9 candidates an iteration instead of 5 and stops short of its target).
+
+// fr <- psi[y:y+p, x:x+p] * prb[m], the patch alone: the padding is never
+// written (fft2_frame takes it as zero). Ends with a barrier.
+template <int kD, int kT>
+__device__ __forceinline__ void fft_gather_patch(float2* fr, const float2* obj,
+                                                 int n, const float2* pr,
+                                                 int p) {
+  for (int i = threadIdx.x; i < p * p; i += kT) {
+    const int y = i / p, x = i - y * p;
+    fr[fft_near_index<kD>(y, x)] =
+        cmul(obj[static_cast<int64_t>(y) * n + x], pr[i]);
+  }
+  __syncthreads();
+}
+
+// z + base[i] where kBase (the frozen base farplane's pixel), else z.
+template <bool kBase>
+__device__ __forceinline__ float2 fft_add_base(float2 z, const float2* base,
+                                               int i) {
+  if constexpr (kBase) {
+    const float2 b = base_at(base, i);
+    z.x += b.x;
+    z.y += b.y;
+  }
+  return z;
+}
+
+__device__ __forceinline__ float fft_intensity(float2 z) {
+  return fmaf(z.x, z.x, z.y * z.y);
+}
+
+// Starts the copy of a measured frame (kD x kD floats, 16-byte aligned)
+// into `staged` in shared memory; fft_forward_one_mode waits for it.
+template <int kD, int kT>
+__device__ __forceinline__ void fft_fetch_data(float* staged,
+                                               const float* src) {
+  for (int i = threadIdx.x; i < kD * kD / 4; i += kT) {
+    cp_async16(staged + 4 * i, src + 4 * i);
+  }
+  cp_async_commit();
+}
+
+// The block's next frame after f that contributes (frames when none):
+// masked and out-of-bounds positions are skipped as the frame loops skip
+// them, so nothing is fetched for them.
+__device__ __forceinline__ int64_t fft_next_frame(const int* scan, int64_t f,
+                                                  int64_t frames, int nz,
+                                                  int n, int p) {
+  int64_t next = f + gridDim.x;
+  while (next < frames &&
+         !frame_valid(scan[2 * next], scan[2 * next + 1], nz, n, p)) {
+    next += gridDim.x;
+  }
+  return next;
+}
+
+// One mode: the patch's farplane (+ base) in fr and this thread's share of
+// the frame's objective, returned; with kWeight the frame is left as
+// factor * far, ready for the inverse transform. The measured frame comes
+// from `staged` (shared memory, fetched ahead with fft_fetch_data) when that
+// is not null, else from `dat` in device memory, read once, coalesced. Ends
+// with a barrier.
+template <int kD, int kT, bool kBase, bool kWeight>
+__device__ double fft_forward_one_mode(float2* fr, const float2* tw,
+                                       const float2* tws, const float2* obj,
+                                       int n, const float2* pr, int p,
+                                       const float2* base, const float* dat,
+                                       const float* staged, int model) {
+  fft_gather_patch<kD, kT>(fr, obj, n, pr, p);
+  fft2_frame<kD, kT, false>(fr, p, tw, tws);
+  if (staged != nullptr) {  // block-uniform
+    cp_async_wait_all();
+    __syncthreads();
+  }
+  double sum = 0.0;
+  for (int i = threadIdx.x; i < kD * kD; i += kT) {
+    const int at = fft_far_index<kD>(i / kD, i % kD);
+    const float2 z = fft_add_base<kBase>(fr[at], base, i);
+    float factor;
+    sum += pixel_objective(model, fft_intensity(z),
+                           staged != nullptr ? staged[i] : __ldcs(dat + i),
+                           &factor);
+    if constexpr (kWeight) fr[at] = make_float2(z.x * factor, z.y * factor);
+  }
+  __syncthreads();
+  return sum;
+}
+
+// Several modes, first pass: the intensity summed over the modes into
+// `plane` (kD x kD floats in shared memory; thread i owns plane[i],
+// plane[i + kT], ... throughout), which then receives the likelihood
+// factor; returns this thread's share of the frame's objective. `prb` is
+// the angle's (m, p, p) probe, `base` the position's (m, kD, kD) base
+// frames. No barrier is needed after it: each thread has read and written
+// only its own entries of the plane since the last one.
+template <int kD, int kT, bool kBase>
+__device__ double fft_forward_modes(float2* fr, float* plane,
+                                    const float2* tw, const float2* tws,
+                                    const float2* obj, int n,
+                                    const float2* prb, int m, int p,
+                                    const float2* base, const float* dat,
+                                    int model) {
+  for (int mm = 0; mm < m; ++mm) {
+    fft_gather_patch<kD, kT>(fr, obj, n,
+                             prb + static_cast<int64_t>(mm) * p * p, p);
+    fft2_frame<kD, kT, false>(fr, p, tw, tws);
+    const float2* b = kBase ? base + static_cast<int64_t>(mm) * kD * kD
+                            : nullptr;
+    for (int i = threadIdx.x; i < kD * kD; i += kT) {
+      const float a = fft_intensity(fft_add_base<kBase>(
+          fr[fft_far_index<kD>(i / kD, i % kD)], b, i));
+      plane[i] = mm == 0 ? a : plane[i] + a;
+    }
+    __syncthreads();  // the next gather overwrites the frame
+  }
+  double sum = 0.0;
+  for (int i = threadIdx.x; i < kD * kD; i += kT) {
+    float factor;
+    sum += pixel_objective(model, plane[i], __ldcs(dat + i), &factor);
+    plane[i] = factor;
+  }
+  return sum;
+}
+
+// Several modes, second pass: one mode's farplane (+ base) again, weighted
+// by the factor in `plane`, left in fr ready for the inverse transform: an
+// FFT costs less than keeping the modes' farplanes in device memory would.
+// Ends with a barrier.
+template <int kD, int kT, bool kBase>
+__device__ void fft_weighted_mode(float2* fr, const float* plane,
+                                  const float2* tw, const float2* tws,
+                                  const float2* obj, int n, const float2* pr,
+                                  int p, const float2* base) {
+  fft_gather_patch<kD, kT>(fr, obj, n, pr, p);
+  fft2_frame<kD, kT, false>(fr, p, tw, tws);
+  for (int i = threadIdx.x; i < kD * kD; i += kT) {
+    const int at = fft_far_index<kD>(i / kD, i % kD);
+    const float2 z = fft_add_base<kBase>(fr[at], base, i);
+    fr[at] = make_float2(z.x * plane[i], z.y * plane[i]);
+  }
+  __syncthreads();
+}
+
+// Calls fn(kernel<D, T>, dynamic shared bytes) for the instantiation of
+// detector side `d` and `threads` threads a block (512 at every side, 1024
+// at 128), with `planes` float planes beside the frame;
+// cudaErrorInvalidValue for a side or a thread count without a kernel.
+// `Kernels` provides `template <int D, int T> static auto get()`.
+template <class Kernels, class Fn>
+int fft_dispatch(int d, int threads, int planes, Fn fn) {
+#define TK_FFT_CASE(D, T)                                      \
+  if (d == D && threads == T) {                                \
+    return fn(Kernels::template get<D, T>(), fft_smem_bytes<D>(planes)); \
+  }
+  TK_FFT_CASE(16, 512)
+  TK_FFT_CASE(32, 512)
+  TK_FFT_CASE(64, 512)
+  TK_FFT_CASE(128, 512)
+  TK_FFT_CASE(128, 1024)
+#undef TK_FFT_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Launches the chosen instantiation with up to 227 KiB of dynamic shared
+// memory; returns the first CUDA error (0 on success).
+template <class Kernels, class Params>
+int fft_launch(const Params& q, int d, int threads, int planes, int grid,
+               cudaStream_t st) {
+  return fft_dispatch<Kernels>(
+      d, threads, planes, [&](auto kernel, size_t smem) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(smem));
+        if (err != cudaSuccess) return static_cast<int>(err);
+        kernel<<<grid, threads, smem, st>>>(q);
+        return static_cast<int>(cudaGetLastError());
+      });
+}
+
+// Resident blocks per SM of the chosen instantiation and its dynamic
+// shared memory in bytes; returns the CUDA error code.
+template <class Kernels>
+int fft_occupancy(int d, int threads, int planes, int* out,
+                  int* smem_bytes) {
+  return fft_dispatch<Kernels>(
+      d, threads, planes, [&](auto kernel, size_t smem) {
+        *smem_bytes = static_cast<int>(smem);
+        const cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(smem));
+        if (err != cudaSuccess) return static_cast<int>(err);
+        return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            out, kernel, threads, smem));
+      });
 }
 
 }  // namespace tk

@@ -19,20 +19,48 @@
 // contribute nothing; so do out-of-bounds positions (invalid input: the
 // kernel never reads or writes outside the object).
 //
-// What bounds it: the four DFT products are 2*d*p*(d+p) complex
-// multiply-adds per frame and mode -- 1.1e12 fp32 FLOPs per evaluation at
-// 16384 frames of 128^2 -- all on the SIMT fp32 units here (dft_frame.cuh
-// cgemm). The base adds one farplane read (8 bytes a pixel) per
-// evaluation, far below the FLOPs' time. The two p x d / d x d
-// intermediates of a frame live in per-block scratch sized by the grid,
-// never by the number of positions; no farplane is ever materialised.
-// Without a base the kernel is the instantiation kBase = false, the same
-// code as before the epilogue existed.
+// Two kernels compute it; the wrapper picks one from the shapes alone.
 //
-// Contract: the gradient scatter uses atomicAdd on the fp32 re/im planes,
-// so it is deterministic only up to summation order; the objective is
-// summed per thread and per block in double in a fixed order, then over the
-// blocks in a fixed order by the caller, so it is bitwise reproducible.
+// The FFT variant (grad_fused_fft_kernel; detector side 16, 32, 64 or 128).
+// One frame, one block, the whole complex frame in dynamic shared memory
+// (140,288 bytes at 128^2, so one block per SM), transformed in place by
+// dft_frame.cuh fft2_frame. Nothing farplane-sized and no per-block scratch
+// in device memory. What bounds it now: (a) the sweeps over the frame in
+// shared memory -- gather, four FFT stages, the likelihood pass, four
+// inverse stages, the scatter: about ten reads and writes of 128 KiB a
+// frame; (b) the scatter's fp32 atomics, two per patch pixel and mode into
+// an object that lives in L2; (c) the one read of the measured frame from
+// device memory (64 KiB a frame), whose latency one block per SM hides
+// badly. The FFT arithmetic (2.3 MFLOP a frame) is far below all three. What
+// the design does about them: each FFT stage is one in-place sweep with the
+// butterflies in registers and conflict-free shared accesses (see
+// dft_frame.cuh); the zero padding is never written and the rows it fills
+// are never transformed; the measured frame is read once, coalesced, in the
+// pass that needs it -- with one mode it is already in shared memory by
+// then: the next frame's 64 KiB are fetched with cp.async into the room
+// beside the frame while this frame's inverse transform, scatter and the
+// next gather and forward transform run. With several modes the intensity is
+// summed over the modes into a float plane in shared memory, which then
+// holds the likelihood factor, and each mode's farplane is computed a second
+// time for the adjoint: an FFT costs less than a round trip through device
+// memory would.
+//
+// The GEMM variant (grad_fused_kernel; every other size). The four DFT
+// products are 2*d*p*(d+p) complex multiply-adds per frame and mode --
+// 1.1e12 fp32 FLOPs per evaluation at 16384 frames of 128^2, 29 times what
+// the FFT needs -- all on the SIMT fp32 units (dft_frame.cuh cgemm). The
+// two p x d / d x d intermediates of a frame live in per-block scratch
+// sized by the grid, never by the number of positions; no farplane is ever
+// materialised.
+//
+// The base adds one farplane read (8 bytes a pixel) per evaluation. Without
+// a base each kernel is the instantiation kBase = false.
+//
+// Contract (both variants): the gradient scatter uses atomicAdd on the fp32
+// re/im planes, so it is deterministic only up to summation order; the
+// objective is summed per thread and per block in double in a fixed order,
+// then over the blocks in a fixed order by the caller, so it is bitwise
+// reproducible.
 
 #include "dft_frame.cuh"
 
@@ -73,7 +101,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     const int th = static_cast<int>(f / q.s);
     const int sy = q.scan[2 * f], sx = q.scan[2 * f + 1];
     if (!frame_valid(sy, sx, q.nz, q.n, p)) continue;
-    const float2* obj = q.psi + (static_cast<int64_t>(th) * q.nz + sy) * q.n + sx;
+    const float2* obj =
+        q.psi + (static_cast<int64_t>(th) * q.nz + sy) * q.n + sx;
     const float2* prb = q.prb + static_cast<int64_t>(th) * m * p * p;
     const float* dat = q.data + f * dd;
 
@@ -128,11 +157,110 @@ __global__ void __launch_bounds__(kThreads, 2)
   block_sum_store(fsum, q.partial + blockIdx.x);
 }
 
+// -- the FFT variant -----------------------------------------------------
+
+struct FftParams {
+  const float2* psi;   // (t, nz, n)
+  const float2* prb;   // (t, m, p, p)
+  const float* data;   // (t, s, d, d)
+  const int* scan;     // (t, s, 2) int (y, x)
+  float* grad;         // (t, nz, n) complex as interleaved re/im floats
+  double* partial;     // gridDim.x objective partials
+  const float2* base;  // (t, s, m, d, d), read only when kBase
+  int t, s, nz, n, m, p, model;
+  int prefetch;  // one mode only: fetch the next measured frame ahead
+};
+
+// grad[patch] += conj(prb[m]) * fr (the cropped inverse transform); ends
+// with a barrier, after which the frame may be overwritten.
+template <int kD, int kT>
+__device__ __forceinline__ void scatter_patch(const float2* fr, float* grad,
+                                              int th, int nz, int n, int sy,
+                                              int sx, const float2* pr,
+                                              int p) {
+  for (int i = threadIdx.x; i < p * p; i += kT) {
+    const int y = i / p, x = i - y * p;
+    const float2 g = cmul(conjf2(pr[i]), fr[fft_near_index<kD>(y, x)]);
+    scatter_add_pixel(grad, th, nz, n, sy + y, sx + x, g);
+  }
+  __syncthreads();
+}
+
+// One block per SM at 128^2 (the frame fills the shared memory): registers
+// are capped at 65536 / kT.
+template <int kD, int kT, bool kBase>
+__global__ void __launch_bounds__(kT, 1) grad_fused_fft_kernel(FftParams q) {
+  extern __shared__ __align__(16) float2 shared[];
+  float2* tw = shared;       // e^{-2 pi i k / d}
+  float2* tws = tw + kD;     // the same / d
+  float2* fr = tws + kD;     // the frame
+  // With several modes: the mode-summed intensity, then the factor. With
+  // one mode and q.prefetch: the measured frame, fetched ahead.
+  float* plane = reinterpret_cast<float*>(fr + FftFrame<kD>::size);
+  fft_load_twiddles<kD, kT>(tw, tws);
+
+  const int p = q.p, m = q.m;
+  constexpr int dd = kD * kD;
+  const int64_t frames = static_cast<int64_t>(q.t) * q.s;
+  double fsum = 0.0;
+  int64_t fetched = -1;  // the frame whose data `plane` holds or awaits
+
+  for (int64_t f = blockIdx.x; f < frames; f += gridDim.x) {
+    const int th = static_cast<int>(f / q.s);
+    const int sy = q.scan[2 * f], sx = q.scan[2 * f + 1];
+    if (!frame_valid(sy, sx, q.nz, q.n, p)) continue;  // block-uniform
+    const float2* obj =
+        q.psi + (static_cast<int64_t>(th) * q.nz + sy) * q.n + sx;
+    const float2* prb = q.prb + static_cast<int64_t>(th) * m * p * p;
+    const float* dat = q.data + f * dd;
+    const float2* base = kBase ? q.base + f * m * dd : nullptr;
+
+    if (m == 1) {
+      if (q.prefetch && fetched != f) {  // the block's first frame
+        fft_fetch_data<kD, kT>(plane, dat);
+      }
+      fsum += fft_forward_one_mode<kD, kT, kBase, true>(
+          fr, tw, tws, obj, q.n, prb, p, base, dat,
+          q.prefetch ? plane : nullptr, q.model);
+      if (q.prefetch) {
+        fetched = fft_next_frame(q.scan, f, frames, q.nz, q.n, p);
+        if (fetched < frames) {
+          fft_fetch_data<kD, kT>(plane, q.data + fetched * dd);
+        }
+      }
+      fft2_frame<kD, kT, true>(fr, p, tw, tws);
+      scatter_patch<kD, kT>(fr, q.grad, th, q.nz, q.n, sy, sx, prb, p);
+      continue;
+    }
+
+    fsum += fft_forward_modes<kD, kT, kBase>(fr, plane, tw, tws, obj, q.n,
+                                             prb, m, p, base, dat, q.model);
+    for (int mm = 0; mm < m; ++mm) {
+      const float2* pr = prb + static_cast<int64_t>(mm) * p * p;
+      fft_weighted_mode<kD, kT, kBase>(
+          fr, plane, tw, tws, obj, q.n, pr, p,
+          kBase ? base + static_cast<int64_t>(mm) * dd : nullptr);
+      fft2_frame<kD, kT, true>(fr, p, tw, tws);
+      scatter_patch<kD, kT>(fr, q.grad, th, q.nz, q.n, sy, sx, pr, p);
+    }
+  }
+
+  block_sum_store_n<kT>(fsum, q.partial + blockIdx.x);
+}
+
+template <bool kBase>
+struct FftKernels {
+  template <int kD, int kT>
+  static auto get() {
+    return grad_fused_fft_kernel<kD, kT, kBase>;
+  }
+};
+
 }  // namespace
 
 extern "C" {
 
-// Launches the kernel on `stream` with `grid` blocks; returns
+// Launches the GEMM variant on `stream` with `grid` blocks; returns
 // cudaGetLastError() (0 on success). `grad` must be zeroed, `scratch` hold
 // grid * (m*p*d + m*d*d) complex floats, `partial` grid doubles. A null
 // `base` means no base; otherwise it is the contiguous complex64 base
@@ -156,8 +284,8 @@ int tk_grad_fused(const void* psi, const void* prb, const void* data,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Resident blocks per SM at detector side `d` (with or without a base);
-// returns the CUDA error code.
+// Resident blocks per SM of the GEMM variant at detector side `d` (with or
+// without a base); returns the CUDA error code.
 int tk_grad_fused_blocks_per_sm(int d, int has_base, int* out) {
   const size_t smem = static_cast<size_t>(d) * sizeof(float2);
   if (has_base) {
@@ -166,6 +294,42 @@ int tk_grad_fused_blocks_per_sm(int d, int has_base, int* out) {
   }
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       out, grad_fused_kernel<false>, kThreads, smem));
+}
+
+// Launches the FFT variant (d = 16, 32, 64 or 128; `threads` 512, or 1024
+// at d = 128) on `stream` with `grid` blocks; returns the first CUDA error
+// (0 on success). `grad` must be zeroed, `partial` hold grid doubles; there
+// is no scratch. `base` as in tk_grad_fused. `prefetch` != 0 (one mode
+// only, `data` 16-byte aligned) fetches each measured frame a frame ahead.
+int tk_grad_fused_fft(const void* psi, const void* prb, const void* data,
+                      const void* scan, void* grad, void* partial,
+                      const void* base, int t, int s, int nz, int n, int m,
+                      int p, int d, int model, int prefetch, int grid,
+                      int threads, void* stream) {
+  if (prefetch && m != 1) return static_cast<int>(cudaErrorInvalidValue);
+  FftParams q{static_cast<const float2*>(psi),
+              static_cast<const float2*>(prb),
+              static_cast<const float*>(data), static_cast<const int*>(scan),
+              static_cast<float*>(grad), static_cast<double*>(partial),
+              static_cast<const float2*>(base), t, s, nz, n, m, p, model,
+              prefetch};
+  const int planes = m > 1 || prefetch ? 1 : 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return base != nullptr
+             ? fft_launch<FftKernels<true>>(q, d, threads, planes, grid, st)
+             : fft_launch<FftKernels<false>>(q, d, threads, planes, grid, st);
+}
+
+// Resident blocks per SM of the FFT variant and its dynamic shared memory
+// in bytes, with `planes` (0 or 1) float planes beside the frame (one with
+// several modes or with the prefetch); returns the CUDA error code.
+int tk_grad_fused_fft_blocks_per_sm(int d, int has_base, int planes,
+                                    int threads, int* out, int* smem_bytes) {
+  return has_base
+             ? fft_occupancy<FftKernels<true>>(d, threads, planes, out,
+                                               smem_bytes)
+             : fft_occupancy<FftKernels<false>>(d, threads, planes, out,
+                                                smem_bytes);
 }
 
 }  // extern "C"

@@ -11,16 +11,33 @@
 // (dft_frame.cuh pixel_objective). Positions whose scan row is < 0 (masked
 // dummies) or whose window leaves the object contribute nothing.
 //
-// What bounds it: the two forward DFT products, d*p*(d+p) complex
-// multiply-adds per frame and mode (5.5e11 fp32 FLOPs at 16384 frames of
-// 128^2, half of grad_fused's) on the SIMT fp32 units, against one read of
-// the data (and of the base). It exists so that a line-search candidate
-// or an Anderson safeguard candidate costs no farplane: per-block scratch
-// is one p x d intermediate plus one d x d intensity plane.
+// Two kernels compute it; the wrapper picks one from the shapes alone, the
+// same way for grad_fused, grad_prb_fused and this one: a line search
+// compares this kernel's objective with theirs, so the three compute a
+// frame's farplane with the same arithmetic (dft_frame.cuh, "the forward
+// half of a frame").
 //
-// Contract: the objective is summed per thread and per block in double in
-// a fixed order, then over the blocks in a fixed order by the caller, so it
-// is bitwise reproducible.
+// The FFT variant (minf_fused_fft_kernel; detector side 16, 32, 64 or 128)
+// is grad_fused's forward half: one frame per block, the complex frame in
+// dynamic shared memory, dft_frame.cuh fft2_frame in place, the measured
+// frame fetched a frame ahead with cp.async (one mode) or read once,
+// coalesced; with several modes the intensity is summed in a float plane
+// in shared memory. No scratch in device memory. What bounds it: the
+// sweeps over the frame in shared memory (gather, four FFT stages, the
+// likelihood pass) and the one read of the data.
+//
+// The GEMM variant (minf_fused_kernel; every other size): the two forward
+// DFT products, d*p*(d+p) complex multiply-adds per frame and mode (5.5e11
+// fp32 FLOPs at 16384 frames of 128^2, half of grad_fused's) on the SIMT
+// fp32 units, against one read of the data (and of the base); per-block
+// scratch is one p x d intermediate plus one d x d intensity plane.
+//
+// The kernel exists so that a line-search candidate or an Anderson
+// safeguard candidate costs no farplane.
+//
+// Contract (both variants): the objective is summed per thread and per
+// block in double in a fixed order, then over the blocks in a fixed order
+// by the caller, so it is bitwise reproducible.
 
 #include "dft_frame.cuh"
 
@@ -59,7 +76,8 @@ __global__ void __launch_bounds__(kThreads, 2) minf_fused_kernel(Params q) {
     const int th = static_cast<int>(f / q.s);
     const int sy = q.scan[2 * f], sx = q.scan[2 * f + 1];
     if (!frame_valid(sy, sx, q.nz, q.n, p)) continue;
-    const float2* obj = q.psi + (static_cast<int64_t>(th) * q.nz + sy) * q.n + sx;
+    const float2* obj =
+        q.psi + (static_cast<int64_t>(th) * q.nz + sy) * q.n + sx;
     const float2* prb = q.prb + static_cast<int64_t>(th) * m * p * p;
     const float* dat = q.data + f * dd;
 
@@ -91,11 +109,81 @@ __global__ void __launch_bounds__(kThreads, 2) minf_fused_kernel(Params q) {
   block_sum_store(fsum, q.partial + blockIdx.x);
 }
 
+// -- the FFT variant -----------------------------------------------------
+
+struct FftParams {
+  const float2* psi;   // (t, nz, n)
+  const float2* prb;   // (t, m, p, p)
+  const float* data;   // (t, s, d, d)
+  const int* scan;     // (t, s, 2) int (y, x)
+  double* partial;     // gridDim.x objective partials
+  const float2* base;  // (t, s, m, d, d), read only when kBase
+  int t, s, nz, n, m, p, model;
+  int prefetch;  // one mode only: fetch the next measured frame ahead
+};
+
+template <int kD, int kT, bool kBase>
+__global__ void __launch_bounds__(kT, 1) minf_fused_fft_kernel(FftParams q) {
+  extern __shared__ __align__(16) float2 shared[];
+  float2* tw = shared;    // e^{-2 pi i k / d}
+  float2* tws = tw + kD;  // the same / d
+  float2* fr = tws + kD;  // the frame
+  // With several modes: the mode-summed intensity. With one mode and
+  // q.prefetch: the measured frame, fetched ahead.
+  float* plane = reinterpret_cast<float*>(fr + FftFrame<kD>::size);
+  fft_load_twiddles<kD, kT>(tw, tws);
+
+  const int p = q.p, m = q.m;
+  constexpr int dd = kD * kD;
+  const int64_t frames = static_cast<int64_t>(q.t) * q.s;
+  double fsum = 0.0;
+  int64_t fetched = -1;  // the frame whose data `plane` holds or awaits
+
+  for (int64_t f = blockIdx.x; f < frames; f += gridDim.x) {
+    const int th = static_cast<int>(f / q.s);
+    const int sy = q.scan[2 * f], sx = q.scan[2 * f + 1];
+    if (!frame_valid(sy, sx, q.nz, q.n, p)) continue;  // block-uniform
+    const float2* obj =
+        q.psi + (static_cast<int64_t>(th) * q.nz + sy) * q.n + sx;
+    const float2* prb = q.prb + static_cast<int64_t>(th) * m * p * p;
+    const float* dat = q.data + f * dd;
+    const float2* base = kBase ? q.base + f * m * dd : nullptr;
+
+    if (m == 1) {
+      if (q.prefetch && fetched != f) {  // the block's first frame
+        fft_fetch_data<kD, kT>(plane, dat);
+      }
+      fsum += fft_forward_one_mode<kD, kT, kBase, false>(
+          fr, tw, tws, obj, q.n, prb, p, base, dat,
+          q.prefetch ? plane : nullptr, q.model);
+      if (q.prefetch) {
+        fetched = fft_next_frame(q.scan, f, frames, q.nz, q.n, p);
+        if (fetched < frames) {
+          fft_fetch_data<kD, kT>(plane, q.data + fetched * dd);
+        }
+      }
+    } else {
+      fsum += fft_forward_modes<kD, kT, kBase>(fr, plane, tw, tws, obj, q.n,
+                                               prb, m, p, base, dat, q.model);
+    }
+  }
+
+  block_sum_store_n<kT>(fsum, q.partial + blockIdx.x);
+}
+
+template <bool kBase>
+struct FftKernels {
+  template <int kD, int kT>
+  static auto get() {
+    return minf_fused_fft_kernel<kD, kT, kBase>;
+  }
+};
+
 }  // namespace
 
 extern "C" {
 
-// Launches the kernel on `stream` with `grid` blocks; returns
+// Launches the GEMM variant on `stream` with `grid` blocks; returns
 // cudaGetLastError() (0 on success). `scratch` holds grid * stride floats
 // with stride >= 2*p*d + d*d and even, `partial` grid doubles. A null
 // `base` means no base; otherwise it is the contiguous complex64 base
@@ -119,8 +207,8 @@ int tk_minf_fused(const void* psi, const void* prb, const void* data,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Resident blocks per SM at detector side `d` (with or without a base);
-// returns the CUDA error code.
+// Resident blocks per SM of the GEMM variant at detector side `d` (with or
+// without a base); returns the CUDA error code.
 int tk_minf_fused_blocks_per_sm(int d, int has_base, int* out) {
   const size_t smem = static_cast<size_t>(d) * sizeof(float2);
   if (has_base) {
@@ -129,6 +217,42 @@ int tk_minf_fused_blocks_per_sm(int d, int has_base, int* out) {
   }
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       out, minf_fused_kernel<false>, kThreads, smem));
+}
+
+// Launches the FFT variant (d = 16, 32, 64 or 128; `threads` 512, or 1024
+// at d = 128) on `stream` with `grid` blocks; returns the first CUDA error
+// (0 on success). `partial` holds grid doubles; there is no scratch. `base`
+// as in tk_minf_fused. `prefetch` != 0 (one mode only, `data` 16-byte
+// aligned) fetches each measured frame a frame ahead.
+int tk_minf_fused_fft(const void* psi, const void* prb, const void* data,
+                      const void* scan, void* partial, const void* base,
+                      int t, int s, int nz, int n, int m, int p, int d,
+                      int model, int prefetch, int grid, int threads,
+                      void* stream) {
+  if (prefetch && m != 1) return static_cast<int>(cudaErrorInvalidValue);
+  FftParams q{static_cast<const float2*>(psi),
+              static_cast<const float2*>(prb),
+              static_cast<const float*>(data), static_cast<const int*>(scan),
+              static_cast<double*>(partial),
+              static_cast<const float2*>(base), t, s, nz, n, m, p, model,
+              prefetch};
+  const int planes = m > 1 || prefetch ? 1 : 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return base != nullptr
+             ? fft_launch<FftKernels<true>>(q, d, threads, planes, grid, st)
+             : fft_launch<FftKernels<false>>(q, d, threads, planes, grid, st);
+}
+
+// Resident blocks per SM of the FFT variant and its dynamic shared memory
+// in bytes, with `planes` (0 or 1) float planes beside the frame; returns
+// the CUDA error code.
+int tk_minf_fused_fft_blocks_per_sm(int d, int has_base, int planes,
+                                    int threads, int* out, int* smem_bytes) {
+  return has_base
+             ? fft_occupancy<FftKernels<true>>(d, threads, planes, out,
+                                               smem_bytes)
+             : fft_occupancy<FftKernels<false>>(d, threads, planes, out,
+                                                smem_bytes);
 }
 
 }  // extern "C"

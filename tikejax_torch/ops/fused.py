@@ -56,15 +56,27 @@ farplane or a nearplane, which is why they exist: at 16384 positions of
 128^2 the farplane alone is 2.1 GB (8.6 GB with 4 modes).
 
 The CUDA sources are ``tikejax_torch/csrc/<name>.cu`` with their shared
-DFT-GEMM device code in ``csrc/dft_frame.cuh`` (built by
-``tikejax_torch.utils.cuda_build``). What bounds them on an H100: the DFT
-is computed as complex matrix products per frame and mode,
-``ndet*nprb*(nprb+ndet)`` complex multiply-adds per DFT application --
-twice per frame in ``grad_fused`` and ``grad_prb_fused`` (1.1e12 fp32 FLOPs
-per evaluation at 16384 frames of 128^2), once in the others -- all on the
-SIMT fp32 units, in shared-memory tiled GEMMs whose per-frame
+device code in ``csrc/dft_frame.cuh`` (built by
+``tikejax_torch.utils.cuda_build``). What bounds them on an H100: four of
+the eight compute the DFT as complex matrix products per frame and mode,
+``ndet*nprb*(nprb+ndet)`` complex multiply-adds per DFT application, all
+on the SIMT fp32 units, in shared-memory tiled GEMMs whose per-frame
 intermediates sit in per-block scratch sized by the grid (never by the
 number of positions).
+
+``grad_fused``, ``minf_fused``, ``grad_prb_fused`` and ``adj_probe`` each
+have two hand-written kernels, and :func:`dft_variant` picks one from the
+shapes alone, before the launch, the same for all four (a line search
+compares the objectives of the first three, which must therefore compute a
+frame's farplane with the same arithmetic):
+``'fft'`` for a detector side of 16, 32, 64 or 128 -- one frame per block,
+the whole complex frame in shared memory, transformed in place by a
+register-resident radix FFT (29 times less arithmetic than the matrix
+products at 128^2, no scratch in device memory; shared-memory sweeps, the
+scatter's atomics and the one read of the data bound it) -- and ``'gemm'``,
+the matrix-product kernel above, for every other size. Neither gives way to
+the other or to the plain version: a CUDA tensor launches the chosen kernel
+or raises.
 
 The base. The JAX package accepts the frozen base as a complex array or as
 the (re, im) f32 pair that ``fwd(split_out=True)`` emits, because on the
@@ -113,6 +125,58 @@ _MAX_NDET = 2048
 # Per-block scratch holds one frame's intermediates; the grid is cut so
 # that all of it stays below this many bytes.
 _SCRATCH_BYTES = 256 * 1024**2
+
+
+# Detector sides of the FFT kernels: a power of two whose padded complex
+# frame fits the 227 KiB of shared memory a block can have (140,288 bytes
+# at 128, plus a 64 KiB intensity plane with several modes).
+_FFT_NDET = (16, 32, 64, 128)
+
+
+def fft_threads(ndet: int) -> int:
+    """Threads per block of the FFT kernels: 1024 at 128^2 (64 registers a
+    thread, no spills; 19% faster than 512 on an H100 for both kernels),
+    512 at the smaller sides, which have no 1024-thread kernel."""
+    return 1024 if ndet == 128 else 512
+
+
+def dft_variant(nprb: int, ndet: int, nmodes: int) -> str:
+    """Which of their two hand-written kernels ``grad_fused``,
+    ``minf_fused``, ``grad_prb_fused`` and ``adj_probe`` launch on a CUDA
+    tensor of these sizes: ``'fft'`` (the
+    frame's FFT in shared memory) for ``ndet`` 16, 32, 64 or 128, ``'gemm'``
+    (DFT matrix products) for any other size. A pure function of the
+    shapes; ``nprb > ndet`` raises as the kernels do."""
+    _check_sizes("dft_variant", nprb, ndet)
+    if nmodes < 1:
+        raise ValueError(f"dft_variant: nmodes must be >= 1, got {nmodes}")
+    return "fft" if ndet in _FFT_NDET else "gemm"
+
+
+# Macros of the measurement build of the FFT kernels on the plain,
+# unpadded frame layout (dft_frame.cuh TK_FFT_PAD).
+_UNPADDED = ("TK_FFT_PAD=0",)
+
+
+def _pick_variant(name, variant, nprb, ndet, nmodes):
+    """(variant to launch, build macros): the shapes' own variant, or the
+    one the caller forces, which must be able to run these shapes.
+    ``'fft_unpadded'`` is the FFT kernel built on the plain frame layout:
+    the same results with every row-pass access on one shared-memory bank,
+    there to measure what the padding buys."""
+    _check_sizes(name, nprb, ndet)
+    chosen = dft_variant(nprb, ndet, nmodes)
+    if variant is None:
+        return chosen, ()
+    if variant not in ("fft", "gemm", "fft_unpadded"):
+        raise ValueError(f"{name}: unknown variant {variant!r}; expected "
+                         "'fft', 'gemm', 'fft_unpadded' or None")
+    if variant != "gemm" and chosen != "fft":
+        raise ValueError(f"{name}: the 'fft' variant takes ndet in "
+                         f"{_FFT_NDET}, got ndet={ndet}")
+    if variant == "fft_unpadded":
+        return "fft", _UNPADDED
+    return variant, ()
 
 
 def _check_model(model: str) -> None:
@@ -182,6 +246,7 @@ def grad_fused(psi: torch.Tensor, data: torch.Tensor,
 
 
 grad_fused.launches = 0
+grad_fused.variant = None  # of the last kernel launch: 'fft' or 'gemm'
 
 
 def grad_fused_reference(psi: torch.Tensor, data: torch.Tensor,
@@ -219,6 +284,7 @@ def minf_fused(psi: torch.Tensor, data: torch.Tensor,
 
 
 minf_fused.launches = 0
+minf_fused.variant = None  # of the last kernel launch: 'fft' or 'gemm'
 
 
 def minf_fused_reference(psi: torch.Tensor, data: torch.Tensor,
@@ -286,6 +352,7 @@ def grad_prb_fused(psi: torch.Tensor, data: torch.Tensor,
 
 
 grad_prb_fused.launches = 0
+grad_prb_fused.variant = None  # of the last kernel launch
 
 
 def grad_prb_fused_reference(psi: torch.Tensor, data: torch.Tensor,
@@ -343,6 +410,7 @@ def adj_probe(farplane: torch.Tensor, scan_int: torch.Tensor,
 
 
 adj_probe.launches = 0
+adj_probe.variant = None  # of the last kernel launch: 'fft' or 'gemm'
 
 
 def adj_probe_reference(farplane: torch.Tensor, scan_int: torch.Tensor,
@@ -469,9 +537,21 @@ _ARGTYPES = {
 }
 
 
+# The FFT variants' entry points <entry>_fft: pointers, then ints (the last
+# two the grid and the threads per block), then the stream. Each has an
+# <entry>_fft_blocks_per_sm(ndet, has_base, planes, threads, &blocks,
+# &shared_bytes).
+_FFT_ARGTYPES = {
+    "grad_fused": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11,
+    "minf_fused": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11,
+    "grad_prb_fused": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11,
+    "adj_probe": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9,
+}
+
+
 @functools.cache
-def _lib(name: str) -> ctypes.CDLL:
-    lib = cuda_build.load(name)
+def _lib(name: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    lib = cuda_build.load(name, defines)
     entry, argtypes = _ARGTYPES[name]
     getattr(lib, entry).argtypes = argtypes + [ctypes.c_void_p]
     getattr(lib, entry).restype = ctypes.c_int
@@ -479,6 +559,14 @@ def _lib(name: str) -> ctypes.CDLL:
     occupancy.argtypes = [ctypes.c_int, ctypes.c_int,
                           ctypes.POINTER(ctypes.c_int)]
     occupancy.restype = ctypes.c_int
+    if name in _FFT_ARGTYPES:
+        getattr(lib, f"{entry}_fft").argtypes = _FFT_ARGTYPES[name] + [
+            ctypes.c_void_p]
+        getattr(lib, f"{entry}_fft").restype = ctypes.c_int
+        occupancy = getattr(lib, f"{entry}_fft_blocks_per_sm")
+        occupancy.argtypes = [ctypes.c_int] * 4 + [
+            ctypes.POINTER(ctypes.c_int)] * 2
+        occupancy.restype = ctypes.c_int
     lib.tk_error_string.argtypes = [ctypes.c_int]
     lib.tk_error_string.restype = ctypes.c_char_p
     return lib
@@ -502,6 +590,49 @@ def _resident_blocks(name: str, device_index: int, ndet: int,
                "occupancy query")
     sms = torch.cuda.get_device_properties(device_index).multi_processor_count
     return max(1, per_sm.value) * sms
+
+
+@functools.cache
+def fft_launch_config(name: str, device_index: int, ndet: int,
+                      planes: int = 0, has_base: bool = False,
+                      threads: int | None = None,
+                      defines: tuple[str, ...] = ()) -> tuple[int, int]:
+    """(resident blocks per SM, dynamic shared memory in bytes) of the FFT
+    variant of ``name`` (``'grad_fused'``, ``'minf_fused'``,
+    ``'grad_prb_fused'`` or ``'adj_probe'``) at detector side ``ndet``, with
+    ``planes`` (0 or 1) float planes beside the frame (one with several
+    modes, or with one mode and the data prefetch; ``adj_probe`` has none);
+    raises for a side or a thread count without a kernel."""
+    lib = _lib(name, defines)
+    threads = fft_threads(ndet) if threads is None else threads
+    per_sm, smem = ctypes.c_int(0), ctypes.c_int(0)
+    entry = getattr(lib, f"{_ARGTYPES[name][0]}_fft_blocks_per_sm")
+    with torch.cuda.device(device_index):
+        _check(name, entry(ndet, int(has_base), planes, threads,
+                           ctypes.byref(per_sm), ctypes.byref(smem)),
+               f"occupancy query (fft, ndet={ndet}, threads={threads})")
+    return per_sm.value, smem.value
+
+
+def _fft_prefetch(name, prefetch, nmodes, data):
+    """Whether the FFT variant fetches each measured frame into shared
+    memory a frame ahead: None means wherever it can (one mode, ``data``
+    16-byte aligned); asking for it where it cannot be done raises."""
+    can = nmodes == 1 and data.data_ptr() % 16 == 0
+    if prefetch and not can:
+        raise ValueError(f"{name}: prefetch needs one mode and 16-byte "
+                         "aligned data")
+    return can if prefetch is None else bool(prefetch)
+
+
+def _fft_grid(name, device_index, frames, ndet, planes, has_base, threads,
+              defines):
+    """Blocks of the FFT variant: what the card holds at once, at most one
+    per frame."""
+    per_sm, _ = fft_launch_config(name, device_index, ndet, planes, has_base,
+                                  threads, defines)
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return max(1, min(frames, max(1, per_sm) * sms))
 
 
 def _check_types(name, expect):
@@ -591,59 +722,106 @@ def _device_index(psi):
             else torch.cuda.current_device())
 
 
-def _grad_fused_cuda(psi, data, scan_int, prb, ndet, model, base):
+def _grad_fused_cuda(psi, data, scan_int, prb, ndet, model, base,
+                     variant=None, threads=None, prefetch=None):
+    """Launches ``grad_fused``'s kernel: the variant :func:`dft_variant`
+    names for these shapes, or the one forced with ``variant`` (``'gemm'``
+    takes every size, ``'fft'`` raises off its sizes). ``threads`` is the
+    FFT variant's block size (512, or 1024 at ``ndet`` 128; None takes
+    :func:`fft_threads`). ``prefetch`` (FFT variant, one mode): fetch each
+    measured frame into shared memory a frame ahead; None means wherever
+    it can be done (one mode, ``data`` 16-byte aligned)."""
     t, nz, n, nmodes, nprb, s = _check_inputs("grad_fused", psi, scan_int,
                                               prb, ndet, data)
     base_p = _base_ptr("grad_fused", base, (t, s, nmodes, ndet, ndet),
                        psi.device)
-    lib = _lib("grad_fused")
+    variant, defines = _pick_variant("grad_fused", variant, nprb, ndet,
+                                     nmodes)
+    lib = _lib("grad_fused", defines)
     dev = _device_index(psi)
-    per_block = nmodes * ndet * (nprb + ndet)  # complex elements
-    grid = _grid("grad_fused", dev, t * s, ndet, base is not None,
-                 8 * per_block)
     psi, prb = psi.contiguous(), prb.contiguous()
     data, scan_int = data.contiguous(), scan_int.contiguous()
     grad = torch.zeros((t, nz, n), dtype=torch.complex64, device=psi.device)
-    scratch = torch.empty(2 * grid * per_block, dtype=torch.float32,
-                          device=psi.device)
-    partial = torch.empty(grid, dtype=torch.float64, device=psi.device)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.tk_grad_fused(
-            psi.data_ptr(), prb.data_ptr(), data.data_ptr(),
-            scan_int.data_ptr(), grad.data_ptr(), scratch.data_ptr(),
-            partial.data_ptr(), base_p, t, s, nz, n, nmodes, nprb, ndet,
-            _MODEL_CODE[model], grid, stream)
-    _check("grad_fused", err, "kernel launch")
+    if variant == "fft":
+        threads = fft_threads(ndet) if threads is None else threads
+        prefetch = _fft_prefetch("grad_fused", prefetch, nmodes, data)
+        grid = _fft_grid("grad_fused", dev, t * s, ndet,
+                         int(nmodes > 1 or prefetch), base is not None,
+                         threads, defines)
+        partial = torch.empty(grid, dtype=torch.float64, device=psi.device)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.tk_grad_fused_fft(
+                psi.data_ptr(), prb.data_ptr(), data.data_ptr(),
+                scan_int.data_ptr(), grad.data_ptr(), partial.data_ptr(),
+                base_p, t, s, nz, n, nmodes, nprb, ndet, _MODEL_CODE[model],
+                int(prefetch), grid, threads, stream)
+    else:
+        per_block = nmodes * ndet * (nprb + ndet)  # complex elements
+        grid = _grid("grad_fused", dev, t * s, ndet, base is not None,
+                     8 * per_block)
+        scratch = torch.empty(2 * grid * per_block, dtype=torch.float32,
+                              device=psi.device)
+        partial = torch.empty(grid, dtype=torch.float64, device=psi.device)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.tk_grad_fused(
+                psi.data_ptr(), prb.data_ptr(), data.data_ptr(),
+                scan_int.data_ptr(), grad.data_ptr(), scratch.data_ptr(),
+                partial.data_ptr(), base_p, t, s, nz, n, nmodes, nprb, ndet,
+                _MODEL_CODE[model], grid, stream)
+    _check("grad_fused", err, f"kernel launch ({variant})")
     grad_fused.launches += 1
+    grad_fused.variant = variant
     return grad, partial.sum().to(torch.float32)
 
 
-def _minf_fused_cuda(psi, data, scan_int, prb, ndet, model, base):
+def _minf_fused_cuda(psi, data, scan_int, prb, ndet, model, base,
+                     variant=None, threads=None, prefetch=None):
+    """Launches ``minf_fused``'s kernel; ``variant``, ``threads`` and
+    ``prefetch`` as in :func:`_grad_fused_cuda`."""
     t, nz, n, nmodes, nprb, s = _check_inputs("minf_fused", psi, scan_int,
                                               prb, ndet, data)
     base_p = _base_ptr("minf_fused", base, (t, s, nmodes, ndet, ndet),
                        psi.device)
-    lib = _lib("minf_fused")
+    variant, defines = _pick_variant("minf_fused", variant, nprb, ndet,
+                                     nmodes)
+    lib = _lib("minf_fused", defines)
     dev = _device_index(psi)
-    stride = 2 * nprb * ndet + ndet * ndet  # floats: p x d complex, d x d
-    stride += stride % 2
-    grid = _grid("minf_fused", dev, t * s, ndet, base is not None,
-                 4 * stride)
     psi, prb = psi.contiguous(), prb.contiguous()
     data, scan_int = data.contiguous(), scan_int.contiguous()
-    scratch = torch.empty(grid * stride, dtype=torch.float32,
-                          device=psi.device)
-    partial = torch.empty(grid, dtype=torch.float64, device=psi.device)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.tk_minf_fused(
-            psi.data_ptr(), prb.data_ptr(), data.data_ptr(),
-            scan_int.data_ptr(), scratch.data_ptr(), partial.data_ptr(),
-            base_p, t, s, nz, n, nmodes, nprb, ndet, _MODEL_CODE[model],
-            grid, stride, stream)
-    _check("minf_fused", err, "kernel launch")
+    if variant == "fft":
+        threads = fft_threads(ndet) if threads is None else threads
+        prefetch = _fft_prefetch("minf_fused", prefetch, nmodes, data)
+        grid = _fft_grid("minf_fused", dev, t * s, ndet,
+                         int(nmodes > 1 or prefetch), base is not None,
+                         threads, defines)
+        partial = torch.empty(grid, dtype=torch.float64, device=psi.device)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.tk_minf_fused_fft(
+                psi.data_ptr(), prb.data_ptr(), data.data_ptr(),
+                scan_int.data_ptr(), partial.data_ptr(), base_p, t, s, nz, n,
+                nmodes, nprb, ndet, _MODEL_CODE[model], int(prefetch), grid,
+                threads, stream)
+    else:
+        stride = 2 * nprb * ndet + ndet * ndet  # floats: p x d complex, d x d
+        stride += stride % 2
+        grid = _grid("minf_fused", dev, t * s, ndet, base is not None,
+                     4 * stride)
+        scratch = torch.empty(grid * stride, dtype=torch.float32,
+                              device=psi.device)
+        partial = torch.empty(grid, dtype=torch.float64, device=psi.device)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.tk_minf_fused(
+                psi.data_ptr(), prb.data_ptr(), data.data_ptr(),
+                scan_int.data_ptr(), scratch.data_ptr(), partial.data_ptr(),
+                base_p, t, s, nz, n, nmodes, nprb, ndet, _MODEL_CODE[model],
+                grid, stride, stream)
+    _check("minf_fused", err, f"kernel launch ({variant})")
     minf_fused.launches += 1
+    minf_fused.variant = variant
     return partial.sum().to(torch.float32)
 
 
@@ -672,33 +850,57 @@ def _fwd_cuda(psi, scan_int, prb, ndet, base):
     return out
 
 
-def _grad_prb_fused_cuda(psi, data, scan_int, prb, ndet, model):
+def _grad_prb_fused_cuda(psi, data, scan_int, prb, ndet, model,
+                         variant=None, threads=None, prefetch=None):
+    """Launches ``grad_prb_fused``'s kernel; ``variant``, ``threads`` and
+    ``prefetch`` as in :func:`_grad_fused_cuda`."""
     t, nz, n, nmodes, nprb, s = _check_inputs("grad_prb_fused", psi,
                                               scan_int, prb, ndet, data)
-    lib = _lib("grad_prb_fused")
+    variant, defines = _pick_variant("grad_prb_fused", variant, nprb, ndet,
+                                     nmodes)
+    lib = _lib("grad_prb_fused", defines)
     dev = _device_index(psi)
-    per_block = nmodes * ndet * (nprb + ndet)  # complex elements
     acc_block = t * nmodes * nprb * nprb       # complex elements
-    grid = _grid("grad_prb_fused", dev, t * s, ndet, False,
-                 8 * (per_block + acc_block))
     psi, prb = psi.contiguous(), prb.contiguous()
     data, scan_int = data.contiguous(), scan_int.contiguous()
     grad = torch.empty((t, nmodes, nprb, nprb), dtype=torch.complex64,
                        device=psi.device)
-    acc = torch.empty(2 * grid * acc_block, dtype=torch.float32,
-                      device=psi.device)
-    scratch = torch.empty(2 * grid * per_block, dtype=torch.float32,
+    if variant == "fft":
+        threads = fft_threads(ndet) if threads is None else threads
+        prefetch = _fft_prefetch("grad_prb_fused", prefetch, nmodes, data)
+        grid = min(_fft_grid("grad_prb_fused", dev, t * s, ndet,
+                             int(nmodes > 1 or prefetch), False, threads,
+                             defines),
+                   max(1, _SCRATCH_BYTES // (8 * acc_block)))
+        acc = torch.empty(2 * grid * acc_block, dtype=torch.float32,
                           device=psi.device)
-    partial = torch.empty(grid, dtype=torch.float64, device=psi.device)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.tk_grad_prb_fused(
-            psi.data_ptr(), prb.data_ptr(), data.data_ptr(),
-            scan_int.data_ptr(), grad.data_ptr(), acc.data_ptr(),
-            scratch.data_ptr(), partial.data_ptr(), t, s, nz, n, nmodes,
-            nprb, ndet, _MODEL_CODE[model], grid, stream)
-    _check("grad_prb_fused", err, "kernel launch")
+        partial = torch.empty(grid, dtype=torch.float64, device=psi.device)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.tk_grad_prb_fused_fft(
+                psi.data_ptr(), prb.data_ptr(), data.data_ptr(),
+                scan_int.data_ptr(), grad.data_ptr(), acc.data_ptr(),
+                partial.data_ptr(), t, s, nz, n, nmodes, nprb, ndet,
+                _MODEL_CODE[model], int(prefetch), grid, threads, stream)
+    else:
+        per_block = nmodes * ndet * (nprb + ndet)  # complex elements
+        grid = _grid("grad_prb_fused", dev, t * s, ndet, False,
+                     8 * (per_block + acc_block))
+        acc = torch.empty(2 * grid * acc_block, dtype=torch.float32,
+                          device=psi.device)
+        scratch = torch.empty(2 * grid * per_block, dtype=torch.float32,
+                              device=psi.device)
+        partial = torch.empty(grid, dtype=torch.float64, device=psi.device)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.tk_grad_prb_fused(
+                psi.data_ptr(), prb.data_ptr(), data.data_ptr(),
+                scan_int.data_ptr(), grad.data_ptr(), acc.data_ptr(),
+                scratch.data_ptr(), partial.data_ptr(), t, s, nz, n, nmodes,
+                nprb, ndet, _MODEL_CODE[model], grid, stream)
+    _check("grad_prb_fused", err, f"kernel launch ({variant})")
     grad_prb_fused.launches += 1
+    grad_prb_fused.variant = variant
     return grad, partial.sum().to(torch.float32)
 
 
@@ -728,32 +930,55 @@ def _adj_cuda(farplane, scan_int, prb, nz, n):
     return out
 
 
-def _adj_probe_cuda(farplane, scan_int, psi, nprb):
+def _adj_probe_cuda(farplane, scan_int, psi, nprb, variant=None,
+                    threads=None):
+    """Launches ``adj_probe``'s kernel; ``variant`` and ``threads`` as in
+    :func:`_grad_fused_cuda`."""
     t, s, nmodes, ndet = _check_farplane("adj_probe", farplane, scan_int,
                                          psi, "psi", (farplane.shape[0],))
     _, nz, n = psi.shape
-    _check_sizes("adj_probe", nprb, ndet)
-    lib = _lib("adj_probe")
+    variant, defines = _pick_variant("adj_probe", variant, nprb, ndet,
+                                     nmodes)
+    lib = _lib("adj_probe", defines)
     dev = _device_index(farplane)
     acc_block = t * nmodes * nprb * nprb  # complex elements
-    grid = _grid("adj_probe", dev, t * s, ndet, False,
-                 8 * (nprb * ndet + acc_block))
     farplane, psi = farplane.contiguous(), psi.contiguous()
     scan_int = scan_int.contiguous()
     out = torch.empty((t, nmodes, nprb, nprb), dtype=torch.complex64,
                       device=farplane.device)
-    acc = torch.empty(2 * grid * acc_block, dtype=torch.float32,
-                      device=farplane.device)
-    scratch = torch.empty(2 * grid * nprb * ndet, dtype=torch.float32,
+    if variant == "fft":
+        if farplane.data_ptr() % 16:
+            raise ValueError("adj_probe: the 'fft' variant reads the "
+                             "farplane 16 bytes at a time; its storage "
+                             "must be 16-byte aligned")
+        threads = fft_threads(ndet) if threads is None else threads
+        grid = min(_fft_grid("adj_probe", dev, t * s, ndet, 0, False,
+                             threads, defines),
+                   max(1, _SCRATCH_BYTES // (8 * acc_block)))
+        acc = torch.empty(2 * grid * acc_block, dtype=torch.float32,
                           device=farplane.device)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.tk_adj_probe(farplane.data_ptr(), psi.data_ptr(),
-                               scan_int.data_ptr(), out.data_ptr(),
-                               acc.data_ptr(), scratch.data_ptr(), t, s, nz,
-                               n, nmodes, nprb, ndet, grid, stream)
-    _check("adj_probe", err, "kernel launch")
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.tk_adj_probe_fft(
+                farplane.data_ptr(), psi.data_ptr(), scan_int.data_ptr(),
+                out.data_ptr(), acc.data_ptr(), t, s, nz, n, nmodes, nprb,
+                ndet, grid, threads, stream)
+    else:
+        grid = _grid("adj_probe", dev, t * s, ndet, False,
+                     8 * (nprb * ndet + acc_block))
+        acc = torch.empty(2 * grid * acc_block, dtype=torch.float32,
+                          device=farplane.device)
+        scratch = torch.empty(2 * grid * nprb * ndet, dtype=torch.float32,
+                              device=farplane.device)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.tk_adj_probe(
+                farplane.data_ptr(), psi.data_ptr(), scan_int.data_ptr(),
+                out.data_ptr(), acc.data_ptr(), scratch.data_ptr(), t, s,
+                nz, n, nmodes, nprb, ndet, grid, stream)
+    _check("adj_probe", err, f"kernel launch ({variant})")
     adj_probe.launches += 1
+    adj_probe.variant = variant
     return out
 
 

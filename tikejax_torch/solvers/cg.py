@@ -159,14 +159,18 @@ class CGOptions:
         count) ring (the 8-tuple layout); implies carry_state.
     """
 
+    # In the JAX package's order (the fields it has and this one lacks left
+    # out), so that a positional construction means the same in both.
     piter: int = 32
     model: str = "gaussian"
+    recover_prb: bool = False
     step0: float = 1.0
     step_shrink: float = 0.5
     max_halvings: int = 16
+    nchunks: int = 1
     kernel: str = "auto"
-    precondition: str = "illum"
     verbose_every: int = 0
+    precondition: str = "illum"
     lowk_boost: float = 4.0
     lowk_frac: float = 0.05
     adaptive_step: bool = True
@@ -177,8 +181,6 @@ class CGOptions:
     direction: str = "auto"
     stop_on_stall: int = 2
     linesearch: str = "auto"
-    recover_prb: bool = False
-    nchunks: int = 1
     memory: str = "auto"
     merged_linesearch: str = "auto"
     carry_state: bool = False
@@ -199,7 +201,7 @@ _UNPORTED_FIELDS = {
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to tikejax_torch yet; see ROADMAP.md "
-        "(queue 1 item 9 for the mesh axes; the slab fields are under 'Not "
+        "(queue 1 item 3 for the mesh axes; the slab fields are under 'Not "
         "to port')")
 
 

@@ -88,7 +88,7 @@ _AA_DEPTH = 3
 _SAFEGUARD_FRAMELESS_BYTES = 3 << 30
 
 _ROADMAP = {
-    "mesh": "mesh= (multi-device runs; ROADMAP.md queue 1 item 9)",
+    "mesh": "mesh= (multi-device runs; ROADMAP.md queue 1 item 3)",
 }
 
 

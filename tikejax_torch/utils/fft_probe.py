@@ -1,0 +1,152 @@
+"""Where the time goes inside the FFT kernels, on the card.
+
+    python -m tikejax_torch.utils.fft_probe
+
+needs one CUDA card and ``nvcc``. At the headline frame size (16,384
+positions, 128^2 probe and detector, one mode) it times ``grad_fused``,
+``minf_fused``, ``grad_prb_fused`` and ``adj_probe`` on their ``'fft'``
+variant -- as launched, without the data prefetch, at 512 threads -- and on
+the forced ``'gemm'`` variant; then ``grad_fused`` and ``adj_probe`` built
+from patched copies of ``csrc/`` that each leave one phase of the kernel out
+(the transforms, the scatter's atomics, the data read, the gather's loads;
+the farplane load, the partial's update), which says what that phase costs.
+The patched kernels compute nothing meaningful and are only timed; the copies
+go under the build directory. Medians of 7 launches with CUDA events.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import shutil
+import statistics
+
+import torch
+
+from tikejax_torch import Geometry
+from tikejax_torch.models import make_problem
+from tikejax_torch.ops import fused
+from tikejax_torch.ops.patches import scan_to_int
+from tikejax_torch.utils import cuda_build
+
+HEADLINE = dict(nz=512, n=512, nscan=16384, ndet=128, nprb=128)
+# {probe: (kernel timed, [(file, text to find exactly once, replacement)])}
+PATCHES = {
+    "no transforms": ("grad_fused", [(
+        "dft_frame.cuh", "  auto row_at = [](int r, int e) {",
+        "  __syncthreads();\n  return;\n  auto row_at = [](int r, int e) {")]),
+    "no scatter atomics": ("grad_fused", [(
+        "grad_fused.cu",
+        "    scatter_add_pixel(grad, th, nz, n, sy + y, sx + x, g);",
+        "    if (g.x == 12345.f) scatter_add_pixel(grad, th, nz, n, sy + y, "
+        "sx + x, g);")]),
+    "no data read": ("grad_fused", [(
+        "dft_frame.cuh", "staged != nullptr ? staged[i] : __ldcs(dat + i),",
+        "1.0f,")]),
+    "no gather loads": ("grad_fused", [(
+        "dft_frame.cuh",
+        "        cmul(obj[static_cast<int64_t>(y) * n + x], pr[i]);",
+        "        make_float2(1.f, 0.f);")]),
+    "no farplane load": ("adj_probe", [(
+        "adj_probe.cu", "const float4 w = __ldcs(src + i);",
+        "const float4 w = make_float4(1.f, 0.f, 1.f, 0.f);")]),
+    "no partial update": ("adj_probe", [(
+        "adj_probe.cu",
+        "        float2& a = out[i];\n"
+        "        a = make_float2(a.x + g.x, a.y + g.y);",
+        "        float2& a = out[i];\n"
+        "        if (g.x == 12345.f) a = make_float2(a.x + g.x, a.y + g.y);")]),
+}
+
+
+def median_ms(fn, reps: int = 7) -> float:
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _forget_loaded_libraries() -> None:
+    fused._lib.cache_clear()
+    fused.fft_launch_config.cache_clear()
+    cuda_build._LOADED.clear()
+
+
+@contextlib.contextmanager
+def patched_sources(label: str, edits):
+    """Build from a copy of ``csrc/`` with ``edits`` applied; the real
+    sources are back in place afterwards."""
+    real = cuda_build.CSRC
+    copy = cuda_build.BUILD_DIR.parent / "probe" / label.replace(" ", "_")
+    shutil.rmtree(copy, ignore_errors=True)
+    shutil.copytree(real, copy)
+    for name, old, new in edits:
+        text = (copy / name).read_text()
+        if text.count(old) != 1:
+            raise RuntimeError(f"probe {label!r}: {name} no longer holds "
+                               f"exactly one {old!r}")
+        (copy / name).write_text(text.replace(old, new))
+    cuda_build.CSRC = copy
+    _forget_loaded_libraries()
+    try:
+        yield
+    finally:
+        cuda_build.CSRC = real
+        _forget_loaded_libraries()
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("fft_probe needs a CUDA card")
+    dev = torch.device("cuda", 0)
+    g = Geometry(**HEADLINE)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    _, scan, prb, data = make_problem(gen, g, device=dev)
+    scan_i = scan_to_int(scan)
+
+    def crandn(shape):
+        return torch.complex(torch.randn(shape, generator=gen, device=dev),
+                             torch.randn(shape, generator=gen, device=dev))
+
+    psi, far = crandn(g.psi_shape), crandn(g.farplane_shape)
+    args = (psi, data, scan_i, prb, g.ndet, "gaussian")
+    kernels = {
+        "grad_fused": lambda **kw: fused._grad_fused_cuda(*args, None, **kw),
+        "minf_fused": lambda **kw: fused._minf_fused_cuda(*args, None, **kw),
+        "grad_prb_fused": lambda **kw: fused._grad_prb_fused_cuda(*args,
+                                                                  **kw),
+        "adj_probe": lambda **kw: fused._adj_probe_cuda(far, scan_i, psi,
+                                                        g.nprb, **kw),
+    }
+    print(f"{torch.cuda.get_device_name(0)}; {g}", flush=True)
+    whole = {}
+    for name, run in kernels.items():
+        run()  # build and warm up
+        whole[name] = median_ms(run)
+        line = [f"fft {whole[name]:.3f} ms"]
+        if name != "adj_probe":
+            off = median_ms(lambda: run(prefetch=False))
+            line.append(f"prefetch off {off:.3f}")
+            whole[name, "prefetch off"] = off
+        line.append(f"512 threads {median_ms(lambda: run(threads=512)):.3f}")
+        line.append(f"gemm {median_ms(lambda: run(variant='gemm')):.3f}")
+        print(f"{name}: " + ", ".join(line), flush=True)
+    for label, (name, edits) in PATCHES.items():
+        with patched_sources(label, edits):
+            run = kernels[name]
+            run()
+            kw = {} if name == "adj_probe" else {"prefetch": False}
+            ms = median_ms(lambda: run(**kw))
+        base = whole[name] if name == "adj_probe" else whole[name,
+                                                            "prefetch off"]
+        print(f"{name}, {label}: {ms:.3f} ms of {base:.3f} "
+              f"({base - ms:+.3f})", flush=True)
+
+
+if __name__ == "__main__":
+    main()
