@@ -13,7 +13,7 @@ is caught):
                   fwd_quad_stats, ls_objectives, gather_probe_mul,
                   scatter_conj_probe, adj_probe_reduce) from
                   tikejax_torch/csrc, one process per source, in parallel,
-                  into the build directory it prints; beside them the four
+                  into the build directory it prints; beside them the six
                   kernels that have an FFT variant once more on the
                   unpadded frame layout (TK_FFT_PAD=0), for the
                   bank-conflict measurement;
@@ -32,22 +32,25 @@ is caught):
                   bitwise repeatable, scatter_conj_probe (fp32 atomics)
                   repeatable to 1e-5 of scale; kernel and plain times at
                   the headline size beside each kernel's bound. grad_fused,
-                  minf_fused, grad_prb_fused and adj_probe have two kernels
-                  each (ops.fused dft_variant): the small case above (72^2)
-                  runs 'gemm', the headline 'fft'; both variants, forced,
-                  are also held to the plain versions on a power-of-two
-                  awkward case (2 angles, 2 modes, 48^2 probe in a 64^2
-                  detector, a masked position, both models, with and
-                  without a base) and at the headline: every objective and
-                  both probe sums bitwise repeatable, two runs of
-                  grad_fused's gradient within 1e-5 of scale, and on 'fft'
-                  the three objectives equal bit for bit (a line search
-                  compares them); then one line per redesigned kernel: FFT
-                  and forced 'gemm' times taken in turns in this run, 512
-                  against 1024 threads, the data prefetch on and off, the
-                  padded against the unpadded frame layout, registers,
-                  spills, shared memory, resident blocks and the share of
-                  the bound;
+                  minf_fused, grad_prb_fused, fwd, adj_probe and
+                  adj_residual have two kernels each (ops.fused
+                  dft_variant): the small case above (72^2) runs 'gemm',
+                  the headline 'fft'; both variants, forced, are also held
+                  to the plain versions on a power-of-two awkward case (2
+                  angles, 2 modes, 48^2 probe in a 64^2 detector, a masked
+                  position, both models, with and without a base) and at
+                  the headline: every objective, both probe sums and fwd's
+                  farplane bitwise repeatable, two runs of each object
+                  gradient within 1e-5 of scale, and on 'fft' the three
+                  objectives equal bit for bit (a line search compares
+                  them) and fwd's farplane, given to minf_fused as a base
+                  of zeros, giving minf_fused's objective bit for bit (also
+                  at 4 modes in phase 10); then one line per redesigned
+                  kernel: FFT and forced 'gemm' times taken in turns in
+                  this run, 512 against 1024 threads, the data prefetch on
+                  and off, the padded against the unpadded frame layout,
+                  registers, spills, shared memory, resident blocks and the
+                  share of the bound;
   4. solver    -- a small problem against the CPU complex128 oracle solver;
   5. main      -- the headline problem (512^2 object, 16384 positions, 128^2
                   probe and detector, Gaussian, solver defaults) through
@@ -58,15 +61,17 @@ is caught):
   6. deep      -- the headline through solvers.reconstruct with its defaults
                   to a 1e-6 relative residual from psi0 = ones, timed
                   between two torch.cuda.synchronize(): the target must be
-                  reached, fwd must freeze every base and make every
-                  Anderson candidate, grad_fused ('fft') must run every
-                  evaluation, and no plain version may run;
+                  reached, fwd ('fft') must freeze every base and make
+                  every Anderson candidate, grad_fused ('fft') must run
+                  every evaluation, and no plain version may run;
   7. materialized -- the headline through solvers.run(memory=
-                  'materialized'), 100 iterations: fwd, adj_residual and
-                  fwd_quad_stats once an iteration, no grad_fused or
+                  'materialized'), 100 iterations: fwd, adj_residual (both
+                  'fft') and fwd_quad_stats once an iteration, no grad_fused or
                   minf_fused, the residual fallen tenfold, peak extra
                   memory below G psi, the three statistics planes and
-                  0.5 GiB;
+                  0.5 GiB; then 8 iterations under torch.profiler: the
+                  share of the time the card is busy and the kernels that
+                  take the most of it (also in phases 8 and 13);
   8. fused-ls  -- the same with fused_linesearch=True: two fwd, one
                   adj_residual and one ls_objectives an iteration, no
                   fwd_quad_stats, the residual fallen tenfold, peak extra
@@ -105,12 +110,13 @@ is caught):
  12. materialized -- the same problem and start through run(
                   recover_prb=True, memory='materialized') for 64
                   iterations: adj_residual and adj_probe once an iteration,
-                  fwd and fwd_quad_stats twice, objective and probe error
+                  fwd and fwd_quad_stats twice (fwd, adj_residual and
+                  adj_probe on 'fft'), objective and probe error
                   fallen, peak extra memory below 2 GiB;
  13. stream    -- the JAX package's quick start on the port: the same
                   problem, Gaussian, recover_prb=True, nchunks=4, 128
-                  iterations: fwd, adj and adj_probe ('fft') must launch on
-                  every chunk pass, the objective must fall, and peak extra
+                  iterations: fwd and adj_probe ('fft') and adj must launch
+                  on every chunk pass, the objective must fall, and peak extra
                   memory must stay below the streamed statistics and two
                   chunk farplanes (1.25 GiB);
  14. joint-deep -- the same problem (Gaussian) through reconstruct(
@@ -130,7 +136,10 @@ is caught):
                   (Gaussian): the objective falls.
 No phase may run a plain version on the main path.
 The line before the last is the card's nvidia-smi line; before it, one JSON
-line describing each kernel; the last line is the JSON result.
+line describing each kernel (its launches on each phase that ran it, with
+the frames -- positions times modes -- of one launch there, so that times
+taken at the headline frame size can be scaled to each path); the last line
+is the JSON result.
 """
 
 from __future__ import annotations
@@ -161,7 +170,8 @@ POW2_SMALL = dict(nz=97, n=101, nscan=37, ndet=64, nprb=48, ntheta=2,
                   nmodes=2)
 UNPADDED = ("TK_FFT_PAD=0",)
 # The kernels that have an FFT variant beside their DFT-GEMM one.
-REDESIGNED = ("grad_fused", "minf_fused", "grad_prb_fused", "adj_probe")
+REDESIGNED = ("grad_fused", "minf_fused", "grad_prb_fused", "fwd",
+              "adj_probe", "adj_residual")
 # Part of the mangled name of the instantiation the headline runs (side 128,
 # 1024 threads, no base) and of the 'gemm' kernel, for the compiler's report.
 HEADLINE_ENTRIES = {
@@ -171,8 +181,11 @@ HEADLINE_ENTRIES = {
                    "minf_fused_kernelILb0"),
     "grad_prb_fused": ("grad_prb_fused_fft_kernelILi128ELi1024EE",
                        "grad_prb_fused_kernelE"),
+    "fwd": ("fwd_fft_kernelILi128ELi1024ELb0", "fwd_kernelILb0"),
     "adj_probe": ("adj_probe_fft_kernelILi128ELi1024EE",
                   "adj_probe_kernelE"),
+    "adj_residual": ("adj_residual_fft_kernelILi128ELi1024EE",
+                     "adj_residual_kernelE"),
 }
 DEEP_TARGET = 1e-6
 # About 11 s a 256-iteration segment: a run that does not converge ends
@@ -236,6 +249,8 @@ HYBRID_ITERS = 100
 FACADE_ITERS = 64
 OPTION_ITERS = 32
 LS_STEPS = [0.5 ** k for k in range(17)]  # the solver's default K
+# Iterations of the profiled windows of phases 7, 8 and 13.
+PROFILE_ITERS = 8
 
 
 def log(phase: str, msg: str) -> None:
@@ -333,14 +348,18 @@ def compare_adjoints(torch, fused, far, scan_i, prb, psi):
 
 
 def compare_variant(torch, fused, args, ndet, model, base, far, variant):
-    """One forced variant of grad_fused and minf_fused (with ``base``),
-    grad_prb_fused, and adj_probe (on ``far``) against the plain versions;
-    every objective and the two probe sums bitwise repeatable, two runs of
-    grad_fused's gradient within SCATTER_REPEAT. With the 'fft' variant the
-    three objectives are one number, bit for bit: a line search compares
-    them. Returns the relative errors {kernel: (value err, objective err)}."""
-    psi, _, scan_i, prb = args
+    """One forced variant of grad_fused, minf_fused and fwd (with ``base``),
+    grad_prb_fused, and adj_probe and adj_residual (on ``far``) against the
+    plain versions; every objective, the two probe sums and fwd's farplane
+    bitwise repeatable, two runs of each object gradient within
+    SCATTER_REPEAT. With the 'fft' variant the three objectives are one
+    number, bit for bit (a line search compares them), and fwd's farplane
+    is the one minf_fused forms inside: minf_fused of zeros on it as the
+    base is minf_fused's objective, bit for bit. Returns the relative
+    errors {kernel: (value err, objective err)}."""
+    psi, data, scan_i, prb = args
     nprb = prb.shape[-1]
+    nz, n = psi.shape[-2:]
 
     def twice(fn):
         return fn(), fn()
@@ -356,6 +375,13 @@ def compare_variant(torch, fused, args, ndet, model, base, far, variant):
     p_k, p_2 = twice(lambda: fused._adj_probe_cuda(far, scan_i, psi, nprb,
                                                    variant=variant))
     p_r = fused.adj_probe_reference(far, scan_i, psi, nprb)
+    o_k, o_2 = twice(lambda: fused._fwd_cuda(psi, scan_i, prb, ndet, base,
+                                             variant=variant))
+    o_r = fused.fwd_reference(psi, scan_i, prb, ndet, base=base)
+    (r_k, s_k), (r_2, s_2) = twice(lambda: fused._adj_residual_cuda(
+        far, data, scan_i, prb, nz, n, model, variant=variant))
+    r_r, s_r = fused.adj_residual_reference(far, data, scan_i, prb, nz, n,
+                                            model)
 
     def obj_err(got, ref):
         return abs(float(got) - float(ref)) / abs(float(ref))
@@ -364,25 +390,48 @@ def compare_variant(torch, fused, args, ndet, model, base, far, variant):
             "minf_fused": (0.0, obj_err(m_k, f_r)),
             "grad_prb_fused": (rel_err(torch, q_k, q_r)[0],
                                obj_err(h_k, h_r)),
-            "adj_probe": (rel_err(torch, p_k, p_r)[0], 0.0)}
+            "adj_probe": (rel_err(torch, p_k, p_r)[0], 0.0),
+            "fwd": (rel_err(torch, o_k, o_r)[0], 0.0),
+            "adj_residual": (rel_err(torch, r_k, r_r)[0], obj_err(s_k, s_r))}
     for name, (err, f_err) in errs.items():
         check(err <= GRAD_TOL and f_err <= MINF_TOL,
               (name, variant, model, err, f_err))
-    check(all(bool(torch.isfinite(x).all()) for x in (g_k, q_k, p_k)),
-          ("not finite", variant))
+    check(all(bool(torch.isfinite(x).all())
+              for x in (g_k, q_k, p_k, o_k, r_k)), ("not finite", variant))
     check(float(f_k) == float(f_2) and float(m_k) == float(m_2)
           and float(h_k) == float(h_2) and torch.equal(q_k, q_2)
-          and torch.equal(p_k, p_2),
-          f"variant {variant}: an objective or a probe sum is not bitwise "
-          "repeatable")
-    again, _ = rel_err(torch, g_2, g_k)
-    check(again <= SCATTER_REPEAT, ("grad_fused repeat", variant, again))
+          and torch.equal(p_k, p_2) and torch.equal(o_k, o_2)
+          and float(s_k) == float(s_2),
+          f"variant {variant}: an objective, a probe sum or the farplane is "
+          "not bitwise repeatable")
+    for name, a, b in (("grad_fused", g_2, g_k), ("adj_residual", r_2, r_k)):
+        again, _ = rel_err(torch, a, b)
+        check(again <= SCATTER_REPEAT, (name + " repeat", variant, again))
     if variant == "fft":
         check(float(m_k) == float(f_k) and (base is not None
                                             or float(h_k) == float(f_k)),
               ("the 'fft' objectives differ", float(f_k), float(m_k),
                float(h_k)))
+        via = fused._minf_fused_cuda(torch.zeros_like(psi), data, scan_i,
+                                     prb, ndet, model, o_k, variant="fft")
+        check(float(via) == float(m_k),
+              ("minf_fused on fwd's farplane differs", float(via),
+               float(m_k)))
     return errs
+
+
+def fwd_feeds_minf(torch, fused, psi, data, scan_i, prb, ndet, base):
+    """minf_fused of zeros on ``base`` (the farplane ``fwd`` stored for
+    ``psi``, complex or split) and minf_fused of ``psi``: on 'fft' the same
+    number bit for bit. Returns it."""
+    direct = float(fused.minf_fused(psi, data, scan_i, prb, ndet,
+                                    "gaussian"))
+    via = float(fused.minf_fused(torch.zeros_like(psi), data, scan_i, prb,
+                                 ndet, "gaussian", base=base))
+    check(fused.fwd.variant == fused.minf_fused.variant == "fft"
+          and via == direct, ("fwd's farplane into minf_fused", via, direct,
+                              fused.fwd.variant, fused.minf_fused.variant))
+    return via
 
 
 def show_errs(errs) -> str:
@@ -634,6 +683,47 @@ def bound(flops: float, moved: int):
             else (bytes_ms, "bytes"))
 
 
+def device_busy(torch, fn):
+    """``fn()`` under torch.profiler, between two synchronises: (wall ms,
+    the share of it in which the card ran a kernel or a copy, {kernel: ms
+    on the card} for the six that took the most). The profiler's own host
+    work lengthens the wall time a little, so the share is a lower bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    check(len(spans) > 0, "the profiler saw nothing run on the card")
+    busy, end, by_name = 0.0, -math.inf, {}
+    for start, stop, name in spans:
+        by_name[name] = by_name.get(name, 0.0) + (stop - start)
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return (wall_us / 1e3, busy / wall_us,
+            {name[:60]: us / 1e3 for name, us in top})
+
+
+def show_busy(iters, busy, plain_ms) -> str:
+    """One line on a profiled window of ``iters`` iterations of a phase
+    whose iterations took ``plain_ms`` each without the profiler."""
+    wall_ms, share, top = busy
+    busy_ms = share * wall_ms / iters
+    return (f"the same, {iters} iterations under torch.profiler: the card "
+            f"busy {busy_ms:.2f} ms/iter, {100 * busy_ms / plain_ms:.1f}% of "
+            f"the {plain_ms:.2f} ms/iter measured without the profiler "
+            f"({100 * share:.1f}% of the profiled {wall_ms / iters:.2f}); "
+            "most device time: " + ", ".join(
+                f"{k} {v / iters:.3f}" for k, v in top.items()) + " ms/iter")
+
+
 def final_residual(stages) -> float:
     m = stages[-1][1]
     return float(m["residual"][max(int(m["iters_run"]) - 1, 0)])
@@ -742,11 +832,12 @@ def main() -> None:
     log("kernel", f"small {small}: adj err {a_err:.2e}, adj_probe err "
         f"{p_err:.2e} (bitwise repeatable)")
     ran = [fn.variant for fn in (fused.grad_fused, fused.minf_fused,
-                                 fused.grad_prb_fused, fused.adj_probe)]
-    check(ran == ["gemm"] * 4 and fused.dft_variant(
+                                 fused.grad_prb_fused, fused.fwd,
+                                 fused.adj_probe)]
+    check(ran == ["gemm"] * 5 and fused.dft_variant(
         small.nprb, small.ndet, small.nmodes) == "gemm", ran)
-    log("kernel", f"small {small}: grad_fused, minf_fused, grad_prb_fused "
-        "and adj_probe ran their 'gemm' variant (72 is no power of two)")
+    log("kernel", f"small {small}: grad_fused, minf_fused, grad_prb_fused, "
+        "fwd and adj_probe ran their 'gemm' variant (72 is no power of two)")
     # The FFT variants on a power-of-two awkward case.
     pow2 = Geometry(**POW2_SMALL)
     _, scan_p, prb_p, data_p = make_problem(gen2, pow2, device=dev)
@@ -764,11 +855,12 @@ def main() -> None:
                 log("kernel", f"small {pow2} {model} '{v}' variant"
                     f"{' with base' if b is not None else ''}, value/"
                     f"objective err: {show_errs(errs)}")
-    log("kernel", f"small {pow2}: on both variants every objective and both "
-        "probe sums bitwise repeatable, grad_fused's gradient within "
-        f"{SCATTER_REPEAT:g} of scale between two runs; on 'fft' the "
-        "objectives of grad_fused, minf_fused and grad_prb_fused equal bit "
-        "for bit")
+    log("kernel", f"small {pow2}: on both variants every objective, both "
+        "probe sums and fwd's farplane bitwise repeatable, the object "
+        f"gradients within {SCATTER_REPEAT:g} of scale between two runs; on "
+        "'fft' the objectives of grad_fused, minf_fused and grad_prb_fused "
+        "equal bit for bit, and minf_fused of zeros on fwd's farplane equal "
+        "to minf_fused's objective bit for bit")
     del args_p, base_p, data_p
     far_s = fused.fwd(psi_s, scan_si, prb_s, small.ndet)
     dpsi_s = 0.1 * crandn(*small.psi_shape, generator=gen4)
@@ -779,9 +871,11 @@ def main() -> None:
             torch, fused, far_s, data_s, scan_si, prb_s, small.nz, small.n,
             model)
         ls_err, _ = compare_ls(torch, linesearch, far_s, fd_s, data_s, model)
-        log("kernel", f"small {small} {model}: adj_residual grad/minf err "
-            f"{ar_err:.2e}/{arf_err:.2e}; ls_objectives err {ls_err:.2e} "
-            f"at {len(LS_STEPS)} steps (bitwise repeatable)")
+        check(fused.adj_residual.variant == "gemm",
+              fused.adj_residual.variant)
+        log("kernel", f"small {small} {model}: adj_residual ('gemm' variant) "
+            f"grad/minf err {ar_err:.2e}/{arf_err:.2e}; ls_objectives err "
+            f"{ls_err:.2e} at {len(LS_STEPS)} steps (bitwise repeatable)")
     q_errs = [compare_quad_stats(torch, fused, x, scan_si, p, far_s)[0]
               for x, p in ((dpsi_s, prb_s), (psi_s, dprb_s))]
     log("kernel", f"small {small}: fwd_quad_stats err {q_errs[0]:.2e} "
@@ -833,6 +927,7 @@ def main() -> None:
 
     fw_err, fw_abs = compare_fwd(torch, fused, psi_r, scan_i, prb, g.ndet)
     fwb_err, _ = compare_fwd(torch, fused, psi_r, scan_i, prb, g.ndet, base)
+    check(fused.fwd.variant == "fft", fused.fwd.variant)
     ms = median_ms(torch, lambda: fused.fwd(psi_r, scan_i, prb, g.ndet), 10)
     base_ms = median_ms(torch, lambda: fused.fwd(psi_r, scan_i, prb, g.ndet,
                                                  base=base), 10)
@@ -841,10 +936,17 @@ def main() -> None:
     results["fwd"] = (fw_abs, ms, plain_ms)
     bounds["fwd"] = bound(fft_flops(scan_i, g.nmodes, g.ndet, 1),
                           nbytes(psi_r, prb, scan_i, base))
-    log("kernel", f"headline {g} fwd: err {fw_err:.2e}, with base "
-        f"{fwb_err:.2e}; kernel {ms:.3f} ms ({flops / 2 / ms / 1e9:.1f} "
-        f"TFLOP/s fp32), with base {base_ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms, median of 10 on {card}")
+    check(ms < plain_ms, ("fwd is not faster than its plain version", ms,
+                          plain_ms))
+    # fwd's farplane is the one minf_fused forms inside (`base` is
+    # fwd(0.5 psi_r)); compare_variant below holds it on a base too.
+    via = fwd_feeds_minf(torch, fused, 0.5 * psi_r, data, scan_i, prb,
+                         g.ndet, base)
+    log("kernel", f"headline {g} fwd ('fft' variant): err {fw_err:.2e}, "
+        f"with base {fwb_err:.2e}; kernel {ms:.3f} ms, with base "
+        f"{base_ms:.3f} ms, plain {plain_ms:.3f} ms, median of 10 on "
+        f"{card}; minf_fused of zeros on fwd's farplane equal bit for bit "
+        f"to minf_fused's objective ({via:.9e})")
 
     m_err, m_abs = compare_minf(torch, fused, args, g.ndet, "gaussian")
     mb_err, _ = compare_minf(torch, fused, args, g.ndet, "gaussian", base)
@@ -899,16 +1001,33 @@ def main() -> None:
             f"{plain_ms:.3f} ms, bound {bounds[name][0]:.3f} ms, median of "
             f"10 on {card}")
     check(fused.adj_probe.variant == "fft", fused.adj_probe.variant)
-    # Both variants of the two redesigned kernels at the headline: the
+    # The materialized mode's kernels on G psi_r and a direction.
+    far = fused.fwd(psi_r, scan_i, prb, g.ndet)
+    dpsi_h = 0.05 * crandn(*g.psi_shape, generator=gen4)
+    ar_err, arf_err, ar_abs = compare_adj_residual(
+        torch, fused, far, data, scan_i, prb, g.nz, g.n, "gaussian")
+    check(fused.adj_residual.variant == "fft", fused.adj_residual.variant)
+    ms = median_ms(torch, lambda: fused.adj_residual(
+        far, data, scan_i, prb, g.nz, g.n, "gaussian"), 10)
+    plain_ms = median_ms(torch, lambda: fused.adj_residual_reference(
+        far, data, scan_i, prb, g.nz, g.n, "gaussian"), 10)
+    results["adj_residual"] = (ar_abs, ms, plain_ms)
+    bounds["adj_residual"] = bound(fft_flops(scan_i, g.nmodes, g.ndet, 1),
+                                   nbytes(far, data, scan_i, prb, psi_r) + 4)
+    log("kernel", f"headline {g} adj_residual ('fft' variant): grad/minf "
+        f"err {ar_err:.2e}/{arf_err:.2e} (objective bitwise repeatable); "
+        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{bounds['adj_residual'][0]:.3f} ms, median of 10 on {card}")
+    # Both variants of the redesigned kernels at the headline: the
     # 'gemm' variant, forced, still agrees with the plain version; then
     # the times, taken in turns within this run.
     for v in ("gemm", "fft"):
         errs = compare_variant(torch, fused, args, g.ndet, "gaussian", None,
                                base, v)
         log("kernel", f"headline {g} forced '{v}' variant, value/objective "
-            f"err: {show_errs(errs)} (objectives and probe sums bitwise "
-            f"repeatable, gradient within {SCATTER_REPEAT:g} of scale "
-            "between two runs)")
+            f"err: {show_errs(errs)} (objectives, probe sums and fwd's "
+            "farplane bitwise repeatable, object gradients within "
+            f"{SCATTER_REPEAT:g} of scale between two runs)")
     dev_i = dev.index
     variant_lines = {}
     for name, run_variant in (
@@ -918,8 +1037,12 @@ def main() -> None:
                 *args, g.ndet, "gaussian", None, **kw)),
             ("grad_prb_fused", lambda **kw: fused._grad_prb_fused_cuda(
                 *args, g.ndet, "gaussian", **kw)),
+            ("fwd", lambda **kw: fused._fwd_cuda(
+                psi_r, scan_i, prb, g.ndet, None, **kw)),
             ("adj_probe", lambda **kw: fused._adj_probe_cuda(
-                base, scan_i, psi_r, g.nprb, **kw))):
+                base, scan_i, psi_r, g.nprb, **kw)),
+            ("adj_residual", lambda **kw: fused._adj_residual_cuda(
+                far, data, scan_i, prb, g.nz, g.n, "gaussian", **kw))):
         fft_ms, gemm_ms = in_turns_ms(
             torch, timer, name, lambda: run_variant(variant="fft"),
             lambda: run_variant(variant="gemm"))
@@ -929,12 +1052,13 @@ def main() -> None:
                                                      threads=1024), 5)
         plain_layout = median_ms(torch, lambda: run_variant(
             variant="fft_unpadded"), 5)
-        planes = 0 if name == "adj_probe" else 1  # the prefetch buffer
+        # The data prefetch's plane, of the three kernels that have one.
+        planes = int(name in ("grad_fused", "minf_fused", "grad_prb_fused"))
         per_sm, smem = fused.fft_launch_config(name, dev_i, g.ndet, planes)
         regs, old = fft_regs[name], gemm_regs[name]
         check(fft_ms < gemm_ms, (name, fft_ms, gemm_ms))
         extra = ""
-        if name != "adj_probe":
+        if planes:
             on = median_ms(torch, lambda: run_variant(variant="fft",
                                                       prefetch=True), 5)
             off = median_ms(torch, lambda: run_variant(variant="fft",
@@ -957,22 +1081,6 @@ def main() -> None:
             f"{per_sm} block/SM; 'gemm' {old['registers']} registers, "
             f"{old['spill_stores'] + old['spill_loads']} spill bytes; on "
             f"{card}")
-    # The materialized mode's kernels on G psi_r and a direction.
-    far = fused.fwd(psi_r, scan_i, prb, g.ndet)
-    dpsi_h = 0.05 * crandn(*g.psi_shape, generator=gen4)
-    ar_err, arf_err, ar_abs = compare_adj_residual(
-        torch, fused, far, data, scan_i, prb, g.nz, g.n, "gaussian")
-    ms = median_ms(torch, lambda: fused.adj_residual(
-        far, data, scan_i, prb, g.nz, g.n, "gaussian"), 10)
-    plain_ms = median_ms(torch, lambda: fused.adj_residual_reference(
-        far, data, scan_i, prb, g.nz, g.n, "gaussian"), 10)
-    results["adj_residual"] = (ar_abs, ms, plain_ms)
-    bounds["adj_residual"] = bound(fft_flops(scan_i, g.nmodes, g.ndet, 1),
-                                   nbytes(far, data, scan_i, prb, psi_r) + 4)
-    log("kernel", f"headline {g} adj_residual: grad/minf err {ar_err:.2e}/"
-        f"{arf_err:.2e}; kernel {ms:.3f} ms ({flops / 2 / ms / 1e9:.1f} "
-        f"TFLOP/s fp32), plain {plain_ms:.3f} ms, bound "
-        f"{bounds['adj_residual'][0]:.3f} ms, median of 10 on {card}")
     q_err, q_abs = compare_quad_stats(torch, fused, dpsi_h, scan_i, prb, far)
     ms = median_ms(torch, lambda: fused.fwd_quad_stats(dpsi_h, scan_i, prb,
                                                        far), 10)
@@ -1087,6 +1195,7 @@ def main() -> None:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev) - held
+    main_counts = {fn.__name__: fn.launches for fn in counters}
     main_launches = fused.grad_fused.launches
     check(all(fn.launches == 0 for fn in plain), "plain version ran")
     check(main_launches == m["evaluations"] > 0,
@@ -1153,13 +1262,14 @@ def main() -> None:
     # winner forward as the next base.
     check(n_split >= 2 and deep["fwd"] == 2 * n_split, (deep, n_split))
     check(deep["minf_fused"] == 0, deep)
+    check(fused.fwd.variant == "fft", fused.fwd.variant)
     split_s = sum(t for (name, _), t in zip(stages, timed[-len(stages):])
                   if name.startswith("split:"))
     split_iters = sum(k for (name, _), k in zip(stages, iters)
                       if name.startswith("split:"))
     log("deep", f"{g} gaussian, reconstruct(target_residual="
-        f"{DEEP_TARGET:g}) defaults from psi0 = ones, grad_fused variant "
-        f"'{fused.grad_fused.variant}': {seconds:.3f} s, "
+        f"{DEEP_TARGET:g}) defaults from psi0 = ones, grad_fused and fwd "
+        f"on '{fused.grad_fused.variant}': {seconds:.3f} s, "
         f"{sum(iters)} iters in {len(stages)} stages "
         f"{[f'{n}:{k}' for (n, _), k in zip(stages, iters)]}, final "
         f"residual {res_end:.4e}, {evals / sum(iters):.3f} evals/iter, "
@@ -1181,6 +1291,7 @@ def main() -> None:
     seconds = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev) - held
     mat = {fn.__name__: fn.launches for fn in counters}
+    mat_ms = 1e3 * seconds / int(m["iters_run"])
     check(all(fn.launches == 0 for fn in plain), "plain version ran")
     iters = int(m["iters_run"])
     res = m["residual"][:iters].cpu()
@@ -1192,7 +1303,10 @@ def main() -> None:
           == mat["ls_objectives"] == 0, mat)
     check(float(res[-1]) <= 0.1 * float(res[0]), res)
     check(peak < mat_peak, f"peak extra memory {peak} bytes")
-    log("materialized", f"{g} gaussian, run(memory='materialized'), {iters} "
+    check(fused.fwd.variant == fused.adj_residual.variant == "fft",
+          (fused.fwd.variant, fused.adj_residual.variant))
+    log("materialized", f"{g} gaussian, run(memory='materialized'), fwd and "
+        f"adj_residual on 'fft', {iters} "
         f"iters in {seconds:.3f} s: {iters / seconds:.2f} iters/s, "
         f"{1e3 * seconds / iters:.2f} ms/iter, "
         f"{m['evaluations'] / iters:.2f} evals/iter, "
@@ -1201,6 +1315,10 @@ def main() -> None:
         f"{peak / 2**30:.3f} GiB (limit {mat_peak / 2**30:.2f}), launches "
         f"{mat}, on {card}")
     del psi, m
+    busy = device_busy(torch, lambda: run(data, psi0, scan, prb, g,
+                                          piter=PROFILE_ITERS,
+                                          memory="materialized"))
+    log("materialized", show_busy(PROFILE_ITERS, busy, mat_ms) + f"; on {card}")
 
     # -- 8. fused-ls: one ls_objectives pass a line search -----------------
     fls_peak = 2 * far_bytes + 2**29
@@ -1214,6 +1332,7 @@ def main() -> None:
     seconds = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev) - held
     fls = {fn.__name__: fn.launches for fn in counters}
+    fls_ms = 1e3 * seconds / int(m["iters_run"])
     check(all(fn.launches == 0 for fn in plain), "plain version ran")
     iters = int(m["iters_run"])
     res = m["residual"][:iters].cpu()
@@ -1225,8 +1344,11 @@ def main() -> None:
           == 0, fls)
     check(float(res[-1]) <= 0.1 * float(res[0]), res)
     check(peak < fls_peak, f"peak extra memory {peak} bytes")
+    check(fused.fwd.variant == fused.adj_residual.variant == "fft",
+          (fused.fwd.variant, fused.adj_residual.variant))
     log("fused-ls", f"{g} gaussian, run(memory='materialized', "
-        f"fused_linesearch=True), {iters} iters in {seconds:.3f} s: "
+        f"fused_linesearch=True), fwd and adj_residual on 'fft', {iters} "
+        f"iters in {seconds:.3f} s: "
         f"{iters / seconds:.2f} iters/s, {1e3 * seconds / iters:.2f} "
         f"ms/iter, {m['evaluations'] / iters:.2f} evals/iter, "
         f"{m['host_syncs'] / iters:.2f} host syncs/iter, residual "
@@ -1234,6 +1356,10 @@ def main() -> None:
         f"{peak / 2**30:.3f} GiB (limit {fls_peak / 2**30:.2f}), launches "
         f"{fls}, on {card}")
     del psi, m
+    busy = device_busy(torch, lambda: run(
+        data, psi0, scan, prb, g, piter=PROFILE_ITERS, memory="materialized",
+        fused_linesearch=True))
+    log("fused-ls", show_busy(PROFILE_ITERS, busy, fls_ms) + f"; on {card}")
 
     # -- 9. hybrid: cuFFT between the patch kernels -------------------------
     # The classic body's peak is the line search: G psi (one farplane), the
@@ -1308,6 +1434,8 @@ def main() -> None:
     scan4_i = scan_to_int(scan4)
     psi_r4 = psi4 + 0.05 * crandn(*g4.psi_shape, generator=gen2)
     base4 = fused.fwd(0.5 * psi_r4, scan4_i, prb4, g4.ndet, split_out=True)
+    via4 = fwd_feeds_minf(torch, fused, 0.5 * psi_r4, data4, scan4_i, prb4,
+                          g4.ndet, base4)
     scale_errs = compare_at_scale(torch, fused, g4, psi_r4, data4, scan4_i,
                                   prb4, base4, SCALE_CHUNK)
     scale_errs.update(compare_hybrid_at_scale(
@@ -1319,7 +1447,9 @@ def main() -> None:
     log("frameless", f"{g4} kernels against their plain versions (over "
         f"chunks of {SCALE_CHUNK} positions), with and without the split-"
         "view base: " + ", ".join(f"{k} err {e:.2e}"
-                                  for k, (e, _) in scale_errs.items()))
+                                  for k, (e, _) in scale_errs.items())
+        + "; minf_fused of zeros on fwd's farplane ('fft') equal bit for "
+        f"bit to minf_fused's objective ({via4:.9e})")
     held = reset_counts()
     t0 = time.perf_counter()
     psi4, _, st4 = reconstruct(data4, psi4, scan4, prb4, g4,
@@ -1436,8 +1566,13 @@ def main() -> None:
     check(matj["grad_fused"] == matj["grad_prb_fused"] == matj["minf_fused"]
           == matj["ls_objectives"] == 0, matj)
     check(peak < MATERIALIZED_JOINT_PEAK, f"peak extra memory {peak} bytes")
+    check(fused.fwd.variant == fused.adj_residual.variant
+          == fused.adj_probe.variant == "fft",
+          (fused.fwd.variant, fused.adj_residual.variant,
+           fused.adj_probe.variant))
     log("materialized", f"{g3} poisson, run(recover_prb=True, memory="
-        f"'materialized'), {iters} iters in {seconds:.3f} s: "
+        f"'materialized'), fwd, adj_residual and adj_probe on 'fft', "
+        f"{iters} iters in {seconds:.3f} s: "
         f"{iters / seconds:.2f} iters/s, {m['evaluations'] / iters:.2f} "
         f"evals/iter, {m['host_syncs'] / iters:.2f} host syncs/iter, "
         f"residual {float(res[0]):.4e} -> {float(res[-1]):.4e}, probe error "
@@ -1458,6 +1593,7 @@ def main() -> None:
     seconds = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev) - held
     stream = {fn.__name__: fn.launches for fn in counters}
+    stream_ms = 1e3 * seconds / int(m["iters_run"])
     check(all(fn.launches == 0 for fn in plain), "plain version ran")
     iters = int(m["iters_run"])
     minf = m["minf"][:iters].cpu()
@@ -1473,9 +1609,10 @@ def main() -> None:
           == stream["fwd_quad_stats"] == stream["ls_objectives"] == 0,
           stream)
     check(peak < STREAM_PEAK, f"peak extra memory {peak} bytes")
-    check(fused.adj_probe.variant == "fft", fused.adj_probe.variant)
+    check(fused.adj_probe.variant == fused.fwd.variant == "fft",
+          (fused.adj_probe.variant, fused.fwd.variant))
     log("stream", f"{g3} gaussian, run(recover_prb=True, nchunks="
-        f"{STREAM_CHUNKS}), adj_probe variant '{fused.adj_probe.variant}', "
+        f"{STREAM_CHUNKS}), fwd and adj_probe on '{fused.adj_probe.variant}', "
         f"{iters} iters in {seconds:.3f} s: "
         f"{iters / seconds:.2f} iters/s, {m['evaluations'] / iters:.2f} "
         f"evals/iter, {m['host_syncs'] / iters:.2f} host syncs/iter, "
@@ -1485,6 +1622,10 @@ def main() -> None:
         f"extra memory {peak / 2**30:.3f} GiB (limit "
         f"{STREAM_PEAK / 2**30:.2f}), launches {stream}, on {card}")
     del psi, prb_s, m
+    busy = device_busy(torch, lambda: run(
+        data3, psi3, scan3, prb3_p, g3, piter=PROFILE_ITERS,
+        recover_prb=True, nchunks=STREAM_CHUNKS))
+    log("stream", show_busy(PROFILE_ITERS, busy, stream_ms) + f"; on {card}")
 
     # -- 14. joint-deep: reconstruct(recover_prb=True) to 1e-6 --------------
     held = reset_counts()
@@ -1590,6 +1731,7 @@ def main() -> None:
         "fwd/adj/adj_probe (numpy in, numpy out)")
 
     # -- 16. options: illum_lowk and parabolic on the hybrid tier -----------
+    options = {}
     for label, kw in (("precondition='illum_lowk'",
                        dict(precondition="illum_lowk")),
                       ("linesearch='parabolic'",
@@ -1601,7 +1743,7 @@ def main() -> None:
                         kernel="pallas", **kw)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        opt = {fn.__name__: fn.launches for fn in counters}
+        opt = options[label] = {fn.__name__: fn.launches for fn in counters}
         check(all(fn.launches == 0 for fn in plain), "plain version ran")
         iters = int(m["iters_run"])
         res = m["residual"][:iters].cpu()
@@ -1616,25 +1758,36 @@ def main() -> None:
             f"{float(res[0]):.4e} -> {float(res[-1]):.4e}, on {card}")
         del psi, m
 
-    launches = {"grad_fused": deep["grad_fused"], "fwd": deep["fwd"],
-                "minf_fused": frameless["minf_fused"],
-                "grad_prb_fused": joint["grad_prb_fused"],
-                "adj": stream["adj"], "adj_probe": stream["adj_probe"],
-                "adj_residual": mat["adj_residual"],
-                "fwd_quad_stats": mat["fwd_quad_stats"],
-                "ls_objectives": fls["ls_objectives"],
-                "gather_probe_mul": hyb["gather_probe_mul"],
-                "scatter_conj_probe": hyb["scatter_conj_probe"],
-                "adj_probe_reduce": fac["adj_probe_reduce"]}
-    paths = {"grad_fused": "deep", "fwd": "deep", "minf_fused": "frameless",
-             "grad_prb_fused": "joint", "adj": "stream",
-             "adj_probe": "stream", "adj_residual": "materialized",
-             "fwd_quad_stats": "materialized", "ls_objectives": "fused-ls",
-             "gather_probe_mul": "hybrid", "scatter_conj_probe": "hybrid",
-             "adj_probe_reduce": "facade"}
+    # Launches of each kernel on each phase, with the frames (positions
+    # times modes) of one launch there: the times above are at the headline
+    # frame size (16384 frames), and a phase's share is launches x time
+    # scaled by its frames.
+    phases = {
+        "main": (main_counts, g.ntheta * g.nscan * g.nmodes),
+        "deep": (deep, g.ntheta * g.nscan * g.nmodes),
+        "materialized": (mat, g.ntheta * g.nscan * g.nmodes),
+        "fused-ls": (fls, g.ntheta * g.nscan * g.nmodes),
+        "hybrid": (hyb, g.ntheta * g.nscan * g.nmodes),
+        "frameless": (frameless, g4.ntheta * g4.nscan * g4.nmodes),
+        "joint": (joint, g3.ntheta * g3.nscan * g3.nmodes),
+        "joint-materialized": (matj, g3.ntheta * g3.nscan * g3.nmodes),
+        "stream": (stream, g3.ntheta * g3.nscan * g3.nmodes
+                   // STREAM_CHUNKS),
+        "joint-deep": (jdeep, g3.ntheta * g3.nscan * g3.nmodes),
+        "facade": (fac, g3.ntheta * g3.nscan * g3.nmodes),
+        **{f"options {k}": (v, g3.ntheta * g3.nscan * g3.nmodes)
+           for k, v in options.items()},
+    }
+    by_path = {name: {phase: {"launches": counts[name], "frames": frames}
+                      for phase, (counts, frames) in phases.items()
+                      if counts[name]}
+               for name in KERNEL_SOURCES}
+    check(all(by_path.values()), ("a kernel ran on no path", by_path))
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src, "replaces": tpu,
-        "launches": launches[name], "path": paths[name],
+        "launches": sum(v["launches"] for v in by_path[name].values()),
+        "launches_by_path": by_path[name],
+        "frames_of_ms": g.ntheta * g.nscan * g.nmodes,
         "max_abs_err": results[name][0], "ms": results[name][1],
         "plain_ms": results[name][2], "bound_ms": bounds[name][0],
         "bound_by": bounds[name][1], "library_ms": None,

@@ -18,11 +18,12 @@ reductions (``grad_prb_fused``, ``adj_probe``, ``adj_probe_reduce``),
 reproducible; the object scatters (``grad_fused``, ``adj``,
 ``adj_residual``, ``scatter_conj_probe``) only up to summation order.
 
-``grad_fused``, ``minf_fused``, ``grad_prb_fused`` and ``adj_probe`` have two
-kernels each: ``GEOMS`` runs their
+``grad_fused``, ``minf_fused``, ``grad_prb_fused``, ``fwd``, ``adj_probe``
+and ``adj_residual`` have two kernels each: ``GEOMS`` runs their
 ``'gemm'`` variant (but for its 32^2 detector), ``POW2_GEOMS`` their
 ``'fft'`` variant, and one shape runs both, forced through the private
-wrappers' ``variant`` argument.
+wrappers' ``variant`` argument. On ``'fft'`` the farplane ``fwd`` stores is
+bit for bit the one ``minf_fused`` forms inside.
 """
 
 import pytest
@@ -503,7 +504,8 @@ def test_materialized_run_launches_the_kernels(dev):
         assert float(m["minf"][n - 1]) < float(m["minf"][0])
 
 
-# -- the two variants of grad_fused, minf_fused, grad_prb_fused, adj_probe ---
+# -- the two variants of grad_fused, minf_fused, grad_prb_fused, fwd,
+# adj_probe, adj_residual ---------------------------------------------------
 
 POW2_GEOMS = [
     Geometry(nz=97, n=101, nscan=37, ndet=64, nprb=48, ntheta=2, nmodes=2),
@@ -602,6 +604,70 @@ def test_fft_grad_prb_fused_matches_plain_version(dev, g, model):
     assert float(fused.minf_fused(*args, g.ndet, model)) == float(f_k)
 
 
+@pytest.mark.parametrize("with_base", [False, True])
+@pytest.mark.parametrize("g", POW2_GEOMS, ids=str)
+def test_fft_fwd_matches_plain_version(dev, g, with_base):
+    """The FFT fwd against its plain version (complex and split views),
+    bitwise repeatable (no reduction), masked frames zero or the base."""
+    psi, _, scan_i, prb = inputs(g, dev)
+    base = base_for(g, dev) if with_base else None
+    launches = fused.fwd.launches
+    out = fused.fwd(psi, scan_i, prb, g.ndet, base=base)
+    assert fused.fwd.launches == launches + 1
+    assert fused.fwd.variant == "fft"
+    ref = fused.fwd_reference(psi, scan_i, prb, g.ndet, base=base)
+    assert out.dtype == torch.complex64 and out.shape == g.farplane_shape
+    assert close(out, ref)
+    re, im = fused.fwd(psi, scan_i, prb, g.ndet, base=base, split_out=True)
+    assert torch.equal(torch.complex(re, im), out)
+    masked = scan_i[..., 0] < 0
+    expect = base[masked] if with_base else torch.zeros_like(out[masked])
+    assert torch.equal(out[masked], expect)
+
+
+@pytest.mark.parametrize("model", ["gaussian", "poisson"])
+@pytest.mark.parametrize("g", POW2_GEOMS, ids=str)
+def test_fft_adj_residual_matches_plain_version(dev, g, model):
+    """The FFT adj_residual against its plain version; its objective
+    bitwise repeatable, the gradient up to the order of its atomics."""
+    psi, data, scan_i, prb, fpsi, _, _ = materialized_inputs(g, dev)
+    launches = fused.adj_residual.launches
+    g_k, f_k = fused.adj_residual(fpsi, data, scan_i, prb, g.nz, g.n, model)
+    assert fused.adj_residual.launches == launches + 1
+    assert fused.adj_residual.variant == "fft"
+    g_r, f_r = fused.adj_residual_reference(fpsi, data, scan_i, prb, g.nz,
+                                            g.n, model)
+    assert g_k.dtype == torch.complex64 and g_k.shape == g.psi_shape
+    assert close(g_k, g_r)
+    assert abs(float(f_k) - float(f_r)) <= 1e-5 * abs(float(f_r))
+    g_2, f_2 = fused.adj_residual(fpsi, data, scan_i, prb, g.nz, g.n, model)
+    assert float(f_2) == float(f_k) and close(g_2, g_k, 1e-5)
+
+
+@pytest.mark.parametrize("with_base", [False, True])
+@pytest.mark.parametrize("nmodes", [1, 2])
+def test_fwd_feeds_minf_fused_bit_for_bit(dev, nmodes, with_base):
+    """On 'fft', fwd's farplane is the one minf_fused forms inside, bit for
+    bit: the objective of zeros on the base fwd(psi [, base]) is the
+    objective of psi [on base]. A frozen base or an Anderson candidate
+    made by fwd therefore rounds as the kernels that read it."""
+    g = Geometry(nz=140, n=150, nscan=30, ndet=128, nprb=100, ntheta=2,
+                 nmodes=nmodes)
+    psi, data, scan_i, prb = inputs(g, dev)
+    base = base_for(g, dev) if with_base else None
+    far = fused.fwd(psi, scan_i, prb, g.ndet, base=base)
+    zeros = torch.zeros_like(psi)
+    for model in ("gaussian", "poisson"):
+        direct = fused.minf_fused(psi, data, scan_i, prb, g.ndet, model,
+                                  base=base)
+        via = fused.minf_fused(zeros, data, scan_i, prb, g.ndet, model,
+                               base=far)
+        assert fused.fwd.variant == fused.minf_fused.variant == "fft"
+        assert float(via) == float(direct)
+        assert float(via) == float(fused.grad_fused(
+            zeros, data, scan_i, prb, g.ndet, model, base=far)[1])
+
+
 @pytest.mark.parametrize("threads", [512, 1024])
 def test_both_variants_agree_at_one_shape(dev, threads):
     """The same inputs through both kernels of each function, forced: equal
@@ -638,6 +704,24 @@ def test_both_variants_agree_at_one_shape(dev, threads):
                                 threads=threads)
     p_g = fused._adj_probe_cuda(far, scan_i, psi, g.nprb, variant="gemm")
     assert close(p_f, p_g, 1e-5)
+    for base in (None, far):
+        o_f = fused._fwd_cuda(psi, scan_i, prb, g.ndet, base, variant="fft",
+                              threads=threads)
+        assert fused.fwd.variant == "fft"
+        o_g = fused._fwd_cuda(psi, scan_i, prb, g.ndet, base, variant="gemm")
+        assert fused.fwd.variant == "gemm"
+        assert close(o_f, o_g, 1e-5)
+    fpsi = fused._fwd_cuda(psi, scan_i, prb, g.ndet, None, variant="gemm")
+    for model in ("gaussian", "poisson"):
+        r_f, s_f = fused._adj_residual_cuda(fpsi, data, scan_i, prb, g.nz,
+                                            g.n, model, variant="fft",
+                                            threads=threads)
+        assert fused.adj_residual.variant == "fft"
+        r_g, s_g = fused._adj_residual_cuda(fpsi, data, scan_i, prb, g.nz,
+                                            g.n, model, variant="gemm")
+        assert fused.adj_residual.variant == "gemm"
+        assert close(r_f, r_g, 1e-5)
+        assert abs(float(s_f) - float(s_g)) <= 1e-5 * abs(float(s_g))
 
 
 def test_fft_variants_skip_masked_positions(dev):
@@ -653,6 +737,13 @@ def test_fft_variants_skip_masked_positions(dev):
     grad, minf = fused.grad_prb_fused(psi, data, scan_i, prb, g.ndet,
                                       "gaussian")
     assert float(grad.abs().max()) == 0.0 and float(minf) == 0.0
+    out = fused.fwd(psi, scan_i, prb, g.ndet)
+    assert fused.fwd.variant == "fft" and float(out.abs().max()) == 0.0
+    assert torch.equal(fused.fwd(psi, scan_i, prb, g.ndet, base=far), far)
+    grad, minf = fused.adj_residual(far, data, scan_i, prb, g.nz, g.n,
+                                    "poisson")
+    assert fused.adj_residual.variant == "fft"
+    assert float(grad.abs().max()) == 0.0 and float(minf) == 0.0
 
 
 def test_wrong_variant_raises(dev):
@@ -667,6 +758,12 @@ def test_wrong_variant_raises(dev):
                                "gaussian", None, variant="fft")
     with pytest.raises(ValueError, match="'fft' variant takes ndet"):
         fused._adj_probe_cuda(far, scan_i, psi, GEOMS[0].nprb, variant="fft")
+    with pytest.raises(ValueError, match="fwd: the 'fft' variant takes"):
+        fused._fwd_cuda(psi, scan_i, prb, GEOMS[0].ndet, None, variant="fft")
+    with pytest.raises(ValueError, match="adj_residual: the 'fft' variant"):
+        fused._adj_residual_cuda(far, data, scan_i, prb, GEOMS[0].nz,
+                                 GEOMS[0].n, "gaussian", variant="fft")
+    counts = (fused.fwd.launches, fused.adj_residual.launches)
     psi, data, scan_i, prb = inputs(g, dev)
     with pytest.raises(ValueError, match="unknown variant"):
         fused._grad_fused_cuda(psi, data, scan_i, prb, g.ndet, "gaussian",
@@ -681,4 +778,17 @@ def test_wrong_variant_raises(dev):
         g3 = POW2_GEOMS[2]  # three modes
         fused._minf_fused_cuda(*inputs(g3, dev), g3.ndet, "gaussian", None,
                                prefetch=True)
+    with pytest.raises(RuntimeError, match="occupancy query"):
+        fused._fwd_cuda(psi, scan_i, prb, g.ndet, None, threads=1024)
+    far = base_for(g, dev)
+    with pytest.raises(RuntimeError, match="occupancy query"):
+        fused._adj_residual_cuda(far, data, scan_i, prb, g.nz, g.n,
+                                 "gaussian", threads=256)
+    # A farplane at an odd complex offset: 8-byte aligned, not 16.
+    store = torch.empty(far.numel() + 1, dtype=torch.complex64, device=dev)
+    odd = store[1:].view(far.shape)
+    odd.copy_(far)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fused.adj_residual(odd, data, scan_i, prb, g.nz, g.n, "gaussian")
     assert (fused.grad_fused.launches, fused.adj_probe.launches) == launches
+    assert (fused.fwd.launches, fused.adj_residual.launches) == counts

@@ -1,11 +1,12 @@
 """Which of their two hand-written kernels ``grad_fused``, ``minf_fused``,
-``grad_prb_fused`` and ``adj_probe`` launch on the card is one pure function
-of the shapes (one, because a line search compares the objectives of the
-first three, which must share their arithmetic), pinned here on the
-CPU: ``'fft'`` (the frame's FFT in shared memory) for a detector side of 16,
-32, 64 or 128, ``'gemm'`` (DFT matrix products) for every other size. The
-choice is made before the launch and never changed after it; on a CPU
-tensor neither runs (the plain version does)."""
+``grad_prb_fused``, ``fwd``, ``adj_probe`` and ``adj_residual`` launch on
+the card is one pure function of the shapes (one, because a line search
+compares the objectives of the first three, which must share their
+arithmetic, and ``fwd`` stores the farplane they read as a base), pinned
+here on the CPU: ``'fft'`` (the frame's FFT in shared memory) for a detector
+side of 16, 32, 64 or 128, ``'gemm'`` (DFT matrix products) for every other
+size. The choice is made before the launch and never changed after it; on a
+CPU tensor neither runs (the plain version does)."""
 
 import inspect
 
@@ -61,8 +62,10 @@ def test_forced_variant_is_checked_before_any_launch():
     with pytest.raises(ValueError, match="grad_fused: need nprb <= ndet"):
         fused._pick_variant("grad_fused", None, 130, 128, 1)
     for fn in (fused._grad_fused_cuda, fused._minf_fused_cuda,
-               fused._grad_prb_fused_cuda, fused._adj_probe_cuda):
-        assert inspect.signature(fn).parameters["variant"].default is None
+               fused._grad_prb_fused_cuda, fused._adj_probe_cuda,
+               fused._fwd_cuda, fused._adj_residual_cuda):
+        params = inspect.signature(fn).parameters
+        assert params["variant"].default is params["threads"].default is None
     assert fused.fft_threads(128) == 1024 and fused.fft_threads(64) == 512
 
 
@@ -79,6 +82,30 @@ def test_public_signatures_are_the_reference_ones():
     assert list(inspect.signature(fused.grad_prb_fused).parameters) == [
         "psi", "data", "scan_int", "prb", "ndet", "model", "precision",
         "adj_precision"]
+    assert list(inspect.signature(fused.fwd).parameters) == [
+        "psi", "scan_int", "prb", "ndet", "precision", "base", "split_out"]
+    assert list(inspect.signature(fused.adj_residual).parameters) == [
+        "farplane", "data", "scan_int", "prb", "nz", "n", "model",
+        "precision"]
+
+
+@pytest.mark.parametrize("name", ["fwd", "adj_residual"])
+def test_fwd_and_adj_residual_pick_as_the_others(name):
+    """``fwd`` and ``adj_residual`` follow the same rule: 'fft' at the
+    power-of-two sides, 'gemm' elsewhere, a forced 'fft' off those sides
+    raising before any launch, the unpadded measurement build by macro."""
+    pick = fused._pick_variant
+    assert pick(name, None, 128, 128, 1) == ("fft", ())
+    assert pick(name, None, 48, 64, 4) == ("fft", ())
+    assert pick(name, None, 56, 72, 2) == ("gemm", ())
+    assert pick(name, "gemm", 128, 128, 1) == ("gemm", ())
+    assert pick(name, "fft_unpadded", 20, 32, 3) == ("fft",
+                                                     ("TK_FFT_PAD=0",))
+    with pytest.raises(ValueError, match=f"{name}: the 'fft' variant"):
+        pick(name, "fft", 100, 130, 1)
+    with pytest.raises(ValueError, match=f"{name}: need nprb <= ndet"):
+        pick(name, None, 130, 128, 1)
+
 
 
 def test_cpu_tensors_run_the_plain_version_at_fft_sizes():
@@ -102,3 +129,30 @@ def test_cpu_tensors_run_the_plain_version_at_fft_sizes():
             fused.grad_fused_reference.launches,
             fused.adj_probe_reference.launches) == (
         counts[0], counts[1], counts[2] + 1, counts[3] + 1)
+
+
+def test_fwd_and_adj_residual_on_cpu_run_the_plain_version():
+    """``fwd`` (with and without a base, and split) and ``adj_residual`` on
+    CPU tensors at an FFT size: the plain versions run, no kernel launches,
+    and the wrappers return what the plain versions return."""
+    g = Geometry(nz=40, n=40, nscan=6, ndet=32, nprb=16, nmodes=2)
+    assert fused.dft_variant(g.nprb, g.ndet, g.nmodes) == "fft"
+    gen = torch.Generator().manual_seed(1)
+    _, scan, prb, data = make_problem(gen, g, device="cpu")
+    scan_i = scan_to_int(scan)
+    psi = torch.ones(g.psi_shape, dtype=torch.complex64)
+    fns = (fused.fwd, fused.adj_residual, fused.fwd_reference,
+           fused.adj_residual_reference)
+    before = [fn.launches for fn in fns]
+    far = fused.fwd(psi, scan_i, prb, g.ndet)
+    based = fused.fwd(psi, scan_i, prb, g.ndet, base=far)
+    re, im = fused.fwd(psi, scan_i, prb, g.ndet, base=far, split_out=True)
+    grad, minf = fused.adj_residual(far, data, scan_i, prb, g.nz, g.n,
+                                    "poisson")
+    assert far.shape == g.farplane_shape and grad.shape == g.psi_shape
+    assert torch.equal(based, 2 * far)
+    assert torch.equal(torch.complex(re, im), based)
+    ref_grad, ref_minf = fused.adj_residual_reference(
+        far, data, scan_i, prb, g.nz, g.n, "poisson")
+    assert torch.equal(grad, ref_grad) and float(minf) == float(ref_minf)
+    assert [fn.launches - b for fn, b in zip(fns, before)] == [0, 0, 3, 2]

@@ -17,19 +17,49 @@
 // nothing, to the gradient or to the objective (the TPU kernel's `valid`);
 // so do positions whose window leaves the object (invalid input).
 //
-// What bounds it: one read of the farplane and the data (8 + 4 bytes a
-// pixel, 3.2 GB at 16384 frames of 128^2: 0.96 ms at 3.35 TB/s) against the
-// two adjoint DFT products, d*p*(d+p) complex multiply-adds per frame and
-// mode (5.5e11 fp32 FLOPs there), on the SIMT fp32 units (dft_frame.cuh
-// cgemm), which take far longer. The factor is kept as one d x d plane in
-// per-block scratch and applied in the first product's tile loads, so the
-// weighted farplane is never stored; the farplane itself is read straight
-// from device memory, as in adj.cu.
+// Two kernels compute it; the wrapper picks one from the shapes alone, as
+// for grad_fused (ops/fused.py dft_variant).
 //
-// Contract: the gradient scatter uses atomicAdd on the fp32 re/im planes, as
-// adj's does, so it is deterministic only up to summation order; the
-// objective is summed per thread and per block in double in a fixed order,
-// then over the blocks in a fixed order by the caller: bitwise reproducible.
+// The FFT variant (adj_residual_fft_kernel; detector side 16, 32, 64 or
+// 128). One frame per block, the complex frame in dynamic shared memory
+// (one block per SM at 128^2), transformed in place by dft_frame.cuh
+// fft2_frame. With one mode the farplane frame is loaded with 16-byte
+// streaming loads, two neighbouring pixels a load, straight into the order
+// the inverse transform takes (fft_far_index, as adj_probe.cu loads); in
+// the same pass each thread reads its two measured pixels, coalesced, forms
+// the factor and the objective and scales the frame in place. Then the
+// inverse transform and dft_frame.cuh scatter_patch. (Fetching the measured
+// frame a frame ahead with cp.async, as grad_fused does, gained nothing
+// here -- 3.44 against 3.51 ms and 3.53 against 3.49 ms at 16384 frames of
+// 128^2 in two runs on an H100 80GB HBM3 at 700 W, PERF.md -- and was taken
+// out: the 64 KiB of data are read in the same loop as the frame's 128 KiB.) With several modes each thread first sums the intensity of
+// its pixels over the modes, read straight from device memory, turns it into
+// the factor in a float plane in shared memory and sums the objective; then
+// each mode's frame is loaded again, scaled by the plane, transformed and
+// scattered. The farplane is read twice with several modes (the first read
+// through L2 only, so that the second may find it there); a scratch buffer
+// to avoid that is not built. What bounds it: the one read of the farplane
+// and the data (8 + 4 bytes a pixel, 3.2 GB at 16384 frames of 128^2: 0.96
+// ms at 3.35 TB/s), against the sweeps over the frame in shared memory (the
+// load, four inverse stages, the scatter) and the scatter's fp32 atomics,
+// two per patch pixel and mode, with one block per SM to hide their
+// latency. The FFT arithmetic (1.1 MFLOP a frame) is far below these.
+//
+// The GEMM variant (adj_residual_kernel; every other size): the two adjoint
+// DFT products, d*p*(d+p) complex multiply-adds per frame and mode (5.5e11
+// fp32 FLOPs at 16384 frames of 128^2) on the SIMT fp32 units
+// (dft_frame.cuh cgemm), which take far longer than the reads. The factor
+// is kept as one d x d plane in per-block scratch and applied in the first
+// product's tile loads, so the weighted farplane is never stored; the
+// farplane itself is read straight from device memory, as in adj.cu.
+//
+// Contract (both variants): the gradient scatter uses atomicAdd on the fp32
+// re/im planes, as adj's does, so it is deterministic only up to summation
+// order; the objective is summed per thread and per block in double in a
+// fixed order, then over the blocks in a fixed order by the caller: bitwise
+// reproducible. It reads only the held farplane, so no other kernel need
+// round it alike; its low bits differ between the two variants, whose
+// blocks have other thread counts and visit the pixels in another order.
 
 #include "dft_frame.cuh"
 
@@ -107,11 +137,113 @@ __global__ void __launch_bounds__(kThreads, 2) adj_residual_kernel(Params q) {
   block_sum_store(fsum, q.partial + blockIdx.x);
 }
 
+// -- the FFT variant -----------------------------------------------------
+
+struct FftParams {
+  const float2* far;   // (t, s, m, d, d), 16-byte aligned
+  const float* data;   // (t, s, d, d)
+  const float2* prb;   // (t, m, p, p)
+  const int* scan;     // (t, s, 2) int (y, x)
+  float* grad;         // (t, nz, n) complex as interleaved re/im floats
+  double* partial;     // gridDim.x objective partials
+  int t, s, nz, n, m, p, model;
+};
+
+// One block per SM at 128^2 (the frame fills the shared memory): registers
+// are capped at 65536 / kT. Thread j owns the pixel pairs (2i, 2i + 1),
+// i = j, j + kT, ...: of the farplane, the data and the factor plane.
+template <int kD, int kT>
+__global__ void __launch_bounds__(kT, 1)
+    adj_residual_fft_kernel(FftParams q) {
+  extern __shared__ __align__(16) float2 shared[];
+  float2* tw = shared;    // e^{-2 pi i k / d}
+  float2* tws = tw + kD;  // the same / d
+  float2* fr = tws + kD;  // the frame
+  // With several modes: the likelihood factor.
+  float* plane = reinterpret_cast<float*>(fr + FftFrame<kD>::size);
+  fft_load_twiddles<kD, kT>(tw, tws);
+
+  const int p = q.p, m = q.m;
+  constexpr int dd = kD * kD;
+  const int64_t frames = static_cast<int64_t>(q.t) * q.s;
+  double fsum = 0.0;
+
+  for (int64_t f = blockIdx.x; f < frames; f += gridDim.x) {
+    const int th = static_cast<int>(f / q.s);
+    const int sy = q.scan[2 * f], sx = q.scan[2 * f + 1];
+    if (!frame_valid(sy, sx, q.nz, q.n, p)) continue;  // block-uniform
+    const float2* prb = q.prb + static_cast<int64_t>(th) * m * p * p;
+    const float* dat = q.data + f * dd;
+    const float4* src = reinterpret_cast<const float4*>(q.far + f * m * dd);
+
+    if (m == 1) {
+      // Two neighbouring pixels a load; the farplane and the data are read
+      // once, so they stream past the caches.
+      for (int i = threadIdx.x; i < dd / 2; i += kT) {
+        const float4 w = __ldcs(src + i);
+        const float d0 = __ldcs(dat + 2 * i), d1 = __ldcs(dat + 2 * i + 1);
+        float f0, f1;
+        fsum += pixel_objective(q.model,
+                                fft_intensity(make_float2(w.x, w.y)), d0,
+                                &f0);
+        fsum += pixel_objective(q.model,
+                                fft_intensity(make_float2(w.z, w.w)), d1,
+                                &f1);
+        const int u = (2 * i) / kD, v = (2 * i) % kD;
+        fr[fft_far_index<kD>(u, v)] = make_float2(w.x * f0, w.y * f0);
+        fr[fft_far_index<kD>(u, v + 1)] = make_float2(w.z * f1, w.w * f1);
+      }
+      __syncthreads();
+      fft2_frame<kD, kT, true>(fr, p, tw, tws);
+      scatter_patch<kD, kT>(fr, q.grad, th, q.nz, q.n, sy, sx, prb, p);
+      continue;
+    }
+
+    // Several modes: the factor of each pixel from its mode-summed
+    // intensity, the first read through L2 only (it is read again below).
+    for (int i = threadIdx.x; i < dd / 2; i += kT) {
+      float i0 = 0.f, i1 = 0.f;
+      for (int mm = 0; mm < m; ++mm) {
+        const float4 w = __ldcg(src + mm * (dd / 2) + i);
+        i0 += fft_intensity(make_float2(w.x, w.y));
+        i1 += fft_intensity(make_float2(w.z, w.w));
+      }
+      fsum += pixel_objective(q.model, i0, __ldcs(dat + 2 * i), &plane[2 * i]);
+      fsum += pixel_objective(q.model, i1, __ldcs(dat + 2 * i + 1),
+                              &plane[2 * i + 1]);
+    }
+    // No barrier: each thread reads back only the plane entries it wrote,
+    // and the last scatter_patch ended with one before the frame is loaded.
+    for (int mm = 0; mm < m; ++mm) {
+      for (int i = threadIdx.x; i < dd / 2; i += kT) {
+        const float4 w = __ldcs(src + mm * (dd / 2) + i);
+        const float f0 = plane[2 * i], f1 = plane[2 * i + 1];
+        const int u = (2 * i) / kD, v = (2 * i) % kD;
+        fr[fft_far_index<kD>(u, v)] = make_float2(w.x * f0, w.y * f0);
+        fr[fft_far_index<kD>(u, v + 1)] = make_float2(w.z * f1, w.w * f1);
+      }
+      __syncthreads();
+      fft2_frame<kD, kT, true>(fr, p, tw, tws);
+      scatter_patch<kD, kT>(fr, q.grad, th, q.nz, q.n, sy, sx,
+                            prb + static_cast<int64_t>(mm) * p * p, p);
+    }
+  }
+
+  block_sum_store_n<kT>(fsum, q.partial + blockIdx.x);
+}
+
+struct FftKernels {
+  template <int kD, int kT>
+  static auto get() {
+    return adj_residual_fft_kernel<kD, kT>;
+  }
+};
+
 }  // namespace
 
 extern "C" {
 
-// Launches the kernel on `stream` with `grid` blocks; returns
+// Launches the GEMM variant on `stream` with `grid` blocks; returns
 // cudaGetLastError() (0 on success). `grad` must be zeroed, `scratch` hold
 // grid * stride floats with stride >= 2*p*d + d*d and even, `partial` grid
 // doubles.
@@ -131,13 +263,40 @@ int tk_adj_residual(const void* far, const void* data, const void* prb,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Resident blocks per SM at detector side `d` (`has_base` is unused);
-// returns the CUDA error code.
+// Resident blocks per SM of the GEMM variant at detector side `d`
+// (`has_base` is unused); returns the CUDA error code.
 int tk_adj_residual_blocks_per_sm(int d, int has_base, int* out) {
   (void)has_base;
   const size_t smem = static_cast<size_t>(d) * sizeof(float2);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       out, adj_residual_kernel, kThreads, smem));
+}
+
+// Launches the FFT variant (d = 16, 32, 64 or 128; `threads` 512, or 1024
+// at d = 128) on `stream` with `grid` blocks; returns the first CUDA error
+// (0 on success). `far` is 16-byte aligned, `grad` zeroed, `partial` holds
+// grid doubles; there is no scratch.
+int tk_adj_residual_fft(const void* far, const void* data, const void* prb,
+                        const void* scan, void* grad, void* partial, int t,
+                        int s, int nz, int n, int m, int p, int d, int model,
+                        int grid, int threads, void* stream) {
+  FftParams q{static_cast<const float2*>(far),
+              static_cast<const float*>(data),
+              static_cast<const float2*>(prb), static_cast<const int*>(scan),
+              static_cast<float*>(grad), static_cast<double*>(partial), t, s,
+              nz, n, m, p, model};
+  return fft_launch<FftKernels>(q, d, threads, m > 1 ? 1 : 0, grid,
+                                static_cast<cudaStream_t>(stream));
+}
+
+// Resident blocks per SM of the FFT variant and its dynamic shared memory
+// in bytes, with `planes` (0 or 1) float planes beside the frame (one with
+// several modes; `has_base` is unused); returns the CUDA error code.
+int tk_adj_residual_fft_blocks_per_sm(int d, int has_base, int planes,
+                                      int threads, int* out,
+                                      int* smem_bytes) {
+  (void)has_base;
+  return fft_occupancy<FftKernels>(d, threads, planes, out, smem_bytes);
 }
 
 }  // extern "C"

@@ -18,10 +18,9 @@
 // For a power-of-two detector side d = 16..128 the same transform is also
 // here as an FFT of the whole frame in shared memory (fft2_frame, at the end
 // of this file): 2.3 MFLOP a frame at 128^2 where the two matrix products
-// are 67 MFLOP. grad_fused.cu, minf_fused.cu, grad_prb_fused.cu and
-// adj_probe.cu run it (and keep their cgemm kernel for every other size);
-// fwd.cu, adj.cu, adj_residual.cu and fwd_quad_stats.cu still run cgemm
-// alone.
+// are 67 MFLOP. grad_fused.cu, minf_fused.cu, grad_prb_fused.cu, fwd.cu,
+// adj_probe.cu and adj_residual.cu run it (and keep their cgemm kernel for
+// every other size); adj.cu and fwd_quad_stats.cu still run cgemm alone.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -47,8 +46,11 @@ __device__ __forceinline__ float2 base_at(const float2* base, int64_t i) {
   return __ldg(base + i);
 }
 
+// a * b with the multiply-adds written out: the compiler may not contract
+// the products differently in two kernels that inline the same helper, so
+// fwd's farplane and the fused kernels' internal one agree bit for bit.
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
-  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+  return make_float2(fmaf(a.x, b.x, -(a.y * b.y)), fmaf(a.x, b.y, a.y * b.x));
 }
 
 __device__ __forceinline__ float2 conjf2(float2 a) {
@@ -211,7 +213,7 @@ __device__ __forceinline__ float pixel_objective(int model, float inten,
     return (amp - sq) * (amp - sq);
   }
   *factor = 1.f - dv / (inten + 1e-8f);  // poisson
-  return inten - dv * logf(inten + 1e-8f);
+  return fmaf(-dv, logf(inten + 1e-8f), inten);
 }
 
 // Sums v over the kT threads of the block in double in a fixed order;
@@ -515,14 +517,34 @@ constexpr size_t fft_smem_bytes(int planes) {
          + sizeof(float) * static_cast<size_t>(planes) * kD * kD;
 }
 
-// -- the forward half of a frame, shared by grad_fused, minf_fused and
-// grad_prb_fused. The three must compute a frame's farplane and objective
-// with the same arithmetic: a line search compares the objective of a
-// gradient pass with the objectives of its candidates (minf_fused), and at
-// a 1e-6 residual the objective is of the size of its own fp32 rounding.
-// Computed the same way the rounding cancels between the two; computed two
-// ways it does not, and the search stalls (a joint run to 1e-6 then takes
-// 9 candidates an iteration instead of 5 and stops short of its target).
+// grad[patch] += conj(prb[m]) * fr (the cropped inverse transform, at
+// fft_near_index): the object adjoint's scatter of grad_fused and
+// adj_residual. Ends with a barrier, after which the frame may be
+// overwritten.
+template <int kD, int kT>
+__device__ __forceinline__ void scatter_patch(const float2* fr, float* grad,
+                                              int th, int nz, int n, int sy,
+                                              int sx, const float2* pr,
+                                              int p) {
+  for (int i = threadIdx.x; i < p * p; i += kT) {
+    const int y = i / p, x = i - y * p;
+    const float2 g = cmul(conjf2(pr[i]), fr[fft_near_index<kD>(y, x)]);
+    scatter_add_pixel(grad, th, nz, n, sy + y, sx + x, g);
+  }
+  __syncthreads();
+}
+
+// -- the forward half of a frame, shared by grad_fused, minf_fused,
+// grad_prb_fused and fwd. The first three must compute a frame's farplane
+// and objective with the same arithmetic: a line search compares the
+// objective of a gradient pass with the objectives of its candidates
+// (minf_fused), and at a 1e-6 residual the objective is of the size of its
+// own fp32 rounding. Computed the same way the rounding cancels between the
+// two; computed two ways it does not, and the search stalls (a joint run to
+// 1e-6 then takes 9 candidates an iteration instead of 5 and stops short of
+// its target). fwd stores the same farplane, so a base it freezes or an
+// Anderson candidate it makes rounds as the kernels that read it:
+// minf_fused(0, base = fwd(psi)) equals minf_fused(psi) bit for bit.
 
 // fr <- psi[y:y+p, x:x+p] * prb[m], the patch alone: the padding is never
 // written (fft2_frame takes it as zero). Ends with a barrier.

@@ -171,21 +171,6 @@ struct FftParams {
   int prefetch;  // one mode only: fetch the next measured frame ahead
 };
 
-// grad[patch] += conj(prb[m]) * fr (the cropped inverse transform); ends
-// with a barrier, after which the frame may be overwritten.
-template <int kD, int kT>
-__device__ __forceinline__ void scatter_patch(const float2* fr, float* grad,
-                                              int th, int nz, int n, int sy,
-                                              int sx, const float2* pr,
-                                              int p) {
-  for (int i = threadIdx.x; i < p * p; i += kT) {
-    const int y = i / p, x = i - y * p;
-    const float2 g = cmul(conjf2(pr[i]), fr[fft_near_index<kD>(y, x)]);
-    scatter_add_pixel(grad, th, nz, n, sy + y, sx + x, g);
-  }
-  __syncthreads();
-}
-
 // One block per SM at 128^2 (the frame fills the shared memory): registers
 // are capped at 65536 / kT.
 template <int kD, int kT, bool kBase>

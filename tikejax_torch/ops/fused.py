@@ -57,26 +57,28 @@ farplane or a nearplane, which is why they exist: at 16384 positions of
 
 The CUDA sources are ``tikejax_torch/csrc/<name>.cu`` with their shared
 device code in ``csrc/dft_frame.cuh`` (built by
-``tikejax_torch.utils.cuda_build``). What bounds them on an H100: four of
-the eight compute the DFT as complex matrix products per frame and mode,
-``ndet*nprb*(nprb+ndet)`` complex multiply-adds per DFT application, all
-on the SIMT fp32 units, in shared-memory tiled GEMMs whose per-frame
-intermediates sit in per-block scratch sized by the grid (never by the
-number of positions).
+``tikejax_torch.utils.cuda_build``). What bounds them on an H100: ``adj``
+and ``fwd_quad_stats`` compute the DFT as complex matrix products per frame
+and mode, ``ndet*nprb*(nprb+ndet)`` complex multiply-adds per DFT
+application, all on the SIMT fp32 units, in shared-memory tiled GEMMs whose
+per-frame intermediates sit in per-block scratch sized by the grid (never by
+the number of positions).
 
-``grad_fused``, ``minf_fused``, ``grad_prb_fused`` and ``adj_probe`` each
-have two hand-written kernels, and :func:`dft_variant` picks one from the
-shapes alone, before the launch, the same for all four (a line search
-compares the objectives of the first three, which must therefore compute a
-frame's farplane with the same arithmetic):
+The other six -- ``grad_fused``, ``minf_fused``, ``grad_prb_fused``,
+``fwd``, ``adj_probe`` and ``adj_residual`` -- each have two hand-written
+kernels, and :func:`dft_variant` picks one from the shapes alone, before the
+launch, the same for all six (a line search compares the objectives of the
+first three, which must therefore compute a frame's farplane with the same
+arithmetic, and ``fwd`` stores that farplane as a frozen base or an
+Anderson candidate that they read):
 ``'fft'`` for a detector side of 16, 32, 64 or 128 -- one frame per block,
 the whole complex frame in shared memory, transformed in place by a
 register-resident radix FFT (29 times less arithmetic than the matrix
 products at 128^2, no scratch in device memory; shared-memory sweeps, the
-scatter's atomics and the one read of the data bound it) -- and ``'gemm'``,
-the matrix-product kernel above, for every other size. Neither gives way to
-the other or to the plain version: a CUDA tensor launches the chosen kernel
-or raises.
+scatter's atomics and the one read or write of a frame in device memory
+bound it) -- and ``'gemm'``, the matrix-product kernel above, for every
+other size. Neither gives way to the other or to the plain version: a CUDA
+tensor launches the chosen kernel or raises.
 
 The base. The JAX package accepts the frozen base as a complex array or as
 the (re, im) f32 pair that ``fwd(split_out=True)`` emits, because on the
@@ -142,8 +144,8 @@ def fft_threads(ndet: int) -> int:
 
 def dft_variant(nprb: int, ndet: int, nmodes: int) -> str:
     """Which of their two hand-written kernels ``grad_fused``,
-    ``minf_fused``, ``grad_prb_fused`` and ``adj_probe`` launch on a CUDA
-    tensor of these sizes: ``'fft'`` (the
+    ``minf_fused``, ``grad_prb_fused``, ``fwd``, ``adj_probe`` and
+    ``adj_residual`` launch on a CUDA tensor of these sizes: ``'fft'`` (the
     frame's FFT in shared memory) for ``ndet`` 16, 32, 64 or 128, ``'gemm'``
     (DFT matrix products) for any other size. A pure function of the
     shapes; ``nprb > ndet`` raises as the kernels do."""
@@ -319,6 +321,7 @@ def fwd(psi: torch.Tensor, scan_int: torch.Tensor, prb: torch.Tensor,
 
 
 fwd.launches = 0
+fwd.variant = None  # of the last kernel launch: 'fft' or 'gemm'
 
 
 def fwd_reference(psi: torch.Tensor, scan_int: torch.Tensor,
@@ -446,6 +449,7 @@ def adj_residual(farplane: torch.Tensor, data: torch.Tensor,
 
 
 adj_residual.launches = 0
+adj_residual.variant = None  # of the last kernel launch: 'fft' or 'gemm'
 
 
 def adj_residual_reference(farplane: torch.Tensor, data: torch.Tensor,
@@ -543,9 +547,11 @@ _ARGTYPES = {
 # &shared_bytes).
 _FFT_ARGTYPES = {
     "grad_fused": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11,
+    "fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9,
     "minf_fused": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11,
     "grad_prb_fused": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11,
     "adj_probe": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9,
+    "adj_residual": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10,
 }
 
 
@@ -599,10 +605,11 @@ def fft_launch_config(name: str, device_index: int, ndet: int,
                       defines: tuple[str, ...] = ()) -> tuple[int, int]:
     """(resident blocks per SM, dynamic shared memory in bytes) of the FFT
     variant of ``name`` (``'grad_fused'``, ``'minf_fused'``,
-    ``'grad_prb_fused'`` or ``'adj_probe'``) at detector side ``ndet``, with
-    ``planes`` (0 or 1) float planes beside the frame (one with several
-    modes, or with one mode and the data prefetch; ``adj_probe`` has none);
-    raises for a side or a thread count without a kernel."""
+    ``'grad_prb_fused'``, ``'fwd'``, ``'adj_probe'`` or ``'adj_residual'``)
+    at detector side ``ndet``, with ``planes`` (0 or 1) float planes beside
+    the frame (one with several modes, or with one mode and the data
+    prefetch of the first three; ``fwd`` and ``adj_probe`` have none); raises
+    for a side or a thread count without a kernel."""
     lib = _lib(name, defines)
     threads = fft_threads(ndet) if threads is None else threads
     per_sm, smem = ctypes.c_int(0), ctypes.c_int(0)
@@ -825,28 +832,58 @@ def _minf_fused_cuda(psi, data, scan_int, prb, ndet, model, base,
     return partial.sum().to(torch.float32)
 
 
-def _fwd_cuda(psi, scan_int, prb, ndet, base):
+def _check_aligned(name, farplane):
+    """The 'fft' variants read a farplane 16 bytes at a time: its storage
+    must be 16-byte aligned (PyTorch's allocator aligns every allocation;
+    a view at an odd complex offset is not)."""
+    if farplane.data_ptr() % 16:
+        raise ValueError(f"{name}: the 'fft' variant reads the farplane 16 "
+                         "bytes at a time; its storage must be 16-byte "
+                         "aligned")
+
+
+def _fwd_cuda(psi, scan_int, prb, ndet, base, variant=None, threads=None):
+    """Launches ``fwd``'s kernel; ``variant`` and ``threads`` as in
+    :func:`_grad_fused_cuda`. The output comes from ``torch.empty``, so it is
+    aligned for the 'fft' variant's 16-byte stores, and the kernel writes
+    every frame of it (masked ones as zeros or the base)."""
     t, nz, n, nmodes, nprb, s = _check_inputs("fwd", psi, scan_int, prb,
                                               ndet)
     shape = (t, s, nmodes, ndet, ndet)
     base_p = _base_ptr("fwd", base, shape, psi.device)
-    lib = _lib("fwd")
+    variant, defines = _pick_variant("fwd", variant, nprb, ndet, nmodes)
+    lib = _lib("fwd", defines)
     dev = _device_index(psi)
-    grid = _grid("fwd", dev, t * s, ndet, base is not None,
-                 8 * nprb * ndet)
     psi, prb = psi.contiguous(), prb.contiguous()
     scan_int = scan_int.contiguous()
     out = torch.empty(shape, dtype=torch.complex64, device=psi.device)
-    scratch = torch.empty(2 * grid * nprb * ndet, dtype=torch.float32,
-                          device=psi.device)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.tk_fwd(
-            psi.data_ptr(), prb.data_ptr(), scan_int.data_ptr(),
-            out.data_ptr(), scratch.data_ptr(), base_p, t, s, nz, n, nmodes,
-            nprb, ndet, grid, stream)
-    _check("fwd", err, "kernel launch")
+    if variant == "fft":
+        # The base is read 8 bytes at a time: any complex64 tensor will do,
+        # such as a streamed chunk's slice of the whole base (which starts
+        # at a whole frame, so it would stay 16-byte aligned anyway).
+        threads = fft_threads(ndet) if threads is None else threads
+        grid = _fft_grid("fwd", dev, t * s, ndet, 0, base is not None,
+                         threads, defines)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.tk_fwd_fft(
+                psi.data_ptr(), prb.data_ptr(), scan_int.data_ptr(),
+                out.data_ptr(), base_p, t, s, nz, n, nmodes, nprb, ndet,
+                grid, threads, stream)
+    else:
+        grid = _grid("fwd", dev, t * s, ndet, base is not None,
+                     8 * nprb * ndet)
+        scratch = torch.empty(2 * grid * nprb * ndet, dtype=torch.float32,
+                              device=psi.device)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.tk_fwd(
+                psi.data_ptr(), prb.data_ptr(), scan_int.data_ptr(),
+                out.data_ptr(), scratch.data_ptr(), base_p, t, s, nz, n,
+                nmodes, nprb, ndet, grid, stream)
+    _check("fwd", err, f"kernel launch ({variant})")
     fwd.launches += 1
+    fwd.variant = variant
     return out
 
 
@@ -947,10 +984,7 @@ def _adj_probe_cuda(farplane, scan_int, psi, nprb, variant=None,
     out = torch.empty((t, nmodes, nprb, nprb), dtype=torch.complex64,
                       device=farplane.device)
     if variant == "fft":
-        if farplane.data_ptr() % 16:
-            raise ValueError("adj_probe: the 'fft' variant reads the "
-                             "farplane 16 bytes at a time; its storage "
-                             "must be 16-byte aligned")
+        _check_aligned("adj_probe", farplane)
         threads = fft_threads(ndet) if threads is None else threads
         grid = min(_fft_grid("adj_probe", dev, t * s, ndet, 0, False,
                              threads, defines),
@@ -982,7 +1016,10 @@ def _adj_probe_cuda(farplane, scan_int, psi, nprb, variant=None,
     return out
 
 
-def _adj_residual_cuda(farplane, data, scan_int, prb, nz, n, model):
+def _adj_residual_cuda(farplane, data, scan_int, prb, nz, n, model,
+                       variant=None, threads=None):
+    """Launches ``adj_residual``'s kernel; ``variant`` and ``threads`` as in
+    :func:`_grad_fused_cuda`."""
     t, s, nmodes, ndet = _check_farplane("adj_residual", farplane, scan_int,
                                          prb, "prb", (farplane.shape[0],
                                                       farplane.shape[2]))
@@ -992,28 +1029,48 @@ def _adj_residual_cuda(farplane, data, scan_int, prb, nz, n, model):
         raise ValueError(f"adj_residual: inconsistent shapes farplane "
                          f"{tuple(farplane.shape)}, data {tuple(data.shape)}")
     nprb = prb.shape[-1]
-    _check_sizes("adj_residual", nprb, ndet)
-    lib = _lib("adj_residual")
+    variant, defines = _pick_variant("adj_residual", variant, nprb, ndet,
+                                     nmodes)
+    lib = _lib("adj_residual", defines)
     dev = _device_index(farplane)
-    stride = 2 * nprb * ndet + ndet * ndet  # floats: p x d complex, d x d
-    stride += stride % 2
-    grid = _grid("adj_residual", dev, t * s, ndet, False, 4 * stride)
     farplane, prb = farplane.contiguous(), prb.contiguous()
     data, scan_int = data.contiguous(), scan_int.contiguous()
     grad = torch.zeros((t, nz, n), dtype=torch.complex64,
                        device=farplane.device)
-    scratch = torch.empty(grid * stride, dtype=torch.float32,
-                          device=farplane.device)
-    partial = torch.empty(grid, dtype=torch.float64, device=farplane.device)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.tk_adj_residual(
-            farplane.data_ptr(), data.data_ptr(), prb.data_ptr(),
-            scan_int.data_ptr(), grad.data_ptr(), scratch.data_ptr(),
-            partial.data_ptr(), t, s, nz, n, nmodes, nprb, ndet,
-            _MODEL_CODE[model], grid, stride, stream)
-    _check("adj_residual", err, "kernel launch")
+    if variant == "fft":
+        # The materialized solver hands over fwd's output, which PyTorch's
+        # allocator aligns.
+        _check_aligned("adj_residual", farplane)
+        threads = fft_threads(ndet) if threads is None else threads
+        grid = _fft_grid("adj_residual", dev, t * s, ndet, int(nmodes > 1),
+                         False, threads, defines)
+        partial = torch.empty(grid, dtype=torch.float64,
+                              device=farplane.device)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.tk_adj_residual_fft(
+                farplane.data_ptr(), data.data_ptr(), prb.data_ptr(),
+                scan_int.data_ptr(), grad.data_ptr(), partial.data_ptr(), t,
+                s, nz, n, nmodes, nprb, ndet, _MODEL_CODE[model], grid,
+                threads, stream)
+    else:
+        stride = 2 * nprb * ndet + ndet * ndet  # floats: p x d complex, d x d
+        stride += stride % 2
+        grid = _grid("adj_residual", dev, t * s, ndet, False, 4 * stride)
+        scratch = torch.empty(grid * stride, dtype=torch.float32,
+                              device=farplane.device)
+        partial = torch.empty(grid, dtype=torch.float64,
+                              device=farplane.device)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.tk_adj_residual(
+                farplane.data_ptr(), data.data_ptr(), prb.data_ptr(),
+                scan_int.data_ptr(), grad.data_ptr(), scratch.data_ptr(),
+                partial.data_ptr(), t, s, nz, n, nmodes, nprb, ndet,
+                _MODEL_CODE[model], grid, stride, stream)
+    _check("adj_residual", err, f"kernel launch ({variant})")
     adj_residual.launches += 1
+    adj_residual.variant = variant
     return grad, partial.sum().to(torch.float32)
 
 

@@ -35,7 +35,7 @@ PATCHES = {
         "dft_frame.cuh", "  auto row_at = [](int r, int e) {",
         "  __syncthreads();\n  return;\n  auto row_at = [](int r, int e) {")]),
     "no scatter atomics": ("grad_fused", [(
-        "grad_fused.cu",
+        "dft_frame.cuh",
         "    scatter_add_pixel(grad, th, nz, n, sy + y, sx + x, g);",
         "    if (g.x == 12345.f) scatter_add_pixel(grad, th, nz, n, sy + y, "
         "sx + x, g);")]),
