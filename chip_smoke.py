@@ -13,7 +13,7 @@ is caught):
                   fwd_quad_stats, ls_objectives, gather_probe_mul,
                   scatter_conj_probe, adj_probe_reduce) from
                   tikejax_torch/csrc, one process per source, in parallel,
-                  into the build directory it prints; beside them the six
+                  into the build directory it prints; beside them the seven
                   kernels that have an FFT variant once more on the
                   unpadded frame layout (TK_FFT_PAD=0), for the
                   bank-conflict measurement;
@@ -24,7 +24,8 @@ is caught):
                   a base and as split views, minf_fused with and without a
                   base, grad_prb_fused, adj, adj_probe, adj_residual,
                   fwd_quad_stats for the object and the probe direction,
-                  ls_objectives at 17 steps, and the hybrid tier's
+                  ls_objectives at 17 steps (its frame-major kernel and the
+                  forced pixel-major one), and the hybrid tier's
                   gather_probe_mul, scatter_conj_probe and adj_probe_reduce
                   (the adjoints on the strided crop of 72^2 frames to
                   56^2); the probe reductions, fwd_quad_stats,
@@ -32,25 +33,30 @@ is caught):
                   bitwise repeatable, scatter_conj_probe (fp32 atomics)
                   repeatable to 1e-5 of scale; kernel and plain times at
                   the headline size beside each kernel's bound. grad_fused,
-                  minf_fused, grad_prb_fused, fwd, adj_probe and
-                  adj_residual have two kernels each (ops.fused
+                  minf_fused, grad_prb_fused, fwd, adj_probe, adj_residual
+                  and fwd_quad_stats have two kernels each (ops.fused
                   dft_variant): the small case above (72^2) runs 'gemm',
                   the headline 'fft'; both variants, forced, are also held
                   to the plain versions on a power-of-two awkward case (2
                   angles, 2 modes, 48^2 probe in a 64^2 detector, a masked
                   position, both models, with and without a base) and at
-                  the headline: every objective, both probe sums and fwd's
-                  farplane bitwise repeatable, two runs of each object
-                  gradient within 1e-5 of scale, and on 'fft' the three
-                  objectives equal bit for bit (a line search compares
-                  them) and fwd's farplane, given to minf_fused as a base
-                  of zeros, giving minf_fused's objective bit for bit (also
-                  at 4 modes in phase 10); then one line per redesigned
+                  the headline: every objective, both probe sums, fwd's
+                  farplane and fwd_quad_stats' planes bitwise repeatable,
+                  two runs of each object gradient within 1e-5 of scale,
+                  and on 'fft' the three objectives equal bit for bit (a
+                  line search compares them), fwd's farplane, given to
+                  minf_fused as a base of zeros, giving minf_fused's
+                  objective bit for bit (also at 4 modes in phase 10), and
+                  fwd_quad_stats of a direction on fwd's farplane of it
+                  giving a == b == c bit for bit; then one line per
+                  redesigned
                   kernel: FFT and forced 'gemm' times taken in turns in
                   this run, 512 against 1024 threads, the data prefetch on
                   and off, the padded against the unpadded frame layout,
                   registers, spills, shared memory, resident blocks and the
-                  share of the bound;
+                  share of the bound; and ls_objectives' frame-major kernel
+                  against the forced pixel-major one, in turns, at 1 and 17
+                  steps for both models (the new one must be faster at 17);
   4. solver    -- a small problem against the CPU complex128 oracle solver;
   5. main      -- the headline problem (512^2 object, 16384 positions, 128^2
                   probe and detector, Gaussian, solver defaults) through
@@ -65,15 +71,16 @@ is caught):
                   every Anderson candidate, grad_fused ('fft') must run
                   every evaluation, and no plain version may run;
   7. materialized -- the headline through solvers.run(memory=
-                  'materialized'), 100 iterations: fwd, adj_residual (both
-                  'fft') and fwd_quad_stats once an iteration, no grad_fused or
+                  'materialized'), 100 iterations: fwd, adj_residual and
+                  fwd_quad_stats (all 'fft') once an iteration, no grad_fused or
                   minf_fused, the residual fallen tenfold, peak extra
                   memory below G psi, the three statistics planes and
                   0.5 GiB; then 8 iterations under torch.profiler: the
                   share of the time the card is busy and the kernels that
                   take the most of it (also in phases 8 and 13);
   8. fused-ls  -- the same with fused_linesearch=True: two fwd, one
-                  adj_residual and one ls_objectives an iteration, no
+                  adj_residual and one ls_objectives (frame-major) an
+                  iteration, no
                   fwd_quad_stats, the residual fallen tenfold, peak extra
                   memory below two farplanes and 0.5 GiB;
   9. hybrid    -- the headline through solvers.run(kernel='pallas'), 100
@@ -110,8 +117,8 @@ is caught):
  12. materialized -- the same problem and start through run(
                   recover_prb=True, memory='materialized') for 64
                   iterations: adj_residual and adj_probe once an iteration,
-                  fwd and fwd_quad_stats twice (fwd, adj_residual and
-                  adj_probe on 'fft'), objective and probe error
+                  fwd and fwd_quad_stats twice (all four on 'fft'),
+                  objective and probe error
                   fallen, peak extra memory below 2 GiB;
  13. stream    -- the JAX package's quick start on the port: the same
                   problem, Gaussian, recover_prb=True, nchunks=4, 128
@@ -171,7 +178,7 @@ POW2_SMALL = dict(nz=97, n=101, nscan=37, ndet=64, nprb=48, ntheta=2,
 UNPADDED = ("TK_FFT_PAD=0",)
 # The kernels that have an FFT variant beside their DFT-GEMM one.
 REDESIGNED = ("grad_fused", "minf_fused", "grad_prb_fused", "fwd",
-              "adj_probe", "adj_residual")
+              "adj_probe", "adj_residual", "fwd_quad_stats")
 # Part of the mangled name of the instantiation the headline runs (side 128,
 # 1024 threads, no base) and of the 'gemm' kernel, for the compiler's report.
 HEADLINE_ENTRIES = {
@@ -186,7 +193,12 @@ HEADLINE_ENTRIES = {
                   "adj_probe_kernelE"),
     "adj_residual": ("adj_residual_fft_kernelILi128ELi1024EE",
                      "adj_residual_kernelE"),
+    "fwd_quad_stats": ("fwd_quad_stats_fft_kernelILi128ELi1024EE",
+                       "fwd_quad_stats_kernelE"),
 }
+# ls_objectives' frame-major kernel at the solver's 17 steps, and the
+# pixel-major one it replaced.
+LS_ENTRIES = ("ls_objectives_frame_kernelILi17EE", "ls_objectives_kernelE")
 DEEP_TARGET = 1e-6
 # About 11 s a 256-iteration segment: a run that does not converge ends
 # within ~3 minutes.
@@ -217,6 +229,8 @@ JOINT_DEEP_MAX_SEGMENTS = 24
 # Published H100 SXM peaks (700 W): fp32 outside the tensor cores, memory.
 PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# Special-function results a clock on one SM (square roots, logarithms).
+SFU_PER_SM_CLOCK = 16
 KERNEL_SOURCES = {
     "grad_fused": ("tikejax_torch/csrc/grad_fused.cu",
                    "tikejax/ops/pallas_fused.py:1283"),
@@ -349,14 +363,16 @@ def compare_adjoints(torch, fused, far, scan_i, prb, psi):
 
 def compare_variant(torch, fused, args, ndet, model, base, far, variant):
     """One forced variant of grad_fused, minf_fused and fwd (with ``base``),
-    grad_prb_fused, and adj_probe and adj_residual (on ``far``) against the
-    plain versions; every objective, the two probe sums and fwd's farplane
-    bitwise repeatable, two runs of each object gradient within
-    SCATTER_REPEAT. With the 'fft' variant the three objectives are one
-    number, bit for bit (a line search compares them), and fwd's farplane
-    is the one minf_fused forms inside: minf_fused of zeros on it as the
-    base is minf_fused's objective, bit for bit. Returns the relative
-    errors {kernel: (value err, objective err)}."""
+    grad_prb_fused, and adj_probe, adj_residual and fwd_quad_stats (on
+    ``far``) against the plain versions; every objective, the two probe
+    sums, fwd's farplane and the statistics planes bitwise repeatable, two
+    runs of each object gradient within SCATTER_REPEAT. With the 'fft'
+    variant the three objectives are one number, bit for bit (a line search
+    compares them), and fwd's farplane is the one minf_fused forms inside:
+    minf_fused of zeros on it as the base is minf_fused's objective, bit for
+    bit; without a base it is also the direction farplane fwd_quad_stats
+    forms: its statistics of psi on fwd(psi) are a == b == c, bit for bit.
+    Returns the relative errors {kernel: (value err, objective err)}."""
     psi, data, scan_i, prb = args
     nprb = prb.shape[-1]
     nz, n = psi.shape[-2:]
@@ -382,6 +398,9 @@ def compare_variant(torch, fused, args, ndet, model, base, far, variant):
         far, data, scan_i, prb, nz, n, model, variant=variant))
     r_r, s_r = fused.adj_residual_reference(far, data, scan_i, prb, nz, n,
                                             model)
+    x_k, x_2 = twice(lambda: fused._fwd_quad_stats_cuda(
+        psi, scan_i, prb, far, variant=variant))
+    x_r = fused.fwd_quad_stats_reference(psi, scan_i, prb, far)
 
     def obj_err(got, ref):
         return abs(float(got) - float(ref)) / abs(float(ref))
@@ -392,18 +411,22 @@ def compare_variant(torch, fused, args, ndet, model, base, far, variant):
                                obj_err(h_k, h_r)),
             "adj_probe": (rel_err(torch, p_k, p_r)[0], 0.0),
             "fwd": (rel_err(torch, o_k, o_r)[0], 0.0),
-            "adj_residual": (rel_err(torch, r_k, r_r)[0], obj_err(s_k, s_r))}
+            "adj_residual": (rel_err(torch, r_k, r_r)[0], obj_err(s_k, s_r)),
+            "fwd_quad_stats": (max(rel_err(torch, x, r)[0]
+                                   for x, r in zip(x_k, x_r)), 0.0)}
     for name, (err, f_err) in errs.items():
         check(err <= GRAD_TOL and f_err <= MINF_TOL,
               (name, variant, model, err, f_err))
     check(all(bool(torch.isfinite(x).all())
-              for x in (g_k, q_k, p_k, o_k, r_k)), ("not finite", variant))
+              for x in (g_k, q_k, p_k, o_k, r_k, *x_k)),
+          ("not finite", variant))
     check(float(f_k) == float(f_2) and float(m_k) == float(m_2)
           and float(h_k) == float(h_2) and torch.equal(q_k, q_2)
           and torch.equal(p_k, p_2) and torch.equal(o_k, o_2)
-          and float(s_k) == float(s_2),
-          f"variant {variant}: an objective, a probe sum or the farplane is "
-          "not bitwise repeatable")
+          and float(s_k) == float(s_2)
+          and all(torch.equal(x, y) for x, y in zip(x_k, x_2)),
+          f"variant {variant}: an objective, a probe sum, the farplane or "
+          "the statistics are not bitwise repeatable")
     for name, a, b in (("grad_fused", g_2, g_k), ("adj_residual", r_2, r_k)):
         again, _ = rel_err(torch, a, b)
         check(again <= SCATTER_REPEAT, (name + " repeat", variant, again))
@@ -417,7 +440,20 @@ def compare_variant(torch, fused, args, ndet, model, base, far, variant):
         check(float(via) == float(m_k),
               ("minf_fused on fwd's farplane differs", float(via),
                float(m_k)))
+        if base is None:
+            equal_stats(torch, fused._fwd_quad_stats_cuda(
+                psi, scan_i, prb, o_k, variant="fft"), scan_i)
     return errs
+
+
+def equal_stats(torch, stats, scan_i):
+    """a == b == c bit for bit on every valid frame: fwd_quad_stats of a
+    direction on the farplane fwd stored for it (the same forward half)."""
+    a, b, c = stats
+    valid = scan_i[..., 0] >= 0
+    check(torch.equal(a[valid], b[valid]) and torch.equal(b[valid], c[valid]),
+          ("fwd_quad_stats of x on fwd(x): a, b, c differ",
+           float((a - c)[valid].abs().max())))
 
 
 def fwd_feeds_minf(torch, fused, psi, data, scan_i, prb, ndet, base):
@@ -438,20 +474,22 @@ def show_errs(errs) -> str:
     return ", ".join(f"{k} {e:.2e}/{f:.2e}" for k, (e, f) in errs.items())
 
 
-def in_turns_ms(torch, timer, label, fft_fn, gemm_fn, reps=5):
-    """(fft ms, gemm ms): ``reps`` back-to-back launches of each, in the
-    order gemm, fft, fft, gemm, each run between two synchronises (the
-    port's ``utils.Timer``); the two runs of a variant are averaged."""
-    for fn in (fft_fn, gemm_fn):
+def in_turns_ms(torch, timer, label, new_fn, old_fn, reps=5):
+    """(new ms, old ms) of two kernels of one function (the 'fft' and the
+    'gemm' variant, or ls_objectives' frame- and pixel-major kernels):
+    ``reps`` back-to-back launches of each, in the order old, new, new,
+    old, each run between two synchronises (the port's ``utils.Timer``);
+    the two runs of a kernel are averaged."""
+    for fn in (new_fn, old_fn):
         fn()  # warm-up
-    for key, fn in (("gemm 1", gemm_fn), ("fft 1", fft_fn),
-                    ("fft 2", fft_fn), ("gemm 2", gemm_fn)):
+    for key, fn in (("old 1", old_fn), ("new 1", new_fn),
+                    ("new 2", new_fn), ("old 2", old_fn)):
         with timer(f"{label} {key}"):
             for _ in range(reps):
                 fn()
     t = timer.times
     return tuple(1e3 * (t[f"{label} {v} 1"] + t[f"{label} {v} 2"])
-                 / (2 * reps) for v in ("fft", "gemm"))
+                 / (2 * reps) for v in ("new", "old"))
 
 
 def kernel_report(cuda_build, report: str, pattern: str) -> dict:
@@ -495,18 +533,28 @@ def compare_quad_stats(torch, fused, x, scan_i, p, fpsi):
 
 
 def compare_ls(torch, linesearch, fpsi, fd, data, model):
-    """ls_objectives at LS_STEPS against its plain version, each value
-    within MINF_TOL, and bitwise repeatable: (worst err, abs err)."""
+    """ls_objectives at LS_STEPS, its frame-major kernel (as launched) and
+    the forced pixel-major one, against its plain version, each value
+    within MINF_TOL, each kernel bitwise repeatable: (worst err of the
+    frame-major kernel, its abs err, worst err of the pixel-major one)."""
     v_k = linesearch.ls_objectives(fpsi, fd, data, LS_STEPS, model)
+    check(linesearch.ls_objectives.variant == "frame",
+          linesearch.ls_objectives.variant)
     v_2 = linesearch.ls_objectives(fpsi, fd, data, LS_STEPS, model)
+    steps = torch.tensor(LS_STEPS, dtype=torch.float32, device=fpsi.device)
+    p_k, p_2 = (linesearch._ls_objectives_cuda(fpsi, fd, data, steps, model,
+                                               variant="pixel")
+                for _ in range(2))
     v_r = linesearch.ls_objectives_reference(fpsi, fd, data, LS_STEPS,
                                              model)
     torch.cuda.synchronize()
     err = float(((v_k - v_r).abs() / v_r.abs()).max())
-    check(bool(torch.isfinite(v_k).all()) and err <= MINF_TOL,
-          ("ls_objectives", model, err))
-    check(torch.equal(v_k, v_2), "ls_objectives is not bitwise repeatable")
-    return err, float((v_k - v_r).abs().max())
+    p_err = float(((p_k - v_r).abs() / v_r.abs()).max())
+    check(bool(torch.isfinite(v_k).all()) and err <= MINF_TOL
+          and p_err <= MINF_TOL, ("ls_objectives", model, err, p_err))
+    check(torch.equal(v_k, v_2) and torch.equal(p_k, p_2),
+          "ls_objectives is not bitwise repeatable")
+    return err, float((v_k - v_r).abs().max()), p_err
 
 
 def compare_at_scale(torch, fused, g, psi, data, scan_i, prb, base, chunk):
@@ -703,12 +751,14 @@ def device_busy(torch, fn):
     check(len(spans) > 0, "the profiler saw nothing run on the card")
     busy, end, by_name = 0.0, -math.inf, {}
     for start, stop, name in spans:
-        by_name[name] = by_name.get(name, 0.0) + (stop - start)
+        # Summed by the 60 characters shown: kernels that share them (the
+        # instantiations of one PyTorch template) count together.
+        by_name[name[:60]] = by_name.get(name[:60], 0.0) + (stop - start)
         busy += max(0.0, stop - max(start, end))
         end = max(end, stop)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return (wall_us / 1e3, busy / wall_us,
-            {name[:60]: us / 1e3 for name, us in top})
+            {name: us / 1e3 for name, us in top})
 
 
 def show_busy(iters, busy, plain_ms) -> str:
@@ -754,11 +804,16 @@ def main() -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     card = f"{torch.cuda.get_device_name(0)} ({smi})"
+    sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
     # Plain fp32 everywhere: the reference must not run in TF32.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("device", f"{smi}; torch {torch.__version__}, CUDA "
-        f"{torch.version.cuda}, {torch.cuda.device_count()} visible")
+        f"{torch.version.cuda}, {torch.cuda.device_count()} visible; "
+        f"SM clock at most {sm_mhz:g} MHz")
     dev = torch.device("cuda", 0)
 
     # -- 2. build --------------------------------------------------------
@@ -856,11 +911,12 @@ def main() -> None:
                     f"{' with base' if b is not None else ''}, value/"
                     f"objective err: {show_errs(errs)}")
     log("kernel", f"small {pow2}: on both variants every objective, both "
-        "probe sums and fwd's farplane bitwise repeatable, the object "
-        f"gradients within {SCATTER_REPEAT:g} of scale between two runs; on "
-        "'fft' the objectives of grad_fused, minf_fused and grad_prb_fused "
-        "equal bit for bit, and minf_fused of zeros on fwd's farplane equal "
-        "to minf_fused's objective bit for bit")
+        "probe sums, fwd's farplane and fwd_quad_stats' planes bitwise "
+        f"repeatable, the object gradients within {SCATTER_REPEAT:g} of "
+        "scale between two runs; on 'fft' the objectives of grad_fused, "
+        "minf_fused and grad_prb_fused equal bit for bit, minf_fused of "
+        "zeros on fwd's farplane equal to minf_fused's objective bit for "
+        "bit, and fwd_quad_stats of psi on fwd(psi) a == b == c bit for bit")
     del args_p, base_p, data_p
     far_s = fused.fwd(psi_s, scan_si, prb_s, small.ndet)
     dpsi_s = 0.1 * crandn(*small.psi_shape, generator=gen4)
@@ -870,17 +926,21 @@ def main() -> None:
         ar_err, arf_err, _ = compare_adj_residual(
             torch, fused, far_s, data_s, scan_si, prb_s, small.nz, small.n,
             model)
-        ls_err, _ = compare_ls(torch, linesearch, far_s, fd_s, data_s, model)
+        ls_err, _, lp_err = compare_ls(torch, linesearch, far_s, fd_s,
+                                       data_s, model)
         check(fused.adj_residual.variant == "gemm",
               fused.adj_residual.variant)
         log("kernel", f"small {small} {model}: adj_residual ('gemm' variant) "
             f"grad/minf err {ar_err:.2e}/{arf_err:.2e}; ls_objectives err "
-            f"{ls_err:.2e} at {len(LS_STEPS)} steps (bitwise repeatable)")
+            f"{ls_err:.2e} (frame-major), {lp_err:.2e} (pixel-major) at "
+            f"{len(LS_STEPS)} steps (both bitwise repeatable)")
     q_errs = [compare_quad_stats(torch, fused, x, scan_si, p, far_s)[0]
               for x, p in ((dpsi_s, prb_s), (psi_s, dprb_s))]
-    log("kernel", f"small {small}: fwd_quad_stats err {q_errs[0]:.2e} "
-        f"(object direction), {q_errs[1]:.2e} (probe direction), bitwise "
-        "repeatable")
+    check(fused.fwd_quad_stats.variant == "gemm",
+          fused.fwd_quad_stats.variant)
+    log("kernel", f"small {small}: fwd_quad_stats ('gemm' variant) err "
+        f"{q_errs[0]:.2e} (object direction), {q_errs[1]:.2e} (probe "
+        "direction), bitwise repeatable")
     del far_s, fd_s
     # The adjoints' frames as the operators hand them over: the 56^2 crop
     # of 72^2 frames, a strided view.
@@ -1018,6 +1078,23 @@ def main() -> None:
         f"err {ar_err:.2e}/{arf_err:.2e} (objective bitwise repeatable); "
         f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
         f"{bounds['adj_residual'][0]:.3f} ms, median of 10 on {card}")
+    q_err, q_abs = compare_quad_stats(torch, fused, dpsi_h, scan_i, prb, far)
+    check(fused.fwd_quad_stats.variant == "fft", fused.fwd_quad_stats.variant)
+    ms = median_ms(torch, lambda: fused.fwd_quad_stats(dpsi_h, scan_i, prb,
+                                                       far), 10)
+    plain_ms = median_ms(torch, lambda: fused.fwd_quad_stats_reference(
+        dpsi_h, scan_i, prb, far), 10)
+    results["fwd_quad_stats"] = (q_abs, ms, plain_ms)
+    bounds["fwd_quad_stats"] = bound(
+        fft_flops(scan_i, g.nmodes, g.ndet, 1),
+        nbytes(dpsi_h, scan_i, prb, far) + 3 * nbytes(data))
+    # The direction's farplane is fwd's, bit for bit: the statistics of
+    # psi_r on far = fwd(psi_r) are three equal planes.
+    equal_stats(torch, fused.fwd_quad_stats(psi_r, scan_i, prb, far), scan_i)
+    log("kernel", f"headline {g} fwd_quad_stats ('fft' variant): err "
+        f"{q_err:.2e} (bitwise repeatable; of psi on fwd(psi) a == b == c "
+        f"bit for bit); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{bounds['fwd_quad_stats'][0]:.3f} ms, median of 10 on {card}")
     # Both variants of the redesigned kernels at the headline: the
     # 'gemm' variant, forced, still agrees with the plain version; then
     # the times, taken in turns within this run.
@@ -1042,7 +1119,9 @@ def main() -> None:
             ("adj_probe", lambda **kw: fused._adj_probe_cuda(
                 base, scan_i, psi_r, g.nprb, **kw)),
             ("adj_residual", lambda **kw: fused._adj_residual_cuda(
-                far, data, scan_i, prb, g.nz, g.n, "gaussian", **kw))):
+                far, data, scan_i, prb, g.nz, g.n, "gaussian", **kw)),
+            ("fwd_quad_stats", lambda **kw: fused._fwd_quad_stats_cuda(
+                dpsi_h, scan_i, prb, far, **kw))):
         fft_ms, gemm_ms = in_turns_ms(
             torch, timer, name, lambda: run_variant(variant="fft"),
             lambda: run_variant(variant="gemm"))
@@ -1081,37 +1160,67 @@ def main() -> None:
             f"{per_sm} block/SM; 'gemm' {old['registers']} registers, "
             f"{old['spill_stores'] + old['spill_loads']} spill bytes; on "
             f"{card}")
-    q_err, q_abs = compare_quad_stats(torch, fused, dpsi_h, scan_i, prb, far)
-    ms = median_ms(torch, lambda: fused.fwd_quad_stats(dpsi_h, scan_i, prb,
-                                                       far), 10)
-    plain_ms = median_ms(torch, lambda: fused.fwd_quad_stats_reference(
-        dpsi_h, scan_i, prb, far), 10)
-    results["fwd_quad_stats"] = (q_abs, ms, plain_ms)
-    bounds["fwd_quad_stats"] = bound(
-        fft_flops(scan_i, g.nmodes, g.ndet, 1),
-        nbytes(dpsi_h, scan_i, prb, far) + 3 * nbytes(data))
-    log("kernel", f"headline {g} fwd_quad_stats: err {q_err:.2e} (bitwise "
-        f"repeatable); kernel {ms:.3f} ms ({flops / 2 / ms / 1e9:.1f} "
-        f"TFLOP/s fp32), plain {plain_ms:.3f} ms, bound "
-        f"{bounds['fwd_quad_stats'][0]:.3f} ms, median of 10 on {card}")
     fd = fused.fwd(dpsi_h, scan_i, prb, g.ndet)
-    ls_err, ls_abs = compare_ls(torch, linesearch, far, fd, data, "gaussian")
+    ls_err, ls_abs, lp_err = compare_ls(torch, linesearch, far, fd, data,
+                                        "gaussian")
     ms = median_ms(torch, lambda: linesearch.ls_objectives(
         far, fd, data, LS_STEPS, "gaussian"), 10)
     plain_ms = median_ms(torch, lambda: linesearch.ls_objectives_reference(
         far, fd, data, LS_STEPS, "gaussian"), 10)
-    # One step: the same read of both farplanes and the data, so the
-    # difference is the per-step work.
-    one_ms = median_ms(torch, lambda: linesearch.ls_objectives(
-        far, fd, data, LS_STEPS[:1], "gaussian"), 10)
     results["ls_objectives"] = (ls_abs, ms, plain_ms)
     bounds["ls_objectives"] = bound(
         ls_flops(data, g.nmodes, len(LS_STEPS)),
         nbytes(far, fd, data) + 8 * len(LS_STEPS))
-    log("kernel", f"headline {g} ls_objectives at {len(LS_STEPS)} steps: "
-        f"err {ls_err:.2e} (bitwise repeatable); kernel {ms:.3f} ms (at one "
-        f"step {one_ms:.3f} ms), plain {plain_ms:.3f} ms, bound "
-        f"{bounds['ls_objectives'][0]:.3f} ms, median of 10 on {card}")
+    # The K square roots (or logarithms) of a pixel on the special-function
+    # units, at the card's highest SM clock: under the byte bound.
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sfu_ms = 1e3 * len(LS_STEPS) * data.numel() / (
+        SFU_PER_SM_CLOCK * sms * sm_mhz * 1e6)
+    log("kernel", f"headline {g} ls_objectives at {len(LS_STEPS)} steps "
+        f"(frame-major kernel): err {ls_err:.2e}, forced pixel-major "
+        f"{lp_err:.2e} (both bitwise repeatable); kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {bounds['ls_objectives'][0]:.3f} ms by "
+        f"{bounds['ls_objectives'][1]} (the {len(LS_STEPS)} x "
+        f"{data.numel()} special-function results alone {sfu_ms:.3f} ms at "
+        f"{SFU_PER_SM_CLOCK} a clock per SM and {sm_mhz:g} MHz), median of "
+        f"10 on {card}")
+    # The frame-major kernel against the pixel-major one it replaced, in
+    # turns: one step (the same read of both farplanes and the data, so the
+    # difference at 17 steps is the per-step work) and the solver's 17.
+    ls_turns = {}
+    for model in ("gaussian", "poisson"):
+        for steps in (LS_STEPS[:1], LS_STEPS):
+            gam = torch.tensor(steps, dtype=torch.float32, device=dev)
+            ls_turns[model, len(steps)] = in_turns_ms(
+                torch, timer, f"ls_objectives {model} {len(steps)}",
+                lambda: linesearch._ls_objectives_cuda(
+                    far, fd, data, gam, model, variant="frame"),
+                lambda: linesearch._ls_objectives_cuda(
+                    far, fd, data, gam, model, variant="pixel"))
+    check(all(new < old for (_, k), (new, old) in ls_turns.items()
+              if k == len(LS_STEPS)), ("ls_objectives: the frame-major "
+                                       "kernel is not faster", ls_turns))
+    ls_regs, pixel_regs = (kernel_report(cuda_build,
+                                         built["ls_objectives"][2], e)
+                           for e in LS_ENTRIES)
+    per_sm = linesearch.frame_blocks_per_sm(
+        dev.index, linesearch.step_bucket(len(LS_STEPS)))
+    ls_pixel_ms = ls_turns["gaussian", len(LS_STEPS)][1]
+    log("kernel", f"headline {g} ls_objectives: frame-major / forced "
+        "pixel-major kernel, 5 back-to-back launches each in turns pixel, "
+        "frame, frame, pixel: " + "; ".join(
+            f"{model} {k} step{'s' if k > 1 else ''} {new:.3f} / {old:.3f} "
+            f"ms ({old / new:.1f}x, "
+            f"{100 * bounds['ls_objectives'][0] / new:.1f}% of the bound "
+            "reached)"
+            for (model, k), (new, old) in ls_turns.items())
+        + f"; frame-major at {len(LS_STEPS)} steps {ls_regs['registers']} "
+        f"registers, {ls_regs['spill_stores'] + ls_regs['spill_loads']} "
+        f"spill bytes, {ls_regs['smem']} B static shared memory, {per_sm} "
+        f"blocks of 256 threads/SM; pixel-major {pixel_regs['registers']} "
+        "registers, "
+        f"{pixel_regs['spill_stores'] + pixel_regs['spill_loads']} spill "
+        f"bytes; on {card}")
     # The hybrid tier's kernels on the same object, probe and frames (the
     # detector is the probe's size here, so the frames are contiguous).
     h_errs = compare_hybrid(torch, kernels, psi_r, scan_i, prb, base)
@@ -1303,10 +1412,12 @@ def main() -> None:
           == mat["ls_objectives"] == 0, mat)
     check(float(res[-1]) <= 0.1 * float(res[0]), res)
     check(peak < mat_peak, f"peak extra memory {peak} bytes")
-    check(fused.fwd.variant == fused.adj_residual.variant == "fft",
-          (fused.fwd.variant, fused.adj_residual.variant))
-    log("materialized", f"{g} gaussian, run(memory='materialized'), fwd and "
-        f"adj_residual on 'fft', {iters} "
+    check(fused.fwd.variant == fused.adj_residual.variant
+          == fused.fwd_quad_stats.variant == "fft",
+          (fused.fwd.variant, fused.adj_residual.variant,
+           fused.fwd_quad_stats.variant))
+    log("materialized", f"{g} gaussian, run(memory='materialized'), fwd, "
+        f"adj_residual and fwd_quad_stats on 'fft', {iters} "
         f"iters in {seconds:.3f} s: {iters / seconds:.2f} iters/s, "
         f"{1e3 * seconds / iters:.2f} ms/iter, "
         f"{m['evaluations'] / iters:.2f} evals/iter, "
@@ -1344,10 +1455,13 @@ def main() -> None:
           == 0, fls)
     check(float(res[-1]) <= 0.1 * float(res[0]), res)
     check(peak < fls_peak, f"peak extra memory {peak} bytes")
-    check(fused.fwd.variant == fused.adj_residual.variant == "fft",
-          (fused.fwd.variant, fused.adj_residual.variant))
+    check(fused.fwd.variant == fused.adj_residual.variant == "fft"
+          and linesearch.ls_objectives.variant == "frame",
+          (fused.fwd.variant, fused.adj_residual.variant,
+           linesearch.ls_objectives.variant))
     log("fused-ls", f"{g} gaussian, run(memory='materialized', "
-        f"fused_linesearch=True), fwd and adj_residual on 'fft', {iters} "
+        f"fused_linesearch=True), fwd and adj_residual on 'fft', "
+        f"ls_objectives frame-major, {iters} "
         f"iters in {seconds:.3f} s: "
         f"{iters / seconds:.2f} iters/s, {1e3 * seconds / iters:.2f} "
         f"ms/iter, {m['evaluations'] / iters:.2f} evals/iter, "
@@ -1567,11 +1681,12 @@ def main() -> None:
           == matj["ls_objectives"] == 0, matj)
     check(peak < MATERIALIZED_JOINT_PEAK, f"peak extra memory {peak} bytes")
     check(fused.fwd.variant == fused.adj_residual.variant
-          == fused.adj_probe.variant == "fft",
+          == fused.adj_probe.variant == fused.fwd_quad_stats.variant == "fft",
           (fused.fwd.variant, fused.adj_residual.variant,
-           fused.adj_probe.variant))
+           fused.adj_probe.variant, fused.fwd_quad_stats.variant))
     log("materialized", f"{g3} poisson, run(recover_prb=True, memory="
-        f"'materialized'), fwd, adj_residual and adj_probe on 'fft', "
+        f"'materialized'), fwd, adj_residual, adj_probe and fwd_quad_stats "
+        f"on 'fft', "
         f"{iters} iters in {seconds:.3f} s: "
         f"{iters / seconds:.2f} iters/s, {m['evaluations'] / iters:.2f} "
         f"evals/iter, {m['host_syncs'] / iters:.2f} host syncs/iter, "
@@ -1792,7 +1907,9 @@ def main() -> None:
         "plain_ms": results[name][2], "bound_ms": bounds[name][0],
         "bound_by": bounds[name][1], "library_ms": None,
         **({"variant": "fft", "gemm_ms": variant_lines[name]}
-           if name in variant_lines else {})}
+           if name in variant_lines else {}),
+        **({"variant": "frame", "pixel_ms": ls_pixel_ms}
+           if name == "ls_objectives" else {})}
         for name, (src, tpu) in KERNEL_SOURCES.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -18,12 +18,15 @@ reductions (``grad_prb_fused``, ``adj_probe``, ``adj_probe_reduce``),
 reproducible; the object scatters (``grad_fused``, ``adj``,
 ``adj_residual``, ``scatter_conj_probe``) only up to summation order.
 
-``grad_fused``, ``minf_fused``, ``grad_prb_fused``, ``fwd``, ``adj_probe``
-and ``adj_residual`` have two kernels each: ``GEOMS`` runs their
-``'gemm'`` variant (but for its 32^2 detector), ``POW2_GEOMS`` their
-``'fft'`` variant, and one shape runs both, forced through the private
-wrappers' ``variant`` argument. On ``'fft'`` the farplane ``fwd`` stores is
-bit for bit the one ``minf_fused`` forms inside.
+``grad_fused``, ``minf_fused``, ``grad_prb_fused``, ``fwd``,
+``adj_probe``, ``adj_residual`` and ``fwd_quad_stats`` have two kernels
+each: ``GEOMS`` runs their ``'gemm'`` variant (but for its 32^2 detector),
+``POW2_GEOMS`` their ``'fft'`` variant, and one shape runs both, forced
+through the private wrappers' ``variant`` argument. On ``'fft'`` the
+farplane ``fwd`` stores is bit for bit the one ``minf_fused`` forms inside,
+and ``fwd_quad_stats`` of a direction on its own farplane gives
+``a == b == c`` bit for bit. ``ls_objectives`` launches its frame-major
+kernel; the pixel-major one, forced, is held to the same values.
 """
 
 import pytest
@@ -505,7 +508,7 @@ def test_materialized_run_launches_the_kernels(dev):
 
 
 # -- the two variants of grad_fused, minf_fused, grad_prb_fused, fwd,
-# adj_probe, adj_residual ---------------------------------------------------
+# adj_probe, adj_residual, fwd_quad_stats; ls_objectives' two kernels ---------
 
 POW2_GEOMS = [
     Geometry(nz=97, n=101, nscan=37, ndet=64, nprb=48, ntheta=2, nmodes=2),
@@ -704,6 +707,13 @@ def test_both_variants_agree_at_one_shape(dev, threads):
                                 threads=threads)
     p_g = fused._adj_probe_cuda(far, scan_i, psi, g.nprb, variant="gemm")
     assert close(p_f, p_g, 1e-5)
+    q_f = fused._fwd_quad_stats_cuda(0.1 * psi, scan_i, prb, far,
+                                     variant="fft", threads=threads)
+    assert fused.fwd_quad_stats.variant == "fft"
+    q_g = fused._fwd_quad_stats_cuda(0.1 * psi, scan_i, prb, far,
+                                     variant="gemm")
+    assert fused.fwd_quad_stats.variant == "gemm"
+    assert all(close(x, y, 1e-5) for x, y in zip(q_f, q_g))
     for base in (None, far):
         o_f = fused._fwd_cuda(psi, scan_i, prb, g.ndet, base, variant="fft",
                               threads=threads)
@@ -746,6 +756,99 @@ def test_fft_variants_skip_masked_positions(dev):
     assert float(grad.abs().max()) == 0.0 and float(minf) == 0.0
 
 
+@pytest.mark.parametrize("which", ["object", "probe"])
+@pytest.mark.parametrize("g", POW2_GEOMS, ids=str)
+def test_fft_fwd_quad_stats_matches_plain_version(dev, g, which):
+    """The FFT fwd_quad_stats against its plain version for the object and
+    the probe direction, bitwise repeatable, masked frames all zero."""
+    psi, _, scan_i, prb, fpsi, dpsi, dprb = materialized_inputs(g, dev)
+    x, p = (dpsi, prb) if which == "object" else (psi, dprb)
+    launches = fused.fwd_quad_stats.launches
+    got = fused.fwd_quad_stats(x, scan_i, p, fpsi)
+    assert fused.fwd_quad_stats.launches == launches + 1
+    assert fused.fwd_quad_stats.variant == "fft"
+    ref = fused.fwd_quad_stats_reference(x, scan_i, p, fpsi)
+    for t, r in zip(got, ref):
+        assert t.dtype == torch.float32 and t.shape == g.data_shape
+        assert close(t, r)
+    masked = scan_i[..., 0] < 0
+    assert all(float(t[masked].abs().max()) == 0.0 for t in got)
+    again = fused.fwd_quad_stats(x, scan_i, p, fpsi)
+    assert all(torch.equal(t, u) for t, u in zip(got, again))
+
+
+@pytest.mark.parametrize("nmodes", [1, 2])
+def test_fwd_quad_stats_of_fwd_gives_equal_statistics(dev, nmodes):
+    """On 'fft' the direction's farplane is, bit for bit, the one fwd
+    stores: with fp = fwd(x) and the direction x, a == b == c on every
+    valid frame (a masked frame is zero in all three)."""
+    g = Geometry(nz=140, n=150, nscan=30, ndet=128, nprb=100, ntheta=2,
+                 nmodes=nmodes)
+    psi, _, scan_i, prb = inputs(g, dev)
+    far = fused.fwd(psi, scan_i, prb, g.ndet)
+    a, b, c = fused.fwd_quad_stats(psi, scan_i, prb, far)
+    assert fused.fwd.variant == fused.fwd_quad_stats.variant == "fft"
+    valid = scan_i[..., 0] >= 0
+    assert torch.equal(a[valid], b[valid]) and torch.equal(b[valid], c[valid])
+    assert float(a[valid].min()) > 0.0
+    assert all(float(t[~valid].abs().max()) == 0.0 for t in (a, b, c))
+
+
+LS_GEOMS = [
+    POW2_GEOMS[0],                                              # 64^2, 2 modes
+    GEOMS[0],                                                   # 72^2
+    Geometry(nz=64, n=64, nscan=9, ndet=33, nprb=20),           # odd side
+]
+
+
+@pytest.mark.parametrize("model", ["gaussian", "poisson"])
+@pytest.mark.parametrize("k", [1, 2, 5, 17, 33])
+@pytest.mark.parametrize("g", LS_GEOMS, ids=str)
+def test_frame_ls_objectives_matches_plain_and_pixel(dev, g, k, model):
+    """The frame-major ls_objectives at K steps (a masked position among
+    the frames) against its plain version and the forced pixel-major
+    kernel, each value within 1e-5; both bitwise repeatable."""
+    psi, data, scan_i, prb, fpsi, dpsi, _ = materialized_inputs(g, dev)
+    fd = fused.fwd_reference(dpsi, scan_i, prb, g.ndet)
+    steps = [0.7 ** j for j in range(k)]
+    launches = linesearch.ls_objectives.launches
+    got = linesearch.ls_objectives(fpsi, fd, data, steps, model)
+    assert linesearch.ls_objectives.launches == launches + 1
+    assert linesearch.ls_objectives.variant == "frame"
+    assert got.dtype == torch.float32 and got.shape == (k,)
+    ref = linesearch.ls_objectives_reference(fpsi, fd, data, steps, model)
+    assert float(((got - ref).abs() / ref.abs()).max()) <= 1e-5
+    gamma = torch.tensor(steps, dtype=torch.float32, device=dev)
+    old = linesearch._ls_objectives_cuda(fpsi, fd, data, gamma, model,
+                                         variant="pixel")
+    assert linesearch.ls_objectives.variant == "pixel"
+    assert float(((got - old).abs() / old.abs()).max()) <= 1e-5
+    assert torch.equal(got, linesearch.ls_objectives(fpsi, fd, data, steps,
+                                                     model))
+    assert torch.equal(old, linesearch._ls_objectives_cuda(
+        fpsi, fd, data, gamma, model, variant="pixel"))
+
+
+def test_frame_ls_objectives_reads_unaligned_views(dev):
+    """Farplanes and data at an odd element offset (not aligned for the
+    pair loads) are read pixel by pixel, to the same values within 1e-5."""
+    g = POW2_GEOMS[0]
+    psi, data, scan_i, prb, fpsi, dpsi, _ = materialized_inputs(g, dev)
+    fd = fused.fwd_reference(dpsi, scan_i, prb, g.ndet)
+
+    def odd(x):
+        store = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+        view = store[1:].view(x.shape)
+        view.copy_(x)
+        return view
+
+    ref = linesearch.ls_objectives(fpsi, fd, data, GAMMAS, "poisson")
+    got = linesearch.ls_objectives(odd(fpsi), odd(fd), odd(data), GAMMAS,
+                                   "poisson")
+    assert linesearch.ls_objectives.variant == "frame"
+    assert float(((got - ref).abs() / ref.abs()).max()) <= 1e-5
+
+
 def test_wrong_variant_raises(dev):
     """A variant that cannot run the shapes, an unknown one, or a block
     size without a kernel raises; nothing gives way to another path."""
@@ -763,7 +866,14 @@ def test_wrong_variant_raises(dev):
     with pytest.raises(ValueError, match="adj_residual: the 'fft' variant"):
         fused._adj_residual_cuda(far, data, scan_i, prb, GEOMS[0].nz,
                                  GEOMS[0].n, "gaussian", variant="fft")
-    counts = (fused.fwd.launches, fused.adj_residual.launches)
+    with pytest.raises(ValueError, match="fwd_quad_stats: the 'fft' var"):
+        fused._fwd_quad_stats_cuda(psi, scan_i, prb, far, variant="fft")
+    with pytest.raises(ValueError, match="ls_objectives: unknown variant"):
+        linesearch._ls_objectives_cuda(
+            far, far, data, torch.ones(3, device=dev), "gaussian",
+            variant="fft")
+    counts = (fused.fwd.launches, fused.adj_residual.launches,
+              fused.fwd_quad_stats.launches, linesearch.ls_objectives.launches)
     psi, data, scan_i, prb = inputs(g, dev)
     with pytest.raises(ValueError, match="unknown variant"):
         fused._grad_fused_cuda(psi, data, scan_i, prb, g.ndet, "gaussian",
@@ -784,11 +894,17 @@ def test_wrong_variant_raises(dev):
     with pytest.raises(RuntimeError, match="occupancy query"):
         fused._adj_residual_cuda(far, data, scan_i, prb, g.nz, g.n,
                                  "gaussian", threads=256)
+    with pytest.raises(RuntimeError, match="occupancy query"):
+        fused._fwd_quad_stats_cuda(psi, scan_i, prb, far, threads=1024)
     # A farplane at an odd complex offset: 8-byte aligned, not 16.
     store = torch.empty(far.numel() + 1, dtype=torch.complex64, device=dev)
     odd = store[1:].view(far.shape)
     odd.copy_(far)
     with pytest.raises(ValueError, match="16-byte aligned"):
         fused.adj_residual(odd, data, scan_i, prb, g.nz, g.n, "gaussian")
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fused.fwd_quad_stats(psi, scan_i, prb, odd)
     assert (fused.grad_fused.launches, fused.adj_probe.launches) == launches
-    assert (fused.fwd.launches, fused.adj_residual.launches) == counts
+    assert (fused.fwd.launches, fused.adj_residual.launches,
+            fused.fwd_quad_stats.launches,
+            linesearch.ls_objectives.launches) == counts

@@ -1,12 +1,15 @@
 """Which of their two hand-written kernels ``grad_fused``, ``minf_fused``,
-``grad_prb_fused``, ``fwd``, ``adj_probe`` and ``adj_residual`` launch on
-the card is one pure function of the shapes (one, because a line search
-compares the objectives of the first three, which must share their
-arithmetic, and ``fwd`` stores the farplane they read as a base), pinned
-here on the CPU: ``'fft'`` (the frame's FFT in shared memory) for a detector
-side of 16, 32, 64 or 128, ``'gemm'`` (DFT matrix products) for every other
-size. The choice is made before the launch and never changed after it; on a
-CPU tensor neither runs (the plain version does)."""
+``grad_prb_fused``, ``fwd``, ``adj_probe``, ``adj_residual`` and
+``fwd_quad_stats`` launch on the card is one pure function of the shapes
+(one, because a line search compares the objectives of the first three,
+which must share their arithmetic, and ``fwd`` stores the farplane they
+read as a base), pinned here on the CPU: ``'fft'`` (the frame's FFT in
+shared memory) for a detector side of 16, 32, 64 or 128, ``'gemm'`` (DFT
+matrix products) for every other size. ``ls_objectives`` launches its
+frame-major kernel for every step count, instantiated for the step bucket
+``linesearch.step_bucket`` names. The choice is made before the launch and
+never changed after it; on a CPU tensor no kernel runs (the plain version
+does)."""
 
 import inspect
 
@@ -15,7 +18,7 @@ import torch
 
 from tikejax_torch import Geometry
 from tikejax_torch.models import make_problem
-from tikejax_torch.ops import fused
+from tikejax_torch.ops import fused, linesearch
 from tikejax_torch.ops.patches import scan_to_int
 
 
@@ -63,7 +66,8 @@ def test_forced_variant_is_checked_before_any_launch():
         fused._pick_variant("grad_fused", None, 130, 128, 1)
     for fn in (fused._grad_fused_cuda, fused._minf_fused_cuda,
                fused._grad_prb_fused_cuda, fused._adj_probe_cuda,
-               fused._fwd_cuda, fused._adj_residual_cuda):
+               fused._fwd_cuda, fused._adj_residual_cuda,
+               fused._fwd_quad_stats_cuda):
         params = inspect.signature(fn).parameters
         assert params["variant"].default is params["threads"].default is None
     assert fused.fft_threads(128) == 1024 and fused.fft_threads(64) == 512
@@ -87,11 +91,16 @@ def test_public_signatures_are_the_reference_ones():
     assert list(inspect.signature(fused.adj_residual).parameters) == [
         "farplane", "data", "scan_int", "prb", "nz", "n", "model",
         "precision"]
+    assert list(inspect.signature(fused.fwd_quad_stats).parameters) == [
+        "dpsi", "scan_int", "prb", "fpsi", "precision"]
+    assert list(inspect.signature(linesearch.ls_objectives).parameters) == [
+        "fpsi", "fd", "data", "gammas", "model"]
 
 
-@pytest.mark.parametrize("name", ["fwd", "adj_residual"])
+@pytest.mark.parametrize("name", ["fwd", "adj_residual", "fwd_quad_stats"])
 def test_fwd_and_adj_residual_pick_as_the_others(name):
-    """``fwd`` and ``adj_residual`` follow the same rule: 'fft' at the
+    """``fwd``, ``adj_residual`` and ``fwd_quad_stats`` follow the same
+    rule: 'fft' at the
     power-of-two sides, 'gemm' elsewhere, a forced 'fft' off those sides
     raising before any launch, the unpadded measurement build by macro."""
     pick = fused._pick_variant
@@ -105,6 +114,37 @@ def test_fwd_and_adj_residual_pick_as_the_others(name):
         pick(name, "fft", 100, 130, 1)
     with pytest.raises(ValueError, match=f"{name}: need nprb <= ndet"):
         pick(name, None, 130, 128, 1)
+
+
+@pytest.mark.parametrize("k, bucket", [
+    (1, 1), (2, 2), (3, 4), (4, 4), (5, 8), (8, 8), (9, 17), (17, 17),
+    (18, 33), (33, 33)])
+def test_step_bucket_is_the_smallest_that_holds_k(k, bucket):
+    assert linesearch.step_bucket(k) == bucket
+
+
+def test_step_bucket_covers_every_step_count_and_raises_outside():
+    """Every K from 1 to 33 has a frame-major instantiation, the least of
+    the buckets that is >= K; no other K has one."""
+    for k in range(1, linesearch.MAX_STEPS + 1):
+        bucket = linesearch.step_bucket(k)
+        assert bucket in linesearch.STEP_BUCKETS and bucket >= k
+        assert all(b < k for b in linesearch.STEP_BUCKETS if b < bucket)
+    for k in (0, -1, 34, 100):
+        with pytest.raises(ValueError, match="1 to 33 steps"):
+            linesearch.step_bucket(k)
+
+
+def test_ls_objectives_variant_is_checked_before_any_launch():
+    """The private wrapper launches the frame-major kernel unless
+    ``variant='pixel'`` forces the old one; any other variant raises before
+    anything reaches a device."""
+    params = inspect.signature(linesearch._ls_objectives_cuda).parameters
+    assert params["variant"].default is None
+    z = torch.zeros((1, 1, 1, 16, 16), dtype=torch.complex64)
+    with pytest.raises(ValueError, match="unknown variant"):
+        linesearch._ls_objectives_cuda(z, z, z.real[:, :, 0], torch.ones(2),
+                                       "gaussian", variant="fft")
 
 
 
@@ -156,3 +196,33 @@ def test_fwd_and_adj_residual_on_cpu_run_the_plain_version():
         far, data, scan_i, prb, g.nz, g.n, "poisson")
     assert torch.equal(grad, ref_grad) and float(minf) == float(ref_minf)
     assert [fn.launches - b for fn, b in zip(fns, before)] == [0, 0, 3, 2]
+
+
+def test_fwd_quad_stats_and_ls_objectives_on_cpu_run_the_plain_version():
+    """``fwd_quad_stats`` and ``ls_objectives`` on CPU tensors at an FFT
+    size: the plain versions run, no kernel launches and no variant is
+    recorded, and the wrappers return what the plain versions return."""
+    g = Geometry(nz=40, n=40, nscan=6, ndet=32, nprb=16, nmodes=2)
+    assert fused.dft_variant(g.nprb, g.ndet, g.nmodes) == "fft"
+    gen = torch.Generator().manual_seed(2)
+    _, scan, prb, data = make_problem(gen, g, device="cpu")
+    scan_i = scan_to_int(scan)
+    psi = torch.ones(g.psi_shape, dtype=torch.complex64)
+    far = fused.fwd(psi, scan_i, prb, g.ndet)
+    fns = (fused.fwd_quad_stats, linesearch.ls_objectives,
+           fused.fwd_quad_stats_reference,
+           linesearch.ls_objectives_reference)
+    before = [fn.launches for fn in fns]
+    variants = (fused.fwd_quad_stats.variant, linesearch.ls_objectives.variant)
+    stats = fused.fwd_quad_stats(0.5 * psi, scan_i, prb, far)
+    values = linesearch.ls_objectives(far, 0.5 * far, data, [1.0, 0.5, 0.25],
+                                      "poisson")
+    assert all(x.shape == g.data_shape for x in stats)
+    assert values.shape == (3,)
+    ref = fused.fwd_quad_stats_reference(0.5 * psi, scan_i, prb, far)
+    assert all(torch.equal(x, r) for x, r in zip(stats, ref))
+    assert torch.equal(values, linesearch.ls_objectives_reference(
+        far, 0.5 * far, data, [1.0, 0.5, 0.25], "poisson"))
+    assert [fn.launches - b for fn, b in zip(fns, before)] == [0, 0, 2, 2]
+    assert (fused.fwd_quad_stats.variant,
+            linesearch.ls_objectives.variant) == variants

@@ -19,8 +19,10 @@
 // here as an FFT of the whole frame in shared memory (fft2_frame, at the end
 // of this file): 2.3 MFLOP a frame at 128^2 where the two matrix products
 // are 67 MFLOP. grad_fused.cu, minf_fused.cu, grad_prb_fused.cu, fwd.cu,
-// adj_probe.cu and adj_residual.cu run it (and keep their cgemm kernel for
-// every other size); adj.cu and fwd_quad_stats.cu still run cgemm alone.
+// adj_probe.cu, adj_residual.cu and fwd_quad_stats.cu run it (and keep
+// their cgemm kernel for every other size); adj.cu still runs cgemm alone.
+// ls_objectives.cu has no DFT: it takes the position test and the complex
+// helpers from here.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -535,7 +537,8 @@ __device__ __forceinline__ void scatter_patch(const float2* fr, float* grad,
 }
 
 // -- the forward half of a frame, shared by grad_fused, minf_fused,
-// grad_prb_fused and fwd. The first three must compute a frame's farplane
+// grad_prb_fused, fwd and fwd_quad_stats. The first three must compute a
+// frame's farplane
 // and objective with the same arithmetic: a line search compares the
 // objective of a gradient pass with the objectives of its candidates
 // (minf_fused), and at a 1e-6 residual the objective is of the size of its
@@ -545,6 +548,8 @@ __device__ __forceinline__ void scatter_patch(const float2* fr, float* grad,
 // its target). fwd stores the same farplane, so a base it freezes or an
 // Anderson candidate it makes rounds as the kernels that read it:
 // minf_fused(0, base = fwd(psi)) equals minf_fused(psi) bit for bit.
+// fwd_quad_stats forms the same farplane of a direction, so its statistics
+// of x on fwd(x) are a == b == c bit for bit.
 
 // fr <- psi[y:y+p, x:x+p] * prb[m], the patch alone: the padding is never
 // written (fft2_frame takes it as zero). Ends with a barrier.

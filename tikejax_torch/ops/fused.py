@@ -58,19 +58,20 @@ farplane or a nearplane, which is why they exist: at 16384 positions of
 The CUDA sources are ``tikejax_torch/csrc/<name>.cu`` with their shared
 device code in ``csrc/dft_frame.cuh`` (built by
 ``tikejax_torch.utils.cuda_build``). What bounds them on an H100: ``adj``
-and ``fwd_quad_stats`` compute the DFT as complex matrix products per frame
-and mode, ``ndet*nprb*(nprb+ndet)`` complex multiply-adds per DFT
-application, all on the SIMT fp32 units, in shared-memory tiled GEMMs whose
-per-frame intermediates sit in per-block scratch sized by the grid (never by
-the number of positions).
+computes the DFT as complex matrix products per frame and mode,
+``ndet*nprb*(nprb+ndet)`` complex multiply-adds per DFT application, all on
+the SIMT fp32 units, in shared-memory tiled GEMMs whose per-frame
+intermediates sit in per-block scratch sized by the grid (never by the
+number of positions).
 
-The other six -- ``grad_fused``, ``minf_fused``, ``grad_prb_fused``,
-``fwd``, ``adj_probe`` and ``adj_residual`` -- each have two hand-written
-kernels, and :func:`dft_variant` picks one from the shapes alone, before the
-launch, the same for all six (a line search compares the objectives of the
-first three, which must therefore compute a frame's farplane with the same
-arithmetic, and ``fwd`` stores that farplane as a frozen base or an
-Anderson candidate that they read):
+The other seven -- ``grad_fused``, ``minf_fused``, ``grad_prb_fused``,
+``fwd``, ``adj_probe``, ``adj_residual`` and ``fwd_quad_stats`` -- each
+have two hand-written kernels, and :func:`dft_variant` picks one from the
+shapes alone, before the launch, the same for all seven (a line search
+compares the objectives of the first three, which must therefore compute a
+frame's farplane with the same arithmetic, ``fwd`` stores that farplane as
+a frozen base or an Anderson candidate that they read, and
+``fwd_quad_stats`` forms the same farplane of a direction):
 ``'fft'`` for a detector side of 16, 32, 64 or 128 -- one frame per block,
 the whole complex frame in shared memory, transformed in place by a
 register-resident radix FFT (29 times less arithmetic than the matrix
@@ -144,11 +145,11 @@ def fft_threads(ndet: int) -> int:
 
 def dft_variant(nprb: int, ndet: int, nmodes: int) -> str:
     """Which of their two hand-written kernels ``grad_fused``,
-    ``minf_fused``, ``grad_prb_fused``, ``fwd``, ``adj_probe`` and
-    ``adj_residual`` launch on a CUDA tensor of these sizes: ``'fft'`` (the
-    frame's FFT in shared memory) for ``ndet`` 16, 32, 64 or 128, ``'gemm'``
-    (DFT matrix products) for any other size. A pure function of the
-    shapes; ``nprb > ndet`` raises as the kernels do."""
+    ``minf_fused``, ``grad_prb_fused``, ``fwd``, ``adj_probe``,
+    ``adj_residual`` and ``fwd_quad_stats`` launch on a CUDA tensor of these
+    sizes: ``'fft'`` (the frame's FFT in shared memory) for ``ndet`` 16, 32,
+    64 or 128, ``'gemm'`` (DFT matrix products) for any other size. A pure
+    function of the shapes; ``nprb > ndet`` raises as the kernels do."""
     _check_sizes("dft_variant", nprb, ndet)
     if nmodes < 1:
         raise ValueError(f"dft_variant: nmodes must be >= 1, got {nmodes}")
@@ -491,6 +492,7 @@ def fwd_quad_stats(dpsi: torch.Tensor, scan_int: torch.Tensor,
 
 
 fwd_quad_stats.launches = 0
+fwd_quad_stats.variant = None  # of the last kernel launch: 'fft' or 'gemm'
 
 
 def fwd_quad_stats_reference(dpsi: torch.Tensor, scan_int: torch.Tensor,
@@ -552,6 +554,17 @@ _FFT_ARGTYPES = {
     "grad_prb_fused": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11,
     "adj_probe": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9,
     "adj_residual": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10,
+    "fwd_quad_stats": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9,
+}
+
+# Other entry points of a library, with their full argument types.
+_MORE_ARGTYPES = {
+    "ls_objectives": {
+        "tk_ls_objectives_frame": [ctypes.c_void_p] * 6 + [ctypes.c_int64]
+        + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+        "tk_ls_objectives_frame_blocks_per_sm": [
+            ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
+    },
 }
 
 
@@ -573,6 +586,9 @@ def _lib(name: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
         occupancy.argtypes = [ctypes.c_int] * 4 + [
             ctypes.POINTER(ctypes.c_int)] * 2
         occupancy.restype = ctypes.c_int
+    for symbol, argtypes in _MORE_ARGTYPES.get(name, {}).items():
+        getattr(lib, symbol).argtypes = argtypes
+        getattr(lib, symbol).restype = ctypes.c_int
     lib.tk_error_string.argtypes = [ctypes.c_int]
     lib.tk_error_string.restype = ctypes.c_char_p
     return lib
@@ -605,10 +621,11 @@ def fft_launch_config(name: str, device_index: int, ndet: int,
                       defines: tuple[str, ...] = ()) -> tuple[int, int]:
     """(resident blocks per SM, dynamic shared memory in bytes) of the FFT
     variant of ``name`` (``'grad_fused'``, ``'minf_fused'``,
-    ``'grad_prb_fused'``, ``'fwd'``, ``'adj_probe'`` or ``'adj_residual'``)
-    at detector side ``ndet``, with ``planes`` (0 or 1) float planes beside
-    the frame (one with several modes, or with one mode and the data
-    prefetch of the first three; ``fwd`` and ``adj_probe`` have none); raises
+    ``'grad_prb_fused'``, ``'fwd'``, ``'adj_probe'``, ``'adj_residual'`` or
+    ``'fwd_quad_stats'``) at detector side ``ndet``, with ``planes`` (0 or
+    1) float planes beside the frame (one with several modes, or with one
+    mode and the data prefetch of the first three; ``fwd``, ``adj_probe``
+    and ``fwd_quad_stats`` have none); raises
     for a side or a thread count without a kernel."""
     lib = _lib(name, defines)
     threads = fft_threads(ndet) if threads is None else threads
@@ -1074,29 +1091,49 @@ def _adj_residual_cuda(farplane, data, scan_int, prb, nz, n, model,
     return grad, partial.sum().to(torch.float32)
 
 
-def _fwd_quad_stats_cuda(dpsi, scan_int, prb, fpsi):
+def _fwd_quad_stats_cuda(dpsi, scan_int, prb, fpsi, variant=None,
+                         threads=None):
+    """Launches ``fwd_quad_stats``' kernel; ``variant`` and ``threads`` as
+    in :func:`_grad_fused_cuda`."""
     t, s, nmodes, ndet = _check_farplane("fwd_quad_stats", fpsi, scan_int,
                                          prb, "prb", (fpsi.shape[0],
                                                       fpsi.shape[2]))
     _, nz, n, _, nprb, _ = _check_inputs("fwd_quad_stats", dpsi, scan_int,
                                          prb, ndet)
-    lib = _lib("fwd_quad_stats")
+    variant, defines = _pick_variant("fwd_quad_stats", variant, nprb, ndet,
+                                     nmodes)
+    lib = _lib("fwd_quad_stats", defines)
     dev = _device_index(fpsi)
-    grid = _grid("fwd_quad_stats", dev, t * s, ndet, False,
-                 8 * nprb * ndet)
     dpsi, prb = dpsi.contiguous(), prb.contiguous()
     fpsi, scan_int = fpsi.contiguous(), scan_int.contiguous()
     a, b, c = torch.empty((3, t, s, ndet, ndet), dtype=torch.float32,
                           device=fpsi.device)
-    scratch = torch.empty(2 * grid * nprb * ndet, dtype=torch.float32,
-                          device=fpsi.device)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.tk_fwd_quad_stats(
-            dpsi.data_ptr(), prb.data_ptr(), scan_int.data_ptr(),
-            fpsi.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
-            scratch.data_ptr(), t, s, nz, n, nmodes, nprb, ndet, grid,
-            stream)
-    _check("fwd_quad_stats", err, "kernel launch")
+    if variant == "fft":
+        # The materialized solver hands over fwd's output, which PyTorch's
+        # allocator aligns.
+        _check_aligned("fwd_quad_stats", fpsi)
+        threads = fft_threads(ndet) if threads is None else threads
+        grid = _fft_grid("fwd_quad_stats", dev, t * s, ndet, 0, False,
+                         threads, defines)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.tk_fwd_quad_stats_fft(
+                dpsi.data_ptr(), prb.data_ptr(), scan_int.data_ptr(),
+                fpsi.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(), t,
+                s, nz, n, nmodes, nprb, ndet, grid, threads, stream)
+    else:
+        grid = _grid("fwd_quad_stats", dev, t * s, ndet, False,
+                     8 * nprb * ndet)
+        scratch = torch.empty(2 * grid * nprb * ndet, dtype=torch.float32,
+                              device=fpsi.device)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.tk_fwd_quad_stats(
+                dpsi.data_ptr(), prb.data_ptr(), scan_int.data_ptr(),
+                fpsi.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                scratch.data_ptr(), t, s, nz, n, nmodes, nprb, ndet, grid,
+                stream)
+    _check("fwd_quad_stats", err, f"kernel launch ({variant})")
     fwd_quad_stats.launches += 1
+    fwd_quad_stats.variant = variant
     return a, b, c
