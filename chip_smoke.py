@@ -13,7 +13,7 @@ is caught):
                   fwd_quad_stats, ls_objectives, gather_probe_mul,
                   scatter_conj_probe, adj_probe_reduce) from
                   tikejax_torch/csrc, one process per source, in parallel,
-                  into the build directory it prints; beside them the seven
+                  into the build directory it prints; beside them the eight
                   kernels that have an FFT variant once more on the
                   unpadded frame layout (TK_FFT_PAD=0), for the
                   bank-conflict measurement;
@@ -31,10 +31,16 @@ is caught):
                   56^2); the probe reductions, fwd_quad_stats,
                   ls_objectives, gather_probe_mul and adj_probe_reduce also
                   bitwise repeatable, scatter_conj_probe (fp32 atomics)
-                  repeatable to 1e-5 of scale; kernel and plain times at
-                  the headline size beside each kernel's bound. grad_fused,
-                  minf_fused, grad_prb_fused, fwd, adj_probe, adj_residual
-                  and fwd_quad_stats have two kernels each (ops.fused
+                  repeatable to 1e-5 of scale; gather_probe_mul's
+                  persistent kernel equal bit for bit to the forced pixel
+                  kernel it replaced, with masked frames all zero, on the
+                  headline (one position masked) and on awkward cases
+                  (odd and even n, nprb 56, 48 and the odd 55); kernel and
+                  plain times at the headline size beside each kernel's
+                  bound; <fwd(x), y> = <x, adj(y)> to 1e-5 at the headline.
+                  grad_fused, minf_fused, grad_prb_fused, fwd, adj,
+                  adj_probe, adj_residual and fwd_quad_stats have two
+                  kernels each (ops.fused
                   dft_variant): the small case above (72^2) runs 'gemm',
                   the headline 'fft'; both variants, forced, are also held
                   to the plain versions on a power-of-two awkward case (2
@@ -54,9 +60,13 @@ is caught):
                   this run, 512 against 1024 threads, the data prefetch on
                   and off, the padded against the unpadded frame layout,
                   registers, spills, shared memory, resident blocks and the
-                  share of the bound; and ls_objectives' frame-major kernel
+                  share of the bound (adj also at the stream path's 1024
+                  frames); ls_objectives' frame-major kernel
                   against the forced pixel-major one, in turns, at 1 and 17
                   steps for both models (the new one must be faster at 17);
+                  and gather_probe_mul's persistent kernel against the
+                  forced pixel kernel, in turns, at 16384 and 4096 frames
+                  (the new one must be faster at both);
   4. solver    -- a small problem against the CPU complex128 oracle solver;
   5. main      -- the headline problem (512^2 object, 16384 positions, 128^2
                   probe and detector, Gaussian, solver defaults) through
@@ -93,8 +103,9 @@ is caught):
  10. frameless -- 4 modes x 16384 positions x 128^2 (an 8.6 GB farplane,
                   past the 3 GiB threshold): first grad_fused, minf_fused
                   and fwd(split_out=True), each with and without a base
-                  given as split views, adj_probe on the 8 GiB farplane
-                  (grad_fused, minf_fused and adj_probe on 'fft'),
+                  given as split views, adj and adj_probe on the 8 GiB
+                  farplane (grad_fused, minf_fused, adj and adj_probe on
+                  'fft'),
                   and the three hybrid kernels,
                   against their plain versions at
                   this full size (float offsets past 2^31); then
@@ -122,7 +133,7 @@ is caught):
                   fallen, peak extra memory below 2 GiB;
  13. stream    -- the JAX package's quick start on the port: the same
                   problem, Gaussian, recover_prb=True, nchunks=4, 128
-                  iterations: fwd and adj_probe ('fft') and adj must launch
+                  iterations: fwd, adj_probe and adj (all 'fft') must launch
                   on every chunk pass, the objective must fall, and peak extra
                   memory must stay below the streamed statistics and two
                   chunk farplanes (1.25 GiB);
@@ -177,7 +188,7 @@ POW2_SMALL = dict(nz=97, n=101, nscan=37, ndet=64, nprb=48, ntheta=2,
                   nmodes=2)
 UNPADDED = ("TK_FFT_PAD=0",)
 # The kernels that have an FFT variant beside their DFT-GEMM one.
-REDESIGNED = ("grad_fused", "minf_fused", "grad_prb_fused", "fwd",
+REDESIGNED = ("grad_fused", "minf_fused", "grad_prb_fused", "fwd", "adj",
               "adj_probe", "adj_residual", "fwd_quad_stats")
 # Part of the mangled name of the instantiation the headline runs (side 128,
 # 1024 threads, no base) and of the 'gemm' kernel, for the compiler's report.
@@ -189,6 +200,7 @@ HEADLINE_ENTRIES = {
     "grad_prb_fused": ("grad_prb_fused_fft_kernelILi128ELi1024EE",
                        "grad_prb_fused_kernelE"),
     "fwd": ("fwd_fft_kernelILi128ELi1024ELb0", "fwd_kernelILb0"),
+    "adj": ("adj_fft_kernelILi128ELi1024EE", "adj_kernelE"),
     "adj_probe": ("adj_probe_fft_kernelILi128ELi1024EE",
                   "adj_probe_kernelE"),
     "adj_residual": ("adj_residual_fft_kernelILi128ELi1024EE",
@@ -199,6 +211,16 @@ HEADLINE_ENTRIES = {
 # ls_objectives' frame-major kernel at the solver's 17 steps, and the
 # pixel-major one it replaced.
 LS_ENTRIES = ("ls_objectives_frame_kernelILi17EE", "ls_objectives_kernelE")
+# gather_probe_mul's persistent kernel on pixel pairs, and the pixel kernel
+# it replaced.
+GATHER_ENTRIES = ("gather_probe_mul_persistent_kernelILi2EE",
+                  "gather_probe_mul_kernelE")
+# The stream path's frames a launch (4096 positions in 4 chunks) and the
+# facade's and options' (config 3).
+STREAM_FRAMES = 1024
+CONFIG3_FRAMES = 4096
+# <fwd(x), y> against <x, adj(y)>, relative: both through the frame's FFT.
+PAIR_TOL = 1e-5
 DEEP_TARGET = 1e-6
 # About 11 s a 256-iteration segment: a run that does not converge ends
 # within ~3 minutes.
@@ -363,7 +385,7 @@ def compare_adjoints(torch, fused, far, scan_i, prb, psi):
 
 def compare_variant(torch, fused, args, ndet, model, base, far, variant):
     """One forced variant of grad_fused, minf_fused and fwd (with ``base``),
-    grad_prb_fused, and adj_probe, adj_residual and fwd_quad_stats (on
+    grad_prb_fused, and adj, adj_probe, adj_residual and fwd_quad_stats (on
     ``far``) against the plain versions; every objective, the two probe
     sums, fwd's farplane and the statistics planes bitwise repeatable, two
     runs of each object gradient within SCATTER_REPEAT. With the 'fft'
@@ -391,6 +413,9 @@ def compare_variant(torch, fused, args, ndet, model, base, far, variant):
     p_k, p_2 = twice(lambda: fused._adj_probe_cuda(far, scan_i, psi, nprb,
                                                    variant=variant))
     p_r = fused.adj_probe_reference(far, scan_i, psi, nprb)
+    a_k, a_2 = twice(lambda: fused._adj_cuda(far, scan_i, prb, nz, n,
+                                             variant=variant))
+    a_r = fused.adj_reference(far, scan_i, prb, nz, n)
     o_k, o_2 = twice(lambda: fused._fwd_cuda(psi, scan_i, prb, ndet, base,
                                              variant=variant))
     o_r = fused.fwd_reference(psi, scan_i, prb, ndet, base=base)
@@ -409,6 +434,7 @@ def compare_variant(torch, fused, args, ndet, model, base, far, variant):
             "minf_fused": (0.0, obj_err(m_k, f_r)),
             "grad_prb_fused": (rel_err(torch, q_k, q_r)[0],
                                obj_err(h_k, h_r)),
+            "adj": (rel_err(torch, a_k, a_r)[0], 0.0),
             "adj_probe": (rel_err(torch, p_k, p_r)[0], 0.0),
             "fwd": (rel_err(torch, o_k, o_r)[0], 0.0),
             "adj_residual": (rel_err(torch, r_k, r_r)[0], obj_err(s_k, s_r)),
@@ -418,7 +444,7 @@ def compare_variant(torch, fused, args, ndet, model, base, far, variant):
         check(err <= GRAD_TOL and f_err <= MINF_TOL,
               (name, variant, model, err, f_err))
     check(all(bool(torch.isfinite(x).all())
-              for x in (g_k, q_k, p_k, o_k, r_k, *x_k)),
+              for x in (g_k, q_k, a_k, p_k, o_k, r_k, *x_k)),
           ("not finite", variant))
     check(float(f_k) == float(f_2) and float(m_k) == float(m_2)
           and float(h_k) == float(h_2) and torch.equal(q_k, q_2)
@@ -427,7 +453,8 @@ def compare_variant(torch, fused, args, ndet, model, base, far, variant):
           and all(torch.equal(x, y) for x, y in zip(x_k, x_2)),
           f"variant {variant}: an objective, a probe sum, the farplane or "
           "the statistics are not bitwise repeatable")
-    for name, a, b in (("grad_fused", g_2, g_k), ("adj_residual", r_2, r_k)):
+    for name, a, b in (("grad_fused", g_2, g_k), ("adj", a_2, a_k),
+                       ("adj_residual", r_2, r_k)):
         again, _ = rel_err(torch, a, b)
         check(again <= SCATTER_REPEAT, (name + " repeat", variant, again))
     if variant == "fft":
@@ -563,8 +590,8 @@ def compare_at_scale(torch, fused, g, psi, data, scan_i, prb, base, chunk):
     positions and summed (grad_fused, minf_fused) or compared chunk by
     chunk (fwd): the plain farplane of every position at once would need
     several base-sized temporaries. ``base`` is an (re, im) view pair, the
-    form the frameless path hands the kernels; adj_probe takes it as its
-    farplane. Returns {kernel: (worst
+    form the frameless path hands the kernels; adj and adj_probe take it as
+    their farplane. Returns {kernel: (worst
     relative error, worst absolute error)} over the cases checked."""
     parts = [slice(i, min(i + chunk, g.nscan))
              for i in range(0, g.nscan, chunk)]
@@ -615,8 +642,18 @@ def compare_at_scale(torch, fused, g, psi, data, scan_i, prb, base, chunk):
               ("fwd at scale", b is not None, abs_err / scale))
         errs["fwd"].append((abs_err / scale, abs_err))
         del re, im
-    # adj_probe on the base as a farplane (the 'fft' variant at this size).
+    # adj and adj_probe on the base as a farplane (the 'fft' variant at this
+    # size).
     far = fused._base_complex(base)
+    a_k = fused.adj(far, scan_i, prb, g.nz, g.n)
+    check(fused.adj.variant == "fft", fused.adj.variant)
+    a_r = torch.zeros_like(a_k)
+    for c in parts:
+        a_r += fused.adj_reference(far[:, c], scan_i[:, c], prb, g.nz, g.n)
+    errs["adj"] = [rel_err(torch, a_k, a_r)]
+    check(bool(torch.isfinite(a_k).all())
+          and errs["adj"][0][0] <= GRAD_TOL, ("adj at scale", errs["adj"]))
+    del a_k, a_r
     p_k = fused.adj_probe(far, scan_i, psi, g.nprb)
     p_r = sum(fused.adj_probe_reference(far[:, c], scan_i[:, c], psi, g.nprb)
               for c in parts)
@@ -664,6 +701,27 @@ def compare_hybrid(torch, kernels, psi, scan_i, prb, frames):
                                                       nz, n), s_k)
     check(again[0] <= SCATTER_REPEAT, ("scatter_conj_probe repeat", again))
     return errs
+
+
+def gather_as_pixel(torch, kernels, psi, scan_i, prb):
+    """gather_probe_mul's persistent kernel (as launched) against the
+    forced pixel kernel it replaced: equal bit for bit, bitwise repeatable,
+    every frame of a masked position zero. Returns the number of masked
+    positions."""
+    got = kernels.gather_probe_mul(psi, scan_i, prb)
+    check(kernels.gather_probe_mul.variant == "persistent",
+          kernels.gather_probe_mul.variant)
+    old = kernels._gather_probe_mul_cuda(psi, scan_i, prb, variant="pixel")
+    again = kernels.gather_probe_mul(psi, scan_i, prb)
+    masked = scan_i[..., 0] < 0
+    check(torch.equal(got, old), ("gather_probe_mul: the persistent and the "
+                                  "pixel kernel differ", tuple(prb.shape),
+                                  float((got - old).abs().max())))
+    check(torch.equal(got, again), "gather_probe_mul is not bitwise "
+          "repeatable")
+    check(not bool(masked.any()) or float(got[masked].abs().max()) == 0.0,
+          "gather_probe_mul: a masked frame is not zero")
+    return int(masked.sum())
 
 
 def compare_hybrid_at_scale(torch, kernels, g, psi, scan_i, prb, frames,
@@ -850,6 +908,8 @@ def main() -> None:
     gen2 = torch.Generator(device=dev).manual_seed(SEED + 1)
     # The directions of the materialized kernels' checks, likewise.
     gen4 = torch.Generator(device=dev).manual_seed(SEED + 3)
+    # The gather's awkward cases, likewise.
+    gen5 = torch.Generator(device=dev).manual_seed(SEED + 4)
 
     def crandn(*shape, generator=gen):
         return torch.complex(
@@ -887,12 +947,13 @@ def main() -> None:
     log("kernel", f"small {small}: adj err {a_err:.2e}, adj_probe err "
         f"{p_err:.2e} (bitwise repeatable)")
     ran = [fn.variant for fn in (fused.grad_fused, fused.minf_fused,
-                                 fused.grad_prb_fused, fused.fwd,
+                                 fused.grad_prb_fused, fused.fwd, fused.adj,
                                  fused.adj_probe)]
-    check(ran == ["gemm"] * 5 and fused.dft_variant(
+    check(ran == ["gemm"] * 6 and fused.dft_variant(
         small.nprb, small.ndet, small.nmodes) == "gemm", ran)
     log("kernel", f"small {small}: grad_fused, minf_fused, grad_prb_fused, "
-        "fwd and adj_probe ran their 'gemm' variant (72 is no power of two)")
+        "fwd, adj and adj_probe ran their 'gemm' variant (72 is no power of "
+        "two)")
     # The FFT variants on a power-of-two awkward case.
     pow2 = Geometry(**POW2_SMALL)
     _, scan_p, prb_p, data_p = make_problem(gen2, pow2, device=dev)
@@ -954,6 +1015,30 @@ def main() -> None:
         + " (adjoints on the strided crop; gather_probe_mul and "
         "adj_probe_reduce bitwise repeatable, scatter_conj_probe within "
         f"{SCATTER_REPEAT:g} of scale between two runs)")
+    # gather_probe_mul's two kernels on awkward cases: odd and even object
+    # rows (16-byte object loads only in the second), even and odd nprb
+    # (pixel pairs or pixels), 2 angles x 2 modes, a masked position.
+    psi_e = crandn(small.ntheta, small.nz, small.n + 1, generator=gen5)
+    prb_odd = crandn(small.ntheta, small.nmodes, small.nprb - 1,
+                     small.nprb - 1, generator=gen5)
+    gather_cases = [(psi_s, prb_s), (psi_e, prb_s), (psi_s, prb_odd),
+                    (psi_e, prb_odd), (psi_s, prb_p)]
+    masked = [gather_as_pixel(torch, kernels, x, scan_si, p)
+              for x, p in gather_cases[:4]]
+    masked.append(gather_as_pixel(torch, kernels, gather_cases[4][0],
+                                  scan_pi, prb_p))
+    odd_err = rel_err(torch, kernels.gather_probe_mul(psi_e, scan_si,
+                                                      prb_odd),
+                      kernels.gather_probe_mul_reference(psi_e, scan_si,
+                                                         prb_odd))[0]
+    check(odd_err <= GRAD_TOL, ("gather_probe_mul, odd nprb", odd_err))
+    log("kernel", "gather_probe_mul: the persistent kernel equal bit for bit "
+        "to the forced pixel kernel, bitwise repeatable, masked frames zero "
+        "(" + ", ".join(f"n {x.shape[-1]} nprb {p.shape[-1]}"
+                        for x, p in gather_cases)
+        + f"; 2 angles x 2 modes; {masked} positions masked); odd nprb "
+        f"against the plain version {odd_err:.2e}")
+    del psi_e, prb_odd, gather_cases
 
     g = Geometry(**HEADLINE)
     _, scan, prb, data = make_problem(gen, g, device=dev)
@@ -973,8 +1058,6 @@ def main() -> None:
         *args, g.ndet, "gaussian", base=base), 10)
     plain_ms = median_ms(torch, lambda: fused.grad_fused_reference(
         *args, g.ndet, "gaussian"), 10)
-    # The DFT-GEMM kernels' arithmetic (four, or two, matrix products).
-    flops = 2 * 8 * g.ndet * g.nprb * (g.nprb + g.ndet) * g.nscan
     results["grad_fused"] = (abs_err, ms, plain_ms)
     bounds = {"grad_fused": bound(fft_flops(scan_i, g.nmodes, g.ndet, 2),
                                   nbytes(psi_r, prb, data, scan_i, psi_r)
@@ -1054,15 +1137,28 @@ def main() -> None:
         results[name] = (abs_e, ms, plain_ms)
         moved = nbytes(base, scan_i, prb if name == "adj" else psi_r, other)
         bounds[name] = bound(fft_flops(scan_i, g.nmodes, g.ndet, 1), moved)
-        rate = (f" ({flops / 2 / ms / 1e9:.1f} TFLOP/s fp32)"
-                if name == "adj" else " ('fft' variant)")
-        log("kernel", f"headline {g} {name}: err {err:.2e}; kernel "
-            f"{ms:.3f} ms{rate}, plain "
+        log("kernel", f"headline {g} {name} ('fft' variant): err "
+            f"{err:.2e}; kernel {ms:.3f} ms, plain "
             f"{plain_ms:.3f} ms, bound {bounds[name][0]:.3f} ms, median of "
             f"10 on {card}")
-    check(fused.adj_probe.variant == "fft", fused.adj_probe.variant)
+    check(fused.adj.variant == fused.adj_probe.variant == "fft",
+          (fused.adj.variant, fused.adj_probe.variant))
     # The materialized mode's kernels on G psi_r and a direction.
     far = fused.fwd(psi_r, scan_i, prb, g.ndet)
+    # fwd and adj are a pair through the same transform: <G psi_r, base>
+    # against <psi_r, G^H base>, in complex128.
+
+    def vdot(a, b):
+        return complex(torch.vdot(a.reshape(-1).to(torch.complex128),
+                                  b.reshape(-1).to(torch.complex128)))
+
+    lhs = vdot(far, base)
+    pair_err = abs(lhs - vdot(psi_r, fused.adj(base, scan_i, prb, g.nz,
+                                                g.n))) / abs(lhs)
+    check(fused.fwd.variant == fused.adj.variant == "fft"
+          and pair_err <= PAIR_TOL, ("fwd/adj pair", pair_err))
+    log("kernel", f"headline {g}: <fwd(psi), f> = <psi, adj(f)> to "
+        f"{pair_err:.2e} on 'fft' (limit {PAIR_TOL:g})")
     dpsi_h = 0.05 * crandn(*g.psi_shape, generator=gen4)
     ar_err, arf_err, ar_abs = compare_adj_residual(
         torch, fused, far, data, scan_i, prb, g.nz, g.n, "gaussian")
@@ -1116,6 +1212,8 @@ def main() -> None:
                 *args, g.ndet, "gaussian", **kw)),
             ("fwd", lambda **kw: fused._fwd_cuda(
                 psi_r, scan_i, prb, g.ndet, None, **kw)),
+            ("adj", lambda **kw: fused._adj_cuda(
+                base, scan_i, prb, g.nz, g.n, **kw)),
             ("adj_probe", lambda **kw: fused._adj_probe_cuda(
                 base, scan_i, psi_r, g.nprb, **kw)),
             ("adj_residual", lambda **kw: fused._adj_residual_cuda(
@@ -1160,6 +1258,24 @@ def main() -> None:
             f"{per_sm} block/SM; 'gemm' {old['registers']} registers, "
             f"{old['spill_stores'] + old['spill_loads']} spill bytes; on "
             f"{card}")
+    # adj at the stream path's own frames a launch (a chunk of config 3):
+    # the tail of 1024 frames over the card's blocks.
+    few = slice(0, STREAM_FRAMES)
+    base_few, scan_few = base[:, few], scan_i[:, few]
+    adj_few = in_turns_ms(
+        torch, timer, f"adj {STREAM_FRAMES}",
+        lambda: fused._adj_cuda(base_few, scan_few, prb, g.nz, g.n,
+                                variant="fft"),
+        lambda: fused._adj_cuda(base_few, scan_few, prb, g.nz, g.n,
+                                variant="gemm"))
+    few_bound = bound(fft_flops(scan_few, g.nmodes, g.ndet, 1),
+                      nbytes(base_few, scan_few, prb, psi_r))
+    check(adj_few[0] < adj_few[1], ("adj", STREAM_FRAMES, adj_few))
+    log("kernel", f"adj at {STREAM_FRAMES} frames (the stream path's "
+        f"launch): 'fft' {adj_few[0]:.3f} ms, forced 'gemm' "
+        f"{adj_few[1]:.3f} ms in turns ({adj_few[1] / adj_few[0]:.1f}x), "
+        f"bound {few_bound[0]:.3f} ms by {few_bound[1]} "
+        f"({100 * few_bound[0] / adj_few[0]:.1f}% of it reached); on {card}")
     fd = fused.fwd(dpsi_h, scan_i, prb, g.ndet)
     ls_err, ls_abs, lp_err = compare_ls(torch, linesearch, far, fd, data,
                                         "gaussian")
@@ -1249,6 +1365,43 @@ def main() -> None:
             f"kernel {ms:.3f} ms ({moved / ms / 1e9:.3f} TB/s of its bytes), "
             f"plain {plain_ms:.3f} ms, bound {bounds[name][0]:.3f} ms, "
             f"median of 10 on {card}")
+    # gather_probe_mul's persistent kernel against the pixel kernel it
+    # replaced: the same bits on the headline with one position masked,
+    # then the two in turns at the hybrid path's frames (16384) and at the
+    # facade's and options' (4096).
+    scan_m = scan_i.clone()
+    scan_m[0, 5, 0] = -1
+    check(gather_as_pixel(torch, kernels, psi_r, scan_m, prb) == 1,
+          "one masked position")
+    del scan_m
+    gather_turns, gather_bounds = {}, {}
+    for frames in (g.nscan, CONFIG3_FRAMES):
+        part = scan_i[:, :frames]
+        out_bytes = 8 * g.ntheta * frames * g.nmodes * g.nprb**2
+        gather_bounds[frames] = bound(6 * out_bytes / 8,
+                                      nbytes(psi_r, prb, part) + out_bytes)
+        gather_turns[frames] = in_turns_ms(
+            torch, timer, f"gather_probe_mul {frames}",
+            lambda: kernels.gather_probe_mul(psi_r, part, prb),
+            lambda: kernels._gather_probe_mul_cuda(psi_r, part, prb,
+                                                   variant="pixel"))
+    check(all(new < old for new, old in gather_turns.values()),
+          ("gather_probe_mul: the persistent kernel is not faster",
+           gather_turns))
+    gather_pixel_ms = gather_turns[g.nscan][1]
+    g_regs, g_old = (kernel_report(cuda_build, built["gather_probe_mul"][2],
+                                   e) for e in GATHER_ENTRIES)
+    log("kernel", f"headline {g} gather_probe_mul: persistent / forced pixel "
+        "kernel, 5 back-to-back launches each in turns pixel, persistent, "
+        "persistent, pixel: " + "; ".join(
+            f"{frames} frames {new:.3f} / {old:.3f} ms ({old / new:.1f}x, "
+            f"bound {gather_bounds[frames][0]:.3f} ms, "
+            f"{100 * gather_bounds[frames][0] / new:.1f}% of it reached)"
+            for frames, (new, old) in gather_turns.items())
+        + f"; persistent {g_regs['registers']} registers, "
+        f"{g_regs['spill_stores'] + g_regs['spill_loads']} spill bytes; "
+        f"pixel {g_old['registers']} registers; equal bit for bit on the "
+        f"headline with one position masked; on {card}")
     log("kernel", "bounds (ms, by): " + ", ".join(
         f"{k} {v[0]:.3f} {v[1]}" for k, v in bounds.items()))
     del base, psi_r, args, far, fd, dpsi_h
@@ -1724,10 +1877,12 @@ def main() -> None:
           == stream["fwd_quad_stats"] == stream["ls_objectives"] == 0,
           stream)
     check(peak < STREAM_PEAK, f"peak extra memory {peak} bytes")
-    check(fused.adj_probe.variant == fused.fwd.variant == "fft",
-          (fused.adj_probe.variant, fused.fwd.variant))
+    check(fused.adj_probe.variant == fused.fwd.variant == fused.adj.variant
+          == "fft", (fused.adj_probe.variant, fused.fwd.variant,
+                     fused.adj.variant))
     log("stream", f"{g3} gaussian, run(recover_prb=True, nchunks="
-        f"{STREAM_CHUNKS}), fwd and adj_probe on '{fused.adj_probe.variant}', "
+        f"{STREAM_CHUNKS}), fwd, adj and adj_probe on "
+        f"'{fused.adj.variant}', "
         f"{iters} iters in {seconds:.3f} s: "
         f"{iters / seconds:.2f} iters/s, {m['evaluations'] / iters:.2f} "
         f"evals/iter, {m['host_syncs'] / iters:.2f} host syncs/iter, "
@@ -1909,7 +2064,9 @@ def main() -> None:
         **({"variant": "fft", "gemm_ms": variant_lines[name]}
            if name in variant_lines else {}),
         **({"variant": "frame", "pixel_ms": ls_pixel_ms}
-           if name == "ls_objectives" else {})}
+           if name == "ls_objectives" else {}),
+        **({"variant": "persistent", "pixel_ms": gather_pixel_ms}
+           if name == "gather_probe_mul" else {})}
         for name, (src, tpu) in KERNEL_SOURCES.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -18,15 +18,19 @@ reductions (``grad_prb_fused``, ``adj_probe``, ``adj_probe_reduce``),
 reproducible; the object scatters (``grad_fused``, ``adj``,
 ``adj_residual``, ``scatter_conj_probe``) only up to summation order.
 
-``grad_fused``, ``minf_fused``, ``grad_prb_fused``, ``fwd``,
+``grad_fused``, ``minf_fused``, ``grad_prb_fused``, ``fwd``, ``adj``,
 ``adj_probe``, ``adj_residual`` and ``fwd_quad_stats`` have two kernels
 each: ``GEOMS`` runs their ``'gemm'`` variant (but for its 32^2 detector),
 ``POW2_GEOMS`` their ``'fft'`` variant, and one shape runs both, forced
-through the private wrappers' ``variant`` argument. On ``'fft'`` the
+through the private wrappers' ``variant`` argument (``ADJ_GEOMS`` both of
+``adj``'s). On ``'fft'`` the
 farplane ``fwd`` stores is bit for bit the one ``minf_fused`` forms inside,
-and ``fwd_quad_stats`` of a direction on its own farplane gives
-``a == b == c`` bit for bit. ``ls_objectives`` launches its frame-major
-kernel; the pixel-major one, forced, is held to the same values.
+``fwd_quad_stats`` of a direction on its own farplane gives
+``a == b == c`` bit for bit, and ``fwd`` and ``adj`` are a pair to 1e-5.
+``ls_objectives`` launches its frame-major kernel; the pixel-major one,
+forced, is held to the same values. ``gather_probe_mul`` launches its
+persistent kernel; the pixel kernel it replaced, forced, writes the same
+bits.
 """
 
 import pytest
@@ -908,3 +912,113 @@ def test_wrong_variant_raises(dev):
     assert (fused.fwd.launches, fused.adj_residual.launches,
             fused.fwd_quad_stats.launches,
             linesearch.ls_objectives.launches) == counts
+
+
+# -- adj on the frame's FFT; the persistent gather_probe_mul -----------------
+
+ADJ_GEOMS = [
+    Geometry(nz=97, n=101, nscan=37, ndet=64, nprb=48, ntheta=2),
+    Geometry(nz=97, n=101, nscan=37, ndet=64, nprb=48, ntheta=2, nmodes=2),
+    Geometry(nz=200, n=180, nscan=50, ndet=128, nprb=100),
+    Geometry(nz=140, n=150, nscan=30, ndet=128, nprb=128, nmodes=2),
+]
+
+
+@pytest.mark.parametrize("variant", ["fft", "gemm"])
+@pytest.mark.parametrize("g", ADJ_GEOMS, ids=str)
+def test_adj_variants_match_plain_version(dev, g, variant):
+    """Both kernels of adj, forced, against the plain version (a masked
+    position among the frames) to 1e-4 of scale; two runs within 1e-5 of
+    scale (fp32 atomics); the public function takes 'fft' here."""
+    _, _, scan_i, prb = inputs(g, dev)
+    far = base_for(g, dev)
+    launches = fused.adj.launches
+    got = fused._adj_cuda(far, scan_i, prb, g.nz, g.n, variant=variant)
+    assert fused.adj.launches == launches + 1
+    assert fused.adj.variant == variant
+    assert got.dtype == torch.complex64 and got.shape == g.psi_shape
+    assert close(got, fused.adj_reference(far, scan_i, prb, g.nz, g.n))
+    assert close(fused._adj_cuda(far, scan_i, prb, g.nz, g.n,
+                                 variant=variant), got, 1e-5)
+    fused.adj(far, scan_i, prb, g.nz, g.n)
+    assert fused.adj.variant == "fft"
+    scan_i[..., 0] = -1
+    none = fused._adj_cuda(far, scan_i, prb, g.nz, g.n, variant=variant)
+    assert float(none.abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("nmodes", [1, 2])
+def test_fwd_and_adj_are_a_pair_on_fft(dev, nmodes):
+    """<fwd(x), y> = <x, adj(y)> to 1e-5 on 'fft': both go through the
+    frame's FFT in shared memory (the inner products in complex128)."""
+    g = Geometry(nz=140, n=150, nscan=30, ndet=128, nprb=100, ntheta=2,
+                 nmodes=nmodes)
+    psi, _, scan_i, prb = inputs(g, dev)
+    far = base_for(g, dev)
+
+    def vdot(a, b):
+        return complex(torch.vdot(a.reshape(-1).to(torch.complex128),
+                                  b.reshape(-1).to(torch.complex128)))
+
+    lhs = vdot(fused.fwd(psi, scan_i, prb, g.ndet), far)
+    rhs = vdot(psi, fused.adj(far, scan_i, prb, g.nz, g.n))
+    assert fused.fwd.variant == fused.adj.variant == "fft"
+    assert abs(lhs - rhs) <= 1e-5 * abs(lhs)
+
+
+def test_adj_fft_refuses_an_unaligned_farplane(dev):
+    g = ADJ_GEOMS[0]
+    _, _, scan_i, prb = inputs(g, dev)
+    far = base_for(g, dev)
+    store = torch.empty(far.numel() + 1, dtype=torch.complex64, device=dev)
+    odd = store[1:].view(far.shape)
+    odd.copy_(far)
+    launches = fused.adj.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fused.adj(odd, scan_i, prb, g.nz, g.n)
+    assert fused.adj.launches == launches
+    # The 'gemm' kernel reads 8 bytes at a time and takes it.
+    assert close(fused._adj_cuda(odd, scan_i, prb, g.nz, g.n,
+                                 variant="gemm"),
+                 fused.adj_reference(far, scan_i, prb, g.nz, g.n))
+
+
+GATHER_GEOMS = [
+    Geometry(nz=97, n=100, nscan=37, ndet=56, nprb=56, ntheta=2, nmodes=2),
+    Geometry(nz=97, n=101, nscan=37, ndet=48, nprb=48, ntheta=2, nmodes=2),
+    Geometry(nz=97, n=100, nscan=37, ndet=55, nprb=55, ntheta=2, nmodes=2),
+    Geometry(nz=97, n=101, nscan=37, ndet=55, nprb=55, ntheta=2, nmodes=2),
+    Geometry(nz=64, n=64, nscan=9, ndet=16, nprb=5),
+    Geometry(nz=200, n=180, nscan=50, ndet=128, nprb=128),
+]
+
+
+@pytest.mark.parametrize("g", GATHER_GEOMS, ids=str)
+def test_persistent_gather_equals_the_pixel_kernel(dev, g):
+    """The persistent gather_probe_mul against the forced pixel kernel it
+    replaced: equal bit for bit (even and odd sx, even and odd n and nprb,
+    a masked position, 2 angles x 2 modes), bitwise repeatable, masked
+    frames all zero, within 1e-5 of scale of the plain version; an object
+    at an odd complex offset (no 16-byte loads) gives the same bits."""
+    psi, _, scan_i, prb = inputs(g, dev)
+    scan_i[0, 0] = torch.tensor([1, 1], dtype=torch.int32)
+    scan_i[0, 1] = torch.tensor([2, 2], dtype=torch.int32)
+    valid = scan_i[..., 0] >= 0
+    assert {0, 1} <= set((scan_i[..., 1][valid] % 2).tolist())
+    launches = kernels.gather_probe_mul.launches
+    got = kernels.gather_probe_mul(psi, scan_i, prb)
+    assert kernels.gather_probe_mul.variant == "persistent"
+    old = kernels._gather_probe_mul_cuda(psi, scan_i, prb, variant="pixel")
+    assert kernels.gather_probe_mul.variant == "pixel"
+    assert kernels.gather_probe_mul.launches == launches + 2
+    assert got.shape == old.shape == (g.ntheta, g.nscan, g.nmodes, g.nprb,
+                                      g.nprb)
+    assert torch.equal(got, old)
+    assert torch.equal(got, kernels.gather_probe_mul(psi, scan_i, prb))
+    assert float(got[~valid].abs().max()) == 0.0
+    assert close(got, kernels.gather_probe_mul_reference(psi, scan_i, prb),
+                 1e-5)
+    store = torch.empty(psi.numel() + 1, dtype=torch.complex64, device=dev)
+    odd = store[1:].view(psi.shape)
+    odd.copy_(psi)
+    assert torch.equal(kernels.gather_probe_mul(odd, scan_i, prb), got)

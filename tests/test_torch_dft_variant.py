@@ -1,15 +1,17 @@
-"""Which of their two hand-written kernels ``grad_fused``, ``minf_fused``,
-``grad_prb_fused``, ``fwd``, ``adj_probe``, ``adj_residual`` and
-``fwd_quad_stats`` launch on the card is one pure function of the shapes
-(one, because a line search compares the objectives of the first three,
-which must share their arithmetic, and ``fwd`` stores the farplane they
-read as a base), pinned here on the CPU: ``'fft'`` (the frame's FFT in
-shared memory) for a detector side of 16, 32, 64 or 128, ``'gemm'`` (DFT
-matrix products) for every other size. ``ls_objectives`` launches its
-frame-major kernel for every step count, instantiated for the step bucket
-``linesearch.step_bucket`` names. The choice is made before the launch and
-never changed after it; on a CPU tensor no kernel runs (the plain version
-does)."""
+"""Which of their two hand-written kernels the eight DFT kernels --
+``grad_fused``, ``minf_fused``, ``grad_prb_fused``, ``fwd``, ``adj``,
+``adj_probe``, ``adj_residual`` and ``fwd_quad_stats`` -- launch on the card
+is one pure function of the shapes (one, because a line search compares the
+objectives of the first three, which must share their arithmetic, and
+``fwd`` stores the farplane they read as a base), pinned here on the CPU:
+``'fft'`` (the frame's FFT in shared memory) for a detector side of 16, 32,
+64 or 128, ``'gemm'`` (DFT matrix products) for every other size.
+``ls_objectives`` launches its frame-major kernel for every step count,
+instantiated for the step bucket ``linesearch.step_bucket`` names, and
+``kernels.gather_probe_mul`` its persistent kernel for every size; the
+kernels they replaced run only when forced (``variant='pixel'``), to time
+the two in turns. The choice is made before the launch and never changed
+after it; on a CPU tensor no kernel runs (the plain version does)."""
 
 import inspect
 
@@ -18,7 +20,7 @@ import torch
 
 from tikejax_torch import Geometry
 from tikejax_torch.models import make_problem
-from tikejax_torch.ops import fused, linesearch
+from tikejax_torch.ops import fused, kernels, linesearch
 from tikejax_torch.ops.patches import scan_to_int
 
 
@@ -66,7 +68,7 @@ def test_forced_variant_is_checked_before_any_launch():
         fused._pick_variant("grad_fused", None, 130, 128, 1)
     for fn in (fused._grad_fused_cuda, fused._minf_fused_cuda,
                fused._grad_prb_fused_cuda, fused._adj_probe_cuda,
-               fused._fwd_cuda, fused._adj_residual_cuda,
+               fused._fwd_cuda, fused._adj_cuda, fused._adj_residual_cuda,
                fused._fwd_quad_stats_cuda):
         params = inspect.signature(fn).parameters
         assert params["variant"].default is params["threads"].default is None
@@ -95,12 +97,17 @@ def test_public_signatures_are_the_reference_ones():
         "dpsi", "scan_int", "prb", "fpsi", "precision"]
     assert list(inspect.signature(linesearch.ls_objectives).parameters) == [
         "fpsi", "fd", "data", "gammas", "model"]
+    assert list(inspect.signature(fused.adj).parameters) == [
+        "farplane", "scan_int", "prb", "nz", "n", "precision"]
+    assert list(inspect.signature(kernels.gather_probe_mul).parameters) == [
+        "psi", "scan_int", "prb"]
 
 
-@pytest.mark.parametrize("name", ["fwd", "adj_residual", "fwd_quad_stats"])
+@pytest.mark.parametrize("name", ["fwd", "adj_residual", "fwd_quad_stats",
+                                  "adj"])
 def test_fwd_and_adj_residual_pick_as_the_others(name):
-    """``fwd``, ``adj_residual`` and ``fwd_quad_stats`` follow the same
-    rule: 'fft' at the
+    """``fwd``, ``adj_residual``, ``fwd_quad_stats`` and ``adj`` follow the
+    same rule: 'fft' at the
     power-of-two sides, 'gemm' elsewhere, a forced 'fft' off those sides
     raising before any launch, the unpadded measurement build by macro."""
     pick = fused._pick_variant
@@ -146,6 +153,52 @@ def test_ls_objectives_variant_is_checked_before_any_launch():
         linesearch._ls_objectives_cuda(z, z, z.real[:, :, 0], torch.ones(2),
                                        "gaussian", variant="fft")
 
+
+def test_gather_probe_mul_variant_is_checked_before_any_launch():
+    """The private wrapper launches the persistent kernel unless
+    ``variant='pixel'`` forces the one it replaced; any other variant
+    raises before anything reaches a device, even on CPU tensors."""
+    params = inspect.signature(kernels._gather_probe_mul_cuda).parameters
+    assert params["variant"].default is None
+    assert kernels._gather_variant(None) == "persistent"
+    assert kernels._gather_variant("pixel") == "pixel"
+    for bad in ("fft", "persistent", "gemm"):
+        with pytest.raises(ValueError, match="unknown variant"):
+            kernels._gather_variant(bad)
+    psi = torch.ones((1, 16, 16), dtype=torch.complex64)
+    prb = torch.ones((1, 1, 4, 4), dtype=torch.complex64)
+    scan = torch.zeros((1, 2, 2), dtype=torch.int32)
+    launches = kernels.gather_probe_mul.launches
+    with pytest.raises(ValueError, match="gather_probe_mul: unknown variant"):
+        kernels._gather_probe_mul_cuda(psi, scan, prb, variant="fast")
+    assert kernels.gather_probe_mul.launches == launches
+
+
+def test_adj_and_gather_on_cpu_run_the_plain_version():
+    """``fused.adj`` at an FFT size and ``kernels.gather_probe_mul`` on CPU
+    tensors: the plain versions run, no kernel launches and no variant is
+    recorded, and the wrappers return what the plain versions return."""
+    g = Geometry(nz=40, n=40, nscan=6, ndet=32, nprb=16, nmodes=2)
+    assert fused.dft_variant(g.nprb, g.ndet, g.nmodes) == "fft"
+    gen = torch.Generator().manual_seed(3)
+    _, scan, prb, _ = make_problem(gen, g, device="cpu")
+    scan_i = scan_to_int(scan)
+    psi = torch.complex(torch.randn(g.psi_shape, generator=gen),
+                        torch.randn(g.psi_shape, generator=gen))
+    far = fused.fwd(psi, scan_i, prb, g.ndet)
+    fns = (fused.adj, kernels.gather_probe_mul, fused.adj_reference,
+           kernels.gather_probe_mul_reference)
+    before = [fn.launches for fn in fns]
+    variants = (fused.adj.variant, kernels.gather_probe_mul.variant)
+    obj = fused.adj(far, scan_i, prb, g.nz, g.n)
+    near = kernels.gather_probe_mul(psi, scan_i, prb)
+    assert obj.shape == g.psi_shape
+    assert near.shape == (g.ntheta, g.nscan, g.nmodes, g.nprb, g.nprb)
+    assert torch.equal(obj, fused.adj_reference(far, scan_i, prb, g.nz, g.n))
+    assert torch.equal(near, kernels.gather_probe_mul_reference(psi, scan_i,
+                                                                prb))
+    assert [fn.launches - b for fn, b in zip(fns, before)] == [0, 0, 2, 2]
+    assert (fused.adj.variant, kernels.gather_probe_mul.variant) == variants
 
 
 def test_cpu_tensors_run_the_plain_version_at_fft_sizes():

@@ -155,6 +155,29 @@ def test_every_kernel_source_uses_the_shared_header():
         assert names == [f"{name}.cu", "dft_frame.cuh"], names
 
 
+def test_every_fft_variant_has_its_entry_points():
+    """Each kernel with an FFT variant (``fused._FFT_ARGTYPES``) defines
+    ``tk_<entry>_fft`` and ``tk_<entry>_fft_blocks_per_sm`` in its source,
+    the two symbols the wrapper binds; the hybrid gather defines its
+    persistent and its forced pixel entry point."""
+    assert set(fused._FFT_ARGTYPES) <= set(fused._ARGTYPES)
+    assert "adj" in fused._FFT_ARGTYPES and len(fused._FFT_ARGTYPES) == 8
+    for name in fused._FFT_ARGTYPES:
+        entry = fused._ARGTYPES[name][0]
+        text = (PKG / "csrc" / f"{name}.cu").read_text()
+        for symbol in (f"{entry}_fft", f"{entry}_fft_blocks_per_sm"):
+            assert re.search(rf"^int {symbol}\(", text, re.MULTILINE), (
+                name, symbol)
+        # The bound argument types, and the stream, are the parameters.
+        params = re.search(rf"^int {entry}_fft\(([^)]*)\)", text,
+                           re.MULTILINE).group(1)
+        assert params.count(",") + 1 == len(fused._FFT_ARGTYPES[name]) + 1, (
+            name, params)
+    text = (PKG / "csrc" / "gather_probe_mul.cu").read_text()
+    for symbol in ("tk_gather_probe_mul", "tk_gather_probe_mul_pixel"):
+        assert re.search(rf"^int {symbol}\(", text, re.MULTILINE), symbol
+
+
 def test_options_fields_follow_the_reference_order():
     """The port's CGOptions fields are, in order, a subsequence of the JAX
     package's: a positional construction means the same in both."""

@@ -119,6 +119,26 @@ def test_streamed_fused_tier_runs_the_operator_kernels(problem):
                         recover_prb=True), out)
 
 
+def test_streamed_chunks_reach_adj_whole_and_contiguous(problem,
+                                                         monkeypatch):
+    """Each chunk's residual reaches ``fused.adj`` as a contiguous tensor
+    of its own (storage offset 0, as the allocator aligns it): the 'fft'
+    kernel's 16-byte loads take it as it is, and the wrapper's
+    ``.contiguous()`` copies nothing."""
+    seen = []
+    adj = fused.adj
+
+    def spy(farplane, *args, **kw):
+        seen.append((farplane.is_contiguous(), farplane.storage_offset(),
+                     farplane.untyped_storage().nbytes()
+                     == farplane.numel() * farplane.element_size()))
+        return adj(farplane, *args, **kw)
+
+    monkeypatch.setattr(fused, "adj", spy)
+    port_run(problem, piter=2, kernel="fused", nchunks=4, recover_prb=True)
+    assert seen and all(s == (True, 0, True) for s in seen), seen
+
+
 @pytest.fixture(scope="module")
 def f_base(problem):
     """The farplane of an 8-iteration solve: the split-operator base."""

@@ -19,8 +19,8 @@
 // here as an FFT of the whole frame in shared memory (fft2_frame, at the end
 // of this file): 2.3 MFLOP a frame at 128^2 where the two matrix products
 // are 67 MFLOP. grad_fused.cu, minf_fused.cu, grad_prb_fused.cu, fwd.cu,
-// adj_probe.cu, adj_residual.cu and fwd_quad_stats.cu run it (and keep
-// their cgemm kernel for every other size); adj.cu still runs cgemm alone.
+// adj.cu, adj_probe.cu, adj_residual.cu and fwd_quad_stats.cu run it (and
+// keep their cgemm kernel for every other size).
 // ls_objectives.cu has no DFT: it takes the position test and the complex
 // helpers from here.
 #pragma once
@@ -520,7 +520,7 @@ constexpr size_t fft_smem_bytes(int planes) {
 }
 
 // grad[patch] += conj(prb[m]) * fr (the cropped inverse transform, at
-// fft_near_index): the object adjoint's scatter of grad_fused and
+// fft_near_index): the object adjoint's scatter of grad_fused, adj and
 // adj_residual. Ends with a barrier, after which the frame may be
 // overwritten.
 template <int kD, int kT>

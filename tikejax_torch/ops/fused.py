@@ -57,29 +57,26 @@ farplane or a nearplane, which is why they exist: at 16384 positions of
 
 The CUDA sources are ``tikejax_torch/csrc/<name>.cu`` with their shared
 device code in ``csrc/dft_frame.cuh`` (built by
-``tikejax_torch.utils.cuda_build``). What bounds them on an H100: ``adj``
-computes the DFT as complex matrix products per frame and mode,
-``ndet*nprb*(nprb+ndet)`` complex multiply-adds per DFT application, all on
-the SIMT fp32 units, in shared-memory tiled GEMMs whose per-frame
-intermediates sit in per-block scratch sized by the grid (never by the
-number of positions).
-
-The other seven -- ``grad_fused``, ``minf_fused``, ``grad_prb_fused``,
-``fwd``, ``adj_probe``, ``adj_residual`` and ``fwd_quad_stats`` -- each
-have two hand-written kernels, and :func:`dft_variant` picks one from the
-shapes alone, before the launch, the same for all seven (a line search
-compares the objectives of the first three, which must therefore compute a
-frame's farplane with the same arithmetic, ``fwd`` stores that farplane as
-a frozen base or an Anderson candidate that they read, and
-``fwd_quad_stats`` forms the same farplane of a direction):
+``tikejax_torch.utils.cuda_build``). All eight have two hand-written
+kernels, and :func:`dft_variant` picks one from the shapes alone, before
+the launch, the same for all eight (a line search compares the objectives
+of ``grad_fused``, ``minf_fused`` and ``grad_prb_fused``, which must
+therefore compute a frame's farplane with the same arithmetic, ``fwd``
+stores that farplane as a frozen base or an Anderson candidate that they
+read, ``fwd_quad_stats`` forms the same farplane of a direction, and
+``adj`` is ``fwd``'s adjoint through the same transform):
 ``'fft'`` for a detector side of 16, 32, 64 or 128 -- one frame per block,
 the whole complex frame in shared memory, transformed in place by a
 register-resident radix FFT (29 times less arithmetic than the matrix
 products at 128^2, no scratch in device memory; shared-memory sweeps, the
 scatter's atomics and the one read or write of a frame in device memory
-bound it) -- and ``'gemm'``, the matrix-product kernel above, for every
-other size. Neither gives way to the other or to the plain version: a CUDA
-tensor launches the chosen kernel or raises.
+bound it) -- and ``'gemm'`` for every other size: the DFT as complex
+matrix products per frame and mode, ``ndet*nprb*(nprb+ndet)`` complex
+multiply-adds per DFT application, all on the SIMT fp32 units, in
+shared-memory tiled GEMMs whose per-frame intermediates sit in per-block
+scratch sized by the grid (never by the number of positions). Neither
+gives way to the other or to the plain version: a CUDA tensor launches the
+chosen kernel or raises.
 
 The base. The JAX package accepts the frozen base as a complex array or as
 the (re, im) f32 pair that ``fwd(split_out=True)`` emits, because on the
@@ -145,7 +142,7 @@ def fft_threads(ndet: int) -> int:
 
 def dft_variant(nprb: int, ndet: int, nmodes: int) -> str:
     """Which of their two hand-written kernels ``grad_fused``,
-    ``minf_fused``, ``grad_prb_fused``, ``fwd``, ``adj_probe``,
+    ``minf_fused``, ``grad_prb_fused``, ``fwd``, ``adj``, ``adj_probe``,
     ``adj_residual`` and ``fwd_quad_stats`` launch on a CUDA tensor of these
     sizes: ``'fft'`` (the frame's FFT in shared memory) for ``ndet`` 16, 32,
     64 or 128, ``'gemm'`` (DFT matrix products) for any other size. A pure
@@ -390,6 +387,7 @@ def adj(farplane: torch.Tensor, scan_int: torch.Tensor, prb: torch.Tensor,
 
 
 adj.launches = 0
+adj.variant = None  # of the last kernel launch: 'fft' or 'gemm'
 
 
 def adj_reference(farplane: torch.Tensor, scan_int: torch.Tensor,
@@ -550,6 +548,7 @@ _ARGTYPES = {
 _FFT_ARGTYPES = {
     "grad_fused": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11,
     "fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9,
+    "adj": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9,
     "minf_fused": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11,
     "grad_prb_fused": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11,
     "adj_probe": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9,
@@ -621,11 +620,12 @@ def fft_launch_config(name: str, device_index: int, ndet: int,
                       defines: tuple[str, ...] = ()) -> tuple[int, int]:
     """(resident blocks per SM, dynamic shared memory in bytes) of the FFT
     variant of ``name`` (``'grad_fused'``, ``'minf_fused'``,
-    ``'grad_prb_fused'``, ``'fwd'``, ``'adj_probe'``, ``'adj_residual'`` or
-    ``'fwd_quad_stats'``) at detector side ``ndet``, with ``planes`` (0 or
-    1) float planes beside the frame (one with several modes, or with one
-    mode and the data prefetch of the first three; ``fwd``, ``adj_probe``
-    and ``fwd_quad_stats`` have none); raises
+    ``'grad_prb_fused'``, ``'fwd'``, ``'adj'``, ``'adj_probe'``,
+    ``'adj_residual'`` or ``'fwd_quad_stats'``) at detector side ``ndet``,
+    with ``planes`` (0 or 1) float planes beside the frame (one with several
+    modes, or with one mode and the data prefetch of the first three;
+    ``fwd``, ``adj``, ``adj_probe`` and ``fwd_quad_stats`` have none);
+    raises
     for a side or a thread count without a kernel."""
     lib = _lib(name, defines)
     threads = fft_threads(ndet) if threads is None else threads
@@ -958,29 +958,45 @@ def _grad_prb_fused_cuda(psi, data, scan_int, prb, ndet, model,
     return grad, partial.sum().to(torch.float32)
 
 
-def _adj_cuda(farplane, scan_int, prb, nz, n):
+def _adj_cuda(farplane, scan_int, prb, nz, n, variant=None, threads=None):
+    """Launches ``adj``'s kernel; ``variant`` and ``threads`` as in
+    :func:`_grad_fused_cuda`."""
     t, s, nmodes, ndet = _check_farplane("adj", farplane, scan_int, prb,
                                          "prb", (farplane.shape[0],
                                                  farplane.shape[2]))
     nprb = prb.shape[-1]
-    _check_sizes("adj", nprb, ndet)
-    lib = _lib("adj")
+    variant, defines = _pick_variant("adj", variant, nprb, ndet, nmodes)
+    lib = _lib("adj", defines)
     dev = _device_index(farplane)
-    grid = _grid("adj", dev, t * s, ndet, False, 8 * nprb * ndet)
+    # The streamed gradient pass hands over each chunk's residual, a new
+    # contiguous tensor: no copy here.
     farplane, prb = farplane.contiguous(), prb.contiguous()
     scan_int = scan_int.contiguous()
     out = torch.zeros((t, nz, n), dtype=torch.complex64,
                       device=farplane.device)
-    scratch = torch.empty(2 * grid * nprb * ndet, dtype=torch.float32,
-                          device=farplane.device)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.tk_adj(farplane.data_ptr(), prb.data_ptr(),
-                         scan_int.data_ptr(), out.data_ptr(),
-                         scratch.data_ptr(), t, s, nz, n, nmodes, nprb, ndet,
-                         grid, stream)
-    _check("adj", err, "kernel launch")
+    if variant == "fft":
+        _check_aligned("adj", farplane)
+        threads = fft_threads(ndet) if threads is None else threads
+        grid = _fft_grid("adj", dev, t * s, ndet, 0, False, threads, defines)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.tk_adj_fft(farplane.data_ptr(), prb.data_ptr(),
+                                 scan_int.data_ptr(), out.data_ptr(), t, s,
+                                 nz, n, nmodes, nprb, ndet, grid, threads,
+                                 stream)
+    else:
+        grid = _grid("adj", dev, t * s, ndet, False, 8 * nprb * ndet)
+        scratch = torch.empty(2 * grid * nprb * ndet, dtype=torch.float32,
+                              device=farplane.device)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.tk_adj(farplane.data_ptr(), prb.data_ptr(),
+                             scan_int.data_ptr(), out.data_ptr(),
+                             scratch.data_ptr(), t, s, nz, n, nmodes, nprb,
+                             ndet, grid, stream)
+    _check("adj", err, f"kernel launch ({variant})")
     adj.launches += 1
+    adj.variant = variant
     return out
 
 

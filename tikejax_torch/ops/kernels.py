@@ -20,7 +20,15 @@ zero and it adds nothing to either adjoint.
 The CUDA sources are ``tikejax_torch/csrc/gather_probe_mul.cu``,
 ``scatter_conj_probe.cu`` and ``adj_probe_reduce.cu`` (built by
 ``tikejax_torch.utils.cuda_build``); their notes say what bounds each on an
-H100 (the one pass over the nearplane). The TPU kernels' addressing scheme
+H100 (the one pass over the nearplane). ``gather_probe_mul`` launches a
+persistent kernel built to write at that bound: a thread owns fixed pixel
+pairs of the patch (pixels at an odd ``nprb``) for every frame, holds
+their probe values in registers, reads the object 16 bytes a pair where the
+patch corner is aligned and writes with 16-byte streaming stores. The
+one-block-per-frame kernel it replaced stays only for timing the two in
+turns, forced with ``_gather_probe_mul_cuda(..., variant='pixel')``; the
+two write the same bits (``gather_probe_mul.variant`` names the last
+launch's). The TPU kernels' addressing scheme
 (aligned power-of-two windows, object padding, sublane/lane rotates, split
 re/im planes) serves Mosaic's alignment rules and is not carried over. The
 kernels take complex64 and int32 only. The two adjoints read their frames
@@ -79,6 +87,7 @@ def gather_probe_mul(psi: torch.Tensor, scan_int: torch.Tensor,
 
 
 gather_probe_mul.launches = 0
+gather_probe_mul.variant = None  # of the last launch: 'persistent' or 'pixel'
 
 
 def gather_probe_mul_reference(psi: torch.Tensor, scan_int: torch.Tensor,
@@ -159,7 +168,7 @@ adj_probe_reduce_reference.launches = 0
 _STRIDES = [ctypes.c_int64] * 4
 _ARGTYPES = {
     # pointers, ints (and the frames' four strides), then the stream.
-    "gather_probe_mul": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6,
+    "gather_probe_mul": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7,
     "scatter_conj_probe": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
     + _STRIDES,
     "adj_probe_reduce": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
@@ -167,24 +176,29 @@ _ARGTYPES = {
 }
 
 
+# Other entry points of a library with the argument types of tk_<name>.
+_MORE_ENTRIES = {"gather_probe_mul": ("tk_gather_probe_mul_pixel",)}
+
+
 @functools.cache
 def _lib(name: str) -> ctypes.CDLL:
     lib = cuda_build.load(name)
-    entry = getattr(lib, f"tk_{name}")
-    entry.argtypes = _ARGTYPES[name] + [ctypes.c_void_p]
-    entry.restype = ctypes.c_int
+    for symbol in (f"tk_{name}",) + _MORE_ENTRIES.get(name, ()):
+        entry = getattr(lib, symbol)
+        entry.argtypes = _ARGTYPES[name] + [ctypes.c_void_p]
+        entry.restype = ctypes.c_int
     lib.tk_error_string.argtypes = [ctypes.c_int]
     lib.tk_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _launch(name: str, device_index: int, *args) -> None:
-    """Call ``tk_<name>(*args, stream)`` on the current stream of the
-    device; raise on a refused launch."""
+def _launch(name: str, device_index: int, *args, entry=None) -> None:
+    """Call ``tk_<name>(*args, stream)`` (or the library's ``entry``) on the
+    current stream of the device; raise on a refused launch."""
     lib = _lib(name)
     with torch.cuda.device(device_index):
         stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, f"tk_{name}")(*args, stream)
+        err = getattr(lib, entry or f"tk_{name}")(*args, stream)
     if err:
         raise RuntimeError(f"{name}: kernel launch failed: "
                            f"{lib.tk_error_string(err).decode()}")
@@ -212,8 +226,23 @@ def _check_frames(name, nearplane, scan_int, other, other_name):
     return t, s, m, p
 
 
-def _gather_probe_mul_cuda(psi, scan_int, prb):
+def _gather_variant(variant):
+    """The kernel to launch: the persistent one, unless ``'pixel'`` forces
+    the one it replaced; anything else raises before any launch."""
+    if variant is None:
+        return "persistent"
+    if variant != "pixel":
+        raise ValueError(f"gather_probe_mul: unknown variant {variant!r}; "
+                         "expected 'pixel' or None")
+    return variant
+
+
+def _gather_probe_mul_cuda(psi, scan_int, prb, variant=None):
+    """Launches ``gather_probe_mul``'s persistent kernel, or the pixel
+    kernel it replaced when ``variant='pixel'`` forces it (to time the two
+    in turns); both write the same bits."""
     name = "gather_probe_mul"
+    variant = _gather_variant(variant)
     t, nz, n = psi.shape
     _, m, p, p2 = prb.shape
     s = scan_int.shape[1]
@@ -228,9 +257,18 @@ def _gather_probe_mul_cuda(psi, scan_int, prb):
                       device=psi.device)
     psi, prb, scan_int = psi.contiguous(), prb.contiguous(), (
         scan_int.contiguous())
+    if scan_int.data_ptr() % 8:  # read a position (8 bytes) at a time
+        scan_int = scan_int.clone()
+    # The persistent kernel reads object pixel pairs 16 bytes at a time
+    # where the patch corner allows it: only in an aligned object of even
+    # row length.
+    vec = int(psi.data_ptr() % 16 == 0 and n % 2 == 0)
     _launch(name, fused._device_index(psi), psi.data_ptr(), prb.data_ptr(),
-            scan_int.data_ptr(), out.data_ptr(), t, s, nz, n, m, p)
+            scan_int.data_ptr(), out.data_ptr(), t, s, nz, n, m, p, vec,
+            entry=("tk_gather_probe_mul_pixel" if variant == "pixel"
+                   else None))
     gather_probe_mul.launches += 1
+    gather_probe_mul.variant = variant
     return out
 
 
