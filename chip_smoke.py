@@ -29,13 +29,19 @@ is caught):
                   gather_probe_mul, scatter_conj_probe and adj_probe_reduce
                   (the adjoints on the strided crop of 72^2 frames to
                   56^2); the probe reductions, fwd_quad_stats,
-                  ls_objectives, gather_probe_mul and adj_probe_reduce also
-                  bitwise repeatable, scatter_conj_probe (fp32 atomics)
-                  repeatable to 1e-5 of scale; gather_probe_mul's
+                  ls_objectives and the three hybrid kernels also
+                  bitwise repeatable; gather_probe_mul's
                   persistent kernel equal bit for bit to the forced pixel
                   kernel it replaced, with masked frames all zero, on the
                   headline (one position masked) and on awkward cases
-                  (odd and even n, nprb 56, 48 and the odd 55); kernel and
+                  (odd and even n, nprb 56, 48 and the odd 55);
+                  scatter_conj_probe's tile kernel bitwise repeatable and
+                  held to the plain version and to the forced atomic
+                  kernel it replaced on the headline (one position masked)
+                  and on awkward cases (n 101 and 102, nprb 56, 55 and 48,
+                  2 angles x 2 modes, strided crops, windows on the last
+                  row and column), every position masked giving exactly
+                  zero; kernel and
                   plain times at the headline size beside each kernel's
                   bound; <fwd(x), y> = <x, adj(y)> to 1e-5 at the headline.
                   grad_fused, minf_fused, grad_prb_fused, fwd, adj,
@@ -64,9 +70,11 @@ is caught):
                   frames); ls_objectives' frame-major kernel
                   against the forced pixel-major one, in turns, at 1 and 17
                   steps for both models (the new one must be faster at 17);
-                  and gather_probe_mul's persistent kernel against the
+                  gather_probe_mul's persistent kernel against the
                   forced pixel kernel, in turns, at 16384 and 4096 frames
-                  (the new one must be faster at both);
+                  (the new one must be faster at both); and
+                  scatter_conj_probe's tile kernel against the forced
+                  atomic kernel, likewise;
   4. solver    -- a small problem against the CPU complex128 oracle solver;
   5. main      -- the headline problem (512^2 object, 16384 positions, 128^2
                   probe and detector, Gaussian, solver defaults) through
@@ -215,6 +223,12 @@ LS_ENTRIES = ("ls_objectives_frame_kernelILi17EE", "ls_objectives_kernelE")
 # it replaced.
 GATHER_ENTRIES = ("gather_probe_mul_persistent_kernelILi2EE",
                   "gather_probe_mul_kernelE")
+# scatter_conj_probe's atomic kernel; the tile kernel's instantiation is
+# named from ops.kernels' mode chunk (scatter_entry).
+SCATTER_ATOMIC_ENTRY = "scatter_conj_probe_atomic_kernelE"
+# The tile kernel against the forced atomic one, of scale: the same sums in
+# another order.
+SCATTER_ORDER_TOL = 1e-5
 # The stream path's frames a launch (4096 positions in 4 chunks) and the
 # facade's and options' (config 3).
 STREAM_FRAMES = 1024
@@ -277,9 +291,10 @@ KERNEL_SOURCES = {
     "adj_probe_reduce": ("tikejax_torch/csrc/adj_probe_reduce.cu",
                          "tikejax/ops/pallas_kernels.py:436"),
 }
-# Two runs of the atomic scatter, of scale: each object pixel sums about a
-# thousand overlapping patches in an order that changes from run to run,
-# ~sqrt(1000) x fp32 epsilon = 2e-6 of its value (1.02e-6 of scale seen).
+# Two runs of an atomic scatter (the fused kernels' object gradients), of
+# scale: each object pixel sums about a thousand overlapping patches in an
+# order that changes from run to run, ~sqrt(1000) x fp32 epsilon = 2e-6 of
+# its value (1.02e-6 of scale seen).
 SCATTER_REPEAT = 1e-5
 HYBRID_ITERS = 100
 FACADE_ITERS = 64
@@ -671,10 +686,9 @@ def compare_at_scale(torch, fused, g, psi, data, scan_i, prb, base, chunk):
 def compare_hybrid(torch, kernels, psi, scan_i, prb, frames):
     """gather_probe_mul, scatter_conj_probe and adj_probe_reduce against
     their plain versions; ``frames`` (t, s, m, p, p), possibly a strided
-    crop, feeds the two adjoints. The gather and the probe reduction must
-    be bitwise repeatable, two runs of the scatter within SCATTER_REPEAT of
-    scale (fp32 atomics: deterministic up to summation order). Returns
-    {kernel: (relative error, absolute error)}."""
+    crop, feeds the two adjoints. All three must be bitwise repeatable,
+    the scatter on its tile kernel. Returns {kernel: (relative error,
+    absolute error)}."""
     nz, n = psi.shape[-2:]
     g_k = kernels.gather_probe_mul(psi, scan_i, prb)
     s_k = kernels.scatter_conj_probe(frames, scan_i, prb, nz, n)
@@ -697,9 +711,47 @@ def compare_hybrid(torch, kernels, psi, scan_i, prb, frames):
           "gather_probe_mul is not bitwise repeatable")
     check(torch.equal(p_k, kernels.adj_probe_reduce(frames, scan_i, psi)),
           "adj_probe_reduce is not bitwise repeatable")
-    again = rel_err(torch, kernels.scatter_conj_probe(frames, scan_i, prb,
-                                                      nz, n), s_k)
-    check(again[0] <= SCATTER_REPEAT, ("scatter_conj_probe repeat", again))
+    check(kernels.scatter_conj_probe.variant == "tile",
+          kernels.scatter_conj_probe.variant)
+    check(torch.equal(s_k, kernels.scatter_conj_probe(frames, scan_i, prb,
+                                                      nz, n)),
+          "scatter_conj_probe is not bitwise repeatable")
+    return errs
+
+
+def scatter_entry(kernels, nmodes: int) -> str:
+    """Part of the mangled name of the tile kernel's instantiation for
+    ``nmodes`` modes, for the compiler's report."""
+    return (f"scatter_conj_probe_tile_kernelILi"
+            f"{kernels.scatter_mode_chunk(nmodes)}EE")
+
+
+def scatter_as_tile(torch, kernels, frames, scan_i, prb, nz, n):
+    """scatter_conj_probe's tile kernel (as launched) on ``frames`` (any
+    strides): bitwise repeatable, within GRAD_TOL of scale of the plain
+    version and within SCATTER_ORDER_TOL of the forced atomic kernel it
+    replaced; with every position masked exactly zero (the output is not
+    zeroed before the kernel, so a pixel it missed would show). Returns
+    (error against the plain version, against the atomic kernel)."""
+    got = kernels.scatter_conj_probe(frames, scan_i, prb, nz, n)
+    check(kernels.scatter_conj_probe.variant == "tile",
+          kernels.scatter_conj_probe.variant)
+    check(torch.equal(got, kernels.scatter_conj_probe(frames, scan_i, prb, nz,
+                                                      n)),
+          ("scatter_conj_probe is not bitwise repeatable",
+           tuple(frames.shape), nz, n))
+    ref = kernels.scatter_conj_probe_reference(frames, scan_i, prb, nz, n)
+    old = kernels._scatter_conj_probe_cuda(frames, scan_i, prb, nz, n,
+                                           variant="atomic")
+    errs = (rel_err(torch, got, ref)[0], rel_err(torch, got, old)[0])
+    check(bool(torch.isfinite(got).all()) and errs[0] <= GRAD_TOL
+          and errs[1] <= SCATTER_ORDER_TOL,
+          ("scatter_conj_probe", tuple(frames.shape), nz, n, errs))
+    masked = scan_i.clone()
+    masked[..., 0] = -1
+    zero = kernels.scatter_conj_probe(frames, masked, prb, nz, n)
+    check(float(zero.abs().max()) == 0.0,
+          "scatter_conj_probe: every position masked is not zero")
     return errs
 
 
@@ -745,6 +797,10 @@ def compare_hybrid_at_scale(torch, kernels, g, psi, scan_i, prb, frames,
     errs = {"gather_probe_mul": (abs_err / scale, abs_err)}
     del out
     s_k = kernels.scatter_conj_probe(frames, scan_i, prb, g.nz, g.n)
+    check(kernels.scatter_conj_probe.variant == "tile"
+          and torch.equal(s_k, kernels.scatter_conj_probe(frames, scan_i,
+                                                          prb, g.nz, g.n)),
+          "scatter_conj_probe at scale is not bitwise repeatable")
     s_r = sum(kernels.scatter_conj_probe_reference(
         frames[:, c], scan_i[:, c], prb, g.nz, g.n) for c in parts)
     p_k = kernels.adj_probe_reduce(frames, scan_i, psi)
@@ -1012,9 +1068,8 @@ def main() -> None:
     h_errs = compare_hybrid(torch, kernels, psi_s, scan_si, prb_s, near_s)
     log("kernel", f"small {small}: " + ", ".join(
         f"{k} err {e:.2e}" for k, (e, _) in h_errs.items())
-        + " (adjoints on the strided crop; gather_probe_mul and "
-        "adj_probe_reduce bitwise repeatable, scatter_conj_probe within "
-        f"{SCATTER_REPEAT:g} of scale between two runs)")
+        + " (adjoints on the strided crop; all three bitwise "
+        "repeatable)")
     # gather_probe_mul's two kernels on awkward cases: odd and even object
     # rows (16-byte object loads only in the second), even and odd nprb
     # (pixel pairs or pixels), 2 angles x 2 modes, a masked position.
@@ -1039,6 +1094,32 @@ def main() -> None:
         + f"; 2 angles x 2 modes; {masked} positions masked); odd nprb "
         f"against the plain version {odd_err:.2e}")
     del psi_e, prb_odd, gather_cases
+    # scatter_conj_probe's tile kernel on awkward cases: odd and even n
+    # (partial edge tiles), nprb 56, 55 and 48, strided crops (ndet > nprb)
+    # and contiguous frames, 2 angles x 2 modes, a masked position and
+    # windows on the object's last row and column.
+    scatter_errs = {}
+    for n_e, p_e, d_e in ((small.n, 56, 72), (small.n + 1, 55, 64),
+                          (small.n, 48, 48), (small.n + 1, 48, 64)):
+        frames_e = crandn(small.ntheta, small.nscan, small.nmodes, d_e, d_e,
+                          generator=gen5)[..., :p_e, :p_e]
+        prb_e = crandn(small.ntheta, small.nmodes, p_e, p_e, generator=gen5)
+        scan_e = scan_si.clone()
+        for at, corner in (((0, 0), (small.nz - p_e, n_e - p_e)),
+                           ((0, 1), (0, n_e - p_e)),
+                           ((1, 0), (small.nz - p_e, 0))):
+            scan_e[at] = torch.tensor(corner, dtype=torch.int32)
+        check(frames_e.is_contiguous() == (d_e == p_e), (d_e, p_e))
+        scatter_errs[n_e, p_e, d_e] = scatter_as_tile(
+            torch, kernels, frames_e, scan_e, prb_e, small.nz, n_e)
+    del frames_e, prb_e, scan_e
+    log("kernel", "scatter_conj_probe: the tile kernel bitwise repeatable, "
+        "every position masked exactly zero; err against the plain version "
+        "/ the forced atomic kernel (" + ", ".join(
+            f"n {n_e} nprb {p_e} ndet {d_e} {e:.2e}/{a:.2e}"
+            for (n_e, p_e, d_e), (e, a) in scatter_errs.items())
+        + "; 2 angles x 2 modes, one position masked, windows on the last "
+        "row and column)")
 
     g = Geometry(**HEADLINE)
     _, scan, prb, data = make_problem(gen, g, device=dev)
@@ -1373,6 +1454,8 @@ def main() -> None:
     scan_m[0, 5, 0] = -1
     check(gather_as_pixel(torch, kernels, psi_r, scan_m, prb) == 1,
           "one masked position")
+    scatter_head = scatter_as_tile(torch, kernels, base, scan_m, prb, g.nz,
+                                   g.n)
     del scan_m
     gather_turns, gather_bounds = {}, {}
     for frames in (g.nscan, CONFIG3_FRAMES):
@@ -1402,6 +1485,48 @@ def main() -> None:
         f"{g_regs['spill_stores'] + g_regs['spill_loads']} spill bytes; "
         f"pixel {g_old['registers']} registers; equal bit for bit on the "
         f"headline with one position masked; on {card}")
+    # scatter_conj_probe's tile kernel against the atomic kernel it
+    # replaced, in turns, at the same two frame counts.
+    scatter_turns, scatter_bounds = {}, {}
+    tile0 = kernels.SCATTER_TILE
+    s_per_sm = kernels.scatter_blocks_per_sm(dev.index, g.nmodes)
+    for frames in (g.nscan, CONFIG3_FRAMES):
+        part, near_p = scan_i[:, :frames], base[:, :frames]
+        scatter_bounds[frames] = bound(
+            8 * near_p.numel(), nbytes(near_p, prb, part, psi_r))
+        scatter_turns[frames] = in_turns_ms(
+            torch, timer, f"scatter_conj_probe {frames}",
+            lambda: kernels.scatter_conj_probe(near_p, part, prb, g.nz, g.n),
+            lambda: kernels._scatter_conj_probe_cuda(
+                near_p, part, prb, g.nz, g.n, variant="atomic"))
+    check(all(new < old for new, old in scatter_turns.values()),
+          ("scatter_conj_probe: the tile kernel is not faster",
+           scatter_turns))
+    scatter_atomic_ms = scatter_turns[g.nscan][1]
+    s_regs = kernel_report(cuda_build, built["scatter_conj_probe"][2],
+                           scatter_entry(kernels, g.nmodes))
+    s_old = kernel_report(cuda_build, built["scatter_conj_probe"][2],
+                          SCATTER_ATOMIC_ENTRY)
+    tiles_y, tiles_x, _ = kernels.scatter_tile_plan(g.ntheta, g.nz, g.n)
+    # The walk reads the scan once a tile: its bytes against the frames'.
+    walk = tiles_y * tiles_x / (g.nmodes * g.nprb**2)
+    log("kernel", f"headline {g} scatter_conj_probe: tile ({tile0[0]}x"
+        f"{tile0[1]}) / "
+        "forced atomic kernel, 5 "
+        "back-to-back launches each in turns atomic, tile, tile, atomic: "
+        + "; ".join(
+            f"{frames} frames {new:.3f} / {old:.3f} ms ({old / new:.1f}x, "
+            f"bound {scatter_bounds[frames][0]:.3f} ms, "
+            f"{100 * scatter_bounds[frames][0] / new:.1f}% of it reached)"
+            for frames, (new, old) in scatter_turns.items())
+        + f"; tile {s_regs['registers']} registers, "
+        f"{s_regs['spill_stores'] + s_regs['spill_loads']} spill bytes, "
+        f"{s_regs['smem']} B static shared memory, {s_per_sm} blocks/SM; "
+        f"atomic {s_old['registers']} registers; the walk's scan reads "
+        f"{100 * walk:.2f}% of the frame bytes ({tiles_y * tiles_x} tiles); "
+        "err against the plain version / the atomic kernel on the headline "
+        f"with one position masked {scatter_head[0]:.2e}/"
+        f"{scatter_head[1]:.2e}; bitwise repeatable; on {card}")
     log("kernel", "bounds (ms, by): " + ", ".join(
         f"{k} {v[0]:.3f} {v[1]}" for k, v in bounds.items()))
     del base, psi_r, args, far, fd, dpsi_h
@@ -1705,10 +1830,21 @@ def main() -> None:
                           g4.ndet, base4)
     scale_errs = compare_at_scale(torch, fused, g4, psi_r4, data4, scan4_i,
                                   prb4, base4, SCALE_CHUNK)
+    frames4 = fused._base_complex(base4)
     scale_errs.update(compare_hybrid_at_scale(
-        torch, kernels, g4, psi_r4, scan4_i, prb4,
-        fused._base_complex(base4), SCALE_CHUNK))
-    del base4, psi_r4
+        torch, kernels, g4, psi_r4, scan4_i, prb4, frames4, SCALE_CHUNK))
+    # scatter_conj_probe's tile kernel against the atomic one at 4 modes,
+    # in turns: the tile kernel takes a position's modes 4 at a time.
+    scatter4 = in_turns_ms(
+        torch, timer, "scatter_conj_probe 4 modes",
+        lambda: kernels.scatter_conj_probe(frames4, scan4_i, prb4, g4.nz,
+                                           g4.n),
+        lambda: kernels._scatter_conj_probe_cuda(
+            frames4, scan4_i, prb4, g4.nz, g4.n, variant="atomic"))
+    s4_regs = kernel_report(cuda_build, built["scatter_conj_probe"][2],
+                            scatter_entry(kernels, g4.nmodes))
+    s4_per_sm = kernels.scatter_blocks_per_sm(dev.index, g4.nmodes)
+    del base4, psi_r4, frames4
     for name, (err, abs_err) in scale_errs.items():
         results[name] = (max(results[name][0], abs_err),) + results[name][1:]
     log("frameless", f"{g4} kernels against their plain versions (over "
@@ -1716,7 +1852,12 @@ def main() -> None:
         "view base: " + ", ".join(f"{k} err {e:.2e}"
                                   for k, (e, _) in scale_errs.items())
         + "; minf_fused of zeros on fwd's farplane ('fft') equal bit for "
-        f"bit to minf_fused's objective ({via4:.9e})")
+        f"bit to minf_fused's objective ({via4:.9e}); scatter_conj_probe "
+        "bitwise repeatable, its tile kernel / the forced atomic kernel in "
+        f"turns {scatter4[0]:.3f} / {scatter4[1]:.3f} ms (the tile kernel's "
+        f"4-mode build {s4_regs['registers']} registers, "
+        f"{s4_regs['spill_stores'] + s4_regs['spill_loads']} spill bytes, "
+        f"{s4_per_sm} blocks/SM); on {card}")
     held = reset_counts()
     t0 = time.perf_counter()
     psi4, _, st4 = reconstruct(data4, psi4, scan4, prb4, g4,
@@ -2066,7 +2207,9 @@ def main() -> None:
         **({"variant": "frame", "pixel_ms": ls_pixel_ms}
            if name == "ls_objectives" else {}),
         **({"variant": "persistent", "pixel_ms": gather_pixel_ms}
-           if name == "gather_probe_mul" else {})}
+           if name == "gather_probe_mul" else {}),
+        **({"variant": "tile", "atomic_ms": scatter_atomic_ms}
+           if name == "scatter_conj_probe" else {})}
         for name, (src, tpu) in KERNEL_SOURCES.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

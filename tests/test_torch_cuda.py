@@ -14,9 +14,10 @@ adjoints and the farplane (1e-4 of their scale) and 1e-5 relative for the
 objective -- both sides are fp32 and sum in different orders; the hybrid
 tier's kernels have no DFT in them and are held to 1e-5 of scale. The probe
 reductions (``grad_prb_fused``, ``adj_probe``, ``adj_probe_reduce``),
-``gather_probe_mul``, ``fwd_quad_stats`` and ``ls_objectives`` are bitwise
-reproducible; the object scatters (``grad_fused``, ``adj``,
-``adj_residual``, ``scatter_conj_probe``) only up to summation order.
+``gather_probe_mul``, ``scatter_conj_probe`` (its tile kernel: each pixel
+sums its positions in scan order), ``fwd_quad_stats`` and
+``ls_objectives`` are bitwise reproducible; the fused object scatters
+(``grad_fused``, ``adj``, ``adj_residual``) only up to summation order.
 
 ``grad_fused``, ``minf_fused``, ``grad_prb_fused``, ``fwd``, ``adj``,
 ``adj_probe``, ``adj_residual`` and ``fwd_quad_stats`` have two kernels
@@ -30,7 +31,9 @@ farplane ``fwd`` stores is bit for bit the one ``minf_fused`` forms inside,
 ``ls_objectives`` launches its frame-major kernel; the pixel-major one,
 forced, is held to the same values. ``gather_probe_mul`` launches its
 persistent kernel; the pixel kernel it replaced, forced, writes the same
-bits.
+bits. ``scatter_conj_probe`` launches its tile kernel; the atomic kernel it
+replaced, forced, is held to the same values within 1e-5 of scale, and the
+tile kernel writes the same bits whatever the frames' strides.
 """
 
 import pytest
@@ -292,8 +295,8 @@ def test_gather_probe_mul_matches_plain_version(dev, g):
 @pytest.mark.parametrize("g", GEOMS, ids=str)
 def test_hybrid_adjoints_match_plain_versions(dev, g):
     """scatter_conj_probe and adj_probe_reduce on a strided crop and on its
-    contiguous copy; adj_probe_reduce bitwise repeatable, the scatter to
-    1e-5 of scale between two runs (its atomics' order)."""
+    contiguous copy; both bitwise repeatable (the scatter on its tile
+    kernel)."""
     psi, _, scan_i, prb = inputs(g, dev)
     near = cropped_frames(g, dev)
     assert near.is_contiguous() == (g.ndet == g.nprb)
@@ -309,8 +312,9 @@ def test_hybrid_adjoints_match_plain_versions(dev, g):
         assert close(p_k, kernels.adj_probe_reduce_reference(
             frames, scan_i, psi), 1e-5)
         assert torch.equal(p_k, kernels.adj_probe_reduce(frames, scan_i, psi))
-        assert close(kernels.scatter_conj_probe(frames, scan_i, prb, g.nz,
-                                                g.n), a_k, 1e-5)
+        assert kernels.scatter_conj_probe.variant == "tile"
+        assert torch.equal(kernels.scatter_conj_probe(frames, scan_i, prb,
+                                                      g.nz, g.n), a_k)
     assert kernels.scatter_conj_probe.launches == s0 + 4
     assert kernels.adj_probe_reduce.launches == p0 + 4
 
@@ -1022,3 +1026,96 @@ def test_persistent_gather_equals_the_pixel_kernel(dev, g):
     odd = store[1:].view(psi.shape)
     odd.copy_(psi)
     assert torch.equal(kernels.gather_probe_mul(odd, scan_i, prb), got)
+
+
+SCATTER_GEOMS = [
+    Geometry(nz=97, n=101, nscan=37, ndet=72, nprb=56, ntheta=2, nmodes=2),
+    Geometry(nz=97, n=102, nscan=37, ndet=64, nprb=55, ntheta=2, nmodes=2),
+    Geometry(nz=97, n=101, nscan=37, ndet=48, nprb=48, ntheta=2, nmodes=2),
+    Geometry(nz=97, n=102, nscan=37, ndet=64, nprb=48, ntheta=2, nmodes=2),
+    Geometry(nz=97, n=101, nscan=37, ndet=64, nprb=48, ntheta=2, nmodes=3),
+    Geometry(nz=70, n=66, nscan=20, ndet=48, nprb=48, nmodes=5),
+    Geometry(nz=64, n=64, nscan=9, ndet=16, nprb=5),
+    Geometry(nz=200, n=180, nscan=50, ndet=128, nprb=128),
+]
+
+
+def scatter_inputs(g, dev):
+    """Frames as the adjoint operators hand them over (strided when ndet >
+    nprb), the probe and a scan with a masked position and windows on the
+    object's last row and column."""
+    _, _, scan_i, prb = inputs(g, dev)
+    scan_i[0, 0] = torch.tensor([g.nz - g.nprb, g.n - g.nprb])
+    scan_i[0, 1] = torch.tensor([0, g.n - g.nprb])
+    scan_i[-1, -1] = torch.tensor([g.nz - g.nprb, 0])
+    return cropped_frames(g, dev), scan_i, prb
+
+
+@pytest.mark.parametrize("g", SCATTER_GEOMS, ids=str)
+def test_tile_scatter_matches_plain_and_atomic(dev, g):
+    """The tile kernel on awkward sizes (odd and even n, nprb 56, 55, 48
+    and 5, partial edge tiles, strided crops, 2 angles x 2 modes, 3 and 5
+    modes -- a chunk of modes partly empty --, windows on the last row and
+    column): within 1e-5 of scale of the plain version and of the forced
+    atomic kernel, bitwise repeatable."""
+    near, scan_i, prb = scatter_inputs(g, dev)
+    launches = kernels.scatter_conj_probe.launches
+    got = kernels.scatter_conj_probe(near, scan_i, prb, g.nz, g.n)
+    assert kernels.scatter_conj_probe.variant == "tile"
+    old = kernels._scatter_conj_probe_cuda(near, scan_i, prb, g.nz, g.n,
+                                           variant="atomic")
+    assert kernels.scatter_conj_probe.variant == "atomic"
+    assert kernels.scatter_conj_probe.launches == launches + 2
+    assert got.shape == old.shape == g.psi_shape
+    assert close(got, kernels.scatter_conj_probe_reference(
+        near, scan_i, prb, g.nz, g.n), 1e-5)
+    assert close(got, old, 1e-5)
+    assert torch.equal(got, kernels.scatter_conj_probe(near, scan_i, prb,
+                                                       g.nz, g.n))
+
+
+@pytest.mark.parametrize("g", SCATTER_GEOMS[:2] + SCATTER_GEOMS[4:6],
+                         ids=str)
+def test_tile_scatter_bits_do_not_depend_on_the_layout(dev, g):
+    """The frames' strides and where the scan lies in memory change the
+    addresses, not the order in which a pixel sums its positions and their
+    modes: a strided crop and its contiguous copy, and a scan at an offset
+    that is not 8-byte aligned (copied by the wrapper), give the same
+    bits."""
+    near, scan_i, prb = scatter_inputs(g, dev)
+    want = kernels.scatter_conj_probe(near, scan_i, prb, g.nz, g.n)
+    store = torch.empty(scan_i.numel() + 1, dtype=torch.int32, device=dev)
+    odd = store[1:].view(scan_i.shape)
+    odd.copy_(scan_i)
+    assert odd.data_ptr() % 8
+    for frames, scan in ((near.contiguous(), scan_i), (near, odd)):
+        assert torch.equal(kernels.scatter_conj_probe(frames, scan, prb,
+                                                      g.nz, g.n), want)
+
+
+def test_tile_scatter_writes_every_pixel(dev):
+    """The tile kernel's output is not zeroed before it runs: a pixel that
+    no window covers comes back exactly 0 even where the memory it reuses
+    held NaN, and so does every pixel when every position is masked."""
+    g = Geometry(nz=70, n=66, nscan=4, ndet=16, nprb=16, ntheta=2,
+                 nmodes=2)
+    near, scan_i, prb = scatter_inputs(g, dev)
+    scan_i[:] = torch.tensor([[0, 0], [30, 40], [54, 50], [-1, 3]])
+    covered = torch.zeros(g.psi_shape, dtype=torch.bool, device=dev)
+    covered[:, :16, :16] = covered[:, 30:46, 40:56] = True
+    covered[:, 54:70, 50:66] = True
+    for masked in (False, True):
+        if masked:
+            scan_i[..., 0] = -1
+        junk = torch.full(g.psi_shape, float("nan"), dtype=torch.complex64,
+                          device=dev)
+        del junk  # the allocator hands this block to the kernel's output
+        got = kernels.scatter_conj_probe(near, scan_i, prb, g.nz, g.n)
+        assert bool(torch.isfinite(got).all())
+        assert float(got[~covered].abs().max()) == 0.0
+        if masked:
+            assert float(got.abs().max()) == 0.0
+        else:
+            assert float(got[covered].abs().min()) > 0.0
+            assert close(got, kernels.scatter_conj_probe_reference(
+                near, scan_i, prb, g.nz, g.n), 1e-5)

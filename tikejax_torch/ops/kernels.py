@@ -37,12 +37,18 @@ their caller hands them ``crop_from_det(ifft2o(farplane), nprb)``, a strided
 view whenever ``ndet > nprb``: a contiguous copy would be one more pass over
 all frames.
 
-Determinism: ``scatter_conj_probe`` uses fp32 atomics, so it is
-deterministic only up to the order in which overlapping patches are summed
-(the TPU kernel's in-order grid is bitwise deterministic; this is the
-contract of the port's other object scatters). ``gather_probe_mul`` has no
-reduction, and ``adj_probe_reduce`` sums fixed runs of positions in
-registers and the runs in a fixed order: both are bitwise reproducible.
+Determinism: all three are bitwise repeatable. ``scatter_conj_probe``
+launches a tile-owned kernel: a block owns a tile of the object and sums,
+in registers, the contributions of the positions whose windows cover it in
+increasing scan order -- the TPU kernel's order -- and stores each pixel
+once, with no atomics (:func:`scatter_tile_plan` cuts the object into its
+tiles). The fp32-atomic kernel it replaced, deterministic only up to the
+order in which overlapping patches land, stays only for timing the two in
+turns, forced with ``_scatter_conj_probe_cuda(..., variant='atomic')``
+(``scatter_conj_probe.variant`` names the last launch's). The port's other
+object scatters (``grad_fused``, ``adj``, ``adj_residual``) still use fp32
+atomics. ``gather_probe_mul`` has no reduction, and ``adj_probe_reduce``
+sums fixed runs of positions in registers and the runs in a fixed order.
 
 Each function takes CPU or CUDA tensors. On a CUDA tensor it launches its
 kernel or raises; on a CPU tensor it runs its ``*_reference``, the plain
@@ -66,6 +72,11 @@ from tikejax_torch.utils import cuda_build
 # this many blocks are in flight (132 SMs x 8 blocks of 256 threads, twice).
 _TARGET_BLOCKS = 2048
 _MAX_GRID_YZ = 65535
+# scatter_conj_probe's tile kernel: 256 threads own a tile of the object,
+# SCATTER_TILE = (rows, columns) pixels, one pixel a thread (the shape
+# csrc/scatter_conj_probe.cu is built for), one block per (angle, tile).
+SCATTER_TILE = (8, 32)
+_MAX_GRID_X = 2**31 - 1
 
 
 def gather_probe_mul(psi: torch.Tensor, scan_int: torch.Tensor,
@@ -119,6 +130,7 @@ def scatter_conj_probe(nearplane: torch.Tensor, scan_int: torch.Tensor,
 
 
 scatter_conj_probe.launches = 0
+scatter_conj_probe.variant = None  # of the last launch: 'tile' or 'atomic'
 
 
 def scatter_conj_probe_reference(nearplane: torch.Tensor,
@@ -166,26 +178,28 @@ adj_probe_reduce_reference.launches = 0
 # -- the CUDA path -------------------------------------------------------
 
 _STRIDES = [ctypes.c_int64] * 4
-_ARGTYPES = {
-    # pointers, ints (and the frames' four strides), then the stream.
-    "gather_probe_mul": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7,
-    "scatter_conj_probe": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-    + _STRIDES,
-    "adj_probe_reduce": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-    + _STRIDES,
+_GATHER_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+_SCATTER_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + _STRIDES
+# Argument types of each entry point of a library: pointers, ints (and the
+# frames' four strides), then the stream.
+_ENTRIES = {
+    "gather_probe_mul": {"tk_gather_probe_mul": _GATHER_ARGS,
+                         "tk_gather_probe_mul_pixel": _GATHER_ARGS},
+    "scatter_conj_probe": {
+        # + tiles_y, tiles_x, mode_chunk
+        "tk_scatter_conj_probe": _SCATTER_ARGS + [ctypes.c_int] * 3,
+        "tk_scatter_conj_probe_atomic": _SCATTER_ARGS},
+    "adj_probe_reduce": {"tk_adj_probe_reduce": [ctypes.c_void_p] * 5
+                         + [ctypes.c_int] * 7 + _STRIDES},
 }
-
-
-# Other entry points of a library with the argument types of tk_<name>.
-_MORE_ENTRIES = {"gather_probe_mul": ("tk_gather_probe_mul_pixel",)}
 
 
 @functools.cache
 def _lib(name: str) -> ctypes.CDLL:
     lib = cuda_build.load(name)
-    for symbol in (f"tk_{name}",) + _MORE_ENTRIES.get(name, ()):
+    for symbol, argtypes in _ENTRIES[name].items():
         entry = getattr(lib, symbol)
-        entry.argtypes = _ARGTYPES[name] + [ctypes.c_void_p]
+        entry.argtypes = argtypes + [ctypes.c_void_p]
         entry.restype = ctypes.c_int
     lib.tk_error_string.argtypes = [ctypes.c_int]
     lib.tk_error_string.restype = ctypes.c_char_p
@@ -272,16 +286,82 @@ def _gather_probe_mul_cuda(psi, scan_int, prb, variant=None):
     return out
 
 
-def _scatter_conj_probe_cuda(nearplane, scan_int, prb, nz, n):
+def scatter_tile_plan(t: int, nz: int, n: int):
+    """How ``scatter_conj_probe``'s tile kernel cuts ``t`` objects of
+    ``nz x n`` pixels into tiles of ``SCATTER_TILE`` pixels:
+    ``(tiles_y, tiles_x, blocks)``, the tiles along each axis (the last
+    ones partial where the tile does not divide the side) and one block per
+    (angle, tile). Raises where the blocks pass the grid's limit. Pure: no
+    device is involved."""
+    tiles_y, tiles_x = -(-nz // SCATTER_TILE[0]), -(-n // SCATTER_TILE[1])
+    blocks = t * tiles_y * tiles_x
+    if blocks > _MAX_GRID_X:
+        raise ValueError(f"scatter_conj_probe: {blocks} tiles pass the "
+                         f"grid's limit of {_MAX_GRID_X} blocks")
+    return tiles_y, tiles_x, blocks
+
+
+def scatter_mode_chunk(nmodes: int) -> int:
+    """How many modes of a position the tile kernel loads at once: 1, 2
+    or 4 (three modes take a chunk of 4 with one left empty, more than
+    four several chunks); a thread keeps 12 pixel loads in flight whatever
+    the number of modes."""
+    return 1 if nmodes <= 1 else 2 if nmodes == 2 else 4
+
+
+def _scatter_variant(variant):
+    """The kernel to launch: the tile kernel, unless ``'atomic'`` forces
+    the one it replaced; anything else raises before any launch."""
+    if variant is None:
+        return "tile"
+    if variant != "atomic":
+        raise ValueError(f"scatter_conj_probe: unknown variant {variant!r}; "
+                         "expected 'atomic' or None")
+    return variant
+
+
+def scatter_blocks_per_sm(device_index: int, nmodes: int = 1) -> int:
+    """Resident blocks per SM of the tile kernel's instantiation for
+    ``nmodes`` modes."""
+    per_sm = ctypes.c_int(0)
+    lib = _lib("scatter_conj_probe")
+    with torch.cuda.device(device_index):
+        err = lib.tk_scatter_conj_probe_blocks_per_sm(
+            scatter_mode_chunk(nmodes), ctypes.byref(per_sm))
+    if err:
+        raise RuntimeError(f"scatter_conj_probe: occupancy query failed: "
+                           f"{lib.tk_error_string(err).decode()}")
+    return per_sm.value
+
+
+def _scatter_conj_probe_cuda(nearplane, scan_int, prb, nz, n, variant=None):
+    """Launches ``scatter_conj_probe``'s tile kernel, or the atomic kernel
+    it replaced when ``variant='atomic'`` forces it (to time the two in
+    turns)."""
     name = "scatter_conj_probe"
+    variant = _scatter_variant(variant)
     t, s, m, p = _check_frames(name, nearplane, scan_int, prb, "prb")
-    out = torch.zeros((t, nz, n), dtype=torch.complex64,
-                      device=nearplane.device)
     prb, scan_int = prb.contiguous(), scan_int.contiguous()
-    _launch(name, fused._device_index(nearplane), nearplane.data_ptr(),
-            prb.data_ptr(), scan_int.data_ptr(), out.data_ptr(), t, s, nz,
-            n, m, p, *nearplane.stride()[:4])
+    dev_i = fused._device_index(nearplane)
+    if variant == "atomic":
+        out = torch.zeros((t, nz, n), dtype=torch.complex64,
+                          device=nearplane.device)
+        _launch(name, dev_i, nearplane.data_ptr(), prb.data_ptr(),
+                scan_int.data_ptr(), out.data_ptr(), t, s, nz, n, m, p,
+                *nearplane.stride()[:4], entry="tk_scatter_conj_probe_atomic")
+    else:
+        tiles_y, tiles_x, _ = scatter_tile_plan(t, nz, n)
+        # Every pixel is stored by the kernel, covered or not.
+        out = torch.empty((t, nz, n), dtype=torch.complex64,
+                          device=nearplane.device)
+        if scan_int.data_ptr() % 8:  # read a position (8 bytes) at a time
+            scan_int = scan_int.clone()
+        _launch(name, dev_i, nearplane.data_ptr(), prb.data_ptr(),
+                scan_int.data_ptr(), out.data_ptr(), t, s, nz, n, m, p,
+                *nearplane.stride()[:4], tiles_y, tiles_x,
+                scatter_mode_chunk(m))
     scatter_conj_probe.launches += 1
+    scatter_conj_probe.variant = variant
     return out
 
 

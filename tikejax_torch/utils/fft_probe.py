@@ -1,6 +1,8 @@
-"""Where the time goes inside the FFT kernels, on the card.
+"""Where the time goes inside the FFT kernels and ``scatter_conj_probe``'s
+tile kernel, on the card.
 
-    python -m tikejax_torch.utils.fft_probe
+    python -m tikejax_torch.utils.fft_probe            # the FFT kernels
+    python -m tikejax_torch.utils.fft_probe scatter    # the tile scatter
 
 needs one CUDA card and ``nvcc``. At the headline frame size (16,384
 positions, 128^2 probe and detector, one mode) it times ``grad_fused``,
@@ -10,8 +12,19 @@ the forced ``'gemm'`` variant; then ``grad_fused`` and ``adj_probe`` built
 from patched copies of ``csrc/`` that each leave one phase of the kernel out
 (the transforms, the scatter's atomics, the data read, the gather's loads;
 the farplane load, the partial's update), which says what that phase costs.
-The patched kernels compute nothing meaningful and are only timed; the copies
-go under the build directory. Medians of 7 launches with CUDA events.
+
+``scatter`` times ``scatter_conj_probe``'s tile kernel at one mode and at
+4 modes against the forced atomic kernel; then the tile kernel on inputs
+that take one cost away (every position reading one frame, which stays in
+L2; every position masked, which leaves the walk over the scan alone;
+window corners on multiples of 4 columns, so that no frame-row segment
+straddles a 32-byte sector more than it must); then built from patched
+copies that leave the frame loads, the probe loads or both out, or keep
+another number of loads in flight or of blocks resident.
+
+The patched kernels compute nothing meaningful and are only timed; the
+copies go under the build directory. Medians of 7 launches with CUDA
+events.
 """
 
 from __future__ import annotations
@@ -19,12 +32,13 @@ from __future__ import annotations
 import contextlib
 import shutil
 import statistics
+import sys
 
 import torch
 
 from tikejax_torch import Geometry
 from tikejax_torch.models import make_problem
-from tikejax_torch.ops import fused
+from tikejax_torch.ops import fused, kernels
 from tikejax_torch.ops.patches import scan_to_int
 from tikejax_torch.utils import cuda_build
 
@@ -56,6 +70,28 @@ PATCHES = {
         "        float2& a = out[i];\n"
         "        if (g.x == 12345.f) a = make_float2(a.x + g.x, a.y + g.y);")]),
 }
+_SCATTER = "scatter_conj_probe.cu"
+_FRAME_LOAD = (_SCATTER, "@p ld.global.cs.v2.f32 {%0, %1}, [%2];",
+               "mov.f32 %0, 0f3F800000;")
+_PROBE_LOAD = (_SCATTER, "@p ld.global.nc.v2.f32 {%0, %1}, [%2];",
+               "mov.f32 %0, 0f3F800000;")
+
+
+def _loads(k: int):
+    return (_SCATTER, "constexpr int kLoads = 12;",
+            f"constexpr int kLoads = {k};")
+
+
+PATCHES.update({
+    "no frame loads": ("scatter_conj_probe", [_FRAME_LOAD]),
+    "no probe loads": ("scatter_conj_probe", [_PROBE_LOAD]),
+    "no loads": ("scatter_conj_probe", [_FRAME_LOAD, _PROBE_LOAD]),
+    "8 loads in flight": ("scatter_conj_probe", [_loads(8)]),
+    "16 loads in flight": ("scatter_conj_probe", [_loads(16)]),
+    "8 loads in flight, 3 blocks an SM": ("scatter_conj_probe", [
+        _loads(8), (_SCATTER, "__launch_bounds__(kThreads, 2)",
+                    "__launch_bounds__(kThreads, 3)")]),
+})
 
 
 def median_ms(fn, reps: int = 7) -> float:
@@ -73,6 +109,7 @@ def median_ms(fn, reps: int = 7) -> float:
 
 def _forget_loaded_libraries() -> None:
     fused._lib.cache_clear()
+    kernels._lib.cache_clear()
     fused.fft_launch_config.cache_clear()
     cuda_build._LOADED.clear()
 
@@ -100,10 +137,7 @@ def patched_sources(label: str, edits):
         _forget_loaded_libraries()
 
 
-def main() -> None:
-    if not torch.cuda.is_available():
-        raise SystemExit("fft_probe needs a CUDA card")
-    dev = torch.device("cuda", 0)
+def fft_kernels(dev) -> None:
     g = Geometry(**HEADLINE)
     gen = torch.Generator(device=dev).manual_seed(0)
     _, scan, prb, data = make_problem(gen, g, device=dev)
@@ -115,7 +149,7 @@ def main() -> None:
 
     psi, far = crandn(g.psi_shape), crandn(g.farplane_shape)
     args = (psi, data, scan_i, prb, g.ndet, "gaussian")
-    kernels = {
+    runs = {
         "grad_fused": lambda **kw: fused._grad_fused_cuda(*args, None, **kw),
         "minf_fused": lambda **kw: fused._minf_fused_cuda(*args, None, **kw),
         "grad_prb_fused": lambda **kw: fused._grad_prb_fused_cuda(*args,
@@ -125,7 +159,7 @@ def main() -> None:
     }
     print(f"{torch.cuda.get_device_name(0)}; {g}", flush=True)
     whole = {}
-    for name, run in kernels.items():
+    for name, run in runs.items():
         run()  # build and warm up
         whole[name] = median_ms(run)
         line = [f"fft {whole[name]:.3f} ms"]
@@ -137,8 +171,10 @@ def main() -> None:
         line.append(f"gemm {median_ms(lambda: run(variant='gemm')):.3f}")
         print(f"{name}: " + ", ".join(line), flush=True)
     for label, (name, edits) in PATCHES.items():
+        if name not in runs:
+            continue
         with patched_sources(label, edits):
-            run = kernels[name]
+            run = runs[name]
             run()
             kw = {} if name == "adj_probe" else {"prefetch": False}
             ms = median_ms(lambda: run(**kw))
@@ -146,6 +182,70 @@ def main() -> None:
                                                             "prefetch off"]
         print(f"{name}, {label}: {ms:.3f} ms of {base:.3f} "
               f"({base - ms:+.3f})", flush=True)
+
+
+def scatter_kernel(dev) -> None:
+    g = Geometry(**HEADLINE)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    _, scan, prb, _ = make_problem(gen, g, device=dev)
+    scan_i = scan_to_int(scan)
+
+    def crandn(*shape):
+        return torch.complex(torch.randn(shape, generator=gen, device=dev),
+                             torch.randn(shape, generator=gen, device=dev))
+
+    near = crandn(1, g.nscan, 1, g.nprb, g.nprb)
+    near4, prb4 = crandn(1, g.nscan, 4, g.nprb, g.nprb), crandn(1, 4, g.nprb,
+                                                                g.nprb)
+    one = near[:, :1].expand(near.shape)  # one frame for every position
+    masked = scan_i.clone()
+    masked[..., 0] = -1
+    aligned = scan_i.clone()
+    aligned[..., 1] = aligned[..., 1] // 4 * 4
+
+    def tile(frames=near, scan=scan_i, probe=prb, **kw):
+        return lambda: kernels._scatter_conj_probe_cuda(
+            frames, scan, probe, g.nz, g.n, **kw)
+
+    runs = {"one mode": tile(), "4 modes": tile(near4, probe=prb4)}
+    print(f"{torch.cuda.get_device_name(0)}; {g}; tile "
+          f"{kernels.SCATTER_TILE}", flush=True)
+    base = {}
+    for label, run in runs.items():
+        run()  # build and warm up
+        base[label] = median_ms(run)
+        frames, probe = (near, prb) if label == "one mode" else (near4, prb4)
+        atomic = median_ms(tile(frames, probe=probe, variant="atomic"))
+        print(f"{label}: tile {base[label]:.3f} ms, atomic {atomic:.3f}",
+              flush=True)
+    for label, run in (("one frame for every position", tile(one)),
+                       ("every position masked", tile(scan=masked)),
+                       ("corners on multiples of 4 columns",
+                        tile(scan=aligned))):
+        run()
+        print(f"one mode, {label}: {median_ms(run):.3f} ms of "
+              f"{base['one mode']:.3f}", flush=True)
+    for label, (name, edits) in PATCHES.items():
+        if name != "scatter_conj_probe":
+            continue
+        with patched_sources(label, edits):
+            line = []
+            for case, run in runs.items():
+                run()
+                line.append(f"{case} {median_ms(run):.3f} ms of "
+                            f"{base[case]:.3f}")
+        print(f"{label}: " + ", ".join(line), flush=True)
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("fft_probe needs a CUDA card")
+    which = sys.argv[1:] or ["fft"]
+    if which not in (["fft"], ["scatter"]):
+        raise SystemExit("usage: python -m tikejax_torch.utils.fft_probe "
+                         "[fft|scatter]")
+    dev = torch.device("cuda", 0)
+    (fft_kernels if which == ["fft"] else scatter_kernel)(dev)
 
 
 if __name__ == "__main__":
