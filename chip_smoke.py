@@ -74,7 +74,14 @@ is caught):
                   forced pixel kernel, in turns, at 16384 and 4096 frames
                   (the new one must be faster at both); and
                   scatter_conj_probe's tile kernel against the forced
-                  atomic kernel, likewise;
+                  atomic kernel, likewise; adj (its frames summed by the
+                  tile kernel in scan order, chunk after chunk) bitwise
+                  repeatable on both variants at 16384 and 1024 frames and
+                  timed in turns against the forced one-pass atomic kernel
+                  it replaced at both; the 'fft' fwd farplane, adj and
+                  adj_probe at 64^2 and 128^2, 1 and 4 modes, against a
+                  complex128 oracle on the card: the fused_mp / fused_mx
+                  bound (~8e-6) held, fused_hp's (~4e-7) reported;
   4. solver    -- a small problem against the CPU complex128 oracle solver;
   5. main      -- the headline problem (512^2 object, 16384 positions, 128^2
                   probe and detector, Gaussian, solver defaults) through
@@ -159,7 +166,27 @@ is caught):
                   adjoint identities to 1e-5 on the small awkward case;
  16. options   -- precondition='illum_lowk' and linesearch='parabolic', 32
                   iterations each on the hybrid tier at config 3's size
-                  (Gaussian): the objective falls.
+                  (Gaussian): the objective falls;
+ 17. sharded   -- two gloo ranks (tikejax_torch.parallel.RankPool, each a
+                  process of its own, both on the one card) through
+                  parallel.run_sharded: BASELINE config 5 (512^2 object,
+                  65536 positions, 128^2 probe and detector, Gaussian,
+                  solver defaults) on a ('scan',) mesh, 8 iterations, and
+                  config 3's shape on two angles (recover_prb=True) on a
+                  (2, 1) ('theta', 'scan') mesh, Gaussian for 8 iterations
+                  and Poisson on the bitwise-repeatable hybrid tier for 2
+                  (the Poisson joint search amplifies rounding tenfold an
+                  iteration, and its fused-tier run does not repeat even on
+                  one rank), each held to the one-rank run of the same
+                  problem (every rank builds it from the seed; an
+                  all-reduced checksum shows they did): iterations and
+                  evaluations equal, objectives, psi and prb within 1e-4 of
+                  scale, the ranks bitwise equal with equal collective
+                  counts; then the headline through reconstruct(mesh=) to
+                  1e-6, beside phase 6's one-rank figure. All-reduces and
+                  their bytes per iteration and the card's busy ms per
+                  iteration of each rank are printed; no multi-GPU rate is
+                  measured.
 No phase may run a plain version on the main path.
 The line before the last is the card's nvidia-smi line; before it, one JSON
 line describing each kernel (its launches on each phase that ran it, with
@@ -291,13 +318,36 @@ KERNEL_SOURCES = {
     "adj_probe_reduce": ("tikejax_torch/csrc/adj_probe_reduce.cu",
                          "tikejax/ops/pallas_kernels.py:436"),
 }
-# Two runs of an atomic scatter (the fused kernels' object gradients), of
-# scale: each object pixel sums about a thousand overlapping patches in an
-# order that changes from run to run, ~sqrt(1000) x fp32 epsilon = 2e-6 of
-# its value (1.02e-6 of scale seen).
+# The reference's operator accuracy of its fused tiers (tikejax/ops/
+# diffraction.py): ~8e-6 fused_mp / fused_mx, ~4e-7 fused_hp, here as
+# max|err| / max|ref| against a complex128 oracle on the card.
+MP_BOUND = 8e-6
+HP_BOUND = 4e-7
+# Two runs of an atomic scatter (grad_fused's and adj_residual's object
+# gradients), of scale: each object pixel sums about a thousand overlapping
+# patches in an order that changes from run to run, ~sqrt(1000) x fp32
+# epsilon = 2e-6 of its value (1.02e-6 of scale seen). adj sums in scan
+# order and is held to torch.equal instead.
 SCATTER_REPEAT = 1e-5
 HYBRID_ITERS = 100
 FACADE_ITERS = 64
+# Phase 17, sharded: BASELINE config 5 (its source: "Position-sharded CG
+# ..., 512^2 object, 64k positions"), 128^2 probe and detector, Gaussian,
+# object-only, solver defaults, on two ranks of a ('scan',) mesh sharing the
+# card; config 3's shape on two angles on a (2, 1) ('theta', 'scan') mesh;
+# and the headline through reconstruct(mesh=) to 1e-6.
+CONFIG5 = dict(nz=512, n=512, nscan=65536, ndet=128, nprb=128)
+CONFIG3_THETA = dict(CONFIG3, ntheta=2)
+SHARDED_ITERS = 8
+THETA_ITERS = 8
+# The Poisson joint search amplifies any difference of rounding from
+# iteration to iteration, even where every kernel repeats bit for bit (the
+# sums over angles then run in another order): its theta-mesh run is held
+# after 2 iterations.
+THETA_POISSON_ITERS = 2
+# Sharded against one rank, of scale: the same kernels, the sums over the
+# positions in another order.
+SHARDED_TOL = 1e-4
 OPTION_ITERS = 32
 LS_STEPS = [0.5 ** k for k in range(17)]  # the solver's default K
 # Iterations of the profiled windows of phases 7, 8 and 13.
@@ -381,10 +431,12 @@ def compare_grad_prb(torch, fused, args, ndet, model):
 
 
 def compare_adjoints(torch, fused, far, scan_i, prb, psi):
-    """adj and adj_probe against their plain versions (adj_probe also
-    bitwise repeatable): ((adj err, abs), (adj_probe err, abs))."""
+    """adj and adj_probe against their plain versions (both also bitwise
+    repeatable): ((adj err, abs), (adj_probe err, abs))."""
     nz, n = psi.shape[-2:]
     a_k = fused.adj(far, scan_i, prb, nz, n)
+    check(torch.equal(a_k, fused.adj(far, scan_i, prb, nz, n)),
+          "adj is not bitwise repeatable")
     a_err = rel_err(torch, a_k, fused.adj_reference(far, scan_i, prb, nz, n))
     p_k = fused.adj_probe(far, scan_i, psi, prb.shape[-1])
     p_2 = fused.adj_probe(far, scan_i, psi, prb.shape[-1])
@@ -402,8 +454,9 @@ def compare_variant(torch, fused, args, ndet, model, base, far, variant):
     """One forced variant of grad_fused, minf_fused and fwd (with ``base``),
     grad_prb_fused, and adj, adj_probe, adj_residual and fwd_quad_stats (on
     ``far``) against the plain versions; every objective, the two probe
-    sums, fwd's farplane and the statistics planes bitwise repeatable, two
-    runs of each object gradient within SCATTER_REPEAT. With the 'fft'
+    sums, fwd's farplane, the statistics planes and adj's object bitwise
+    repeatable, two runs of grad_fused's and adj_residual's object gradient
+    within SCATTER_REPEAT. With the 'fft'
     variant the three objectives are one number, bit for bit (a line search
     compares them), and fwd's farplane is the one minf_fused forms inside:
     minf_fused of zeros on it as the base is minf_fused's objective, bit for
@@ -464,11 +517,11 @@ def compare_variant(torch, fused, args, ndet, model, base, far, variant):
     check(float(f_k) == float(f_2) and float(m_k) == float(m_2)
           and float(h_k) == float(h_2) and torch.equal(q_k, q_2)
           and torch.equal(p_k, p_2) and torch.equal(o_k, o_2)
-          and float(s_k) == float(s_2)
+          and float(s_k) == float(s_2) and torch.equal(a_k, a_2)
           and all(torch.equal(x, y) for x, y in zip(x_k, x_2)),
-          f"variant {variant}: an objective, a probe sum, the farplane or "
-          "the statistics are not bitwise repeatable")
-    for name, a, b in (("grad_fused", g_2, g_k), ("adj", a_2, a_k),
+          f"variant {variant}: an objective, a probe sum, the farplane, the "
+          "statistics or adj's object are not bitwise repeatable")
+    for name, a, b in (("grad_fused", g_2, g_k),
                        ("adj_residual", r_2, r_k)):
         again, _ = rel_err(torch, a, b)
         check(again <= SCATTER_REPEAT, (name + " repeat", variant, again))
@@ -888,6 +941,104 @@ def show_busy(iters, busy, plain_ms) -> str:
                 f"{k} {v / iters:.3f}" for k, v in top.items()) + " ms/iter")
 
 
+def sharded_problem(torch, g, seed: int, dev, perturb: float = 0.0):
+    """(data, psi0 = ones, scan, probe) of geometry ``g`` from ``seed`` on
+    ``dev``: every rank and the one-rank run make the same arrays. With
+    ``perturb`` the probe gets complex Gaussian noise at that share of its
+    maximum."""
+    from tikejax_torch.models import make_problem
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    _, scan, prb, data = make_problem(gen, g, device=dev)
+    if perturb:
+        prb = prb + perturb * prb.abs().max() * torch.complex(
+            torch.randn(g.prb_shape, generator=gen, device=dev),
+            torch.randn(g.prb_shape, generator=gen, device=dev))
+    psi0 = torch.ones(g.psi_shape, dtype=torch.complex64, device=dev)
+    return data, psi0, scan, prb
+
+
+def checksum(torch, *arrays):
+    """float64 sums of the arrays (of |x| for complex ones), stacked."""
+    return torch.stack([(x.abs() if x.is_complex() else x).double().sum()
+                        for x in arrays])
+
+
+def sharded_job(rank, world, what, mesh_shape, geom, seed, kw, perturb=0.0):
+    """A rank of phase 17 (a RankPool job; the ranks import this script as
+    their main module, never jax). Builds the problem from ``seed``, checks
+    with an all-reduced checksum that every rank built the same one, warms
+    up, then runs ``run_sharded(**kw)`` (``what == 'run'``) or
+    ``reconstruct(mesh=, **kw)`` (``'deep'``) between two synchronises,
+    with every launch count and the collectives counted from zero; a
+    'run' is then profiled for PROFILE_ITERS iterations."""
+    import torch
+    import torch.distributed as dist
+
+    from tikejax_torch import Geometry
+    from tikejax_torch.ops import fused, kernels, linesearch
+    from tikejax_torch.parallel import make_mesh, run_sharded
+    from tikejax_torch.solvers import cg, reconstruct
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    g = Geometry(**geom)
+    data, psi0, scan, prb = sharded_problem(torch, g, seed, dev, perturb)
+    mine = checksum(torch, data, scan, prb)
+    hi, lo = mine.clone(), mine.clone()
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+    mesh = make_mesh(mesh_shape, device_type="cuda")
+    counters = [fused.grad_fused, fused.fwd, fused.minf_fused,
+                fused.grad_prb_fused, fused.adj, fused.adj_probe,
+                fused.adj_residual, fused.fwd_quad_stats,
+                linesearch.ls_objectives, kernels.gather_probe_mul,
+                kernels.scatter_conj_probe, kernels.adj_probe_reduce]
+    plain = [fused.grad_fused_reference, fused.fwd_reference,
+             fused.minf_fused_reference, fused.grad_prb_fused_reference,
+             fused.adj_reference, fused.adj_probe_reference,
+             fused.adj_residual_reference, fused.fwd_quad_stats_reference,
+             linesearch.ls_objectives_reference,
+             kernels.gather_probe_mul_reference,
+             kernels.scatter_conj_probe_reference,
+             kernels.adj_probe_reduce_reference]
+    run_kw = {k: v for k, v in kw.items()
+              if k not in ("target_residual", "max_segments")}
+    run_sharded(data, psi0, scan, prb, g, mesh, **dict(run_kw, piter=2))
+    for fn in counters + plain + [cg.all_reduce]:
+        fn.launches = 0
+    cg.all_reduce.bytes, cg.all_reduce.sizes = 0, {}
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    if what == "run":
+        psi, prb_out, m = run_sharded(data, psi0, scan, prb, g, mesh, **kw)
+    else:
+        psi, prb_out, stages = reconstruct(data, psi0, scan, prb, g,
+                                           mesh=mesh, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    out = {"same_problem": torch.equal(hi, lo), "checksum": mine,
+           "psi": psi, "prb": prb_out, "seconds": seconds,
+           "counts": {fn.__name__: fn.launches for fn in counters},
+           "plain": sum(fn.launches for fn in plain),
+           "collectives": cg.all_reduce.launches,
+           "collective_bytes": cg.all_reduce.bytes,
+           "sizes": dict(cg.all_reduce.sizes)}
+    if what == "run":
+        out["metrics"] = {k: v for k, v in m.items() if k != "cg_state"}
+        out["busy"] = device_busy(torch, lambda: run_sharded(
+            data, psi0, scan, prb, g, mesh,
+            **dict(kw, piter=PROFILE_ITERS)))
+    else:
+        out["stages"] = [(name, int(mm["iters_run"]), mm["evaluations"],
+                          float(mm["residual"][max(int(mm["iters_run"])
+                                                   - 1, 0)]))
+                         for name, mm in stages]
+    del data, scan, psi0
+    torch.cuda.empty_cache()
+    return out
+
+
 def final_residual(stages) -> float:
     m = stages[-1][1]
     return float(m["residual"][max(int(m["iters_run"]) - 1, 0)])
@@ -1028,9 +1179,10 @@ def main() -> None:
                     f"{' with base' if b is not None else ''}, value/"
                     f"objective err: {show_errs(errs)}")
     log("kernel", f"small {pow2}: on both variants every objective, both "
-        "probe sums, fwd's farplane and fwd_quad_stats' planes bitwise "
-        f"repeatable, the object gradients within {SCATTER_REPEAT:g} of "
-        "scale between two runs; on 'fft' the objectives of grad_fused, "
+        "probe sums, fwd's farplane, fwd_quad_stats' planes and adj's "
+        "object bitwise repeatable, grad_fused's and adj_residual's object "
+        f"gradients within {SCATTER_REPEAT:g} of scale between two runs; "
+        "on 'fft' the objectives of grad_fused, "
         "minf_fused and grad_prb_fused equal bit for bit, minf_fused of "
         "zeros on fwd's farplane equal to minf_fused's objective bit for "
         "bit, and fwd_quad_stats of psi on fwd(psi) a == b == c bit for bit")
@@ -1279,9 +1431,10 @@ def main() -> None:
         errs = compare_variant(torch, fused, args, g.ndet, "gaussian", None,
                                base, v)
         log("kernel", f"headline {g} forced '{v}' variant, value/objective "
-            f"err: {show_errs(errs)} (objectives, probe sums and fwd's "
-            "farplane bitwise repeatable, object gradients within "
-            f"{SCATTER_REPEAT:g} of scale between two runs)")
+            f"err: {show_errs(errs)} (objectives, probe sums, fwd's "
+            "farplane and adj's object bitwise repeatable, grad_fused's and "
+            f"adj_residual's object gradients within {SCATTER_REPEAT:g} of "
+            "scale between two runs)")
     dev_i = dev.index
     variant_lines = {}
     for name, run_variant in (
@@ -1357,6 +1510,73 @@ def main() -> None:
         f"{adj_few[1]:.3f} ms in turns ({adj_few[1] / adj_few[0]:.1f}x), "
         f"bound {few_bound[0]:.3f} ms by {few_bound[1]} "
         f"({100 * few_bound[0] / adj_few[0]:.1f}% of it reached); on {card}")
+    # adj in scan order (its frames, then the tile scatter) against the
+    # one-pass FFT kernel with fp32 atomics it replaced, in turns, at the
+    # headline's and the stream path's frames; both variants bitwise
+    # repeatable at 1024 frames too (the headline's are held above).
+    adj_atomic = {}
+    for frames, far_t, scan_t in ((g.nscan, base, scan_i),
+                                  (STREAM_FRAMES, base_few, scan_few)):
+        for v in ("fft", "gemm"):
+            check(torch.equal(
+                fused._adj_cuda(far_t, scan_t, prb, g.nz, g.n, variant=v),
+                fused._adj_cuda(far_t, scan_t, prb, g.nz, g.n, variant=v)),
+                  ("adj is not bitwise repeatable", v, frames))
+        atomic = fused._adj_cuda(far_t, scan_t, prb, g.nz, g.n,
+                                 variant="atomic")
+        order_err = rel_err(torch, atomic, fused.adj(far_t, scan_t, prb,
+                                                     g.nz, g.n))[0]
+        check(order_err <= SCATTER_ORDER_TOL, ("adj vs atomic", order_err))
+        adj_atomic[frames] = in_turns_ms(
+            torch, timer, f"adj atomic {frames}",
+            lambda: fused._adj_cuda(far_t, scan_t, prb, g.nz, g.n),
+            lambda: fused._adj_cuda(far_t, scan_t, prb, g.nz, g.n,
+                                    variant="atomic"))
+        new_ms, old_ms = adj_atomic[frames]
+        log("kernel", f"adj at {frames} frames: in scan order (frames of "
+            f"{fused.adj_chunk(1, frames, 1, g.nprb)} positions a chunk, then "
+            f"the tile scatter) {new_ms:.3f} ms against the forced atomic "
+            f"kernel {old_ms:.3f} ms, in turns ({new_ms / old_ms:.2f}x), "
+            f"the two within {order_err:.2e} of scale; both variants "
+            f"bitwise repeatable; on {card}")
+    adj_atomic_ms = adj_atomic[g.nscan][1]
+    # The 'fft' operators against a complex128 oracle on the card: the
+    # reference's operator accuracy is ~8e-6 for its fused_mp / fused_mx
+    # tiers and ~4e-7 for fused_hp, and every fused tier maps to these
+    # kernels (the mp bound is held, hp's is reported).
+    gen_o = torch.Generator(device=dev).manual_seed(SEED + 5)
+    for ndet, nmodes in ((64, 1), (64, 4), (128, 1), (128, 4)):
+        go = Geometry(nz=512, n=512, nscan=1024, ndet=ndet, nprb=ndet,
+                      nmodes=nmodes)
+        _, scan_o, prb_o, _ = make_problem(gen_o, go, device=dev)
+        scan_oi = scan_to_int(scan_o)
+        psi_o = crandn(*go.psi_shape, generator=gen_o)
+        far_o = crandn(*go.farplane_shape, generator=gen_o)
+        c128 = [x.to(torch.complex128) for x in (psi_o, prb_o, far_o)]
+        hp_errs = {
+            "fwd": rel_err(torch, fused.fwd(psi_o, scan_oi, prb_o, ndet),
+                           diffraction.fwd_raw(c128[0], scan_oi, c128[1],
+                                               ndet, "xla"))[0],
+            "adj": rel_err(torch, fused.adj(far_o, scan_oi, prb_o, go.nz,
+                                            go.n),
+                           diffraction.adj_raw(c128[2], scan_oi, c128[1],
+                                               go.nz, go.n, "xla"))[0],
+            "adj_probe": rel_err(torch, fused.adj_probe(far_o, scan_oi, psi_o,
+                                                        go.nprb),
+                                 diffraction.adj_probe_raw(
+                                     c128[2], scan_oi, c128[0], go.nprb,
+                                     "xla"))[0]}
+        check(fused.fwd.variant == fused.adj.variant
+              == fused.adj_probe.variant == "fft", "not the 'fft' variant")
+        check(all(e <= MP_BOUND for e in hp_errs.values()),
+              ("fused tiers' operator bound", hp_errs))
+        log("kernel", f"tier accuracy {go}: against a complex128 oracle on "
+            "the card, max|err| / max|ref| " + ", ".join(
+                f"{k} {e:.2e}" for k, e in hp_errs.items())
+            + f"; fused_mp/fused_mx bound {MP_BOUND:g} met; fused_hp bound "
+            f"{HP_BOUND:g} " + ("met" if max(hp_errs.values()) <= HP_BOUND
+                                else "MISSED (open fault, ROADMAP.md §3)")
+            + f"; on {card}")
     fd = fused.fwd(dpsi_h, scan_i, prb, g.ndet)
     ls_err, ls_abs, lp_err = compare_ls(torch, linesearch, far, fd, data,
                                         "gaussian")
@@ -1664,6 +1884,7 @@ def main() -> None:
         f"{split_iters / split_s:.2f} iters/s ({split_iters} iters in "
         f"{split_s:.3f} s), stage 1 {timed[-len(stages)]:.3f} s, peak "
         f"extra memory {peak / 2**30:.3f} GiB, launches {deep}, on {card}")
+    deep_summary = (seconds, sum(iters), len(stages))
     del psi, stages
 
     # -- 7. materialized: G psi kept, fwd + adj_residual + fwd_quad_stats ---
@@ -2011,8 +2232,11 @@ def main() -> None:
     check(bool(torch.isfinite(psi).all() and torch.isfinite(prb_s).all()),
           "psi or prb finiteness")
     check(float(minf[-1]) < float(minf[0]), minf)
-    check(stream["adj"] == stream["adj_probe"] == passes > 0
-          and stream["fwd"] == 6 * passes, (stream, passes))
+    # A streamed chunk's adj fits one frame-kernel launch (fused.adj_chunk).
+    per_pass = -(-(g3.nscan // STREAM_CHUNKS) // fused.adj_chunk(
+        g3.ntheta, g3.nscan // STREAM_CHUNKS, g3.nmodes, g3.nprb))
+    check(per_pass == 1 and stream["adj"] == stream["adj_probe"] == passes > 0
+          and stream["fwd"] == 6 * passes, (stream, passes, per_pass))
     check(stream["grad_fused"] == stream["grad_prb_fused"]
           == stream["minf_fused"] == stream["adj_residual"]
           == stream["fwd_quad_stats"] == stream["ls_objectives"] == 0,
@@ -2075,6 +2299,13 @@ def main() -> None:
         f"{err0:.4e} -> {probe_err(prb_d):.4e} (raw {raw_err(prb3_p):.4e} "
         f"-> {raw_err(prb_d):.4e}), peak extra memory "
         f"{peak / 2**30:.3f} GiB, launches {jdeep}, on {card}")
+    # The segment budget it used (ROADMAP.md queue 3 item 3 counts the runs
+    # that need more than JOINT_DEEP_MAX_SEGMENTS): each refinement segment
+    # and each probe refresh takes one.
+    n_split_j = sum(1 for name in names if name.startswith("split:"))
+    log("joint-deep", f"segments used {n_split_j + refreshes} of "
+        f"{JOINT_DEEP_MAX_SEGMENTS} ({n_split_j} refinement segments, "
+        f"{refreshes} probe refreshes)")
     check(res_end <= DEEP_TARGET, f"joint-deep residual {res_end:.4e} > "
           f"{DEEP_TARGET:g} after {len(stages)} stages")
 
@@ -2169,28 +2400,195 @@ def main() -> None:
             f"{float(res[0]):.4e} -> {float(res[-1]):.4e}, on {card}")
         del psi, m
 
+    # -- 17. sharded: two gloo ranks share the card -----------------------
+    from tikejax_torch.parallel import RankPool
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    pool = RankPool(2, device_type="cuda", timeout=900,
+                    collective_timeout=600)
+    pool.start()
+    log("sharded", f"2 gloo ranks on {torch.cuda.get_device_name(0)} (one "
+        f"card: NCCL refuses two ranks on one device, gloo takes CUDA "
+        f"tensors for all_reduce) up in {time.perf_counter() - t0:.1f} s; "
+        "no multi-GPU rate is measured or claimed")
+
+    def one_rank(geom, seed, perturb, kw):
+        """The same problem in this process through run: (result, launch
+        counts, seconds, checksum)."""
+        gs = Geometry(**geom)
+        d_, p_, s_, r_ = sharded_problem(torch, gs, seed, dev, perturb)
+        run(d_, p_, s_, r_, gs, **dict(kw, piter=2))  # warm-up
+        reset_counts()
+        t = time.perf_counter()
+        out = run(d_, p_, s_, r_, gs, **kw)
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t
+        check(all(fn.launches == 0 for fn in plain), "plain version ran")
+        counts = {fn.__name__: fn.launches for fn in counters}
+        return out, counts, t, checksum(torch, d_, s_, r_).cpu()
+
+    def held_to_one_rank(label, ranks, single):
+        """Every rank built the problem the one-rank run built, agrees with
+        the others bit for bit and made the same collectives; the run
+        equals the one-rank run in iterations and evaluations and is within
+        SHARDED_TOL of scale in every objective and in psi and prb. Returns
+        (iterations, errors)."""
+        (psi_1, prb_1, m_1), _, _, sum_1 = single
+        for r in ranks:
+            check(r["same_problem"] and torch.equal(r["checksum"], sum_1),
+                  (label, "the ranks' problems differ"))
+            check(r["plain"] == 0, (label, "plain version ran"))
+            check(torch.equal(r["psi"], ranks[0]["psi"])
+                  and torch.equal(r["prb"], ranks[0]["prb"])
+                  and r["collectives"] == ranks[0]["collectives"]
+                  and torch.equal(r["metrics"]["minf"],
+                                  ranks[0]["metrics"]["minf"]),
+                  (label, "the ranks are out of lock step"))
+        m = ranks[0]["metrics"]
+        n = int(m["iters_run"])
+        check(n == int(m_1["iters_run"])
+              and m["evaluations"] == m_1["evaluations"],
+              (label, "iterations or evaluations differ: a lock-step fault",
+               n, int(m_1["iters_run"]), m["evaluations"],
+               m_1["evaluations"]))
+        f_1 = m_1["minf"][:n].cpu()
+        errs = {"minf": float((m["minf"][:n] - f_1).abs().max()
+                              / f_1.abs().max()),
+                "psi": rel_err(torch, ranks[0]["psi"], psi_1.cpu())[0],
+                "prb": rel_err(torch, ranks[0]["prb"], prb_1.cpu())[0]}
+        check(all(e <= SHARDED_TOL for e in errs.values()), (label, errs))
+        return n, errs
+
+    def show_collectives(r, iters):
+        sizes = ", ".join(f"{c} x {b} B" for b, c in sorted(
+            r["sizes"].items(), key=lambda kv: -kv[0]))
+        return (f"{r['collectives'] / iters:.2f} all-reduces/iter moving "
+                f"{r['collective_bytes'] / iters / 2**20:.3f} MiB/iter a "
+                f"rank (all {r['collectives']}: {sizes})")
+
+    sharded_counts = {}
+    # The joint Poisson trajectory does not repeat on the fused tiers, even
+    # on one rank: grad_fused's atomics change its rounding from run to run
+    # and the search amplifies it. So the Poisson theta run takes the hybrid
+    # tier ('pallas'), whose kernels are bitwise repeatable, for
+    # THETA_POISSON_ITERS; the Gaussian one, whose one-rank runs repeat to
+    # ~5e-7 of scale, the default tier for THETA_ITERS.
+    for label, geom, mesh_shape, seed, perturb, kw in (
+            ("config5", CONFIG5, 2, SEED + 6, 0.0,
+             dict(piter=SHARDED_ITERS)),
+            ("theta gaussian", CONFIG3_THETA, (2, 1), SEED + 7, 0.03,
+             dict(piter=THETA_ITERS, model="gaussian", recover_prb=True)),
+            ("theta poisson", CONFIG3_THETA, (2, 1), SEED + 7, 0.03,
+             dict(piter=THETA_POISSON_ITERS, model="poisson",
+                  recover_prb=True, kernel="pallas"))):
+        t0 = time.perf_counter()
+        ranks = pool.run(sharded_job, "run", mesh_shape, geom, seed, kw,
+                         perturb)
+        job_s = time.perf_counter() - t0
+        single = one_rank(geom, seed, perturb, kw)
+        n, errs = held_to_one_rank(label, ranks, single)
+        counts = {k: sum(r["counts"][k] for r in ranks)
+                  for k in ranks[0]["counts"]}
+        m = ranks[0]["metrics"]
+        mine = ranks[0]["counts"]
+        if label == "config5":  # one merged evaluation a launch
+            check(mine["grad_fused"] == m["evaluations"] > 0, (label, mine))
+        elif label == "theta gaussian":  # one probe gradient an iteration
+            check(mine["grad_prb_fused"] == n > 0, (label, mine))
+        else:  # the hybrid tier's three kernels
+            check(mine["gather_probe_mul"] > 0 and mine["adj_probe_reduce"]
+                  > 0 and mine["scatter_conj_probe"] > 0
+                  and mine["grad_fused"] == 0, (label, mine))
+        gs = Geometry(**geom)
+        tsh, nsh = mesh_shape if isinstance(mesh_shape, tuple) else (
+            1, mesh_shape)
+        sharded_counts[label] = (counts, (gs.ntheta // tsh, gs.nscan // nsh,
+                                          gs.nmodes, gs.nprb))
+        busy = [r["busy"][0] * r["busy"][1] / PROFILE_ITERS for r in ranks]
+        log("sharded", f"{label} {gs} on a {mesh_shape} mesh, "
+            f"{kw}: {n} iters in {ranks[0]['seconds']:.3f} s "
+            f"({1e3 * ranks[0]['seconds'] / n:.2f} ms/iter; one rank "
+            f"{1e3 * single[2] / n:.2f} ms/iter), "
+            f"{m['evaluations']} evaluations as one rank's "
+            f"{single[0][2]['evaluations']}, objectives within "
+            f"{errs['minf']:.2e}, psi {errs['psi']:.2e}, prb "
+            f"{errs['prb']:.2e} of scale (limit {SHARDED_TOL:g}); "
+            "the ranks bitwise equal; " + show_collectives(ranks[0], n)
+            + f"; card busy per rank {', '.join(f'{b:.2f}' for b in busy)} "
+            f"ms/iter under torch.profiler ({PROFILE_ITERS} iterations); "
+            f"launches over both ranks {counts}; job {job_s:.1f} s "
+            f"with the problem's making, on {card}")
+        del ranks, single
+        torch.cuda.empty_cache()
+    # reconstruct(mesh=) to 1e-6 on the headline.
+    t0 = time.perf_counter()
+    ranks = pool.run(sharded_job, "deep", 2, HEADLINE, SEED + 8,
+                     dict(target_residual=DEEP_TARGET,
+                          max_segments=DEEP_MAX_SEGMENTS))
+    job_s = time.perf_counter() - t0
+    pool.close()
+    r0 = ranks[0]
+    check(all(r["same_problem"] and r["plain"] == 0 for r in ranks)
+          and all(r["stages"] == r0["stages"]
+                  and torch.equal(r["psi"], r0["psi"])
+                  and r["collectives"] == r0["collectives"] for r in ranks),
+          "sharded deep: the ranks disagree")
+    d_iters = sum(k for _, k, _, _ in r0["stages"])
+    d_res = r0["stages"][-1][3]
+    n_split = sum(1 for name, _, _, _ in r0["stages"]
+                  if name.startswith("split:"))
+    check(d_res <= DEEP_TARGET, ("sharded deep", d_res, r0["stages"]))
+    check(bool(torch.isfinite(r0["psi"]).all()), "sharded deep psi")
+    check(r0["counts"]["grad_fused"] == sum(e for _, _, e, _ in r0["stages"])
+          and r0["counts"]["fwd"] == 2 * n_split, r0["counts"])
+    d_counts = {k: sum(r["counts"][k] for r in ranks) for k in r0["counts"]}
+    sharded_counts["deep"] = (d_counts, (g.ntheta, g.nscan // 2, g.nmodes,
+                                         g.nprb))
+    log("sharded", f"deep {g} reconstruct(mesh=('scan', 2), "
+        f"target_residual={DEEP_TARGET:g}): {r0['seconds']:.3f} s, "
+        f"{d_iters} iters in {len(r0['stages'])} stages "
+        f"{[f'{n}:{k}' for n, k, _, _ in r0['stages']]}, final residual "
+        f"{d_res:.4e}; one rank (phase deep, another problem of the same "
+        f"size): {deep_summary[0]:.3f} s, {deep_summary[1]} iters in "
+        f"{deep_summary[2]} stages; "
+        + show_collectives(r0, d_iters)
+        + f"; launches over both ranks {d_counts}; job {job_s:.1f} s, on "
+        f"{card}")
+    del ranks, r0
+
     # Launches of each kernel on each phase, with the frames (positions
     # times modes) of one launch there: the times above are at the headline
     # frame size (16384 frames), and a phase's share is launches x time
-    # scaled by its frames.
+    # scaled by its frames. A phase is given by the counts and the shape
+    # (angles, positions, modes, probe side) of one call; adj launches its
+    # frame kernel once per chunk of positions (fused.adj_chunk).
+    def shape(gg, positions=None):
+        return (gg.ntheta, gg.nscan if positions is None else positions,
+                gg.nmodes, gg.nprb)
+
+    def launch_frames(name, t, s, m, p):
+        return t * m * (fused.adj_chunk(t, s, m, p) if name == "adj" else s)
+
     phases = {
-        "main": (main_counts, g.ntheta * g.nscan * g.nmodes),
-        "deep": (deep, g.ntheta * g.nscan * g.nmodes),
-        "materialized": (mat, g.ntheta * g.nscan * g.nmodes),
-        "fused-ls": (fls, g.ntheta * g.nscan * g.nmodes),
-        "hybrid": (hyb, g.ntheta * g.nscan * g.nmodes),
-        "frameless": (frameless, g4.ntheta * g4.nscan * g4.nmodes),
-        "joint": (joint, g3.ntheta * g3.nscan * g3.nmodes),
-        "joint-materialized": (matj, g3.ntheta * g3.nscan * g3.nmodes),
-        "stream": (stream, g3.ntheta * g3.nscan * g3.nmodes
-                   // STREAM_CHUNKS),
-        "joint-deep": (jdeep, g3.ntheta * g3.nscan * g3.nmodes),
-        "facade": (fac, g3.ntheta * g3.nscan * g3.nmodes),
-        **{f"options {k}": (v, g3.ntheta * g3.nscan * g3.nmodes)
-           for k, v in options.items()},
+        "main": (main_counts, shape(g)),
+        "deep": (deep, shape(g)),
+        "materialized": (mat, shape(g)),
+        "fused-ls": (fls, shape(g)),
+        "hybrid": (hyb, shape(g)),
+        "frameless": (frameless, shape(g4)),
+        "joint": (joint, shape(g3)),
+        "joint-materialized": (matj, shape(g3)),
+        "stream": (stream, shape(g3, g3.nscan // STREAM_CHUNKS)),
+        "joint-deep": (jdeep, shape(g3)),
+        "facade": (fac, shape(g3)),
+        **{f"options {k}": (v, shape(g3)) for k, v in options.items()},
+        # Over both ranks; the shape of one rank's call.
+        **{f"sharded {k}": v for k, v in sharded_counts.items()},
     }
-    by_path = {name: {phase: {"launches": counts[name], "frames": frames}
-                      for phase, (counts, frames) in phases.items()
+    by_path = {name: {phase: {"launches": counts[name],
+                              "frames": launch_frames(name, *dims)}
+                      for phase, (counts, dims) in phases.items()
                       if counts[name]}
                for name in KERNEL_SOURCES}
     check(all(by_path.values()), ("a kernel ran on no path", by_path))
@@ -2209,7 +2607,8 @@ def main() -> None:
         **({"variant": "persistent", "pixel_ms": gather_pixel_ms}
            if name == "gather_probe_mul" else {}),
         **({"variant": "tile", "atomic_ms": scatter_atomic_ms}
-           if name == "scatter_conj_probe" else {})}
+           if name == "scatter_conj_probe" else {}),
+        **({"atomic_ms": adj_atomic_ms} if name == "adj" else {})}
         for name, (src, tpu) in KERNEL_SOURCES.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -17,7 +17,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip(
+    "torch", reason="the PyTorch port's tests need torch (the 'torch' extra)")
 
 import tikejax
 from tikejax.models import make_problem
@@ -221,12 +222,22 @@ def test_verbose_every_prints(problem, capsys):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(axis_name="scan"), dict(obj_slabs=2),
+    dict(axis_name="scan"), dict(obj_slabs=2), dict(obj_axis_name="obj"),
+    dict(obj_halo=3),
 ], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items())[:40])
 def test_unported_options_raise(problem, kw):
+    """The object-tiling and slab fields raise, naming ROADMAP.md (object
+    tiling is queue 1 item 5); the mesh axes are ported, and name
+    dimensions of a mesh, which only ``parallel.run_sharded`` supplies."""
     data, psi0, scan, prb, _ = map(cpu, problem)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    if "axis_name" in kw:
+        with pytest.raises(ValueError, match="run_sharded"):
+            tcg.run(data, psi0, scan, prb, geometry_from(GEOM), piter=2,
+                    **kw)
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP") as err:
         tcg.run(data, psi0, scan, prb, geometry_from(GEOM), piter=2, **kw)
+    assert "queue 1 item 5" in str(err.value)
 
 
 def test_unported_fields_at_default_run(problem):

@@ -8,7 +8,8 @@ import os
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip(
+    "torch", reason="the PyTorch port's tests need torch (the 'torch' extra)")
 
 from tikejax.utils import checkpoint as jck
 from tikejax_torch.utils import checkpoint as tck

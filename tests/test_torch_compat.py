@@ -17,7 +17,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip(
+    "torch", reason="the PyTorch port's tests need torch (the 'torch' extra)")
 
 import tikejax
 from tikejax import compat as jcompat
@@ -197,11 +198,13 @@ def test_shape_and_scan_errors(problem):
 
 
 def test_mesh_raises_and_device_defaults_to_the_card(problem):
+    """``mesh=`` is ported (``tests/test_torch_sharding.py`` runs it on
+    gloo ranks); anything but a DeviceMesh raises."""
     data, psi0, scan, prb, _ = problem
     _, st = facades("pallas")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="DeviceMesh"):
         st.run(data, psi0, scan, prb, piter=1, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="DeviceMesh"):
         st.reconstruct(data, psi0, scan, prb, mesh=object())
     assert tcompat.CGPtychoSolver(**DIMS).device.type == "cuda"
     assert st.kernel == "pallas" and st.geometry.nprb == GEOM.nprb

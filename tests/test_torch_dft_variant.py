@@ -16,7 +16,8 @@ after it; on a CPU tensor no kernel runs (the plain version does)."""
 import inspect
 
 import pytest
-import torch
+torch = pytest.importorskip(
+    "torch", reason="the PyTorch port's tests need torch (the 'torch' extra)")
 
 from tikejax_torch import Geometry
 from tikejax_torch.models import make_problem

@@ -8,7 +8,8 @@ bounds (gradient 1e-4 of its scale, objective 1e-5 relative).
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip(
+    "torch", reason="the PyTorch port's tests need torch (the 'torch' extra)")
 
 import tikejax
 from tikejax.models import likelihoods as jlik

@@ -9,7 +9,8 @@ numpy fallback agree exactly.
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip(
+    "torch", reason="the PyTorch port's tests need torch (the 'torch' extra)")
 
 import tikejax
 from tikejax import models as jmodels

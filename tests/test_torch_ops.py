@@ -10,7 +10,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip(
+    "torch", reason="the PyTorch port's tests need torch (the 'torch' extra)")
 
 import tikejax
 from tikejax.models import likelihoods as jlik

@@ -10,7 +10,8 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip(
+    "torch", reason="the PyTorch port's tests need torch (the 'torch' extra)")
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 import tikejax
@@ -37,6 +38,10 @@ def test_every_module_imports_without_jax():
                          text=True, cwd=PKG.parent)
     assert out.returncode == 0, out.stderr
     assert len(MODULES) >= 14
+    assert {"tikejax_torch.parallel", "tikejax_torch.parallel.sharding",
+            "tikejax_torch.parallel._ranks", "tikejax_torch.parallel._jobs",
+            "tikejax_torch.parallel._dryrun",
+            "tikejax_torch.graft_entry"} <= set(MODULES)
 
 
 def test_no_jax_import_in_sources():
@@ -126,6 +131,7 @@ def test_packaging_finds_the_port():
 
     found = find_packages(str(PKG.parent), include=["tikejax*"])
     assert "tikejax_torch" in found and "tikejax_torch.ops" in found
+    assert "tikejax_torch.parallel" in found
 
 
 def test_library_key_covers_included_headers(monkeypatch, tmp_path):

@@ -8,7 +8,8 @@ import time
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip(
+    "torch", reason="the PyTorch port's tests need torch (the 'torch' extra)")
 
 import tikejax.utils as jutils
 import tikejax_torch.utils as tutils

@@ -10,7 +10,8 @@ import re
 from pathlib import Path
 
 import pytest
-import torch
+torch = pytest.importorskip(
+    "torch", reason="the PyTorch port's tests need torch (the 'torch' extra)")
 
 from tikejax_torch import Geometry
 from tikejax_torch.models import make_problem

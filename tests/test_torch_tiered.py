@@ -17,7 +17,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip(
+    "torch", reason="the PyTorch port's tests need torch (the 'torch' extra)")
 
 import tikejax
 from tikejax.models import make_problem
@@ -211,10 +212,15 @@ def test_frameless_safeguard_reproduces_the_reuse_safeguard(problem,
     assert final_residual(s_frameless) <= BASE["target_residual"]
 
 
-@pytest.mark.parametrize("kw", [
-    dict(mesh=object()), dict(obj_slabs=2)], ids=["mesh", "obj_slabs"])
-def test_unported_arguments_raise(problem, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+@pytest.mark.parametrize("kw, error, match", [
+    (dict(mesh=object()), ValueError, "DeviceMesh"),
+    (dict(obj_slabs=2), NotImplementedError, "ROADMAP")],
+    ids=["mesh", "obj_slabs"])
+def test_unported_arguments_raise(problem, kw, error, match):
+    """The slab fields raise, naming ROADMAP.md; ``mesh=`` is ported
+    (``tests/test_torch_sharding.py`` runs it on gloo ranks) and takes
+    only a DeviceMesh."""
+    with pytest.raises(error, match=match):
         port_run(problem, **BASE, **kw)
 
 

@@ -14,6 +14,8 @@ evaluations, gradients, farplanes, adjoints and line searches:
 ``adj_probe``, ``adj_residual`` and ``fwd_quad_stats`` (``ops.fused``),
 ``ls_objectives`` (``ops.linesearch``), and ``gather_probe_mul``,
 ``scatter_conj_probe`` and ``adj_probe_reduce`` (``ops.kernels``).
+``tikejax_torch.parallel`` shards the positions and the angles over gloo
+ranks (``run_sharded``, ``reconstruct(mesh=)``, the facade's ``mesh=``).
 It imports ``torch`` and never ``jax``; ``tikejax`` stays the reference.
 """
 

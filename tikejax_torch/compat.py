@@ -100,8 +100,11 @@ class CGPtychoSolver:
             mesh=None, **kw):
         """Reconstruct; mirrors the reference's ``run`` signature.
 
-        ``mesh`` (multi-device runs) is not ported: anything but None
-        raises NotImplementedError.
+        With ``mesh`` (a ``DeviceMesh`` from
+        ``tikejax_torch.parallel.make_mesh``: 1-D scan-position sharding or
+        2-D ('theta', 'scan')) the run is sharded over the mesh through
+        :func:`tikejax_torch.parallel.run_sharded`: every rank of the mesh
+        calls this with the whole problem and gets the whole result.
 
         Returns a dict with numpy arrays: {'psi', 'prb', 'minf',
         'residual', 'gamma', 'grad_norm', 'gamma_prb', 'iters_run'} (the
@@ -109,15 +112,17 @@ class CGPtychoSolver:
         per-iteration metrics come back too), and this solver's counts
         'host_syncs' and 'evaluations'.
         """
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (multi-device runs; ROADMAP.md queue 1 item 3) is "
-                "not ported to tikejax_torch yet")
         kw.setdefault("kernel", self.kernel)
         kw.update(piter=piter, model=model, recover_prb=recover_prb)
-        psi_r, prb_r, metrics = _cg.run(
-            self._to_device(data, torch.float32), self._psi(psi),
-            self._scan(scan), self._prb(prb), self.geometry, **kw)
+        args = (self._to_device(data, torch.float32), self._psi(psi),
+                self._scan(scan), self._prb(prb), self.geometry)
+        if mesh is not None:
+            from tikejax_torch.parallel import run_sharded
+
+            # run_sharded pads an uneven nscan and keeps this rank's slice.
+            psi_r, prb_r, metrics = run_sharded(*args, mesh, **kw)
+        else:
+            psi_r, prb_r, metrics = _cg.run(*args, **kw)
         out = {"psi": bridge.to_numpy(psi_r), "prb": bridge.to_numpy(prb_r)}
         out.update(bridge.to_numpy_tree(metrics))
         return out
@@ -127,8 +132,8 @@ class CGPtychoSolver:
         """Deep-residual reconstruction to a target relative residual (the
         split-operator / tier-chaining solver,
         :func:`tikejax_torch.solvers.reconstruct`) through the
-        reference-shaped facade. Extra keywords pass through (``mesh=`` is
-        not ported and raises unless None).
+        reference-shaped facade. Extra keywords pass through, ``mesh=``
+        included (every stage then runs sharded; every rank calls this).
 
         Returns a dict {'psi', 'prb', 'residual_last', 'iters_run',
         'stages'}: ``stages`` lists (stage_name, iterations) pairs.

@@ -62,7 +62,11 @@
 // Contract: the tile kernel is bitwise repeatable: each pixel sums its
 // positions' contributions in increasing scan order (the TPU kernel's
 // order), each contribution the mode sum of cmul(conj(prb), near) from
-// zero, as the atomic kernel forms it. The atomic kernel is deterministic
+// zero, as the atomic kernel forms it. Launched with from_partial, a pixel
+// starts from the value `out` holds instead of zero: a launch on each
+// chunk of positions in turn, each after the one before, adds exactly what
+// one launch on all of them adds, in the same order, so gives its bits
+// (adj.cu's frames come this way, chunk by chunk). The atomic kernel is deterministic
 // only up to the order in which the atomics land.
 
 #include <type_traits>
@@ -83,6 +87,7 @@ struct Params {
   int t, s, nz, n, m, p;
   int64_t st_t, st_s, st_m, st_row;  // strides of nearp, complex elements
   int tiles_y, tiles_x;              // the tile kernel's tiles of an angle
+  int from_partial;  // the tile kernel: continue from the stored object
 };
 
 // -- the tile kernel ----------------------------------------------------
@@ -148,7 +153,12 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int row = y0 + threadIdx.x / kTileW, col = x0 + threadIdx.x % kTileW;
   const int prb_at = row * p + col;
   const int64_t frame_at = row * q.st_row + col;
-  float2 acc = make_float2(0.f, 0.f);
+  const bool inside = row < y1 && col < x1;
+  float2* const dst = reinterpret_cast<float2*>(q.out) +
+                      (static_cast<int64_t>(th) * q.nz + row) * q.n + col;
+  // Continuing from the partial sums that a launch on the positions before
+  // these stored: the same adds, in the same order, as one launch on all.
+  float2 acc = q.from_partial && inside ? *dst : make_float2(0.f, 0.f);
   const int2* scan = reinterpret_cast<const int2*>(q.scan) +
                      static_cast<int64_t>(th) * q.s;
   const float2* prb = q.prb + static_cast<int64_t>(th) * m * pp;
@@ -240,11 +250,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     __syncthreads();  // the list is rewritten by the next chunk
   }
 
-  if (row < y1 && col < x1) {
-    reinterpret_cast<float2*>(q.out)[(static_cast<int64_t>(th) * q.nz + row) *
-                                         q.n +
-                                     col] = acc;
-  }
+  if (inside) *dst = acc;
 }
 
 template <int V>
@@ -298,17 +304,19 @@ extern "C" {
 // Launches the tile kernel on `stream`, one block per (angle, tile),
 // taking the modes `mode_chunk` (1, 2 or 4) at a time; tiles_y and tiles_x
 // must cut nz and n into tiles of kTileH x kTileW. Writes every pixel of
-// `out`, which needs no zeroing; `scan` must be 8-byte aligned. The strides
-// of `nearp` are in complex elements. Returns the first CUDA error (0 on
-// success).
+// `out`: with from_partial 0 it needs no zeroing, with 1 each pixel
+// continues from the value `out` holds. `scan` must be 8-byte aligned. The
+// strides of `nearp` are in complex elements. Returns the first CUDA error
+// (0 on success).
 int tk_scatter_conj_probe(const void* nearp, const void* prb, const void* scan,
                           void* out, int t, int s, int nz, int n, int m, int p,
                           int64_t st_t, int64_t st_s, int64_t st_m,
                           int64_t st_row, int tiles_y, int tiles_x,
-                          int mode_chunk, void* stream) {
+                          int mode_chunk, int from_partial, void* stream) {
   Params q{static_cast<const float2*>(nearp), static_cast<const float2*>(prb),
            static_cast<const int*>(scan), static_cast<float*>(out),
-           t, s, nz, n, m, p, st_t, st_s, st_m, st_row, tiles_y, tiles_x};
+           t, s, nz, n, m, p, st_t, st_s, st_m, st_row, tiles_y, tiles_x,
+           from_partial};
   if (static_cast<int64_t>(t) * nz * n == 0) return 0;
   const int64_t grid = static_cast<int64_t>(t) * tiles_y * tiles_x;
   if (tiles_y != (nz + kTileH - 1) / kTileH ||
@@ -343,7 +351,7 @@ int tk_scatter_conj_probe_atomic(const void* nearp, const void* prb,
                                  void* stream) {
   Params q{static_cast<const float2*>(nearp), static_cast<const float2*>(prb),
            static_cast<const int*>(scan), static_cast<float*>(out),
-           t, s, nz, n, m, p, st_t, st_s, st_m, st_row, 0, 0};
+           t, s, nz, n, m, p, st_t, st_s, st_m, st_row, 0, 0, 0};
   const int64_t frames = static_cast<int64_t>(t) * s;
   if (frames == 0) return 0;
   const int grid = static_cast<int>(frames < 2147483647 ? frames : 2147483647);

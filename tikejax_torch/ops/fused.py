@@ -30,7 +30,12 @@ The other two read a farplane and apply the inverse DFT, cropped to the
 probe window, to every frame:
 
 * ``adj`` (replaces ``adj``, ``_adj_kernel``) multiplies by the conj probe,
-  sums the modes and scatter-adds into the object ``(t, nz, n)``;
+  sums the modes and scatter-adds into the object ``(t, nz, n)``: its
+  kernel stores the cropped inverse frames, chunk by chunk of positions,
+  into a scratch of at most ``ADJ_SCRATCH_BYTES``, and the tile kernel of
+  ``tikejax_torch.ops.kernels.scatter_conj_probe`` sums each chunk into
+  the object in scan order, continuing from the partial object the chunk
+  before it stored;
 * ``adj_probe`` (replaces ``adj_probe``, ``_adj_probe_kernel``) multiplies
   by the conj object patch and sums over the positions into the probe
   ``(t, m, nprb, nprb)``.
@@ -94,9 +99,16 @@ with plain fp32 multiply-adds, which meets or beats every tier's accuracy,
 so every ``fused*`` tier maps to them and the ``precision`` /
 ``adj_precision`` tags are accepted and ignored.
 
-Determinism: the object scatters (``grad_fused``, ``adj``,
-``adj_residual``) use fp32 atomics, deterministic up to summation order.
-The probe reductions (``grad_prb_fused``, ``adj_probe``) add each block's
+Determinism: ``adj`` is bitwise repeatable: each object pixel sums its
+positions' contributions in increasing scan order, the TPU kernel's order,
+whatever the chunk of positions (``scatter_conj_probe``'s tile kernel,
+continued chunk after chunk from the stored partial object). The atomic
+kernel it replaced stays only for timing the two in turns, forced with
+``_adj_cuda(..., variant='atomic')``. The other two object scatters
+(``grad_fused``, ``adj_residual``) still use fp32 atomics, deterministic
+up to summation order: a two-pass form there needs a frame scratch on the
+frameless main path, a trade of memory and speed for the benchmark's
+cells to price. The probe reductions (``grad_prb_fused``, ``adj_probe``) add each block's
 frames into a block-owned partial without atomics and sum the partials over
 the blocks in a fixed order, so they are bitwise reproducible, as is every
 objective (summed in double in a fixed order) and ``fwd_quad_stats`` (no
@@ -125,6 +137,20 @@ _MAX_NDET = 2048
 # Per-block scratch holds one frame's intermediates; the grid is cut so
 # that all of it stays below this many bytes.
 _SCRATCH_BYTES = 256 * 1024**2
+# adj's frame scratch: the cropped inverse frames (t, chunk, m, p, p)
+# complex64 of a chunk of positions, which the tile kernel then sums into
+# the object. Chunks stay within this many bytes: the stream path's
+# 1024-frame chunk of 128^2 (128 MiB) fits whole, and the 4-mode 16384 x
+# 128^2 farplane (8 GiB of frames) takes 16 chunks.
+ADJ_SCRATCH_BYTES = 512 * 2**20
+
+
+def adj_chunk(t: int, s: int, nmodes: int, nprb: int) -> int:
+    """Positions of each angle that one chunk of ``adj`` takes: as many as
+    keep the frame scratch within ``ADJ_SCRATCH_BYTES``, at least one, at
+    most ``s``."""
+    per_position = max(1, t * nmodes * nprb * nprb * 8)
+    return max(1, min(s, ADJ_SCRATCH_BYTES // per_position))
 
 
 # Detector sides of the FFT kernels: a power of two whose padded complex
@@ -386,7 +412,7 @@ def adj(farplane: torch.Tensor, scan_int: torch.Tensor, prb: torch.Tensor,
     return _adj_cuda(farplane, scan_int, prb, nz, n)
 
 
-adj.launches = 0
+adj.launches = 0  # frame-kernel launches: one per chunk of positions
 adj.variant = None  # of the last kernel launch: 'fft' or 'gemm'
 
 
@@ -529,7 +555,8 @@ _ARGTYPES = {
                    + [ctypes.c_int] * 9 + [ctypes.c_int64]),
     "grad_prb_fused": ("tk_grad_prb_fused", [ctypes.c_void_p] * 8
                        + [ctypes.c_int] * 9),
-    "adj": ("tk_adj", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8),
+    "adj": ("tk_adj", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+            + [ctypes.c_int64, ctypes.c_int]),
     "adj_probe": ("tk_adj_probe", [ctypes.c_void_p] * 6
                   + [ctypes.c_int] * 8),
     "adj_residual": ("tk_adj_residual", [ctypes.c_void_p] * 7
@@ -548,7 +575,8 @@ _ARGTYPES = {
 _FFT_ARGTYPES = {
     "grad_fused": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11,
     "fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9,
-    "adj": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9,
+    "adj": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_int64]
+    + [ctypes.c_int] * 2,
     "minf_fused": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11,
     "grad_prb_fused": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11,
     "adj_probe": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9,
@@ -558,6 +586,10 @@ _FFT_ARGTYPES = {
 
 # Other entry points of a library, with their full argument types.
 _MORE_ARGTYPES = {
+    "adj": {
+        "tk_adj_atomic_fft": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+        + [ctypes.c_void_p],
+    },
     "ls_objectives": {
         "tk_ls_objectives_frame": [ctypes.c_void_p] * 6 + [ctypes.c_int64]
         + [ctypes.c_int] * 7 + [ctypes.c_void_p],
@@ -958,44 +990,86 @@ def _grad_prb_fused_cuda(psi, data, scan_int, prb, ndet, model,
     return grad, partial.sum().to(torch.float32)
 
 
-def _adj_cuda(farplane, scan_int, prb, nz, n, variant=None, threads=None):
-    """Launches ``adj``'s kernel; ``variant`` and ``threads`` as in
-    :func:`_grad_fused_cuda`."""
+def _adj_cuda(farplane, scan_int, prb, nz, n, variant=None, threads=None,
+              chunk=None):
+    """Launches ``adj``'s kernels: for each chunk of ``chunk`` positions
+    (default :func:`adj_chunk`), the frame kernel ('fft' or 'gemm', forced
+    or picked as in :func:`_grad_fused_cuda`; ``threads`` likewise) into
+    the scratch, then ``scatter_conj_probe``'s tile kernel from it into the
+    object, continuing from the chunk before. ``variant='atomic'`` forces
+    the one-pass FFT kernel with fp32 atomics that this design replaced
+    (FFT sizes only), to time the two in turns. Each frame-kernel launch
+    adds one to ``adj.launches``."""
+    from tikejax_torch.ops import kernels
+
     t, s, nmodes, ndet = _check_farplane("adj", farplane, scan_int, prb,
                                          "prb", (farplane.shape[0],
                                                  farplane.shape[2]))
     nprb = prb.shape[-1]
-    variant, defines = _pick_variant("adj", variant, nprb, ndet, nmodes)
+    atomic = variant == "atomic"
+    variant, defines = _pick_variant("adj", "fft" if atomic else variant,
+                                     nprb, ndet, nmodes)
+    chunk = adj_chunk(t, s, nmodes, nprb) if chunk is None else int(chunk)
+    if chunk < 1:
+        raise ValueError(f"adj: chunk must be >= 1, got {chunk}")
+    chunk = min(chunk, max(s, 1))
     lib = _lib("adj", defines)
     dev = _device_index(farplane)
     # The streamed gradient pass hands over each chunk's residual, a new
     # contiguous tensor: no copy here.
     farplane, prb = farplane.contiguous(), prb.contiguous()
     scan_int = scan_int.contiguous()
-    out = torch.zeros((t, nz, n), dtype=torch.complex64,
-                      device=farplane.device)
     if variant == "fft":
         _check_aligned("adj", farplane)
         threads = fft_threads(ndet) if threads is None else threads
+    if atomic:
+        out = torch.zeros((t, nz, n), dtype=torch.complex64,
+                          device=farplane.device)
         grid = _fft_grid("adj", dev, t * s, ndet, 0, False, threads, defines)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
-            err = lib.tk_adj_fft(farplane.data_ptr(), prb.data_ptr(),
-                                 scan_int.data_ptr(), out.data_ptr(), t, s,
-                                 nz, n, nmodes, nprb, ndet, grid, threads,
-                                 stream)
-    else:
-        grid = _grid("adj", dev, t * s, ndet, False, 8 * nprb * ndet)
-        scratch = torch.empty(2 * grid * nprb * ndet, dtype=torch.float32,
-                              device=farplane.device)
+            err = lib.tk_adj_atomic_fft(
+                farplane.data_ptr(), prb.data_ptr(), scan_int.data_ptr(),
+                out.data_ptr(), t, s, nz, n, nmodes, nprb, ndet, grid,
+                threads, stream)
+        _check("adj", err, "kernel launch (atomic)")
+        adj.launches += 1
+        adj.variant = "atomic"
+        return out
+    # Every pixel is stored by the first tile launch, covered or not.
+    out = torch.empty((t, nz, n), dtype=torch.complex64,
+                      device=farplane.device)
+    scratch = torch.empty(t * chunk * nmodes * nprb * nprb,
+                          dtype=torch.complex64, device=farplane.device)
+    if variant == "gemm":
+        grid = _grid("adj", dev, t * chunk, ndet, False, 8 * nprb * ndet)
+        block_scratch = torch.empty(2 * grid * nprb * ndet,
+                                    dtype=torch.float32,
+                                    device=farplane.device)
+    for c0 in range(0, max(s, 1), chunk):
+        sc = min(chunk, s - c0)
+        far_c = farplane[:, c0:c0 + sc]
+        scan_c = scan_int[:, c0:c0 + sc].contiguous()
+        near = scratch[:t * sc * nmodes * nprb * nprb].view(
+            t, sc, nmodes, nprb, nprb)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
-            err = lib.tk_adj(farplane.data_ptr(), prb.data_ptr(),
-                             scan_int.data_ptr(), out.data_ptr(),
-                             scratch.data_ptr(), t, s, nz, n, nmodes, nprb,
-                             ndet, grid, stream)
-    _check("adj", err, f"kernel launch ({variant})")
-    adj.launches += 1
+            if variant == "fft":
+                grid = _fft_grid("adj", dev, t * sc, ndet, 0, False,
+                                 threads, defines)
+                err = lib.tk_adj_fft(
+                    far_c.data_ptr(), scan_c.data_ptr(), near.data_ptr(), t,
+                    sc, nz, n, nmodes, nprb, ndet, farplane.stride(0), grid,
+                    threads, stream)
+            else:
+                err = lib.tk_adj(
+                    far_c.data_ptr(), scan_c.data_ptr(), near.data_ptr(),
+                    block_scratch.data_ptr(), t, sc, nz, n, nmodes, nprb,
+                    ndet, farplane.stride(0), grid, stream)
+        _check("adj", err, f"kernel launch ({variant})")
+        adj.launches += 1
+        kernels._scatter_conj_probe_cuda(near, scan_c, prb, nz, n, out=out,
+                                         from_partial=c0 > 0)
     adj.variant = variant
     return out
 

@@ -45,8 +45,10 @@ once, with no atomics (:func:`scatter_tile_plan` cuts the object into its
 tiles). The fp32-atomic kernel it replaced, deterministic only up to the
 order in which overlapping patches land, stays only for timing the two in
 turns, forced with ``_scatter_conj_probe_cuda(..., variant='atomic')``
-(``scatter_conj_probe.variant`` names the last launch's). The port's other
-object scatters (``grad_fused``, ``adj``, ``adj_residual``) still use fp32
+(``scatter_conj_probe.variant`` names the last launch's). The tile kernel
+also continues from a stored partial object, which is how the fused tiers'
+``adj`` sums its frames chunk by chunk with the bits of one pass. The port's
+other object scatters (``grad_fused``, ``adj_residual``) still use fp32
 atomics. ``gather_probe_mul`` has no reduction, and ``adj_probe_reduce``
 sums fixed runs of positions in registers and the runs in a fixed order.
 
@@ -135,12 +137,16 @@ scatter_conj_probe.variant = None  # of the last launch: 'tile' or 'atomic'
 
 def scatter_conj_probe_reference(nearplane: torch.Tensor,
                                  scan_int: torch.Tensor, prb: torch.Tensor,
-                                 nz: int, n: int) -> torch.Tensor:
-    """Plain PyTorch version of :func:`scatter_conj_probe`, on any
-    device."""
+                                 nz: int, n: int,
+                                 out: torch.Tensor | None = None
+                                 ) -> torch.Tensor:
+    """Plain PyTorch version of :func:`scatter_conj_probe`, on any device.
+    With ``out`` (a partial object from the positions before these) it
+    adds into ``out`` and returns it: on the CPU each pixel continues in
+    scan order, so chunk after chunk gives the bits of one call."""
     scatter_conj_probe_reference.launches += 1
     patches = torch.sum(torch.conj(prb)[:, None] * nearplane, dim=2)
-    return _patches.scatter_patches_add(patches, scan_int, nz, n)
+    return _patches.scatter_patches_add(patches, scan_int, nz, n, out=out)
 
 
 scatter_conj_probe_reference.launches = 0
@@ -186,8 +192,8 @@ _ENTRIES = {
     "gather_probe_mul": {"tk_gather_probe_mul": _GATHER_ARGS,
                          "tk_gather_probe_mul_pixel": _GATHER_ARGS},
     "scatter_conj_probe": {
-        # + tiles_y, tiles_x, mode_chunk
-        "tk_scatter_conj_probe": _SCATTER_ARGS + [ctypes.c_int] * 3,
+        # + tiles_y, tiles_x, mode_chunk, from_partial
+        "tk_scatter_conj_probe": _SCATTER_ARGS + [ctypes.c_int] * 4,
         "tk_scatter_conj_probe_atomic": _SCATTER_ARGS},
     "adj_probe_reduce": {"tk_adj_probe_reduce": [ctypes.c_void_p] * 5
                          + [ctypes.c_int] * 7 + _STRIDES},
@@ -334,10 +340,14 @@ def scatter_blocks_per_sm(device_index: int, nmodes: int = 1) -> int:
     return per_sm.value
 
 
-def _scatter_conj_probe_cuda(nearplane, scan_int, prb, nz, n, variant=None):
+def _scatter_conj_probe_cuda(nearplane, scan_int, prb, nz, n, variant=None,
+                             out=None, from_partial=False):
     """Launches ``scatter_conj_probe``'s tile kernel, or the atomic kernel
     it replaced when ``variant='atomic'`` forces it (to time the two in
-    turns)."""
+    turns). The tile kernel writes into ``out`` where given (a contiguous
+    complex64 ``(t, nz, n)``), and with ``from_partial`` each pixel
+    continues from the value ``out`` holds: ``adj`` sums its chunks of
+    positions so, with the bits of one launch."""
     name = "scatter_conj_probe"
     variant = _scatter_variant(variant)
     t, s, m, p = _check_frames(name, nearplane, scan_int, prb, "prb")
@@ -351,15 +361,21 @@ def _scatter_conj_probe_cuda(nearplane, scan_int, prb, nz, n, variant=None):
                 *nearplane.stride()[:4], entry="tk_scatter_conj_probe_atomic")
     else:
         tiles_y, tiles_x, _ = scatter_tile_plan(t, nz, n)
-        # Every pixel is stored by the kernel, covered or not.
-        out = torch.empty((t, nz, n), dtype=torch.complex64,
-                          device=nearplane.device)
+        if out is None:
+            # Every pixel is stored by the kernel, covered or not.
+            out = torch.empty((t, nz, n), dtype=torch.complex64,
+                              device=nearplane.device)
+        elif (out.shape != (t, nz, n) or out.dtype != torch.complex64
+              or out.device != nearplane.device or not out.is_contiguous()):
+            raise ValueError(f"{name}: out must be a contiguous complex64 "
+                             f"tensor of shape {(t, nz, n)} on "
+                             f"{nearplane.device}")
         if scan_int.data_ptr() % 8:  # read a position (8 bytes) at a time
             scan_int = scan_int.clone()
         _launch(name, dev_i, nearplane.data_ptr(), prb.data_ptr(),
                 scan_int.data_ptr(), out.data_ptr(), t, s, nz, n, m, p,
                 *nearplane.stride()[:4], tiles_y, tiles_x,
-                scatter_mode_chunk(m))
+                scatter_mode_chunk(m), int(bool(from_partial)))
     scatter_conj_probe.launches += 1
     scatter_conj_probe.variant = variant
     return out

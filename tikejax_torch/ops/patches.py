@@ -71,19 +71,24 @@ def gather_patches(psi: torch.Tensor, scan_int: torch.Tensor,
 
 
 def scatter_patches_add(patches: torch.Tensor, scan_int: torch.Tensor,
-                        nz: int, n: int) -> torch.Tensor:
-    """Adjoint of :func:`gather_patches`: sum patches into a zero object.
+                        nz: int, n: int,
+                        out: torch.Tensor | None = None) -> torch.Tensor:
+    """Adjoint of :func:`gather_patches`: sum patches into a zero object,
+    or with ``out`` (contiguous ``(ntheta, nz, n)``) into ``out``, in
+    place.
 
     Returns ``(ntheta, nz, n)``."""
     ntheta, _, nprb, _ = patches.shape
     valid = _valid(scan_int)[..., None, None]
     patches = torch.where(valid, patches, torch.zeros(
         (), dtype=patches.dtype, device=patches.device))
-    out = torch.zeros(ntheta * nz * n, dtype=patches.dtype,
-                      device=patches.device)
-    out.index_add_(0, _flat_index(scan_int, nprb, nz, n).reshape(-1),
-                   patches.reshape(-1))
-    return out.reshape(ntheta, nz, n)
+    if out is None:
+        out = torch.zeros((ntheta, nz, n), dtype=patches.dtype,
+                          device=patches.device)
+    out.view(-1).index_add_(0, _flat_index(scan_int, nprb, nz,
+                                           n).reshape(-1),
+                            patches.reshape(-1))
+    return out
 
 
 def _delta_map(scan_int: torch.Tensor, h: int, w: int,

@@ -58,9 +58,23 @@ it reads its K values at once. The scalar slots of
 the carried state (steps, the L-BFGS curvature ring and count) are host
 values, kept as 0-d or 1-d CPU tensors.
 
-Not ported (each raises NotImplementedError naming ROADMAP.md): mesh axes,
-the slab fields and the TPU slab planner / compile-retry ladder (``run``
-calls ``run_impl`` directly).
+On a mesh (``axis_name`` / ``theta_axis_name``, set by
+``tikejax_torch.parallel.run_sharded``, which hands ``run_impl`` the
+``DeviceMesh`` and the rank's slice of the problem) every rank runs this
+loop on its own positions, and the solver all-reduces (``torch.distributed``)
+exactly where the JAX package ``psum``s: the objective and every
+line-search value over all ranks, the object gradient and the illumination
+map over the scan axis, the probe gradient and its ``seen`` map over the
+scan axis, the object- and probe-domain inner products over the theta axis,
+``sum(data)`` and the Poisson offset over all ranks. Every branch of the
+step control then reads an all-reduced value, so the ranks stay in lock
+step, and gloo's all-reduce hands every rank the same bits, so a replicated
+object stays bitwise equal across ranks. :func:`all_reduce` counts the
+collectives.
+
+Not ported (each raises NotImplementedError naming ROADMAP.md): object
+tiling (the ``obj_*`` fields), the slab fields and the TPU slab planner /
+compile-retry ladder (``run`` calls ``run_impl`` directly).
 """
 
 from __future__ import annotations
@@ -157,6 +171,9 @@ class CGOptions:
         run through ``cg_init``.
       carry_lbfgs: with an L-BFGS direction, also carry the (S, Y, sy,
         count) ring (the 8-tuple layout); implies carry_state.
+      axis_name: the mesh dimension that shards the scan positions (set by
+        ``tikejax_torch.parallel.run_sharded``; needs its mesh).
+      theta_axis_name: the mesh dimension that shards the angles, likewise.
     """
 
     # In the JAX package's order (the fields it has and this one lacks left
@@ -169,6 +186,8 @@ class CGOptions:
     max_halvings: int = 16
     nchunks: int = 1
     kernel: str = "auto"
+    axis_name: str | None = None
+    theta_axis_name: str | None = None
     verbose_every: int = 0
     precondition: str = "illum"
     lowk_boost: float = 4.0
@@ -190,8 +209,7 @@ class CGOptions:
 # The JAX package's remaining CGOptions fields with their defaults: a call
 # that keeps the default runs, any other value raises.
 _UNPORTED_FIELDS = {
-    "axis_name": None,
-    "theta_axis_name": None, "obj_axis_name": None, "obj_halo": 0,
+    "obj_axis_name": None, "obj_halo": 0,
     "obj_axis_size": 1, "obj_slabs": 1,
     "obj_slabs_partitioned": False, "obj_slab_rows": None,
     "obj_slab_cols": 1, "kernel_frames": None,
@@ -201,8 +219,81 @@ _UNPORTED_FIELDS = {
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to tikejax_torch yet; see ROADMAP.md "
-        "(queue 1 item 3 for the mesh axes; the slab fields are under 'Not "
-        "to port')")
+        "(queue 1 item 5 for object tiling, the obj_* fields; the slab "
+        "fields are under 'Not to port')")
+
+
+def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over the ranks of the process ``group``
+    (``torch.distributed.all_reduce``, in place on a contiguous ``x``, which
+    is returned). Counts its calls in ``all_reduce.launches``, the bytes it
+    reduced in ``all_reduce.bytes`` and the calls by size in
+    ``all_reduce.sizes`` ({bytes: calls}); gloo takes CUDA tensors for
+    it."""
+    import torch.distributed as dist
+
+    x = x.contiguous()
+    dist.all_reduce(x, group=group)
+    nbytes = x.numel() * x.element_size()
+    all_reduce.launches += 1
+    all_reduce.bytes += nbytes
+    all_reduce.sizes[nbytes] = all_reduce.sizes.get(nbytes, 0) + 1
+    return x
+
+
+all_reduce.launches = 0
+all_reduce.bytes = 0
+all_reduce.sizes = {}
+
+
+class _Comm:
+    """Where a run on a mesh reduces: the process groups of the scan axis
+    (``options.axis_name``), of the theta axis (``theta_axis_name``) and of
+    every rank (the JAX package's ``_scalar_axes``; a mesh that
+    ``run_sharded`` takes spans every rank). A dimension of one rank sums
+    nothing, and without a mesh every reduction is the identity."""
+
+    def __init__(self, o: CGOptions, mesh):
+        names = tuple(a for a in (o.theta_axis_name, o.axis_name)
+                      if a is not None)
+        if names and mesh is None:
+            raise ValueError(
+                f"axis_name / theta_axis_name ({names}) name dimensions of "
+                "a mesh: run through tikejax_torch.parallel.run_sharded")
+
+        def group(name):
+            if name is None or mesh.size(
+                    mesh.mesh_dim_names.index(name)) == 1:
+                return None
+            return mesh.get_group(name)
+
+        self.scan = group(o.axis_name)
+        self.theta = group(o.theta_axis_name)
+        if self.scan is not None and self.theta is not None:
+            import torch.distributed as dist
+
+            self.every = dist.group.WORLD
+        else:
+            self.every = self.scan if self.scan is not None else self.theta
+
+    @staticmethod
+    def _sum(x, group):
+        return x if group is None or x is None else all_reduce(x, group)
+
+    def scalar(self, x):
+        """A sum over the positions (an objective, a line-search value,
+        sum(data)): over every rank."""
+        return self._sum(x, self.every)
+
+    def over_scan(self, x):
+        """An object- or probe-domain sum over the positions (a gradient,
+        the illumination or ``seen`` map): over the scan axis."""
+        return self._sum(x, self.scan)
+
+    def over_theta(self, x):
+        """A sum over the angles (an inner product of object- or
+        probe-domain arrays, which a theta mesh shards per angle)."""
+        return self._sum(x, self.theta)
 
 
 def _lbfgs_memory(direction: str) -> int:
@@ -298,7 +389,7 @@ class _Engine:
     passes and line-search candidates) in ``evaluations``."""
 
     def __init__(self, g: Geometry, o: CGOptions, backend: str,
-                 f_base=None):
+                 f_base=None, mesh=None):
         if o.nchunks < 1 or g.nscan % o.nchunks:
             raise ValueError(
                 f"nchunks ({o.nchunks}) must divide nscan ({g.nscan})")
@@ -372,6 +463,7 @@ class _Engine:
         self.o = o
         self.minf_fn, self.resid_fn = likelihoods.get_model(o.model)
         self.precision = diffraction._fused_precision(self.kernel)
+        self.comm = _Comm(o, mesh)
         self.syncs = 0
         self.evaluations = 0
 
@@ -379,6 +471,16 @@ class _Engine:
         """Read a device scalar on the host (one synchronisation)."""
         self.syncs += 1
         return float(x)
+
+    def dots(self, *pairs) -> torch.Tensor:
+        """The real inner products ``<a, b>`` of the object- or
+        probe-domain ``pairs``, stacked on the device and summed over the
+        theta axis in one collective (the JAX package's ``_dot``)."""
+        return self.comm.over_theta(torch.stack([_rdot(a, b)
+                                                 for a, b in pairs]))
+
+    def dot(self, a, b) -> torch.Tensor:
+        return self.dots((a, b))[0]
 
     # -- objective and gradient passes ----------------------------------
 
@@ -420,19 +522,19 @@ class _Engine:
                     psi, data, scan_i, prb, self.g.ndet, o.model,
                     precision=self.precision, adj_precision=adj_precision,
                     base=self.f_base)
-                return f0, grad, None, None
+                return self._reduced(f0, grad, None, None)
             if not want_prb:
                 fpsi = fused.fwd(psi, scan_i, prb, self.g.ndet,
                                  precision=self.precision, base=self.f_base)
                 grad, f0 = fused.adj_residual(
                     fpsi, data, scan_i, prb, self.g.nz, self.g.n, o.model,
                     precision=adj_precision)
-                return f0, grad, None, fpsi
+                return self._reduced(f0, grad, None, fpsi)
             if self.frameless:
                 gprb, f0 = fused.grad_prb_fused(
                     psi, data, scan_i, prb, self.g.ndet, o.model,
                     precision=self.precision, adj_precision=adj_precision)
-                return f0, None, gprb, None
+                return self._reduced(f0, None, gprb, None)
         f0 = torch.zeros((), dtype=psi.real.dtype, device=psi.device)
         gpsi = torch.zeros_like(psi) if want_psi else None
         gprb = torch.zeros_like(prb) if want_prb else None
@@ -456,16 +558,23 @@ class _Engine:
                                                         self.g.nprb,
                                                         self.kernel)
             del r
-        return f0, gpsi, gprb, fpsi
+        return self._reduced(f0, gpsi, gprb, fpsi)
+
+    def _reduced(self, f0, gpsi, gprb, fpsi):
+        """A gradient pass's results summed over the mesh where the JAX
+        package ``psum``s them: the objective over every rank, the object
+        and the probe gradient over the scan axis."""
+        return (self.comm.scalar(f0), self.comm.over_scan(gpsi),
+                self.comm.over_scan(gprb), fpsi)
 
     def minf_pass(self, psi, prb, scan_i, data):
         """The objective at ``psi`` (plus the base) through the frameless
         ``minf_fused`` kernel: one candidate of the non-merged line
         search."""
         self.evaluations += 1
-        return fused.minf_fused(psi, data, scan_i, prb, self.g.ndet,
-                                self.o.model, precision=self.precision,
-                                base=self.f_base)
+        return self.comm.scalar(fused.minf_fused(
+            psi, data, scan_i, prb, self.g.ndet, self.o.model,
+            precision=self.precision, base=self.f_base))
 
     def line_fn(self, psi, prb, scan, scan_i, data, fpsi, dpsi=None,
                 dprb=None):
@@ -508,7 +617,7 @@ class _Engine:
             minf_at = functools.partial(_minf_of_gamma, o.model, gamma=gamma)
             total = sum(_sum_over_positions(minf_at, a, b, c, dc)
                         for (a, b, c), dc in stats)
-            return self.host(total), None
+            return self.host(self.comm.scalar(total)), None
 
         return f_of
 
@@ -543,8 +652,8 @@ class _Engine:
                                                        dtype=f32)
         self.evaluations += 1
         self.syncs += 1
-        values = linesearch.ls_objectives(fpsi, fd, data, gammas,
-                                          o.model).tolist()
+        values = self.comm.scalar(linesearch.ls_objectives(
+            fpsi, fd, data, gammas, o.model)).tolist()
         for gamma, f in zip(gammas.tolist(), values):
             if f <= f0:
                 return gamma
@@ -645,9 +754,9 @@ class _Engine:
 
     def dy_direction(self, grad, grad_prev, d_prev):
         """d = -g + beta * d_prev, beta = ||g||^2 / <d_prev, g - g_prev>_R
-        (Dai-Yuan 1999); steepest descent when the denominator is 0."""
-        num = _rdot(grad, grad)
-        den = _rdot(d_prev, grad - grad_prev)
+        (Dai-Yuan 1999); steepest descent when the denominator is 0. The
+        products are global (:meth:`dots`)."""
+        num, den = self.dots((grad, grad), (d_prev, grad - grad_prev))
         beta = torch.where(den != 0, num / torch.where(den != 0, den, 1.0),
                            0.0)
         return -grad + beta.to(grad.dtype) * d_prev
@@ -665,8 +774,7 @@ class _Engine:
         if not accepted:
             return lb
         self.syncs += 1
-        sy, ss, yy = torch.stack([_rdot(s, y), _rdot(s, s),
-                                  _rdot(y, y)]).tolist()
+        sy, ss, yy = self.dots((s, y), (s, s), (y, y)).tolist()
         if not sy > 1e-12 * math.sqrt(ss * yy):
             return lb
         return _Lbfgs(torch.cat([lb.S[1:], s[None]]),
@@ -687,16 +795,16 @@ class _Engine:
         al = [None] * m
         for i in reversed(range(m)):
             if valid[i]:
-                al[i] = rho[i] * _rdot(lb.S[i], q)
+                al[i] = rho[i] * self.dot(lb.S[i], q)
                 q = q - al[i].to(q.dtype) * lb.Y[i]
         if lb.count > 0:
-            yy = _rdot(lb.Y[m - 1], lb.Y[m - 1])
+            yy = self.dot(lb.Y[m - 1], lb.Y[m - 1])
             h0 = torch.where(yy > 0, sy[m - 1] / torch.clamp_min(yy, 1e-300),
                              1.0)
             q = q * h0.to(q.dtype)
         for i in range(m):
             if valid[i]:
-                b = rho[i] * _rdot(lb.Y[i], q)
+                b = rho[i] * self.dot(lb.Y[i], q)
                 q = q + (al[i] - b).to(q.dtype) * lb.S[i]
         return -q
 
@@ -759,32 +867,36 @@ def _lowk_symbol(nz, n, boost, frac, dtype, device):
     return 1.0 + boost * k02 / (k02 + fy**2 + fx**2)
 
 
-def _illum_denominator(prb, scan_i, nz, n):
-    """The probe-illumination map, floored at 10% of its per-angle
-    maximum."""
+def _illum_denominator(prb, scan_i, nz, n, comm=None):
+    """The probe-illumination map (summed over the scan axis on a mesh),
+    floored at 10% of its per-angle maximum."""
     illum = _patches.illumination_map(scan_i, _probe_power(prb), nz, n)
+    if comm is not None:
+        illum = comm.over_scan(illum)
     m = torch.amax(illum, dim=(-2, -1), keepdim=True)
     return torch.maximum(illum, 0.1 * m)
 
 
-def _preconditioner(o: CGOptions, prb0, scan_i, nz, n):
+def _preconditioner(o: CGOptions, prb0, scan_i, nz, n, comm=None):
     """``precond(g, prb)``, the object-gradient preconditioner at the
     probe ``prb``. For 'illum' without recover_prb the denominator is
     computed once (the probe does not move); with it, it follows the
     current probe, as in the JAX package. 'illum_lowk' (object-only)
     multiplies the spectrum of the 'illum' result by :func:`_lowk_symbol`:
-    two 2-D FFTs of the object per application."""
+    two 2-D FFTs of the object per application. On a mesh the
+    illumination map is summed over the scan axis (``comm``)."""
     if o.precondition == "illum_lowk":
-        denom = _illum_denominator(prb0, scan_i, nz, n)
+        denom = _illum_denominator(prb0, scan_i, nz, n, comm)
         lowk = _lowk_symbol(nz, n, o.lowk_boost, o.lowk_frac,
                             prb0.real.dtype, prb0.device)
         return lambda g, prb: torch.fft.ifft2(torch.fft.fft2(g / denom)
                                               * lowk)
     if o.precondition == "illum":
         if not o.recover_prb:
-            denom = _illum_denominator(prb0, scan_i, nz, n)
+            denom = _illum_denominator(prb0, scan_i, nz, n, comm)
             return lambda g, prb: g / denom
-        return lambda g, prb: g / _illum_denominator(prb, scan_i, nz, n)
+        return lambda g, prb: g / _illum_denominator(prb, scan_i, nz, n,
+                                                     comm)
     if o.precondition == "max":
         def precond(g, prb):
             pmax = torch.amax(_probe_power(prb), dim=(-2, -1))
@@ -793,17 +905,19 @@ def _preconditioner(o: CGOptions, prb0, scan_i, nz, n):
     return lambda g, prb: g
 
 
-def _probe_preconditioner(o: CGOptions, scan_i):
+def _probe_preconditioner(o: CGOptions, scan_i, comm=None):
     """``precond(gprb, psi)``, the probe-gradient preconditioner: for
     'illum', divide by the object power each probe pixel sees over all
-    positions (``patches.patch_power_map``), floored at 10% of its
-    maximum; otherwise the identity."""
+    positions (``patches.patch_power_map``, summed over the scan axis on a
+    mesh), floored at 10% of its maximum; otherwise the identity."""
     if o.precondition != "illum":
         return lambda gprb, psi: gprb
 
     def precond(gprb, psi):
         seen = _patches.patch_power_map(scan_i, psi.abs()**2,
                                         gprb.shape[-1])
+        if comm is not None:
+            seen = comm.over_scan(seen)
         floor = 0.1 * torch.amax(seen, dim=(-2, -1), keepdim=True)
         return gprb / torch.maximum(seen, floor)[:, None]
     return precond
@@ -844,24 +958,30 @@ def _initial_state(eng: _Engine, o: CGOptions, psi0, cg_init):
 
 @torch.no_grad()
 def run_impl(geometry: Geometry, options: CGOptions, data, psi0, scan, prb0,
-             f_base=None, cg_init=None):
+             f_base=None, cg_init=None, mesh=None):
     """The CG loop. Returns (psi, prb, metrics) like :func:`run`. With
     ``f_base`` psi0 is a small correction on a frozen base object whose
     farplane is ``f_base`` (complex, or its ``view_as_real`` (re, im)
     halves, as ``fused.fwd(split_out=True)`` returns); ``cg_init`` is a
-    carried ``metrics['cg_state']`` taken at the same iterate."""
+    carried ``metrics['cg_state']`` taken at the same iterate. With
+    ``options.axis_name`` / ``theta_axis_name`` set, ``mesh`` is the
+    ``DeviceMesh`` that names them and the arrays are this rank's slice
+    (``tikejax_torch.parallel.run_sharded`` sets all three)."""
     o = options
-    eng = _Engine(geometry, o, diffraction._backend(psi0.device), f_base)
+    eng = _Engine(geometry, o, diffraction._backend(psi0.device), f_base,
+                  mesh)
+    comm = eng.comm
     real_dtype = psi0.real.dtype
     device = psi0.device
     scan_i = _patches.scan_to_int(scan)
-    precond = _preconditioner(o, prb0, scan_i, geometry.nz, geometry.n)
-    precond_prb = _probe_preconditioner(o, scan_i)
+    precond = _preconditioner(o, prb0, scan_i, geometry.nz, geometry.n,
+                              comm)
+    precond_prb = _probe_preconditioner(o, scan_i, comm)
 
-    sum_data = eng.host(_sum_over_positions(
-        lambda c: torch.sum(torch.clamp_min(c, 0.0)), data))
-    minf_offset = (eng.host(_sum_over_positions(
-        likelihoods.poisson_perfect_minf, data))
+    sum_data = eng.host(comm.scalar(_sum_over_positions(
+        lambda c: torch.sum(torch.clamp_min(c, 0.0)), data)))
+    minf_offset = (eng.host(comm.scalar(_sum_over_positions(
+        likelihoods.poisson_perfect_minf, data)))
         if o.model == "poisson" else 0.0)
 
     def residual_of(f):
@@ -882,7 +1002,7 @@ def run_impl(geometry: Geometry, options: CGOptions, data, psi0, scan, prb0,
     def fp0():
         # Directional derivative along d: 2 Re<raw gradient, d> (the
         # preconditioner rescales the gradient, not the objective).
-        return 2.0 * eng.host(_rdot(g_raw, d))
+        return 2.0 * eng.host(eng.dot(g_raw, d))
 
     def direction(g_now):
         """The search direction at the gradient ``g_now`` and its
@@ -944,7 +1064,8 @@ def run_impl(geometry: Geometry, options: CGOptions, data, psi0, scan, prb0,
                                       dprb=d_prb)
                 del fpsi
                 gamma_p = search(f_p, gamma0_p,
-                                 lambda: 2.0 * eng.host(_rdot(gp_raw, d_prb)))
+                                 lambda: 2.0 * eng.host(eng.dot(gp_raw,
+                                                                d_prb)))
                 del search
                 if gamma_p != 0.0:
                     prb = prb + gamma_p * d_prb
@@ -956,7 +1077,7 @@ def run_impl(geometry: Geometry, options: CGOptions, data, psi0, scan, prb0,
         residual.append(residual_of(f_iter))
         gamma_hist.append(gamma)
         gamma_prb.append(gamma_p)
-        grad_norm.append(torch.sqrt(_rdot(g_iter, g_iter)))
+        grad_norm.append(torch.sqrt(eng.dot(g_iter, g_iter)))
         gam_prev, gam0_prev = gamma, gamma0
         if o.verbose_every > 0 and i % o.verbose_every == 0:
             print(f"iter {i}: minf={f_iter:.6e} gamma={gamma:.4f}",
@@ -1017,6 +1138,9 @@ def run(data, psi0, scan, prb0, geometry: Geometry,
     ``f_base`` (split-operator mode) and ``cg_init`` (a carried
     ``metrics['cg_state']``; with recover_prb it carries the object's
     state only, as in the JAX package) as in :func:`run_impl`.
+
+    ``axis_name`` / ``theta_axis_name`` need a mesh: run through
+    ``tikejax_torch.parallel.run_sharded``.
 
     Returns:
       (psi, prb, metrics): metrics holds per-iteration arrays {'minf',

@@ -43,9 +43,23 @@ large as the data is allocated.
 The refinement inherits the caller's ``nchunks``: the frozen base is
 streamed through the chunks with the data.
 
-Not ported (raises NotImplementedError naming ROADMAP.md): meshes. The TPU
-slab backstop (``_maybe_slab_partition``) and ``hostio`` are not ported by
-design.
+On a mesh (``mesh=``, ``tikejax_torch.parallel.make_mesh``; every rank
+calls ``reconstruct`` with the global arrays) the problem is padded and
+sharded once, every stage runs through ``parallel.run_sharded`` and the
+base farplanes are frozen by ``parallel.fwd_sharded``, so they stay
+sharded. The JAX package's own reductions here run on global arrays,
+where XLA sums over the shards for free; here the farplanes and the data
+are each rank's, so the Anderson safeguard's residuals (``sum(data)`` and
+both candidates' objectives) are all-reduced, and every rank takes the
+same choice. The object, the probe and the Anderson history are global on
+every rank (``run_sharded`` returns them so), so the mix's Gram matrix is
+the global one without a collective. Mesh runs keep the farplane-reusing
+safeguard, as the JAX package's do. Rank 0 writes the checkpoints, from
+the global state; every rank reads them.
+
+Object tiling (the ``obj_*`` fields) raises NotImplementedError naming
+ROADMAP.md. The TPU slab backstop (``_maybe_slab_partition``) and
+``hostio`` are not ported by design.
 """
 
 from __future__ import annotations
@@ -86,18 +100,6 @@ _AA_DEPTH = 3
 # positions of 128^2) on the farplane-reusing safeguard, while the 8.6 GB
 # farplane of 4 modes at that size never gets a second copy.
 _SAFEGUARD_FRAMELESS_BYTES = 3 << 30
-
-_ROADMAP = {
-    "mesh": "mesh= (multi-device runs; ROADMAP.md queue 1 item 3)",
-}
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"reconstruct: "
-        f"{_ROADMAP.get(what, what + ' (see ROADMAP.md queue 1)')} is not "
-        "ported to tikejax_torch yet")
-
 
 def reconstruct(data, psi0, scan, prb0, geometry: Geometry,
                 target_residual: float = 1e-6,
@@ -147,7 +149,11 @@ def reconstruct(data, psi0, scan, prb0, geometry: Geometry,
         call with the same path resumes from it and reproduces the rest
         of the trajectory. The file is removed on success; a mismatched
         call raises.
-      mesh: not ported (NotImplementedError) unless None.
+      mesh: a position-sharding mesh (``parallel.make_mesh``: 1-D, or 2-D
+        ``('theta', 'scan')`` with ``ntheta`` divisible by its theta
+        dimension); every rank of it calls ``reconstruct`` with the global
+        arrays and gets the global result. The scan axis is padded once to
+        a multiple of the scan dimension with sentinel dummies.
       options / kw: base CGOptions (piter, kernel and target_residual are
         set per stage). ``direction='auto'`` resolves to Dai-Yuan for
         stage 1 and the joint chains, and to L-BFGS (m=8) for the
@@ -164,8 +170,7 @@ def reconstruct(data, psi0, scan, prb0, geometry: Geometry,
         if name in kw:
             value = kw.pop(name)
             if value != default:
-                raise _not_ported(name if name in _ROADMAP
-                                  else f"{name}={value!r}")
+                raise _cg._not_ported(f"reconstruct: {name}={value!r}")
     if options is None:
         options = _cg.CGOptions(**kw)
     elif kw:
@@ -185,14 +190,25 @@ def reconstruct(data, psi0, scan, prb0, geometry: Geometry,
         raise ValueError(f"unknown accelerate {accelerate!r}; use None, "
                          "'anderson', or 'anderson:<depth>'")
     if mesh is not None:
-        raise _not_ported("mesh")
+        from tikejax_torch.parallel import sharding
+
+        sharding._check_mesh(mesh)
+        _, _, tsh, nsh, _, _ = sharding._layout(mesh)
+        if geometry.ntheta % tsh:
+            raise ValueError(
+                f"ntheta ({geometry.ntheta}) must be divisible by the "
+                f"theta mesh axis size ({tsh})")
+        data, scan, geometry = sharding.pad_scan_problem(data, scan,
+                                                         geometry, nsh)
+        data, scan = sharding.shard_problem(mesh, data, scan)
     if method == "split":
         return _reconstruct_split(data, psi0, scan, prb0, geometry,
                                   target_residual, segment, max_segments,
                                   base_kernel, fast_kernel, options, tiers,
                                   segment_carry, floor_patience, accelerate,
                                   joint_kernel, checkpoint_path,
-                                  checkpoint_every)
+                                  checkpoint_every, mesh)
+    run_fn = _make_run_fn(mesh)
 
     psi, prb = psi0, prb0
     stages = []
@@ -208,8 +224,8 @@ def reconstruct(data, psi0, scan, prb0, geometry: Geometry,
                 options, kernel=kernel, piter=seg,
                 target_residual=tier_target,
                 direction="dy" if tier_i == 0 else options.direction)
-            psi, prb, metrics = _cg.run(data, psi, scan, prb, geometry,
-                                        tier_opts)
+            psi, prb, metrics = run_fn(data, psi, scan, prb, geometry,
+                                       tier_opts)
             stages.append((kernel, metrics))
             remaining -= seg
         if floor <= target_residual:
@@ -217,19 +233,55 @@ def reconstruct(data, psi0, scan, prb0, geometry: Geometry,
     return psi, prb, stages
 
 
+def _make_run_fn(mesh):
+    """The stage runner: ``cg.run``, or ``parallel.run_sharded`` on the
+    mesh (the same call, ``f_base`` and ``cg_init`` included)."""
+    if mesh is None:
+        return _cg.run
+    from tikejax_torch.parallel import run_sharded
+
+    def run_fn(data, psi0, scan, prb0, geometry, options, f_base=None,
+               cg_init=None):
+        return run_sharded(data, psi0, scan, prb0, geometry, mesh, options,
+                           f_base=f_base, cg_init=cg_init)
+
+    return run_fn
+
+
+def _make_reduce(mesh):
+    """A sum over every rank of a scalar that each rank's data make, or the
+    identity without a mesh."""
+    if mesh is None:
+        return lambda x: x
+    import torch.distributed as dist
+
+    return lambda x: _cg.all_reduce(x, dist.group.WORLD)
+
+
 def _reconstruct_split(data, psi0, scan, prb, g, target, segment,
                        max_segments, base_kernel, fast_kernel, options,
                        tiers, segment_carry=True, floor_patience=3,
                        accelerate=None, joint_kernel=None,
-                       checkpoint_path=None, checkpoint_every=4):
+                       checkpoint_path=None, checkpoint_every=4, mesh=None):
     """Fast tier to its floor, then split-operator refinement segments;
-    with recover_prb, joint stages and probe refreshes around them."""
+    with recover_prb, joint stages and probe refreshes around them. With
+    ``mesh`` (data and scan this rank's padded slice, ``g`` the padded
+    global geometry) every stage runs through ``run_sharded`` and the base
+    freeze through ``fwd_sharded``."""
     on_cuda = psi0.device.type == "cuda"
     fast = fast_kernel or ("fused" if on_cuda else "xla")
     base = base_kernel or ("fused_hp" if on_cuda else "xla")
+    run_fn = _make_run_fn(mesh)
+    reduce = _make_reduce(mesh)
 
-    def fwd_base(psi_, scan_, prb_):
-        return diffraction.fwd_raw(psi_, scan_, prb_, g.ndet, base)
+    if mesh is None:
+        def fwd_base(psi_, scan_, prb_):
+            return diffraction.fwd_raw(psi_, scan_, prb_, g.ndet, base)
+    else:
+        from tikejax_torch.parallel import fwd_sharded
+
+        def fwd_base(psi_, scan_, prb_):
+            return fwd_sharded(psi_, scan_, prb_, g.ndet, base, mesh)
 
     floor = tiers[0][1] if tiers else diffraction.FUSED_RESIDUAL_FLOOR
     stages = []
@@ -252,13 +304,13 @@ def _reconstruct_split(data, psi0, scan, prb, g, target, segment,
         opts1 = dataclasses.replace(options, kernel=fast, direction="dy",
                                     piter=tiers[0][2] if tiers else 256,
                                     target_residual=max(target, floor))
-        psi, prb, m = _cg.run(data, psi0, scan, prb, g, opts1)
+        psi, prb, m = run_fn(data, psi0, scan, prb, g, opts1)
         stages.append((fast + (":joint" if recover else ""), m))
         if recover and target < floor:
             # A probe frozen at the fast tier's accuracy would floor the
             # refinement: escalate the joint recovery first.
             psi, prb, _ = _joint_chain(data, psi, scan, prb, g, joint_opts,
-                                       stages)
+                                       stages, run_fn=run_fn)
         if target >= floor:
             return psi, prb, stages
     else:
@@ -280,9 +332,11 @@ def _reconstruct_split(data, psi0, scan, prb, g, target, segment,
     # Safeguard flavour by base-farplane size: the farplane-reusing
     # safeguard materializes both candidates' farplanes and hands the
     # winner's forward as the next base; above the threshold both
-    # objectives come from minf_fused and the base stays one tensor.
+    # objectives come from minf_fused and the base stays one tensor. Mesh
+    # runs keep the farplane-reusing one, as in the JAX package.
     minf_base_fn = None
-    if (base.startswith("fused") and math.prod(g.farplane_shape)
+    if (mesh is None and base.startswith("fused")
+            and math.prod(g.farplane_shape)
             * psi.element_size() > _SAFEGUARD_FRAMELESS_BYTES):
         minf_base_fn = _make_minf_base(g)
         fwd_base = _make_fwd_base_split(g)
@@ -302,15 +356,15 @@ def _reconstruct_split(data, psi0, scan, prb, g, target, segment,
          state) = _ckpt_restore(ck, state, psi0.device)
     elif checkpoint_path is not None:
         _ckpt_save(checkpoint_path, g, segment, target, psi, prb, budget,
-                   flat, refreshes, res_hist, prev, aa_hist, state)
+                   flat, refreshes, res_hist, prev, aa_hist, state, mesh)
     seg_i = 0
     while budget > 0:
         budget -= 1
         f_base = f_next if f_next is not None else fwd_base(psi, scan, prb)
         f_next = None
         delta0 = torch.zeros(g.psi_shape, dtype=psi.dtype, device=psi.device)
-        delta, _, m = _cg.run(data, delta0, scan, prb, g, opts2,
-                              f_base=f_base, cg_init=state)
+        delta, _, m = run_fn(data, delta0, scan, prb, g, opts2,
+                             f_base=f_base, cg_init=state)
         f_base = None  # at scale the base IS the memory budget
         psi = psi + delta
         stages.append((f"split:{fast}", m))
@@ -329,7 +383,7 @@ def _reconstruct_split(data, psi0, scan, prb, g, target, segment,
                 else:
                     psi, took, f_next = _anderson_step(
                         [p for p, _ in aa_hist], [d for _, d in aa_hist],
-                        data, scan, prb, fwd_base)
+                        data, scan, prb, fwd_base, reduce)
                 if segment_carry:
                     # A taken mix moves psi off the carried trajectory.
                     state = _masked_state_flag(state, took)
@@ -359,9 +413,9 @@ def _reconstruct_split(data, psi0, scan, prb, g, target, segment,
                 budget -= 1
                 psi, prb, (r_reached, r_contr) = _joint_chain(
                     data, psi, scan, prb, g, joint_opts, stages,
-                    target=target)
+                    target=target, run_fn=run_fn)
                 if r_reached:
-                    _ckpt_done(checkpoint_path)
+                    _ckpt_done(checkpoint_path, mesh)
                     return psi, prb, stages
                 if r_contr > _FLOOR_CONTRACTION:
                     break  # the probe refresh is flat too: genuine floor
@@ -379,18 +433,21 @@ def _reconstruct_split(data, psi0, scan, prb, g, target, segment,
         if checkpoint_path is not None and seg_i % checkpoint_every == 0:
             _ckpt_save(checkpoint_path, g, segment, target, psi, prb,
                        budget, flat, refreshes, res_hist, prev, aa_hist,
-                       state)
-    _ckpt_done(checkpoint_path)
+                       state, mesh)
+    _ckpt_done(checkpoint_path, mesh)
     return psi, prb, stages
 
 
-def _joint_chain(data, psi, scan, prb, g, joint_opts, stages, target=None):
-    """Four joint runs one after the other, each appended as a
+def _joint_chain(data, psi, scan, prb, g, joint_opts, stages, target=None,
+                 run_fn=None):
+    """Four joint runs one after the other (``run_fn``: ``cg.run`` by
+    default, or the mesh's ``run_sharded``), each appended as a
     '<kernel>:joint' stage. With ``target``, the third element is (reached,
     residual contraction across the chain); else None."""
+    run_fn = run_fn or _cg.run
     ms = []
     for _ in range(4):
-        psi, prb, m = _cg.run(data, psi, scan, prb, g, joint_opts)
+        psi, prb, m = run_fn(data, psi, scan, prb, g, joint_opts)
         stages.append((joint_opts.kernel + ":joint", m))
         ms.append(m)
     if target is None:
@@ -460,7 +517,9 @@ def _parse_anderson_depth(accelerate):
 def _anderson_mix(psis, deltas):
     """x_mix = sum_j alpha_j G(x_j) with alpha minimizing ||sum_j alpha_j
     r_j|| subject to sum_j alpha_j = 1, on the (Tikhonov-regularized) real
-    Gram matrix of the corrections r_j. The m x m solve runs on the host."""
+    Gram matrix of the corrections r_j. The m x m solve runs on the host.
+    On a mesh the iterates and corrections are global on every rank, and
+    so is the Gram matrix, with no collective."""
     m = len(deltas)
     R = torch.stack([d.reshape(-1) for d in deltas])  # (m, N) complex
     G = (R @ R.conj().T).real.cpu()
@@ -473,24 +532,30 @@ def _anderson_mix(psis, deltas):
                                                 stacked.dtype), stacked)
 
 
-def _anderson_step(psis, deltas, data, scan, prb, fwd_base):
+def _anderson_step(psis, deltas, data, scan, prb, fwd_base,
+                   reduce=lambda x: x):
     """One safeguarded Anderson step: form the mix, compute both
     candidates' farplanes with the base kernel and keep the candidate
     with the smaller gaussian residual. Returns (chosen iterate, took-mix
-    flag, chosen farplane): the farplane is the next segment's base."""
+    flag, chosen farplane): the farplane is the next segment's base. On a
+    mesh the farplanes are this rank's, and ``reduce`` sums the residuals'
+    parts over the ranks."""
     psi_mix = _anderson_mix(psis, deltas)
     psi_plain = psis[-1]
     f_mix = fwd_base(psi_mix, scan, prb)
     f_plain = fwd_base(psi_plain, scan, prb)
-    return _anderson_select(psi_mix, psi_plain, f_mix, f_plain, data)
+    return _anderson_select(psi_mix, psi_plain, f_mix, f_plain, data,
+                            reduce)
 
 
-def _anderson_select(psi_mix, psi_plain, f_mix, f_plain, data):
-    sum_d = _cg._sum_over_positions(
-        lambda c: torch.sum(torch.clamp_min(c, 0.0)), data)
+def _anderson_select(psi_mix, psi_plain, f_mix, f_plain, data,
+                     reduce=lambda x: x):
+    sum_d = reduce(_cg._sum_over_positions(
+        lambda c: torch.sum(torch.clamp_min(c, 0.0)), data))
 
     def res(f):
-        minf = _cg._sum_over_positions(likelihoods.gaussian_minf, f, data)
+        minf = reduce(_cg._sum_over_positions(likelihoods.gaussian_minf, f,
+                                              data))
         return torch.sqrt(torch.clamp_min(minf, 0.0) / sum_d)
 
     if bool(res(f_mix) < res(f_plain)):
@@ -561,7 +626,21 @@ def _to_tensor(x, device) -> torch.Tensor:
 
 
 def _ckpt_save(path, g, segment, target, psi, prb, budget, flat,
-               refreshes, res_hist, prev, aa_hist, state):
+               refreshes, res_hist, prev, aa_hist, state, mesh=None):
+    """Write the outer state; on a mesh every rank calls it (the carried
+    state's per-angle entries are gathered), rank 0 writes the file and the
+    ranks wait for one another."""
+    if mesh is not None:
+        import torch.distributed as dist
+
+        from tikejax_torch.parallel.sharding import gather_state
+
+        state = gather_state(state, mesh)
+        if dist.get_rank() == 0:
+            _ckpt_save(path, g, segment, target, psi, prb, budget, flat,
+                       refreshes, res_hist, prev, aa_hist, state)
+        dist.barrier()
+        return
     tree = {
         "meta": {
             "version": np.int64(1),
@@ -635,8 +714,16 @@ def _ckpt_restore(ck, state, device):
             res_hist, prev, aa_hist, state)
 
 
-def _ckpt_done(path):
+def _ckpt_done(path, mesh=None):
     """Remove the checkpoint on successful completion, so re-running the
-    same call starts fresh instead of resuming a finished run."""
+    same call starts fresh instead of resuming a finished run (on a mesh,
+    rank 0 removes it and the ranks wait for one another)."""
+    if mesh is not None and path is not None:
+        import torch.distributed as dist
+
+        if dist.get_rank() == 0:
+            _ckpt_done(path)
+        dist.barrier()
+        return
     if path is not None and os.path.exists(path):
         os.remove(path)
