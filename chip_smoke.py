@@ -53,8 +53,8 @@ is caught):
                   angles, 2 modes, 48^2 probe in a 64^2 detector, a masked
                   position, both models, with and without a base) and at
                   the headline: every objective, both probe sums, fwd's
-                  farplane and fwd_quad_stats' planes bitwise repeatable,
-                  two runs of each object gradient within 1e-5 of scale,
+                  farplane, fwd_quad_stats' planes and every object
+                  gradient bitwise repeatable,
                   and on 'fft' the three objectives equal bit for bit (a
                   line search compares them), fwd's farplane, given to
                   minf_fused as a base of zeros, giving minf_fused's
@@ -78,17 +78,25 @@ is caught):
                   tile kernel in scan order, chunk after chunk) bitwise
                   repeatable on both variants at 16384 and 1024 frames and
                   timed in turns against the forced one-pass atomic kernel
-                  it replaced at both; the 'fft' fwd farplane, adj and
-                  adj_probe at 64^2 and 128^2, 1 and 4 modes, against a
-                  complex128 oracle on the card: the fused_mp / fused_mx
-                  bound (~8e-6) held, fused_hp's (~4e-7) reported;
+                  it replaced at both; grad_fused and adj_residual in scan
+                  order likewise (their frames of a chunk, then the tile
+                  scatter): bitwise repeatable on both variants, the same
+                  bits whatever the chunk, within 1e-5 of scale of the
+                  forced atomic kernels with their objectives bit for bit,
+                  grad_fused(psi)'s gradient adj_residual(fwd(psi))'s bit
+                  for bit, timed in turns against the atomic kernels with
+                  512, 128 and 32 MiB of frame scratch; the 'fft' fwd
+                  farplane, adj, adj_probe, adj_residual and grad_fused at
+                  64^2 and 128^2, 1 and 4 modes, against a complex128
+                  oracle on the card: the fused_hp bound (~4e-7) held;
   4. solver    -- a small problem against the CPU complex128 oracle solver;
   5. main      -- the headline problem (512^2 object, 16384 positions, 128^2
                   probe and detector, Gaussian, solver defaults) through
                   solvers.run, checking that every evaluation launched the
-                  kernel (its 'fft' variant), that the residual fell tenfold
-                  and that peak extra memory stayed below 83.4 MiB (what the
-                  'gemm' variant's scratch made it);
+                  kernel (its 'fft' variant, one frame-kernel launch a
+                  chunk of frames), that the residual fell tenfold and that
+                  peak extra memory stayed below 83.4 MiB (what the 'gemm'
+                  variant's scratch made it) and the 512 MiB frame scratch;
   6. deep      -- the headline through solvers.reconstruct with its defaults
                   to a 1e-6 relative residual from psi0 = ones, timed
                   between two torch.cuda.synchronize(): the target must be
@@ -123,7 +131,8 @@ is caught):
                   'fft'),
                   and the three hybrid kernels,
                   against their plain versions at
-                  this full size (float offsets past 2^31); then
+                  this full size (float offsets past 2^31), grad_fused and
+                  adj_residual in scan order as in phase 3; then
                   reconstruct at a cut depth: the frameless Anderson
                   safeguard must launch
                   minf_fused twice per step, the residual must fall, and
@@ -139,7 +148,9 @@ is caught):
                   grad_fused and grad_prb_fused must launch once an
                   iteration and minf_fused once a candidate, all three on
                   their 'fft' variant, and peak extra
-                  memory must stay below 256 MiB (frameless);
+                  memory must stay below 256 MiB (frameless); then two
+                  runs of 8 iterations must give the same psi, prb and
+                  objectives bit for bit;
  12. materialized -- the same problem and start through run(
                   recover_prb=True, memory='materialized') for 64
                   iterations: adj_residual and adj_probe once an iteration,
@@ -186,7 +197,14 @@ is caught):
                   1e-6, beside phase 6's one-rank figure. All-reduces and
                   their bytes per iteration and the card's busy ms per
                   iteration of each rank are printed; no multi-GPU rate is
-                  measured.
+                  measured;
+ 18. tiled     -- object tiling (parallel.run_tiled), the ranks sharing the
+                  card over gloo: the headline on a 2-slab ('obj',) mesh
+                  (two ranks), 8 iterations, and config 3's shape (joint,
+                  Gaussian) on a (2, 2) ('obj', 'scan') mesh (four ranks),
+                  8 iterations, each held to the one-rank run as in phase
+                  17; halo broadcasts and bytes, all-reduces per iteration
+                  and each rank's real and padded positions are printed.
 No phase may run a plain version on the main path.
 The line before the last is the card's nvidia-smi line; before it, one JSON
 line describing each kernel (its launches on each phase that ran it, with
@@ -216,7 +234,9 @@ SEED = 0
 HEADLINE = dict(nz=512, n=512, nscan=16384, ndet=128, nprb=128)
 MAIN_ITERS = 100
 # Phase main's peak extra memory with the 'gemm' grad_fused, whose per-block
-# scratch was most of it; the 'fft' variant has none and must stay below.
+# scratch was most of it; the 'fft' variant must stay below it beside the
+# frame scratch of its object scatter in scan order, a constant
+# (fused.FRAME_SCRATCH_BYTES, 512 MiB), whatever the number of positions.
 MAIN_PEAK = 83.4 * 2**20
 # The power-of-two awkward case of the FFT variants.
 POW2_SMALL = dict(nz=97, n=101, nscan=37, ndet=64, nprb=48, ntheta=2,
@@ -279,7 +299,8 @@ STREAM_CHUNKS = 4
 # 4 B = 0.75 GiB) plus two chunk farplanes (0.25 GiB) and some slack.
 STREAM_PEAK = 1.25 * 2**30
 # The joint path holds no farplane (0.5 GiB here) and no data-sized
-# temporary.
+# temporary: this beside the frame scratch of grad_fused's object scatter
+# in scan order, a constant (fused.FRAME_SCRATCH_BYTES).
 JOINT_PEAK = 256 * 2**20
 # A joint-deep run that does not converge ends within about a minute: each
 # probe refresh costs one segment of the budget and ~4 x 128 joint
@@ -318,17 +339,15 @@ KERNEL_SOURCES = {
     "adj_probe_reduce": ("tikejax_torch/csrc/adj_probe_reduce.cu",
                          "tikejax/ops/pallas_kernels.py:436"),
 }
-# The reference's operator accuracy of its fused tiers (tikejax/ops/
-# diffraction.py): ~8e-6 fused_mp / fused_mx, ~4e-7 fused_hp, here as
+# The reference's operator accuracy of its most accurate tier, fused_hp
+# (tikejax/ops/diffraction.py: ~4e-7; fused_mp / fused_mx ~8e-6), here as
 # max|err| / max|ref| against a complex128 oracle on the card.
-MP_BOUND = 8e-6
 HP_BOUND = 4e-7
-# Two runs of an atomic scatter (grad_fused's and adj_residual's object
-# gradients), of scale: each object pixel sums about a thousand overlapping
-# patches in an order that changes from run to run, ~sqrt(1000) x fp32
-# epsilon = 2e-6 of its value (1.02e-6 of scale seen). adj sums in scan
-# order and is held to torch.equal instead.
-SCATTER_REPEAT = 1e-5
+# grad_fused's and adj_residual's frame scratch, timed in turns against the
+# forced atomic kernel, MiB (the default is fused.FRAME_SCRATCH_BYTES).
+SCAN_ORDER_BUDGETS = (512, 128, 32)
+# Two one-rank joint Poisson runs of config 3's shape, held bit for bit.
+JOINT_REPEAT_ITERS = 8
 HYBRID_ITERS = 100
 FACADE_ITERS = 64
 # Phase 17, sharded: BASELINE config 5 (its source: "Position-sharded CG
@@ -348,6 +367,10 @@ THETA_POISSON_ITERS = 2
 # Sharded against one rank, of scale: the same kernels, the sums over the
 # positions in another order.
 SHARDED_TOL = 1e-4
+# Phase 18, tiled: the headline on a 2-slab ('obj',) mesh and config 3's
+# shape (joint, Gaussian) on a (2, 2) ('obj', 'scan') mesh, each held to
+# one rank like phase 17's runs.
+TILED_ITERS = 8
 OPTION_ITERS = 32
 LS_STEPS = [0.5 ** k for k in range(17)]  # the solver's default K
 # Iterations of the profiled windows of phases 7, 8 and 13.
@@ -454,9 +477,8 @@ def compare_variant(torch, fused, args, ndet, model, base, far, variant):
     """One forced variant of grad_fused, minf_fused and fwd (with ``base``),
     grad_prb_fused, and adj, adj_probe, adj_residual and fwd_quad_stats (on
     ``far``) against the plain versions; every objective, the two probe
-    sums, fwd's farplane, the statistics planes and adj's object bitwise
-    repeatable, two runs of grad_fused's and adj_residual's object gradient
-    within SCATTER_REPEAT. With the 'fft'
+    sums, fwd's farplane, the statistics planes and the object scatters of
+    adj, grad_fused and adj_residual bitwise repeatable. With the 'fft'
     variant the three objectives are one number, bit for bit (a line search
     compares them), and fwd's farplane is the one minf_fused forms inside:
     minf_fused of zeros on it as the base is minf_fused's objective, bit for
@@ -518,13 +540,10 @@ def compare_variant(torch, fused, args, ndet, model, base, far, variant):
           and float(h_k) == float(h_2) and torch.equal(q_k, q_2)
           and torch.equal(p_k, p_2) and torch.equal(o_k, o_2)
           and float(s_k) == float(s_2) and torch.equal(a_k, a_2)
+          and torch.equal(g_k, g_2) and torch.equal(r_k, r_2)
           and all(torch.equal(x, y) for x, y in zip(x_k, x_2)),
           f"variant {variant}: an objective, a probe sum, the farplane, the "
-          "statistics or adj's object are not bitwise repeatable")
-    for name, a, b in (("grad_fused", g_2, g_k),
-                       ("adj_residual", r_2, r_k)):
-        again, _ = rel_err(torch, a, b)
-        check(again <= SCATTER_REPEAT, (name + " repeat", variant, again))
+          "statistics or an object scatter are not bitwise repeatable")
     if variant == "fft":
         check(float(m_k) == float(f_k) and (base is not None
                                             or float(h_k) == float(f_k)),
@@ -941,6 +960,40 @@ def show_busy(iters, busy, plain_ms) -> str:
                 f"{k} {v / iters:.3f}" for k, v in top.items()) + " ms/iter")
 
 
+def kernel_counters():
+    """(the twelve kernels' wrappers, the hybrid tier's three last; their
+    plain versions): each keeps its count in ``launches``."""
+    from tikejax_torch.ops import fused, kernels, linesearch
+
+    return ([fused.grad_fused, fused.fwd, fused.minf_fused,
+             fused.grad_prb_fused, fused.adj, fused.adj_probe,
+             fused.adj_residual, fused.fwd_quad_stats,
+             linesearch.ls_objectives, kernels.gather_probe_mul,
+             kernels.scatter_conj_probe, kernels.adj_probe_reduce],
+            [fused.grad_fused_reference, fused.fwd_reference,
+             fused.minf_fused_reference, fused.grad_prb_fused_reference,
+             fused.adj_reference, fused.adj_probe_reference,
+             fused.adj_residual_reference, fused.fwd_quad_stats_reference,
+             linesearch.ls_objectives_reference,
+             kernels.gather_probe_mul_reference,
+             kernels.scatter_conj_probe_reference,
+             kernels.adj_probe_reduce_reference])
+
+
+def shape(gg, positions=None):
+    """(angles, positions, modes, probe side) of one call on geometry
+    ``gg`` (``positions`` of each angle where given)."""
+    return (gg.ntheta, gg.nscan if positions is None else positions,
+            gg.nmodes, gg.nprb)
+
+
+def frame_launches(fused, t: int, s: int, m: int, p: int) -> int:
+    """Frame-kernel launches of one grad_fused or adj_residual call on t
+    angles of s positions, m modes of p^2: one a chunk of frames
+    (fused.frame_chunks)."""
+    return len(fused.frame_chunks(t, s, fused.frame_chunk(m, p)))
+
+
 def sharded_problem(torch, g, seed: int, dev, perturb: float = 0.0):
     """(data, psi0 = ones, scan, probe) of geometry ``g`` from ``seed`` on
     ``dev``: every rank and the one-rank run make the same arrays. With
@@ -964,6 +1017,18 @@ def checksum(torch, *arrays):
                         for x in arrays])
 
 
+def rank_checksum(torch, *arrays):
+    """(this rank's checksum of the arrays, whether every rank's is the
+    same: its all-reduced maximum and minimum are equal)."""
+    import torch.distributed as dist
+
+    mine = checksum(torch, *arrays)
+    hi, lo = mine.clone(), mine.clone()
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+    return mine, torch.equal(hi, lo)
+
+
 def sharded_job(rank, world, what, mesh_shape, geom, seed, kw, perturb=0.0):
     """A rank of phase 17 (a RankPool job; the ranks import this script as
     their main module, never jax). Builds the problem from ``seed``, checks
@@ -976,31 +1041,15 @@ def sharded_job(rank, world, what, mesh_shape, geom, seed, kw, perturb=0.0):
     import torch.distributed as dist
 
     from tikejax_torch import Geometry
-    from tikejax_torch.ops import fused, kernels, linesearch
-    from tikejax_torch.parallel import make_mesh, run_sharded
+    from tikejax_torch.parallel import make_mesh, run_sharded, sharding
     from tikejax_torch.solvers import cg, reconstruct
 
     dev = torch.device("cuda", torch.cuda.current_device())
     g = Geometry(**geom)
     data, psi0, scan, prb = sharded_problem(torch, g, seed, dev, perturb)
-    mine = checksum(torch, data, scan, prb)
-    hi, lo = mine.clone(), mine.clone()
-    dist.all_reduce(hi, op=dist.ReduceOp.MAX)
-    dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+    mine, same = rank_checksum(torch, data, scan, prb)
     mesh = make_mesh(mesh_shape, device_type="cuda")
-    counters = [fused.grad_fused, fused.fwd, fused.minf_fused,
-                fused.grad_prb_fused, fused.adj, fused.adj_probe,
-                fused.adj_residual, fused.fwd_quad_stats,
-                linesearch.ls_objectives, kernels.gather_probe_mul,
-                kernels.scatter_conj_probe, kernels.adj_probe_reduce]
-    plain = [fused.grad_fused_reference, fused.fwd_reference,
-             fused.minf_fused_reference, fused.grad_prb_fused_reference,
-             fused.adj_reference, fused.adj_probe_reference,
-             fused.adj_residual_reference, fused.fwd_quad_stats_reference,
-             linesearch.ls_objectives_reference,
-             kernels.gather_probe_mul_reference,
-             kernels.scatter_conj_probe_reference,
-             kernels.adj_probe_reduce_reference]
+    counters, plain = kernel_counters()
     run_kw = {k: v for k, v in kw.items()
               if k not in ("target_residual", "max_segments")}
     run_sharded(data, psi0, scan, prb, g, mesh, **dict(run_kw, piter=2))
@@ -1017,7 +1066,9 @@ def sharded_job(rank, world, what, mesh_shape, geom, seed, kw, perturb=0.0):
                                            mesh=mesh, **kw)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    out = {"same_problem": torch.equal(hi, lo), "checksum": mine,
+    _, _, tsh, nsh, _, _ = sharding._layout(mesh)
+    out = {"same_problem": same, "checksum": mine,
+           "local": (g.ntheta // tsh, -(-g.nscan // nsh), g.nmodes, g.nprb),
            "psi": psi, "prb": prb_out, "seconds": seconds,
            "counts": {fn.__name__: fn.launches for fn in counters},
            "plain": sum(fn.launches for fn in plain),
@@ -1034,6 +1085,61 @@ def sharded_job(rank, world, what, mesh_shape, geom, seed, kw, perturb=0.0):
                           float(mm["residual"][max(int(mm["iters_run"])
                                                    - 1, 0)]))
                          for name, mm in stages]
+    del data, scan, psi0
+    torch.cuda.empty_cache()
+    return out
+
+
+def tiled_job(rank, world, mesh_shape, geom, seed, kw, perturb=0.0):
+    """A rank of phase 18 (a RankPool job; the ranks import this script as
+    their main module, never jax). Builds the problem from ``seed``, checks
+    with an all-reduced checksum that every rank built the same one, warms
+    up, then runs ``run_tiled(**kw)`` on the tiling mesh of ``mesh_shape``
+    between two synchronises, with every launch count, the all-reduces and
+    the halo broadcasts counted from zero. Also returns this rank's real
+    and padded positions."""
+    import torch
+    import torch.distributed as dist
+
+    from tikejax_torch import Geometry
+    from tikejax_torch.parallel import _jobs, run_tiled, tiling
+    from tikejax_torch.solvers import cg
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    g = Geometry(**geom)
+    data, psi0, scan, prb = sharded_problem(torch, g, seed, dev, perturb)
+    mine, same = rank_checksum(torch, data, scan, prb)
+    mesh = _jobs.tiling_mesh(mesh_shape, device_type="cuda")
+    counters, plain = kernel_counters()
+    run_tiled(data, psi0, scan, prb, g, mesh, **dict(kw, piter=2))
+    for fn in counters + plain + [cg.all_reduce, cg.halo_exchange]:
+        fn.launches = 0
+    for fn in (cg.all_reduce, cg.halo_exchange):
+        fn.bytes, fn.sizes = 0, {}
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    psi, prb_out, m = run_tiled(data, psi0, scan, prb, g, mesh, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    # This rank's share of its slab's padded list of positions.
+    _, _, tsh, dsh, ssh, ti, di, si = tiling._layout(mesh)
+    _, owner, s_loc = tiling._owners(scan, g, dsh, ssh)
+    per, t_local = s_loc // ssh, g.ntheta // tsh
+    real = sum(min(max(int((owner[t] == di).sum()) - si * per, 0), per)
+               for t in range(ti * t_local, (ti + 1) * t_local))
+    out = {"same_problem": same, "checksum": mine, "psi": psi,
+           "prb": prb_out, "seconds": seconds,
+           "metrics": {k: v for k, v in m.items() if k != "cg_state"},
+           "counts": {fn.__name__: fn.launches for fn in counters},
+           "plain": sum(fn.launches for fn in plain),
+           "collectives": cg.all_reduce.launches,
+           "collective_bytes": cg.all_reduce.bytes,
+           "sizes": dict(cg.all_reduce.sizes),
+           "halo": cg.halo_exchange.launches,
+           "halo_bytes": cg.halo_exchange.bytes,
+           "positions": (real, per * t_local),
+           "local": (t_local, per, g.nmodes, g.nprb)}
     del data, scan, psi0
     torch.cuda.empty_cache()
     return out
@@ -1179,9 +1285,8 @@ def main() -> None:
                     f"{' with base' if b is not None else ''}, value/"
                     f"objective err: {show_errs(errs)}")
     log("kernel", f"small {pow2}: on both variants every objective, both "
-        "probe sums, fwd's farplane, fwd_quad_stats' planes and adj's "
-        "object bitwise repeatable, grad_fused's and adj_residual's object "
-        f"gradients within {SCATTER_REPEAT:g} of scale between two runs; "
+        "probe sums, fwd's farplane, fwd_quad_stats' planes and the object "
+        "scatters of adj, grad_fused and adj_residual bitwise repeatable; "
         "on 'fft' the objectives of grad_fused, "
         "minf_fused and grad_prb_fused equal bit for bit, minf_fused of "
         "zeros on fwd's farplane equal to minf_fused's objective bit for "
@@ -1432,9 +1537,8 @@ def main() -> None:
                                base, v)
         log("kernel", f"headline {g} forced '{v}' variant, value/objective "
             f"err: {show_errs(errs)} (objectives, probe sums, fwd's "
-            "farplane and adj's object bitwise repeatable, grad_fused's and "
-            f"adj_residual's object gradients within {SCATTER_REPEAT:g} of "
-            "scale between two runs)")
+            "farplane and the object scatters of adj, grad_fused and "
+            "adj_residual bitwise repeatable)")
     dev_i = dev.index
     variant_lines = {}
     for name, run_variant in (
@@ -1540,15 +1644,76 @@ def main() -> None:
             f"the two within {order_err:.2e} of scale; both variants "
             f"bitwise repeatable; on {card}")
     adj_atomic_ms = adj_atomic[g.nscan][1]
+    # grad_fused and adj_residual in scan order (the frame kernel on each
+    # chunk of frames, then the tile scatter, chunk after chunk), at the
+    # headline's and the stream path's frames: bitwise repeatable on both
+    # variants and the same bits whatever the chunk, within
+    # SCATTER_ORDER_TOL of the forced one-pass atomic kernel they replaced,
+    # whose objective they keep bit for bit; grad_fused's gradient is
+    # adj_residual's of fwd's farplane bit for bit; then the two passes
+    # against the atomic kernel in turns at SCAN_ORDER_BUDGETS of scratch.
+    scan_order = {}
+    for frames in (g.nscan, STREAM_FRAMES):
+        a_t = (psi_r, data[:, :frames].contiguous(),
+               scan_i[:, :frames].contiguous(), prb)
+        far_t = fused.fwd(psi_r, a_t[2], prb, g.ndet)
+        runs = {"grad_fused": lambda **kw: fused._grad_fused_cuda(
+                    *a_t, g.ndet, "gaussian", None, **kw),
+                "adj_residual": lambda **kw: fused._adj_residual_cuda(
+                    far_t, a_t[1], a_t[2], prb, g.nz, g.n, "gaussian", **kw)}
+        for name, fn in runs.items():
+            got, f_got = fn()
+            for v in ("fft", "gemm"):
+                (x, f_x), (y, f_y) = fn(variant=v), fn(variant=v)
+                check(torch.equal(x, y) and float(f_x) == float(f_y),
+                      (name, "not bitwise repeatable", v, frames))
+            for chunk in (1000, frames):
+                x, f_x = fn(chunk=chunk)
+                check(torch.equal(x, got) and float(f_x) == float(f_got),
+                      (name, "the bits depend on the chunk", chunk, frames))
+            old, f_old = fn(variant="atomic")
+            order_err = rel_err(torch, old, got)[0]
+            check(order_err <= SCATTER_ORDER_TOL
+                  and float(f_old) == float(f_got),
+                  (name, "vs atomic", order_err, float(f_old), float(f_got)))
+            times = {}
+            for mib in SCAN_ORDER_BUDGETS:
+                chunk = mib * 2**20 // (g.nmodes * g.nprb**2 * 8)
+                times[mib] = in_turns_ms(
+                    torch, timer, f"{name} scan order {frames} {mib}",
+                    lambda: fn(chunk=chunk), lambda: fn(variant="atomic"))
+            scan_order[name, frames] = times
+            log("kernel", f"{name} at {frames} frames in scan order (frames "
+                "of a chunk, then the tile scatter): bitwise repeatable on "
+                "both variants and the same bits at chunks of 1000 and "
+                f"{frames} frames, within {order_err:.2e} of scale of the "
+                "forced atomic kernel with its objective bit for bit; in "
+                "turns against it: " + ", ".join(
+                    f"{mib} MiB scratch ({mib * 2**20 // (g.nprb**2 * 8)} "
+                    f"frames a chunk) {n_ms:.3f} / atomic {o_ms:.3f} ms "
+                    f"({n_ms / o_ms:.2f}x)"
+                    for mib, (n_ms, o_ms) in times.items())
+                + f"; on {card}")
+        check(torch.equal(runs["grad_fused"]()[0], runs["adj_residual"]()[0]),
+              ("grad_fused(psi) is not adj_residual(fwd(psi))", frames))
+        del a_t, far_t, runs
+    default_mib = fused.FRAME_SCRATCH_BYTES // 2**20
+    scan_order_atomic_ms = {name: scan_order[name, g.nscan][default_mib][1]
+                            for name in ("grad_fused", "adj_residual")}
+    log("kernel", "grad_fused(psi)'s gradient equals adj_residual(fwd(psi))'s "
+        f"bit for bit at {g.nscan} and {STREAM_FRAMES} frames ('fft': the "
+        "same inverse half)")
     # The 'fft' operators against a complex128 oracle on the card: the
-    # reference's operator accuracy is ~8e-6 for its fused_mp / fused_mx
-    # tiers and ~4e-7 for fused_hp, and every fused tier maps to these
-    # kernels (the mp bound is held, hp's is reported).
+    # reference's operator accuracy is ~4e-7 for its fused_hp tier (~8e-6
+    # for fused_mp / fused_mx), and every fused tier maps to these kernels,
+    # so fused_hp's bound is held. grad_fused's gradient is adj_residual's
+    # of fwd's farplane (bit for bit), so its oracle is adj_residual's in
+    # complex128 on that farplane.
     gen_o = torch.Generator(device=dev).manual_seed(SEED + 5)
     for ndet, nmodes in ((64, 1), (64, 4), (128, 1), (128, 4)):
         go = Geometry(nz=512, n=512, nscan=1024, ndet=ndet, nprb=ndet,
                       nmodes=nmodes)
-        _, scan_o, prb_o, _ = make_problem(gen_o, go, device=dev)
+        _, scan_o, prb_o, data_o = make_problem(gen_o, go, device=dev)
         scan_oi = scan_to_int(scan_o)
         psi_o = crandn(*go.psi_shape, generator=gen_o)
         far_o = crandn(*go.farplane_shape, generator=gen_o)
@@ -1566,17 +1731,30 @@ def main() -> None:
                                  diffraction.adj_probe_raw(
                                      c128[2], scan_oi, c128[0], go.nprb,
                                      "xla"))[0]}
+        far_po = fused.fwd(psi_o, scan_oi, prb_o, ndet)
+        grad_o = fused.grad_fused(psi_o, data_o, scan_oi, prb_o, ndet,
+                                  "gaussian")[0]
+        check(torch.equal(grad_o, fused.adj_residual(
+            far_po, data_o, scan_oi, prb_o, go.nz, go.n, "gaussian")[0]),
+              "grad_fused(psi) is not adj_residual(fwd(psi))")
+        for name, got, far_c in (
+                ("adj_residual", fused.adj_residual(
+                    far_o, data_o, scan_oi, prb_o, go.nz, go.n,
+                    "gaussian")[0], c128[2]),
+                ("grad_fused", grad_o, far_po.to(torch.complex128))):
+            hp_errs[name] = rel_err(torch, got, fused.adj_residual_reference(
+                far_c, data_o.double(), scan_oi, c128[1], go.nz, go.n,
+                "gaussian")[0])[0]
         check(fused.fwd.variant == fused.adj.variant
-              == fused.adj_probe.variant == "fft", "not the 'fft' variant")
-        check(all(e <= MP_BOUND for e in hp_errs.values()),
-              ("fused tiers' operator bound", hp_errs))
+              == fused.adj_probe.variant == fused.adj_residual.variant
+              == fused.grad_fused.variant == "fft", "not the 'fft' variant")
+        check(all(e <= HP_BOUND for e in hp_errs.values()),
+              ("fused_hp's operator bound", hp_errs))
         log("kernel", f"tier accuracy {go}: against a complex128 oracle on "
             "the card, max|err| / max|ref| " + ", ".join(
                 f"{k} {e:.2e}" for k, e in hp_errs.items())
-            + f"; fused_mp/fused_mx bound {MP_BOUND:g} met; fused_hp bound "
-            f"{HP_BOUND:g} " + ("met" if max(hp_errs.values()) <= HP_BOUND
-                                else "MISSED (open fault, ROADMAP.md §3)")
-            + f"; on {card}")
+            + f"; fused_hp bound {HP_BOUND:g} met; on {card}")
+        del far_po, grad_o
     fd = fused.fwd(dpsi_h, scan_i, prb, g.ndet)
     ls_err, ls_abs, lp_err = compare_ls(torch, linesearch, far, fd, data,
                                         "gaussian")
@@ -1769,21 +1947,8 @@ def main() -> None:
     log("solver", f"small {sg} 20 iters: per-iteration minf within "
         f"{rel:.2e} of the CPU complex128 oracle solver")
 
-    fused_counters = [fused.grad_fused, fused.fwd, fused.minf_fused,
-                      fused.grad_prb_fused, fused.adj, fused.adj_probe,
-                      fused.adj_residual, fused.fwd_quad_stats,
-                      linesearch.ls_objectives]
-    counters = fused_counters + [kernels.gather_probe_mul,
-                                 kernels.scatter_conj_probe,
-                                 kernels.adj_probe_reduce]
-    plain = [fused.grad_fused_reference, fused.fwd_reference,
-             fused.minf_fused_reference, fused.grad_prb_fused_reference,
-             fused.adj_reference, fused.adj_probe_reference,
-             fused.adj_residual_reference, fused.fwd_quad_stats_reference,
-             linesearch.ls_objectives_reference,
-             kernels.gather_probe_mul_reference,
-             kernels.scatter_conj_probe_reference,
-             kernels.adj_probe_reduce_reference]
+    counters, plain = kernel_counters()
+    fused_counters = counters[:9]  # all but the hybrid tier's three
 
     def reset_counts():
         for fn in counters + plain:
@@ -1804,9 +1969,10 @@ def main() -> None:
     peak = torch.cuda.max_memory_allocated(dev) - held
     main_counts = {fn.__name__: fn.launches for fn in counters}
     main_launches = fused.grad_fused.launches
+    main_chunks = frame_launches(fused, *shape(g))
     check(all(fn.launches == 0 for fn in plain), "plain version ran")
-    check(main_launches == m["evaluations"] > 0,
-          (main_launches, m["evaluations"]))
+    check(main_launches == m["evaluations"] * main_chunks > 0,
+          (main_launches, m["evaluations"], main_chunks))
     iters = int(m["iters_run"])
     minf = m["minf"][:iters].cpu()
     res = m["residual"][:iters].cpu()
@@ -1814,7 +1980,8 @@ def main() -> None:
           "psi shape or finiteness")
     check(float(minf[-1]) < float(minf[0]), minf)
     check(float(res[-1]) <= 0.1 * float(res[0]), res)
-    check(peak <= MAIN_PEAK, f"peak extra memory {peak} bytes")
+    main_peak = MAIN_PEAK + fused.FRAME_SCRATCH_BYTES
+    check(peak <= main_peak, f"peak extra memory {peak} bytes")
     check(fused.grad_fused.variant == "fft", fused.grad_fused.variant)
     log("main", f"{g} gaussian, solver defaults, grad_fused variant "
         f"'{fused.grad_fused.variant}', {iters} iters in "
@@ -1823,9 +1990,10 @@ def main() -> None:
         f"{m['evaluations'] / iters:.2f} evals/iter, "
         f"{m['host_syncs'] / iters:.2f} host syncs/iter, residual "
         f"{float(res[0]):.4e} -> {float(res[-1]):.4e}, peak extra memory "
-        f"{peak / 2**20:.1f} MiB (limit {MAIN_PEAK / 2**20:.1f}, the "
-        f"'gemm' variant's), grad_fused launches {main_launches}, on "
-        f"{card}")
+        f"{peak / 2**20:.1f} MiB (limit {main_peak / 2**20:.1f}: the "
+        f"'gemm' variant's {MAIN_PEAK / 2**20:.1f} and the frame scratch), "
+        f"grad_fused launches {main_launches} ({main_chunks} chunks of "
+        f"frames an evaluation), on {card}")
     del psi, m
 
     # Per-stage wall time of reconstruct's solver calls (each ends in a
@@ -1862,7 +2030,7 @@ def main() -> None:
     check(bool(torch.isfinite(psi).all()), "psi finiteness")
     check(res_end <= DEEP_TARGET, f"deep residual {res_end:.4e} > "
           f"{DEEP_TARGET:g} after {len(stages)} stages")
-    check(deep["grad_fused"] == evals > 0, (deep, evals))
+    check(deep["grad_fused"] == evals * main_chunks > 0, (deep, evals))
     check(fused.grad_fused.variant == "fft", fused.grad_fused.variant)
     # The reuse safeguard: the first two segments freeze their base, then
     # every Anderson step makes both candidates' farplanes and hands the
@@ -1905,8 +2073,8 @@ def main() -> None:
     res = m["residual"][:iters].cpu()
     check(psi.shape == g.psi_shape and bool(torch.isfinite(psi).all()),
           "psi shape or finiteness")
-    check(mat["fwd"] == mat["adj_residual"] == mat["fwd_quad_stats"]
-          == iters > 0, mat)
+    check(mat["fwd"] == mat["fwd_quad_stats"] == iters > 0
+          and mat["adj_residual"] == iters * main_chunks, mat)
     check(mat["grad_fused"] == mat["minf_fused"]
           == mat["ls_objectives"] == 0, mat)
     check(float(res[-1]) <= 0.1 * float(res[0]), res)
@@ -1948,8 +2116,8 @@ def main() -> None:
     res = m["residual"][:iters].cpu()
     check(psi.shape == g.psi_shape and bool(torch.isfinite(psi).all()),
           "psi shape or finiteness")
-    check(fls["ls_objectives"] == fls["adj_residual"] == iters > 0
-          and fls["fwd"] == 2 * iters, fls)
+    check(fls["ls_objectives"] == iters > 0 and fls["fwd"] == 2 * iters
+          and fls["adj_residual"] == iters * main_chunks, fls)
     check(fls["fwd_quad_stats"] == fls["grad_fused"] == fls["minf_fused"]
           == 0, fls)
     check(float(res[-1]) <= 0.1 * float(res[0]), res)
@@ -2065,6 +2233,30 @@ def main() -> None:
     s4_regs = kernel_report(cuda_build, built["scatter_conj_probe"][2],
                             scatter_entry(kernels, g4.nmodes))
     s4_per_sm = kernels.scatter_blocks_per_sm(dev.index, g4.nmodes)
+    # grad_fused and adj_residual at 4 modes in scan order (the 8 GiB base
+    # as adj_residual's farplane): bitwise repeatable, the same bits with
+    # 4096-frame chunks as with the default's 1024, within
+    # SCATTER_ORDER_TOL of the forced atomic kernel, its objective bit for
+    # bit.
+    order4 = {}
+    for name, fn in (
+            ("grad_fused", lambda **kw: fused._grad_fused_cuda(
+                psi_r4, data4, scan4_i, prb4, g4.ndet, "gaussian", None,
+                **kw)),
+            ("adj_residual", lambda **kw: fused._adj_residual_cuda(
+                frames4, data4, scan4_i, prb4, g4.nz, g4.n, "gaussian",
+                **kw))):
+        got, f_got = fn()
+        (x, f_x), (y, f_y) = fn(), fn(chunk=4096)
+        check(torch.equal(x, got) and torch.equal(y, got)
+              and float(f_x) == float(f_y) == float(f_got),
+              (name, "4 modes: not the same bits"))
+        old, f_old = fn(variant="atomic")
+        order4[name] = rel_err(torch, old, got)[0]
+        check(order4[name] <= SCATTER_ORDER_TOL
+              and float(f_old) == float(f_got),
+              (name, "4 modes vs atomic", order4[name]))
+        del got, x, y, old
     del base4, psi_r4, frames4
     for name, (err, abs_err) in scale_errs.items():
         results[name] = (max(results[name][0], abs_err),) + results[name][1:]
@@ -2078,7 +2270,11 @@ def main() -> None:
         f"turns {scatter4[0]:.3f} / {scatter4[1]:.3f} ms (the tile kernel's "
         f"4-mode build {s4_regs['registers']} registers, "
         f"{s4_regs['spill_stores'] + s4_regs['spill_loads']} spill bytes, "
-        f"{s4_per_sm} blocks/SM); on {card}")
+        f"{s4_per_sm} blocks/SM); grad_fused and adj_residual in scan order "
+        "bitwise repeatable and the same bits at chunks of 1024 and 4096 "
+        "frames, against the forced atomic kernels " + ", ".join(
+            f"{k} {e:.2e}" for k, e in order4.items())
+        + f" of scale with their objectives bit for bit; on {card}")
     held = reset_counts()
     t0 = time.perf_counter()
     psi4, _, st4 = reconstruct(data4, psi4, scan4, prb4, g4,
@@ -2096,7 +2292,8 @@ def main() -> None:
     check(bool(torch.isfinite(psi4).all()), "psi finiteness")
     check(n_split >= 2 and frameless["minf_fused"] == 2 * (n_split - 1),
           (frameless, n_split))
-    check(frameless["fwd"] == n_split and frameless["grad_fused"] == evals,
+    check(frameless["fwd"] == n_split and frameless["grad_fused"]
+          == evals * frame_launches(fused, *shape(g4)),
           (frameless, n_split, evals))
     check(res_end < res_start, (res_start, res_end))
     check(peak < base_bytes + 1.5 * 2**30,
@@ -2154,7 +2351,8 @@ def main() -> None:
     check(joint["grad_fused"] == joint["grad_prb_fused"] == iters > 0, joint)
     check(joint["minf_fused"] == m["evaluations"] - 2 * iters > 0,
           (joint, m["evaluations"]))
-    check(peak < JOINT_PEAK, f"peak extra memory {peak} bytes")
+    check(peak < JOINT_PEAK + fused.FRAME_SCRATCH_BYTES,
+          f"peak extra memory {peak} bytes")
     check(fused.grad_fused.variant == fused.minf_fused.variant
           == fused.grad_prb_fused.variant == "fft",
           (fused.grad_fused.variant, fused.minf_fused.variant,
@@ -2169,6 +2367,23 @@ def main() -> None:
         f"-> {raw_err(prb_j):.4e}), peak extra memory "
         f"{peak / 2**20:.1f} MiB, launches {joint}, on {card}")
     del psi, prb_j, m
+    # The joint Poisson search amplifies any difference of rounding; with
+    # every object scatter in scan order two one-rank runs on the default
+    # tier are the same bits.
+    reps = [run(data3, psi3, scan3, prb3_p, g3, piter=JOINT_REPEAT_ITERS,
+                model="poisson", recover_prb=True) for _ in range(2)]
+    check(torch.equal(reps[0][0], reps[1][0])
+          and torch.equal(reps[0][1], reps[1][1])
+          and reps[0][2]["evaluations"] == reps[1][2]["evaluations"]
+          and torch.equal(reps[0][2]["minf"], reps[1][2]["minf"]),
+          ("joint Poisson runs do not repeat",
+           rel_err(torch, reps[0][0], reps[1][0])[0],
+           reps[0][2]["evaluations"], reps[1][2]["evaluations"]))
+    log("joint", f"{g3} poisson, run(recover_prb=True, piter="
+        f"{JOINT_REPEAT_ITERS}) twice on the default tier: psi, prb and the "
+        f"objectives equal bit for bit, {reps[0][2]['evaluations']} "
+        "evaluations each")
+    del reps
 
     # -- 12. materialized, joint: config 3 with G psi kept ------------------
     run(data3, psi3, scan3, prb3_p, g3, piter=2, model="poisson",
@@ -2468,12 +2683,11 @@ def main() -> None:
                 f"rank (all {r['collectives']}: {sizes})")
 
     sharded_counts = {}
-    # The joint Poisson trajectory does not repeat on the fused tiers, even
-    # on one rank: grad_fused's atomics change its rounding from run to run
-    # and the search amplifies it. So the Poisson theta run takes the hybrid
-    # tier ('pallas'), whose kernels are bitwise repeatable, for
-    # THETA_POISSON_ITERS; the Gaussian one, whose one-rank runs repeat to
-    # ~5e-7 of scale, the default tier for THETA_ITERS.
+    # The joint Poisson search amplifies any difference of rounding: the
+    # sharded run sums its objectives over the angles in another order than
+    # the one-rank run, so its Poisson theta run is held after
+    # THETA_POISSON_ITERS on the hybrid tier ('pallas'); the Gaussian one on
+    # the default tier for THETA_ITERS.
     for label, geom, mesh_shape, seed, perturb, kw in (
             ("config5", CONFIG5, 2, SEED + 6, 0.0,
              dict(piter=SHARDED_ITERS)),
@@ -2492,8 +2706,9 @@ def main() -> None:
                   for k in ranks[0]["counts"]}
         m = ranks[0]["metrics"]
         mine = ranks[0]["counts"]
-        if label == "config5":  # one merged evaluation a launch
-            check(mine["grad_fused"] == m["evaluations"] > 0, (label, mine))
+        if label == "config5":  # one merged evaluation a call
+            check(mine["grad_fused"] == m["evaluations"] * frame_launches(
+                fused, *ranks[0]["local"]) > 0, (label, mine))
         elif label == "theta gaussian":  # one probe gradient an iteration
             check(mine["grad_prb_fused"] == n > 0, (label, mine))
         else:  # the hybrid tier's three kernels
@@ -2541,6 +2756,7 @@ def main() -> None:
     check(d_res <= DEEP_TARGET, ("sharded deep", d_res, r0["stages"]))
     check(bool(torch.isfinite(r0["psi"]).all()), "sharded deep psi")
     check(r0["counts"]["grad_fused"] == sum(e for _, _, e, _ in r0["stages"])
+          * frame_launches(fused, *r0["local"])
           and r0["counts"]["fwd"] == 2 * n_split, r0["counts"])
     d_counts = {k: sum(r["counts"][k] for r in ranks) for k in r0["counts"]}
     sharded_counts["deep"] = (d_counts, (g.ntheta, g.nscan // 2, g.nmodes,
@@ -2557,18 +2773,84 @@ def main() -> None:
         f"{card}")
     del ranks, r0
 
+    # -- 18. tiled: object tiling (P3), the ranks sharing the card ---------
+    # Each rank holds its slab (owned rows and the nprb - 1 halo rows below)
+    # and the positions whose window's top row it owns, padded with
+    # sentinels to the fullest slab's count; every object gradient and the
+    # illumination map go through the halo exchange (broadcasts in the pair
+    # groups {d, d + 1}). Held to the one-rank run like phase 17's.
+    tiled_counts = {}
+    for label, geom, mesh_shape, seed, perturb, kw in (
+            ("headline", HEADLINE, (2,), SEED + 9, 0.0,
+             dict(piter=TILED_ITERS)),
+            ("config3 joint", CONFIG3, (2, 2), SEED + 10, 0.03,
+             dict(piter=TILED_ITERS, model="gaussian", recover_prb=True))):
+        t0 = time.perf_counter()
+        tpool = RankPool(math.prod(mesh_shape), device_type="cuda",
+                         timeout=900, collective_timeout=600)
+        try:
+            tpool.start()
+            up_s = time.perf_counter() - t0
+            ranks = tpool.run(tiled_job, mesh_shape, geom, seed, kw, perturb)
+        finally:
+            tpool.close()
+        job_s = time.perf_counter() - t0
+        single = one_rank(geom, seed, perturb, kw)
+        n, errs = held_to_one_rank(label, ranks, single)
+        gs = Geometry(**geom)
+        m = ranks[0]["metrics"]
+        mine = ranks[0]["counts"]
+        if label == "headline":  # the merged body: one grad_fused a call
+            check(mine["grad_fused"] == m["evaluations"] * frame_launches(
+                fused, *ranks[0]["local"]) > 0, (label, mine))
+        else:  # one probe gradient an iteration
+            check(mine["grad_prb_fused"] == n > 0, (label, mine))
+        # Every rank exchanges the same strips: two broadcasts of a
+        # (t, nprb - 1, n) strip a pair group it is in, an exchange.
+        strip = gs.ntheta * (gs.nprb - 1) * gs.n * 8
+        check(all(r["halo"] > 0 and r["halo_bytes"] % (strip // 2) == 0
+                  for r in ranks), (label, [r["halo"] for r in ranks]))
+        counts = {k: sum(r["counts"][k] for r in ranks)
+                  for k in ranks[0]["counts"]}
+        tiled_counts[label] = (counts, ranks[0]["local"])
+        log("tiled", f"{label} {gs} on a {mesh_shape} "
+            f"{('obj',) if len(mesh_shape) == 1 else ('obj', 'scan')} mesh "
+            f"of {len(ranks)} gloo ranks sharing the card (up in "
+            f"{up_s:.1f} s), {kw}: {n} iters in {ranks[0]['seconds']:.3f} s "
+            f"({1e3 * ranks[0]['seconds'] / n:.2f} ms/iter; one rank "
+            f"{1e3 * single[2] / n:.2f} ms/iter), {m['evaluations']} "
+            f"evaluations as one rank's {single[0][2]['evaluations']}, "
+            f"objectives within {errs['minf']:.2e}, psi {errs['psi']:.2e}, "
+            f"prb {errs['prb']:.2e} of scale (limit {SHARDED_TOL:g}); the "
+            "ranks bitwise equal; halo broadcasts/iter a rank "
+            + ", ".join(f"{r['halo'] / n:.2f} ({r['halo_bytes'] / n:.0f} B)"
+                        for r in ranks)
+            + f" (a gradient strip {strip} B); "
+            + show_collectives(ranks[0], n)
+            + "; real / padded positions a rank " + ", ".join(
+                f"{r['positions'][0]} / {r['positions'][1]}" for r in ranks)
+            + f"; launches over the ranks {counts}; job {job_s:.1f} s with "
+            f"the ranks' start and the problem's making, on {card}")
+        del ranks, single
+        torch.cuda.empty_cache()
+
     # Launches of each kernel on each phase, with the frames (positions
     # times modes) of one launch there: the times above are at the headline
     # frame size (16384 frames), and a phase's share is launches x time
     # scaled by its frames. A phase is given by the counts and the shape
     # (angles, positions, modes, probe side) of one call; adj launches its
-    # frame kernel once per chunk of positions (fused.adj_chunk).
-    def shape(gg, positions=None):
-        return (gg.ntheta, gg.nscan if positions is None else positions,
-                gg.nmodes, gg.nprb)
-
-    def launch_frames(name, t, s, m, p):
-        return t * m * (fused.adj_chunk(t, s, m, p) if name == "adj" else s)
+    # frame kernel once per chunk of positions (fused.adj_chunk), grad_fused
+    # and adj_residual once per chunk of frames (fused.frame_chunk), and the
+    # tile scatter takes the chunks of the kernel that launches it.
+    def launch_frames(name, counts, t, s, m, p):
+        if name == "scatter_conj_probe":
+            name = next((k for k in ("grad_fused", "adj_residual", "adj")
+                         if counts[k]), name)
+        if name == "adj":
+            return t * m * fused.adj_chunk(t, s, m, p)
+        if name in ("grad_fused", "adj_residual"):
+            return m * min(fused.frame_chunk(m, p), t * s)
+        return t * m * s
 
     phases = {
         "main": (main_counts, shape(g)),
@@ -2585,9 +2867,11 @@ def main() -> None:
         **{f"options {k}": (v, shape(g3)) for k, v in options.items()},
         # Over both ranks; the shape of one rank's call.
         **{f"sharded {k}": v for k, v in sharded_counts.items()},
+        # Over the ranks; the shape of one rank's call.
+        **{f"tiled {k}": v for k, v in tiled_counts.items()},
     }
     by_path = {name: {phase: {"launches": counts[name],
-                              "frames": launch_frames(name, *dims)}
+                              "frames": launch_frames(name, counts, *dims)}
                       for phase, (counts, dims) in phases.items()
                       if counts[name]}
                for name in KERNEL_SOURCES}
@@ -2608,7 +2892,9 @@ def main() -> None:
            if name == "gather_probe_mul" else {}),
         **({"variant": "tile", "atomic_ms": scatter_atomic_ms}
            if name == "scatter_conj_probe" else {}),
-        **({"atomic_ms": adj_atomic_ms} if name == "adj" else {})}
+        **({"atomic_ms": adj_atomic_ms} if name == "adj" else {}),
+        **({"atomic_ms": scan_order_atomic_ms[name]}
+           if name in scan_order_atomic_ms else {})}
         for name, (src, tpu) in KERNEL_SOURCES.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -46,10 +46,11 @@ def problem(dtype=torch.complex64):
 
 
 def test_chunk_budget():
-    """The frame scratch stays within ADJ_SCRATCH_BYTES: the stream path's
-    1024-frame chunk of 128^2 fits whole, one mode of the headline takes 4
-    chunks and the 4-mode 16384 x 128^2 farplane 16 (not 8 GiB at once)."""
-    budget = fused.ADJ_SCRATCH_BYTES
+    """The frame scratch stays within FRAME_SCRATCH_BYTES: the stream
+    path's 1024-frame chunk of 128^2 fits whole, one mode of the headline
+    takes 4 chunks and the 4-mode 16384 x 128^2 farplane 16 (not 8 GiB at
+    once)."""
+    budget = fused.FRAME_SCRATCH_BYTES
     assert budget == 512 * 2**20
     assert fused.adj_chunk(1, 1024, 1, 128) == 1024
     assert fused.adj_chunk(1, 16384, 1, 128) == 4096
@@ -142,4 +143,132 @@ def test_adj_frame_kernels_store_and_only_the_replaced_one_scatters():
     assert "adj_fft_body<kD, kT, false>(q)" in text
     assert "adj_atomic_fft_kernel" in text
     tile = (CSRC / "scatter_conj_probe.cu").read_text()
-    assert "q.from_partial && inside ? *dst" in tile
+    # The pixel continues from the running sum in double that the chunk
+    # before left in `part`.
+    assert "bool started = !q.from_partial;" in tile
+    assert "if (inside) acc = *part;" in tile
+
+
+# -- grad_fused and adj_residual in scan order: the plan and the sources ----
+
+@pytest.mark.parametrize("t,s,chunk", [(1, 16384, 256), (1, 10, 3),
+                                       (3, 4, 5), (2, 37, 37), (2, 37, 74),
+                                       (3, 5, 1), (4, 6, 100)])
+def test_frame_chunks_cover_every_frame_once_in_scan_order(t, s, chunk):
+    """The chunks are consecutive frames (angle-major, as the frame
+    kernels number them), of ``chunk`` frames but the last; their tile
+    segments cover each angle's positions once, in increasing order, and
+    continue from (and leave) running sums exactly where an angle is
+    split."""
+    plan = fused.frame_chunks(t, s, chunk)
+    seen = {th: [] for th in range(t)}
+    g_next = 0
+    for g0, g1, segments in plan:
+        assert g0 == g_next and 0 < g1 - g0 <= chunk
+        g_next = g1
+        frames = 0
+        for th0, th1, a, b in segments:
+            assert 0 <= a < b <= s and th1 > th0
+            assert th1 - th0 == 1 or (a, b) == (0, s)
+            frames += (th1 - th0) * (b - a)
+            for th in range(th0, th1):
+                seen[th].append((a, b))
+        assert frames == g1 - g0
+    assert g_next == t * s
+    for th in range(t):
+        spans = seen[th]
+        assert spans[0][0] == 0 and spans[-1][1] == s
+        assert all(x[1] == y[0] for x, y in zip(spans, spans[1:]))
+    with pytest.raises(ValueError, match="chunk must be >= 1"):
+        fused.frame_chunks(t, s, 0)
+
+
+def test_frame_chunk_budget():
+    """The frame scratch of grad_fused and adj_residual stays within
+    FRAME_SCRATCH_BYTES: 4096 frames of one mode at 128^2 (the headline in
+    4 chunks), 1024 at 4 modes."""
+    assert fused.FRAME_SCRATCH_BYTES == 512 * 2**20
+    assert fused.frame_chunk(1, 128) == 4096
+    assert fused.frame_chunk(4, 128) == 1024
+    for m, p in ((1, 128), (2, 48), (3, 100), (1, 1)):
+        chunk = fused.frame_chunk(m, p)
+        assert chunk >= 1 and chunk * m * p * p * 8 <= fused.FRAME_SCRATCH_BYTES
+    assert fused.frame_chunk(1, 2**14) == 1
+
+
+def test_only_the_forced_atomic_kernels_scatter_with_atomics():
+    """scatter_add_pixel (fp32 atomics) is reached only by the one-pass
+    kernels kept for timing (scatter_patch, the scatter's atomic kernel):
+    grad_fused's and adj_residual's frame kernels store the crop, their
+    GEMM kernels hold no atomic, and scatter_patch appears in each only
+    under kAtomic."""
+    def code(name):  # the source without its comments
+        return "\n".join(line.split("//")[0] for line in
+                         (CSRC / name).read_text().splitlines())
+
+    header = code("dft_frame.cuh")
+    assert header.count("scatter_add_pixel(") == 2  # definition, scatter_patch
+    for name in ("grad_fused", "adj_residual", "adj"):
+        text = code(f"{name}.cu")
+        assert "scatter_add_pixel" not in text, name
+        gemm = text[text.index(f"{name}_kernel(Params q)"):
+                    text.index("struct FftParams")]
+        assert "scatter_patch" not in gemm and "atomic" not in gemm, name
+        assert text.count("scatter_patch<kD, kT>(") == text.count(
+            "if constexpr (kAtomic) {"), name
+        assert f"tk_{name}_atomic_fft(" in text, name
+    for name in ("grad_fused", "adj_residual"):
+        text = code(f"{name}.cu")
+        assert "store_crop<kD, kT>(" in text and "Range{g0, g1" in text
+    tile = code("scatter_conj_probe.cu")
+    body = tile[tile.index("scatter_conj_probe_tile_kernel(Params q)"):
+                tile.index("using Int = std::integral_constant")]
+    assert "double2 acc" in body and "atomic" not in body.lower()
+
+
+@pytest.mark.parametrize("name", ["grad_fused", "adj_residual"])
+def test_two_pass_options_are_checked_before_any_launch(name):
+    """'atomic' forces the FFT kernel this design replaced and so takes
+    only the FFT sizes (grad_fused's no base); a chunk below one raises;
+    all before anything reaches a device."""
+    g = SMALL
+    gen = torch.Generator().manual_seed(3)
+    psi, scan, prb, data = make_problem(gen, g, device="cpu")
+    scan_i = scan_to_int(scan)
+    far = torch.zeros(g.farplane_shape, dtype=torch.complex64)
+    counter = getattr(fused, name)
+    launches = counter.launches
+
+    def call(**kw):
+        if name == "grad_fused":
+            return fused._grad_fused_cuda(psi, data, scan_i, prb, g.ndet,
+                                          "gaussian", kw.pop("base", None),
+                                          **kw)
+        return fused._adj_residual_cuda(far, data, scan_i, prb, g.nz, g.n,
+                                        "gaussian", **kw)
+
+    with pytest.raises(ValueError, match="'fft' variant takes ndet"):
+        call(variant="atomic")
+    with pytest.raises(ValueError, match="chunk must be >= 1"):
+        call(chunk=0)
+    if name == "grad_fused":
+        with pytest.raises(ValueError, match="no base"):
+            call(variant="atomic", base=far)
+    assert counter.launches == launches
+
+
+def test_tile_partial_sums_are_checked_before_any_launch():
+    """Keeping or continuing running sums needs a complex128 ``partial``
+    of the object's shape."""
+    near = torch.ones((1, 2, 1, 4, 4), dtype=torch.complex64)
+    prb = torch.ones((1, 1, 4, 4), dtype=torch.complex64)
+    scan = torch.zeros((1, 2, 2), dtype=torch.int32)
+    launches = kernels.scatter_conj_probe.launches
+    for kw in ({"last": False}, {"from_partial": True}):
+        with pytest.raises(ValueError, match="needs partial"):
+            kernels._scatter_conj_probe_cuda(near, scan, prb, 16, 16, **kw)
+    with pytest.raises(ValueError, match="partial must be a contiguous"):
+        kernels._scatter_conj_probe_cuda(
+            near, scan, prb, 16, 16, last=False,
+            partial=torch.zeros((1, 16, 16), dtype=torch.complex64))
+    assert kernels.scatter_conj_probe.launches == launches

@@ -226,18 +226,29 @@ def test_verbose_every_prints(problem, capsys):
     dict(obj_halo=3),
 ], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items())[:40])
 def test_unported_options_raise(problem, kw):
-    """The object-tiling and slab fields raise, naming ROADMAP.md (object
-    tiling is queue 1 item 5); the mesh axes are ported, and name
-    dimensions of a mesh, which only ``parallel.run_sharded`` supplies."""
+    """The slab fields raise, naming ROADMAP.md ('Not to port'); the mesh
+    axes are ported, and name dimensions of a mesh, which only
+    ``parallel.run_sharded`` (the scan and theta axes) and
+    ``parallel.run_tiled`` (the object axis) supply; ``obj_halo`` without
+    an object axis changes nothing, as in the JAX package."""
     data, psi0, scan, prb, _ = map(cpu, problem)
-    if "axis_name" in kw:
-        with pytest.raises(ValueError, match="run_sharded"):
+    if "axis_name" in kw or "obj_axis_name" in kw:
+        entry = "run_tiled" if "obj_axis_name" in kw else "run_sharded"
+        with pytest.raises(ValueError, match=entry):
             tcg.run(data, psi0, scan, prb, geometry_from(GEOM), piter=2,
                     **kw)
         return
+    if "obj_halo" in kw:
+        psi, _, m = tcg.run(data, psi0, scan, prb, geometry_from(GEOM),
+                            piter=2, kernel="xla", **kw)
+        psi_1, _, m_1 = tcg.run(data, psi0, scan, prb, geometry_from(GEOM),
+                                piter=2, kernel="xla")
+        assert torch.equal(psi, psi_1) and torch.equal(m["minf"],
+                                                       m_1["minf"])
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP") as err:
         tcg.run(data, psi0, scan, prb, geometry_from(GEOM), piter=2, **kw)
-    assert "queue 1 item 5" in str(err.value)
+    assert "Not to port" in str(err.value)
 
 
 def test_unported_fields_at_default_run(problem):

@@ -377,7 +377,7 @@ def test_validation_errors(pools):
     not divisible by the theta dimension, a base farplane on an unpadded
     scan axis, a mesh of the wrong size, an uneven shard; plus what only
     the port has: a mesh that is not a DeviceMesh, and the object-tiling
-    fields, which wait for queue 1 item 5."""
+    fields, which only ``parallel.run_tiled`` takes."""
     arrays = problem(GEOM_UNEVEN)
     arrays["f_base"] = np.zeros(GEOM_UNEVEN.farplane_shape, np.complex128)
     cases = [("run_sharded", dict(kernel="xla", f_base="f_base")),
@@ -397,7 +397,7 @@ def test_validation_errors(pools):
     assert found[2][0] == "ValueError" and "pad_scan_problem" in found[2][1]
     assert found[3][0] == "ValueError" and "DeviceMesh" in found[3][1]
     for kind, msg in found[4:]:
-        assert kind == "NotImplementedError" and "queue 1 item 5" in msg
+        assert kind == "ValueError" and "run_tiled" in msg
     with pytest.raises(ValueError, match="f_base must match a pre-padded"):
         jrun_sharded(*(jnp.asarray(arrays[k]) for k in (
             "data", "psi0", "scan", "prb")), GEOM_UNEVEN, jax_mesh(2),

@@ -15,7 +15,8 @@ evaluations, gradients, farplanes, adjoints and line searches:
 ``ls_objectives`` (``ops.linesearch``), and ``gather_probe_mul``,
 ``scatter_conj_probe`` and ``adj_probe_reduce`` (``ops.kernels``).
 ``tikejax_torch.parallel`` shards the positions and the angles over gloo
-ranks (``run_sharded``, ``reconstruct(mesh=)``, the facade's ``mesh=``).
+ranks (``run_sharded``, ``reconstruct(mesh=)``, the facade's ``mesh=``)
+and tiles the object's rows with a halo exchange (``run_tiled``).
 It imports ``torch`` and never ``jax``; ``tikejax`` stays the reference.
 """
 

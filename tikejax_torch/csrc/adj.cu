@@ -154,12 +154,8 @@ __device__ __forceinline__ void adj_fft_body(const FftParams& q) {
             fr, q.out, th, q.nz, q.n, sy, sx,
             q.prb + (static_cast<int64_t>(th) * m + mm) * pp, p);
       } else {
-        float2* nr = q.near + (f * m + mm) * pp;
-        for (int i = threadIdx.x; i < p * p; i += kT) {
-          const int y = i / p, x = i - y * p;
-          nr[i] = fr[fft_near_index<kD>(y, x)];
-        }
-        __syncthreads();  // the next mode's load overwrites the frame
+        // Ends with a barrier: the next mode's load overwrites the frame.
+        store_crop<kD, kT>(fr, q.near + (f * m + mm) * pp, p);
       }
     }
   }

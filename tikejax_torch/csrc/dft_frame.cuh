@@ -81,8 +81,9 @@ __device__ __forceinline__ bool frame_valid(int sy, int sx, int nz, int n,
 }
 
 // out[th, row, col] += g for an object (t, nz, n) held as interleaved re/im
-// floats: the overlap scatter of every object adjoint. fp32 atomics, so a
-// sum over overlapping patches is deterministic only up to its order.
+// floats: the overlap scatter of the forced atomic kernels (scatter_patch,
+// scatter_conj_probe.cu's atomic kernel). fp32 atomics, so a sum over
+// overlapping patches is deterministic only up to its order.
 __device__ __forceinline__ void scatter_add_pixel(float* out, int th, int nz,
                                                   int n, int row, int col,
                                                   float2 g) {
@@ -520,9 +521,11 @@ constexpr size_t fft_smem_bytes(int planes) {
 }
 
 // grad[patch] += conj(prb[m]) * fr (the cropped inverse transform, at
-// fft_near_index): the object adjoint's scatter of grad_fused, adj and
-// adj_residual. Ends with a barrier, after which the frame may be
-// overwritten.
+// fft_near_index) with fp32 atomics: the object scatter of the one-pass
+// kernels that grad_fused.cu, adj.cu and adj_residual.cu keep only for a
+// caller that forces them, to time them against the two-pass design (the
+// crop stored, then scatter_conj_probe.cu's tile kernel in scan order).
+// Ends with a barrier, after which the frame may be overwritten.
 template <int kD, int kT>
 __device__ __forceinline__ void scatter_patch(const float2* fr, float* grad,
                                               int th, int nz, int n, int sy,
@@ -534,6 +537,55 @@ __device__ __forceinline__ void scatter_patch(const float2* fr, float* grad,
     scatter_add_pixel(grad, th, nz, n, sy + y, sx + x, g);
   }
   __syncthreads();
+}
+
+// The patch's cropped inverse frame `fr` (at fft_near_index) into `nr`
+// (p x p). Ends with a barrier, after which the frame may be overwritten.
+template <int kD, int kT>
+__device__ __forceinline__ void store_crop(const float2* fr, float2* nr,
+                                           int p) {
+  for (int i = threadIdx.x; i < p * p; i += kT) {
+    const int y = i / p, x = i - y * p;
+    nr[i] = fr[fft_near_index<kD>(y, x)];
+  }
+  __syncthreads();
+}
+
+// The frames [g0, g1) of one launch of grad_fused's or adj_residual's frame
+// kernel (frame f = angle * s + position) and the objective's carry between
+// launches. Block b takes the frames f = b (mod gridDim.x) of the range in
+// increasing order, as one launch on all frames does; each thread's
+// objective sum starts from carry[b * threads + thread] unless `first`, and
+// is left there unless `last`, when the block stores its partial.
+struct Range {
+  int64_t g0, g1;
+  double* carry;  // gridDim.x * threads per block
+  int first, last;
+};
+
+// The first frame of the range that block b takes.
+__device__ __forceinline__ int64_t range_start(const Range& r) {
+  const int64_t grid = gridDim.x;
+  return r.g0 + (static_cast<int64_t>(blockIdx.x) - r.g0 % grid + grid) % grid;
+}
+
+__device__ __forceinline__ double range_carry_in(const Range& r,
+                                                 int threads) {
+  return r.first ? 0.0
+                 : r.carry[static_cast<int64_t>(blockIdx.x) * threads +
+                           threadIdx.x];
+}
+
+// Ends the block's share of the launch: the partial of a last launch, the
+// carry otherwise.
+template <int kT>
+__device__ __forceinline__ void range_carry_out(const Range& r, double fsum,
+                                                double* partial) {
+  if (r.last) {
+    block_sum_store_n<kT>(fsum, partial + blockIdx.x);
+  } else {
+    r.carry[static_cast<int64_t>(blockIdx.x) * kT + threadIdx.x] = fsum;
+  }
 }
 
 // -- the forward half of a frame, shared by grad_fused, minf_fused,

@@ -11,34 +11,55 @@
 //      kernel's base epilogue, pallas_fused.py:1239-1249);
 //   3. the likelihood factor and objective from the mode-summed
 //      intensity (dft_frame.cuh pixel_objective);
-//   4. adj = F^H (factor * far) conj(F);
-//   5. conj(prb[m]) * adj, summed over modes and scatter-added into the
-//      object gradient.
+//   4. adj = F^H (factor * far) conj(F), cropped to the p x p patch;
+//   5. conj(prb[m]) * adj, summed over modes and added into the object
+//      gradient at the position's window.
 // Outputs grad = G^H(factor * (G psi + base)) (no factor 2) and per-block
 // objective partials. Positions whose scan row is < 0 (masked dummies)
 // contribute nothing; so do out-of-bounds positions (invalid input: the
 // kernel never reads or writes outside the object).
 //
-// Two kernels compute it; the wrapper picks one from the shapes alone.
+// Two passes, as adj.cu's: the frame kernel in this file does steps 1-4
+// for a chunk of frames and stores each cropped inverse frame (t, s, m, p,
+// p order, without the probe) into a scratch; scatter_conj_probe.cu's tile
+// kernel then does step 5 on the scratch, each object pixel summing its
+// positions in increasing scan order (the TPU kernel's "deterministic
+// overlap scatter-add", pallas_fused.py:28), continuing from the running
+// sums of the chunk before. The wrapper (ops/fused.py) takes the frames in
+// chunks of consecutive frames (angle-major, as the frame loop numbers
+// them) whose scratch stays within a fixed budget, and launches the frame
+// kernel on each chunk with the grid of one launch on all frames: block b
+// takes frames b, b + grid, ... of the chunk, so it visits the frames of
+// one launch in the same order, and each thread carries its objective sum
+// from one chunk's launch to the next in `carry`. So the gradient and the
+// objective are the same bits whatever the chunk, and the objective is
+// minf_fused's, bit for bit.
+//
+// Two kernels form the frames; the wrapper picks one from the shapes alone.
 //
 // The FFT variant (grad_fused_fft_kernel; detector side 16, 32, 64 or 128).
 // One frame, one block, the whole complex frame in dynamic shared memory
 // (140,288 bytes at 128^2, so one block per SM), transformed in place by
 // dft_frame.cuh fft2_frame. Nothing farplane-sized and no per-block scratch
-// in device memory. What bounds it now: (a) the sweeps over the frame in
-// shared memory -- gather, four FFT stages, the likelihood pass, four
-// inverse stages, the scatter: about ten reads and writes of 128 KiB a
-// frame; (b) the scatter's fp32 atomics, two per patch pixel and mode into
-// an object that lives in L2; (c) the one read of the measured frame from
-// device memory (64 KiB a frame), whose latency one block per SM hides
-// badly. The FFT arithmetic (2.3 MFLOP a frame) is far below all three. What
+// in device memory beside the frame scratch. What bounds it: (a) the sweeps
+// over the frame in shared memory -- gather, four FFT stages, the
+// likelihood pass, four inverse stages, the crop's store: about ten reads
+// and writes of 128 KiB a frame; (b) the one read of the measured frame
+// from device memory (64 KiB a frame), whose latency one block per SM hides
+// badly; (c) the crop's write (8 bytes a patch pixel and mode), which a
+// chunk small enough for the 50 MB L2 keeps out of device memory, since
+// the tile kernel reads it right after and the next chunk overwrites the
+// same lines. The FFT arithmetic (2.3 MFLOP a frame) is far below these.
+// The one-pass kernel this design replaced scattered with fp32 atomics
+// instead (about 0.69 ms of 4.7 at the headline, PERF.md); it stays as the
+// atomic kernel below, forced only by a caller that times the two. What
 // the design does about them: each FFT stage is one in-place sweep with the
 // butterflies in registers and conflict-free shared accesses (see
 // dft_frame.cuh); the zero padding is never written and the rows it fills
 // are never transformed; the measured frame is read once, coalesced, in the
 // pass that needs it -- with one mode it is already in shared memory by
 // then: the next frame's 64 KiB are fetched with cp.async into the room
-// beside the frame while this frame's inverse transform, scatter and the
+// beside the frame while this frame's inverse transform, crop store and the
 // next gather and forward transform run. With several modes the intensity is
 // summed over the modes into a float plane in shared memory, which then
 // holds the likelihood factor, and each mode's farplane is computed a second
@@ -53,14 +74,21 @@
 // sized by the grid, never by the number of positions; no farplane is ever
 // materialised.
 //
+// The atomic kernel (grad_fused_atomic_fft_kernel; FFT sizes, no base) is
+// the one-pass FFT kernel this design replaced: the same frames, then
+// conj-probe multiply and scatter-add with fp32 atomics (dft_frame.cuh
+// scatter_patch) into a zeroed gradient, deterministic only up to the
+// order the atomics land. Only a caller that forces it (ops/fused.py,
+// variant='atomic') launches it, to time the two designs in turns.
+//
 // The base adds one farplane read (8 bytes a pixel) per evaluation. Without
 // a base each kernel is the instantiation kBase = false.
 //
-// Contract (both variants): the gradient scatter uses atomicAdd on the fp32
-// re/im planes, so it is deterministic only up to summation order; the
-// objective is summed per thread and per block in double in a fixed order,
-// then over the blocks in a fixed order by the caller, so it is bitwise
-// reproducible.
+// Contract (both variants): with the tile kernel after them the gradient
+// is bitwise repeatable, the same bits whatever the chunk; the objective
+// is summed per thread and per block in double in a fixed order, then over
+// the blocks in a fixed order by the caller, so it is bitwise reproducible,
+// the same bits whatever the chunk.
 
 #include "dft_frame.cuh"
 
@@ -73,11 +101,12 @@ struct Params {
   const float2* prb;   // (t, m, p, p)
   const float* data;   // (t, s, d, d)
   const int* scan;     // (t, s, 2) int (y, x)
-  float* grad;         // (t, nz, n) complex as interleaved re/im floats
+  float2* near;        // (g1 - g0, m, p, p): the range's cropped frames
   float2* scratch;     // gridDim.x * (m*p*d + m*d*d)
   double* partial;     // gridDim.x objective partials
   const float2* base;  // (t, s, m, d, d), read only when kBase
   int t, s, nz, n, m, p, d, model;
+  Range r;
 };
 
 // Two resident blocks per SM: caps registers at 128 per thread.
@@ -92,12 +121,12 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   const int64_t pd = static_cast<int64_t>(p) * d;
   const int64_t dd = static_cast<int64_t>(d) * d;
+  const int64_t pp = static_cast<int64_t>(p) * p;
   float2* s1 = q.scratch + blockIdx.x * (m * pd + m * dd);  // m x (p x d)
   float2* s2 = s1 + m * pd;                                 // m x (d x d)
-  const int64_t frames = static_cast<int64_t>(q.t) * q.s;
-  double fsum = 0.0;
+  double fsum = range_carry_in(q.r, kThreads);
 
-  for (int64_t f = blockIdx.x; f < frames; f += gridDim.x) {
+  for (int64_t f = range_start(q.r); f < q.r.g1; f += gridDim.x) {
     const int th = static_cast<int>(f / q.s);
     const int sy = q.scan[2 * f], sx = q.scan[2 * f + 1];
     if (!frame_valid(sy, sx, q.nz, q.n, p)) continue;
@@ -140,21 +169,17 @@ __global__ void __launch_bounds__(kThreads, 2)
     __syncthreads();
 
     for (int mm = 0; mm < m; ++mm) {
-      const float2* pr = prb + static_cast<int64_t>(mm) * p * p;
       const float2* a2 = s2 + mm * dd;
-      // Stages 3-4: the adjoint DFT of the weighted farplane; scatter
-      // conj(prb) * adj into the gradient.
+      float2* nr = q.near + ((f - q.r.g0) * m + mm) * pp;
+      // Stages 3-4: the adjoint DFT of the weighted farplane, cropped,
+      // into the range's frames.
       adjoint_frame_mode(
           [&](int u, int v) { return a2[u * d + v]; }, p, d, tw, s1 + mm * pd,
-          [&](int y, int x, float2 z) {
-            const float2 g = cmul(conjf2(pr[y * p + x]), z);
-            scatter_add_pixel(q.grad, th, q.nz, q.n, sy + y, sx + x, g);
-          },
-          sm);
+          [&](int y, int x, float2 z) { nr[y * p + x] = z; }, sm);
     }
   }
 
-  block_sum_store(fsum, q.partial + blockIdx.x);
+  range_carry_out<kThreads>(q.r, fsum, q.partial);
 }
 
 // -- the FFT variant -----------------------------------------------------
@@ -164,17 +189,21 @@ struct FftParams {
   const float2* prb;   // (t, m, p, p)
   const float* data;   // (t, s, d, d)
   const int* scan;     // (t, s, 2) int (y, x)
-  float* grad;         // (t, nz, n) complex as interleaved re/im floats
+  float2* near;        // (g1 - g0, m, p, p): the range's cropped frames
+  float* grad;         // (t, nz, n) complex as interleaved re/im floats;
+                       // the atomic kernel's output
   double* partial;     // gridDim.x objective partials
   const float2* base;  // (t, s, m, d, d), read only when kBase
   int t, s, nz, n, m, p, model;
   int prefetch;  // one mode only: fetch the next measured frame ahead
+  Range r;
 };
 
 // One block per SM at 128^2 (the frame fills the shared memory): registers
-// are capped at 65536 / kT.
-template <int kD, int kT, bool kBase>
-__global__ void __launch_bounds__(kT, 1) grad_fused_fft_kernel(FftParams q) {
+// are capped at 65536 / kT. kAtomic: scatter the conj-probe product into
+// q.grad with atomics (the replaced design) instead of storing the crop.
+template <int kD, int kT, bool kBase, bool kAtomic>
+__device__ __forceinline__ void grad_fused_fft_body(const FftParams& q) {
   extern __shared__ __align__(16) float2 shared[];
   float2* tw = shared;       // e^{-2 pi i k / d}
   float2* tws = tw + kD;     // the same / d
@@ -186,11 +215,11 @@ __global__ void __launch_bounds__(kT, 1) grad_fused_fft_kernel(FftParams q) {
 
   const int p = q.p, m = q.m;
   constexpr int dd = kD * kD;
-  const int64_t frames = static_cast<int64_t>(q.t) * q.s;
-  double fsum = 0.0;
+  const int64_t pp = static_cast<int64_t>(p) * p;
+  double fsum = range_carry_in(q.r, kT);
   int64_t fetched = -1;  // the frame whose data `plane` holds or awaits
 
-  for (int64_t f = blockIdx.x; f < frames; f += gridDim.x) {
+  for (int64_t f = range_start(q.r); f < q.r.g1; f += gridDim.x) {
     const int th = static_cast<int>(f / q.s);
     const int sy = q.scan[2 * f], sx = q.scan[2 * f + 1];
     if (!frame_valid(sy, sx, q.nz, q.n, p)) continue;  // block-uniform
@@ -208,13 +237,17 @@ __global__ void __launch_bounds__(kT, 1) grad_fused_fft_kernel(FftParams q) {
           fr, tw, tws, obj, q.n, prb, p, base, dat,
           q.prefetch ? plane : nullptr, q.model);
       if (q.prefetch) {
-        fetched = fft_next_frame(q.scan, f, frames, q.nz, q.n, p);
-        if (fetched < frames) {
+        fetched = fft_next_frame(q.scan, f, q.r.g1, q.nz, q.n, p);
+        if (fetched < q.r.g1) {
           fft_fetch_data<kD, kT>(plane, q.data + fetched * dd);
         }
       }
       fft2_frame<kD, kT, true>(fr, p, tw, tws);
-      scatter_patch<kD, kT>(fr, q.grad, th, q.nz, q.n, sy, sx, prb, p);
+      if constexpr (kAtomic) {
+        scatter_patch<kD, kT>(fr, q.grad, th, q.nz, q.n, sy, sx, prb, p);
+      } else {
+        store_crop<kD, kT>(fr, q.near + (f - q.r.g0) * pp, p);
+      }
       continue;
     }
 
@@ -226,11 +259,26 @@ __global__ void __launch_bounds__(kT, 1) grad_fused_fft_kernel(FftParams q) {
           fr, plane, tw, tws, obj, q.n, pr, p,
           kBase ? base + static_cast<int64_t>(mm) * dd : nullptr);
       fft2_frame<kD, kT, true>(fr, p, tw, tws);
-      scatter_patch<kD, kT>(fr, q.grad, th, q.nz, q.n, sy, sx, pr, p);
+      if constexpr (kAtomic) {
+        scatter_patch<kD, kT>(fr, q.grad, th, q.nz, q.n, sy, sx, pr, p);
+      } else {
+        store_crop<kD, kT>(fr, q.near + ((f - q.r.g0) * m + mm) * pp, p);
+      }
     }
   }
 
-  block_sum_store_n<kT>(fsum, q.partial + blockIdx.x);
+  range_carry_out<kT>(q.r, fsum, q.partial);
+}
+
+template <int kD, int kT, bool kBase>
+__global__ void __launch_bounds__(kT, 1) grad_fused_fft_kernel(FftParams q) {
+  grad_fused_fft_body<kD, kT, kBase, false>(q);
+}
+
+template <int kD, int kT>
+__global__ void __launch_bounds__(kT, 1)
+    grad_fused_atomic_fft_kernel(FftParams q) {
+  grad_fused_fft_body<kD, kT, false, true>(q);
 }
 
 template <bool kBase>
@@ -241,24 +289,36 @@ struct FftKernels {
   }
 };
 
+struct AtomicKernels {
+  template <int kD, int kT>
+  static auto get() {
+    return grad_fused_atomic_fft_kernel<kD, kT>;
+  }
+};
+
 }  // namespace
 
 extern "C" {
 
-// Launches the GEMM variant on `stream` with `grid` blocks; returns
-// cudaGetLastError() (0 on success). `grad` must be zeroed, `scratch` hold
-// grid * (m*p*d + m*d*d) complex floats, `partial` grid doubles. A null
-// `base` means no base; otherwise it is the contiguous complex64 base
-// farplane (t, s, m, d, d).
+// Launches the GEMM variant on `stream` with `grid` blocks on the frames
+// [g0, g1) of the t * s; returns cudaGetLastError() (0 on success). The
+// cropped inverse frames go to `near` ((g1 - g0) x m x p x p complex
+// floats; masked frames are not written), `scratch` holds grid *
+// (m*p*d + m*d*d) complex floats, `carry` grid * 256 doubles (read unless
+// `first`, written unless `last`), `partial` grid doubles (written when
+// `last`). A null `base` means no base; otherwise it is the contiguous
+// complex64 base farplane (t, s, m, d, d).
 int tk_grad_fused(const void* psi, const void* prb, const void* data,
-                  const void* scan, void* grad, void* scratch, void* partial,
-                  const void* base, int t, int s, int nz, int n, int m, int p,
-                  int d, int model, int grid, void* stream) {
+                  const void* scan, void* near, void* scratch, void* partial,
+                  void* carry, const void* base, int t, int s, int nz, int n,
+                  int m, int p, int d, int model, int64_t g0, int64_t g1,
+                  int first, int last, int grid, void* stream) {
   Params q{static_cast<const float2*>(psi), static_cast<const float2*>(prb),
            static_cast<const float*>(data), static_cast<const int*>(scan),
-           static_cast<float*>(grad), static_cast<float2*>(scratch),
+           static_cast<float2*>(near), static_cast<float2*>(scratch),
            static_cast<double*>(partial), static_cast<const float2*>(base),
-           t, s, nz, n, m, p, d, model};
+           t, s, nz, n, m, p, d, model,
+           Range{g0, g1, static_cast<double*>(carry), first, last}};
   const size_t smem = static_cast<size_t>(d) * sizeof(float2);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (base != nullptr) {
@@ -282,27 +342,53 @@ int tk_grad_fused_blocks_per_sm(int d, int has_base, int* out) {
 }
 
 // Launches the FFT variant (d = 16, 32, 64 or 128; `threads` 512, or 1024
-// at d = 128) on `stream` with `grid` blocks; returns the first CUDA error
-// (0 on success). `grad` must be zeroed, `partial` hold grid doubles; there
-// is no scratch. `base` as in tk_grad_fused. `prefetch` != 0 (one mode
-// only, `data` 16-byte aligned) fetches each measured frame a frame ahead.
+// at d = 128) on `stream` with `grid` blocks on the frames [g0, g1) of the
+// t * s; returns the first CUDA error (0 on success). `near`, `carry`
+// (grid * threads doubles), `partial`, `first` and `last` as in
+// tk_grad_fused; there is no other scratch. `base` as in tk_grad_fused.
+// `prefetch` != 0 (one mode only, `data` 16-byte aligned) fetches each
+// measured frame a frame ahead.
 int tk_grad_fused_fft(const void* psi, const void* prb, const void* data,
-                      const void* scan, void* grad, void* partial,
-                      const void* base, int t, int s, int nz, int n, int m,
-                      int p, int d, int model, int prefetch, int grid,
+                      const void* scan, void* near, void* partial,
+                      void* carry, const void* base, int t, int s, int nz,
+                      int n, int m, int p, int d, int model, int prefetch,
+                      int64_t g0, int64_t g1, int first, int last, int grid,
                       int threads, void* stream) {
   if (prefetch && m != 1) return static_cast<int>(cudaErrorInvalidValue);
   FftParams q{static_cast<const float2*>(psi),
               static_cast<const float2*>(prb),
               static_cast<const float*>(data), static_cast<const int*>(scan),
-              static_cast<float*>(grad), static_cast<double*>(partial),
+              static_cast<float2*>(near), nullptr,
+              static_cast<double*>(partial),
               static_cast<const float2*>(base), t, s, nz, n, m, p, model,
-              prefetch};
+              prefetch,
+              Range{g0, g1, static_cast<double*>(carry), first, last}};
   const int planes = m > 1 || prefetch ? 1 : 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return base != nullptr
              ? fft_launch<FftKernels<true>>(q, d, threads, planes, grid, st)
              : fft_launch<FftKernels<false>>(q, d, threads, planes, grid, st);
+}
+
+// Launches the atomic kernel, the FFT variant's design before it stored
+// frames, on all t * s frames: the whole gradient into `grad` (t, nz, n),
+// which must be zeroed, and the objective partials; no base. Returns the
+// first CUDA error (0 on success).
+int tk_grad_fused_atomic_fft(const void* psi, const void* prb,
+                             const void* data, const void* scan, void* grad,
+                             void* partial, int t, int s, int nz, int n,
+                             int m, int p, int d, int model, int prefetch,
+                             int grid, int threads, void* stream) {
+  if (prefetch && m != 1) return static_cast<int>(cudaErrorInvalidValue);
+  FftParams q{static_cast<const float2*>(psi),
+              static_cast<const float2*>(prb),
+              static_cast<const float*>(data), static_cast<const int*>(scan),
+              nullptr, static_cast<float*>(grad),
+              static_cast<double*>(partial), nullptr, t, s, nz, n, m, p,
+              model, prefetch,
+              Range{0, static_cast<int64_t>(t) * s, nullptr, 1, 1}};
+  return fft_launch<AtomicKernels>(q, d, threads, m > 1 || prefetch ? 1 : 0,
+                                   grid, static_cast<cudaStream_t>(stream));
 }
 
 // Resident blocks per SM of the FFT variant and its dynamic shared memory

@@ -59,15 +59,26 @@
 // the frame loads and do not all hide behind them (PERF.md;
 // `python -m tikejax_torch.utils.fft_probe scatter` times each part).
 //
+// Accuracy: a pixel sums its positions in double and is rounded to fp32
+// once, when it is stored. At 128^2 a pixel of the headline sums about a
+// thousand overlapping frames; summed in fp32 the running sum's rounding
+// put adj at 3.9-5.6e-7 of scale against a complex128 oracle, past the
+// 4e-7 of the fused_hp tier (PERF.md). Each contribution -- the mode sum
+// of cmul(conj(prb), near), as the atomic kernel forms it -- stays fp32.
+//
 // Contract: the tile kernel is bitwise repeatable: each pixel sums its
 // positions' contributions in increasing scan order (the TPU kernel's
-// order), each contribution the mode sum of cmul(conj(prb), near) from
-// zero, as the atomic kernel forms it. Launched with from_partial, a pixel
-// starts from the value `out` holds instead of zero: a launch on each
-// chunk of positions in turn, each after the one before, adds exactly what
-// one launch on all of them adds, in the same order, so gives its bits
-// (adj.cu's frames come this way, chunk by chunk). The atomic kernel is deterministic
-// only up to the order in which the atomics land.
+// order). A launch on one chunk of positions may store its running sums in
+// double into `part` instead of rounding them into `out`, and a launch
+// with from_partial starts each pixel from the sum `part` holds: a launch
+// on each chunk of positions in turn, each after the one before, adds
+// exactly what one launch on all of them adds, in the same order and the
+// same precision, so gives its bits (the frames of adj.cu, grad_fused.cu
+// and adj_residual.cu come this way, chunk by chunk). A block whose tile no
+// window of the chunk meets touches neither `part` nor `out`, unless it
+// must round into `out`: a chunk of positions that meets a band of rows
+// costs the other blocks only the walk over its scan. The atomic kernel is
+// deterministic only up to the order in which the atomics land.
 
 #include <type_traits>
 
@@ -83,11 +94,14 @@ struct Params {
   const float2* nearp; // (t, s, m, p, p) through the strides below
   const float2* prb;   // (t, m, p, p)
   const int* scan;     // (t, s, 2) int (y, x)
-  float* out;          // (t, nz, n) complex as interleaved re/im floats
+  float* out;          // (t, nz, n) complex as interleaved re/im floats;
+                       // the tile kernel rounds into it where not null
+  double* part;        // (t, nz, n) complex as interleaved re/im doubles:
+                       // the tile kernel's running sums (may be null)
   int t, s, nz, n, m, p;
   int64_t st_t, st_s, st_m, st_row;  // strides of nearp, complex elements
   int tiles_y, tiles_x;              // the tile kernel's tiles of an angle
-  int from_partial;  // the tile kernel: continue from the stored object
+  int from_partial;  // the tile kernel: continue from the sums in `part`
 };
 
 // -- the tile kernel ----------------------------------------------------
@@ -154,11 +168,18 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int prb_at = row * p + col;
   const int64_t frame_at = row * q.st_row + col;
   const bool inside = row < y1 && col < x1;
-  float2* const dst = reinterpret_cast<float2*>(q.out) +
-                      (static_cast<int64_t>(th) * q.nz + row) * q.n + col;
-  // Continuing from the partial sums that a launch on the positions before
-  // these stored: the same adds, in the same order, as one launch on all.
-  float2 acc = q.from_partial && inside ? *dst : make_float2(0.f, 0.f);
+  const int64_t pixel = (static_cast<int64_t>(th) * q.nz + row) * q.n + col;
+  float2* const dst =
+      q.out == nullptr ? nullptr : reinterpret_cast<float2*>(q.out) + pixel;
+  double2* const part =
+      q.part == nullptr ? nullptr : reinterpret_cast<double2*>(q.part) + pixel;
+  // The pixel's sum in double. Continuing from the sums that a launch on
+  // the positions before these stored (the same adds, in the same order and
+  // precision, as one launch on all), it is read at the first hit of the
+  // block, so a block that no window meets reads nothing. `started` is
+  // block-uniform.
+  double2 acc = make_double2(0.0, 0.0);
+  bool started = !q.from_partial;
   const int2* scan = reinterpret_cast<const int2*>(q.scan) +
                      static_cast<int64_t>(th) * q.s;
   const float2* prb = q.prb + static_cast<int64_t>(th) * m * pp;
@@ -191,6 +212,10 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
     ahead = i + kThreads < q.s ? __ldg(scan + i + kThreads) : none;
     __syncthreads();
+    if (total > 0 && !started) {
+      if (inside) acc = *part;
+      started = true;
+    }
 
     for (int j = 0; j < total; j += kK) {
       // The window test per thread: a pixel outside a window loads nothing
@@ -242,15 +267,26 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
       for (int k = 0; k < kK; ++k) {
         if (in[k]) {
-          acc.x += g[k].x;
-          acc.y += g[k].y;
+          acc.x += static_cast<double>(g[k].x);
+          acc.y += static_cast<double>(g[k].y);
         }
       }
     }
     __syncthreads();  // the list is rewritten by the next chunk
   }
 
-  if (inside) *dst = acc;
+  if (!started) {
+    // No window of these positions meets the tile: the running sums stand
+    // as they are, unless this launch rounds them into `out`.
+    if (dst == nullptr) return;
+    if (inside) acc = *part;
+  }
+  if (!inside) return;
+  if (dst != nullptr) {
+    *dst = make_float2(static_cast<float>(acc.x), static_cast<float>(acc.y));
+  } else {
+    *part = acc;
+  }
 }
 
 template <int V>
@@ -303,21 +339,28 @@ extern "C" {
 
 // Launches the tile kernel on `stream`, one block per (angle, tile),
 // taking the modes `mode_chunk` (1, 2 or 4) at a time; tiles_y and tiles_x
-// must cut nz and n into tiles of kTileH x kTileW. Writes every pixel of
-// `out`: with from_partial 0 it needs no zeroing, with 1 each pixel
-// continues from the value `out` holds. `scan` must be 8-byte aligned. The
-// strides of `nearp` are in complex elements. Returns the first CUDA error
-// (0 on success).
+// must cut nz and n into tiles of kTileH x kTileW. With `out` (complex64,
+// t x nz x n) it rounds every pixel's sum into `out`, which needs no
+// zeroing; with `out` null it stores the sums in double into `part`
+// (complex128, t x nz x n). With from_partial 1 each pixel continues from
+// the sum `part` holds. `scan` must be 8-byte aligned. The strides of
+// `nearp` are in complex elements. Returns the first CUDA error (0 on
+// success).
 int tk_scatter_conj_probe(const void* nearp, const void* prb, const void* scan,
-                          void* out, int t, int s, int nz, int n, int m, int p,
-                          int64_t st_t, int64_t st_s, int64_t st_m,
-                          int64_t st_row, int tiles_y, int tiles_x,
-                          int mode_chunk, int from_partial, void* stream) {
+                          void* out, void* part, int t, int s, int nz, int n,
+                          int m, int p, int64_t st_t, int64_t st_s,
+                          int64_t st_m, int64_t st_row, int tiles_y,
+                          int tiles_x, int mode_chunk, int from_partial,
+                          void* stream) {
   Params q{static_cast<const float2*>(nearp), static_cast<const float2*>(prb),
            static_cast<const int*>(scan), static_cast<float*>(out),
-           t, s, nz, n, m, p, st_t, st_s, st_m, st_row, tiles_y, tiles_x,
-           from_partial};
+           static_cast<double*>(part), t, s, nz, n, m, p, st_t, st_s, st_m,
+           st_row, tiles_y, tiles_x, from_partial};
   if (static_cast<int64_t>(t) * nz * n == 0) return 0;
+  if ((out == nullptr && part == nullptr) ||
+      (from_partial && part == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const int64_t grid = static_cast<int64_t>(t) * tiles_y * tiles_x;
   if (tiles_y != (nz + kTileH - 1) / kTileH ||
       tiles_x != (n + kTileW - 1) / kTileW || grid > 2147483647) {
@@ -350,7 +393,7 @@ int tk_scatter_conj_probe_atomic(const void* nearp, const void* prb,
                                  int64_t st_s, int64_t st_m, int64_t st_row,
                                  void* stream) {
   Params q{static_cast<const float2*>(nearp), static_cast<const float2*>(prb),
-           static_cast<const int*>(scan), static_cast<float*>(out),
+           static_cast<const int*>(scan), static_cast<float*>(out), nullptr,
            t, s, nz, n, m, p, st_t, st_s, st_m, st_row, 0, 0, 0};
   const int64_t frames = static_cast<int64_t>(t) * s;
   if (frames == 0) return 0;

@@ -11,8 +11,9 @@ package's and stays as it is):
   ``'fused_mp'``, the ``fwd`` and ``adj`` kernels; on the CPU it is the
   ``'xla'`` oracle);
 * :func:`dryrun_multichip` runs ``tikejax_torch.parallel._dryrun.main(n)``
-  -- one sharded CG step on ``n`` gloo ranks on the CPU, held against the
-  one-process step -- in a subprocess with a time limit.
+  -- one sharded CG step and, for an even ``n``, one object-tiled CG step
+  on ``n`` gloo ranks on the CPU, each held against the one-process step --
+  in a subprocess with a time limit.
 """
 
 from __future__ import annotations
@@ -51,10 +52,10 @@ def entry(device="cuda"):
 
 
 def dryrun_multichip(n_devices: int, timeout: float = 600.0) -> str:
-    """Run the sharded step on ``n_devices`` CPU ranks in a subprocess
-    (``python -m tikejax_torch.parallel._dryrun n``); returns its report
-    line, raises RuntimeError when it fails and ``TimeoutExpired`` past
-    ``timeout`` seconds."""
+    """Run the sharded and the tiled step on ``n_devices`` CPU ranks in a
+    subprocess (``python -m tikejax_torch.parallel._dryrun n``); returns
+    its report line, raises RuntimeError when it fails and
+    ``TimeoutExpired`` past ``timeout`` seconds."""
     n = int(n_devices)
     root = str(Path(__file__).resolve().parents[1])
     env = dict(os.environ)

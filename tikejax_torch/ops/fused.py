@@ -11,9 +11,13 @@ DFT of the zero-padded frame (plus, in split-operator mode, the frozen
 * ``grad_fused`` (replaces ``pallas_fused.py`` ``grad_fused``,
   ``_grad_kernel``) forms the likelihood factor and objective against the
   measured frame, takes the inverse DFT, multiplies by the conj probe, sums
-  the modes and scatter-adds into the object gradient. It returns
-  ``(grad (t, nz, n), minf ())`` with ``grad = G^H(factor * (G psi +
-  base))`` -- no factor 2: the solver supplies it;
+  the modes and adds into the object gradient at each window: its kernel
+  stores the cropped inverse frames of a chunk of frames into a scratch of
+  at most ``FRAME_SCRATCH_BYTES``, and the tile kernel of
+  ``tikejax_torch.ops.kernels.scatter_conj_probe`` sums each chunk into
+  the gradient in scan order. It returns ``(grad (t, nz, n), minf ())``
+  with ``grad = G^H(factor * (G psi + base))`` -- no factor 2: the solver
+  supplies it;
 * ``minf_fused`` (replaces ``minf_fused``, ``_minf_kernel``) stops at the
   objective: the frameless line search and the memory-bound Anderson
   safeguard evaluate candidates with it;
@@ -32,7 +36,7 @@ probe window, to every frame:
 * ``adj`` (replaces ``adj``, ``_adj_kernel``) multiplies by the conj probe,
   sums the modes and scatter-adds into the object ``(t, nz, n)``: its
   kernel stores the cropped inverse frames, chunk by chunk of positions,
-  into a scratch of at most ``ADJ_SCRATCH_BYTES``, and the tile kernel of
+  into a scratch of at most ``FRAME_SCRATCH_BYTES``, and the tile kernel of
   ``tikejax_torch.ops.kernels.scatter_conj_probe`` sums each chunk into
   the object in scan order, continuing from the partial object the chunk
   before it stored;
@@ -49,8 +53,9 @@ Two more serve the materialized memory mode of the solver, which keeps
 
 * ``adj_residual`` (replaces ``adj_residual``, ``_adj_residual_kernel``)
   is ``grad_fused``'s second half reading that farplane: the likelihood
-  factor and objective, the inverse DFT, the conj-probe multiply, the mode
-  sum and the scatter into the object gradient;
+  factor and objective, the inverse DFT, then (the tile kernel, chunk by
+  chunk, as ``grad_fused``) the conj-probe multiply, the mode sum and the
+  scatter into the object gradient;
 * ``fwd_quad_stats`` (replaces ``fwd_quad_stats``, ``_fwd_quad_kernel``)
   is ``fwd``'s forward frame of a direction, reduced at once against the
   held farplane into the line search's per-pixel statistics ``a``, ``b``,
@@ -73,9 +78,9 @@ read, ``fwd_quad_stats`` forms the same farplane of a direction, and
 ``'fft'`` for a detector side of 16, 32, 64 or 128 -- one frame per block,
 the whole complex frame in shared memory, transformed in place by a
 register-resident radix FFT (29 times less arithmetic than the matrix
-products at 128^2, no scratch in device memory; shared-memory sweeps, the
-scatter's atomics and the one read or write of a frame in device memory
-bound it) -- and ``'gemm'`` for every other size: the DFT as complex
+products at 128^2; shared-memory sweeps and the one read or write of a
+frame in device memory bound it) -- and ``'gemm'`` for every other size:
+the DFT as complex
 matrix products per frame and mode, ``ndet*nprb*(nprb+ndet)`` complex
 multiply-adds per DFT application, all on the SIMT fp32 units, in
 shared-memory tiled GEMMs whose per-frame intermediates sit in per-block
@@ -99,20 +104,27 @@ with plain fp32 multiply-adds, which meets or beats every tier's accuracy,
 so every ``fused*`` tier maps to them and the ``precision`` /
 ``adj_precision`` tags are accepted and ignored.
 
-Determinism: ``adj`` is bitwise repeatable: each object pixel sums its
-positions' contributions in increasing scan order, the TPU kernel's order,
-whatever the chunk of positions (``scatter_conj_probe``'s tile kernel,
-continued chunk after chunk from the stored partial object). The atomic
-kernel it replaced stays only for timing the two in turns, forced with
-``_adj_cuda(..., variant='atomic')``. The other two object scatters
-(``grad_fused``, ``adj_residual``) still use fp32 atomics, deterministic
-up to summation order: a two-pass form there needs a frame scratch on the
-frameless main path, a trade of memory and speed for the benchmark's
-cells to price. The probe reductions (``grad_prb_fused``, ``adj_probe``) add each block's
-frames into a block-owned partial without atomics and sum the partials over
-the blocks in a fixed order, so they are bitwise reproducible, as is every
-objective (summed in double in a fixed order) and ``fwd_quad_stats`` (no
-reduction over frames).
+Determinism: the three object scatters (``adj``, ``grad_fused``,
+``adj_residual``) are bitwise repeatable, as the TPU kernels' are: each
+object pixel sums its positions' contributions in increasing scan order,
+the TPU kernel's order, in double, whatever the chunk of positions
+(``scatter_conj_probe``'s tile kernel, continued chunk after chunk from the
+stored running sums in double, rounded to fp32 once). The one-pass kernels
+with fp32 atomics that this replaced stay only for timing the two in
+turns, forced with ``variant='atomic'`` (``_adj_cuda``,
+``_grad_fused_cuda``, ``_adj_residual_cuda``). The price is a frame
+scratch of at most ``FRAME_SCRATCH_BYTES`` on the frameless main path and
+the second pass: ``grad_fused`` takes longer than the atomic kernel did,
+which PERF.md measures in turns; the reference's contract is bitwise, so
+the port pays it. ``grad_fused`` and ``adj_residual`` run their frame
+kernel on each chunk with the grid of one launch on all frames and carry
+each thread's objective sum from one launch to the next, so their
+objectives are the bits of one launch, and ``grad_fused``'s is
+``minf_fused``'s. The probe reductions (``grad_prb_fused``, ``adj_probe``)
+add each block's frames into a block-owned partial without atomics and sum
+the partials over the blocks in a fixed order, so they are bitwise
+reproducible, as is every objective (summed in double in a fixed order)
+and ``fwd_quad_stats`` (no reduction over frames).
 
 Each function takes CPU or CUDA tensors. On a CUDA tensor it launches its
 kernel or raises; on a CPU tensor it runs its ``*_reference``, the plain
@@ -137,20 +149,128 @@ _MAX_NDET = 2048
 # Per-block scratch holds one frame's intermediates; the grid is cut so
 # that all of it stays below this many bytes.
 _SCRATCH_BYTES = 256 * 1024**2
-# adj's frame scratch: the cropped inverse frames (t, chunk, m, p, p)
-# complex64 of a chunk of positions, which the tile kernel then sums into
-# the object. Chunks stay within this many bytes: the stream path's
-# 1024-frame chunk of 128^2 (128 MiB) fits whole, and the 4-mode 16384 x
-# 128^2 farplane (8 GiB of frames) takes 16 chunks.
-ADJ_SCRATCH_BYTES = 512 * 2**20
+# The frame scratch of the three object scatters (adj, grad_fused,
+# adj_residual): the cropped inverse frames (complex64) of a chunk of
+# positions, which the tile kernel then sums into the object. Chunks stay
+# within this many bytes: the stream path's 1024-frame chunk of 128^2 (128
+# MiB) fits whole, the headline's 16384 frames take 4 chunks and the 4-mode
+# farplane (8 GiB of frames) 16. It is a constant, whatever the number of
+# positions, so the frameless path stays frameless. Smaller chunks cost
+# more than the L2 they keep the frames in saves: on an H100 80GB HBM3
+# (700 W) the headline grad_fused took 5.13-5.20 ms with 512 MiB chunks,
+# 5.46-5.52 with 128 and 6.07-6.66 with 32 (PERF.md, chip_smoke.py), the
+# tile kernel's launches and walks being paid once a chunk.
+FRAME_SCRATCH_BYTES = 512 * 2**20
 
 
 def adj_chunk(t: int, s: int, nmodes: int, nprb: int) -> int:
     """Positions of each angle that one chunk of ``adj`` takes: as many as
-    keep the frame scratch within ``ADJ_SCRATCH_BYTES``, at least one, at
+    keep the frame scratch within ``FRAME_SCRATCH_BYTES``, at least one, at
     most ``s``."""
     per_position = max(1, t * nmodes * nprb * nprb * 8)
-    return max(1, min(s, ADJ_SCRATCH_BYTES // per_position))
+    return max(1, min(s, FRAME_SCRATCH_BYTES // per_position))
+
+
+def frame_chunk(nmodes: int, nprb: int) -> int:
+    """Frames (of any angle) that one chunk of ``grad_fused`` or
+    ``adj_residual`` takes: as many as keep the frame scratch within
+    ``FRAME_SCRATCH_BYTES``, at least one."""
+    return max(1, FRAME_SCRATCH_BYTES // max(1, nmodes * nprb * nprb * 8))
+
+
+def frame_chunks(t: int, s: int, chunk: int) -> list:
+    """The chunks of the ``t * s`` frames (frame ``f = angle * s +
+    position``) of ``chunk`` frames each, in order: ``[(g0, g1, segments)]``
+    where each segment ``(th0, th1, a, b)`` is one launch of the tile
+    kernel on positions ``[a, b)`` of angles ``[th0, th1)`` (whole angles
+    of a chunk go in one segment). A segment with ``a > 0`` continues from
+    the running sums, one with ``b < s`` leaves them for the next chunk.
+    Pure: no device is involved."""
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    out = []
+    frames = t * s
+    for g0 in range(0, frames, chunk):
+        g1 = min(frames, g0 + chunk)
+        segments, g = [], g0
+        while g < g1:
+            th, a = divmod(g, s)
+            b = min(s, g1 - th * s)
+            if (a == 0 and b == s and segments and segments[-1][2] == 0
+                    and segments[-1][3] == s and segments[-1][1] == th):
+                segments[-1] = (segments[-1][0], th + 1, 0, s)
+            else:
+                segments.append((th, th + 1, a, b))
+            g = th * s + b
+        out.append((g0, g1, segments))
+    return out
+
+
+def _scatter_segments(near, g0, segments, s, scan_int, prb, nz, n, out,
+                      partial):
+    """The tile kernel on each segment of a chunk whose cropped frames
+    (frame ``g0`` first) ``near`` holds: into ``out``, continuing from and
+    leaving running sums in ``partial`` where a segment splits an angle."""
+    from tikejax_torch.ops import kernels
+
+    m, p = prb.shape[1], prb.shape[-1]
+    for th0, th1, a, b in segments:
+        k, c = th1 - th0, b - a
+        start = (th0 * s + a - g0) * m * p * p
+        frames = near[start:start + k * c * m * p * p].view(k, c, m, p, p)
+        kernels._scatter_conj_probe_cuda(
+            frames, scan_int[th0:th1, a:b], prb[th0:th1], nz, n,
+            out=out[th0:th1],
+            partial=None if partial is None else partial[th0:th1],
+            from_partial=a > 0, last=b == s)
+
+
+def _chunk_arg(name, chunk, nmodes, nprb) -> int:
+    """The frames a chunk takes: ``chunk``, or :func:`frame_chunk` for
+    None; below one raises."""
+    chunk = frame_chunk(nmodes, nprb) if chunk is None else int(chunk)
+    if chunk < 1:
+        raise ValueError(f"{name}: chunk must be >= 1, got {chunk}")
+    return chunk
+
+
+def _scan_order(wrapper, variant, launch, prb, scan_int, t, s, nz, n, chunk,
+                grid, threads, device):
+    """The object gradient of ``wrapper`` (grad_fused or adj_residual) in
+    scan order:
+    ``launch(g0, g1, first, last, near, carry)`` runs the frame kernel on
+    frames [g0, g1) into the scratch ``near`` (pointers; it returns the
+    CUDA error), once per chunk of ``chunk`` frames, each followed by the
+    tile kernel on the chunk's segments (:func:`frame_chunks`); each thread's
+    objective sum waits in ``carry`` (``grid * threads`` doubles) between
+    the chunks, and the running sums of an angle split between chunks in
+    a complex128 object. Each frame-kernel launch adds one to
+    ``wrapper.launches``."""
+    frames = t * s
+    # Every pixel is stored by the tile launches, covered or not.
+    grad = torch.empty((t, nz, n), dtype=torch.complex64, device=device)
+    if frames == 0:
+        return grad.zero_()
+    m, p = prb.shape[1], prb.shape[-1]
+    chunk = min(chunk, frames)
+    plan = frame_chunks(t, s, chunk)
+    near = torch.empty(chunk * m * p * p, dtype=torch.complex64,
+                       device=device)
+    carry = (torch.empty(grid * threads, dtype=torch.float64, device=device)
+             if len(plan) > 1 else None)
+    split = any(a > 0 or b < s for _, _, segments in plan
+                for _, _, a, b in segments)
+    running = (torch.empty((t, nz, n), dtype=torch.complex128, device=device)
+               if split else None)
+    for g0, g1, segments in plan:
+        err = launch(g0, g1, int(g0 == 0), int(g1 == frames),
+                     near.data_ptr(),
+                     None if carry is None else carry.data_ptr())
+        _check(wrapper.__name__, err, f"kernel launch ({variant})")
+        wrapper.launches += 1
+        _scatter_segments(near, g0, segments, s, scan_int, prb, nz, n, grad,
+                          running)
+    return grad
 
 
 # Detector sides of the FFT kernels: a power of two whose padded complex
@@ -548,8 +668,9 @@ def _valid_minf(minf_fn, far, data, scan_int):
 
 _ARGTYPES = {
     # pointers, then ints; every entry point ends with the stream.
-    "grad_fused": ("tk_grad_fused", [ctypes.c_void_p] * 8
-                   + [ctypes.c_int] * 9),
+    "grad_fused": ("tk_grad_fused", [ctypes.c_void_p] * 9
+                   + [ctypes.c_int] * 8 + [ctypes.c_int64] * 2
+                   + [ctypes.c_int] * 3),
     "fwd": ("tk_fwd", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8),
     "minf_fused": ("tk_minf_fused", [ctypes.c_void_p] * 7
                    + [ctypes.c_int] * 9 + [ctypes.c_int64]),
@@ -560,7 +681,8 @@ _ARGTYPES = {
     "adj_probe": ("tk_adj_probe", [ctypes.c_void_p] * 6
                   + [ctypes.c_int] * 8),
     "adj_residual": ("tk_adj_residual", [ctypes.c_void_p] * 7
-                     + [ctypes.c_int] * 9 + [ctypes.c_int64]),
+                     + [ctypes.c_int] * 8 + [ctypes.c_int64] * 2
+                     + [ctypes.c_int] * 3 + [ctypes.c_int64]),
     "fwd_quad_stats": ("tk_fwd_quad_stats", [ctypes.c_void_p] * 8
                        + [ctypes.c_int] * 8),
     "ls_objectives": ("tk_ls_objectives", [ctypes.c_void_p] * 6
@@ -573,19 +695,29 @@ _ARGTYPES = {
 # <entry>_fft_blocks_per_sm(ndet, has_base, planes, threads, &blocks,
 # &shared_bytes).
 _FFT_ARGTYPES = {
-    "grad_fused": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11,
+    "grad_fused": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+    + [ctypes.c_int64] * 2 + [ctypes.c_int] * 4,
     "fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9,
     "adj": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_int64]
     + [ctypes.c_int] * 2,
     "minf_fused": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11,
     "grad_prb_fused": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11,
     "adj_probe": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9,
-    "adj_residual": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10,
+    "adj_residual": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+    + [ctypes.c_int64] * 2 + [ctypes.c_int] * 4,
     "fwd_quad_stats": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9,
 }
 
 # Other entry points of a library, with their full argument types.
 _MORE_ARGTYPES = {
+    "grad_fused": {
+        "tk_grad_fused_atomic_fft": [ctypes.c_void_p] * 6
+        + [ctypes.c_int] * 11 + [ctypes.c_void_p],
+    },
+    "adj_residual": {
+        "tk_adj_residual_atomic_fft": [ctypes.c_void_p] * 6
+        + [ctypes.c_int] * 10 + [ctypes.c_void_p],
+    },
     "adj": {
         "tk_adj_atomic_fft": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
         + [ctypes.c_void_p],
@@ -767,6 +899,10 @@ def _base_ptr(name, base, shape, device):
     return b.data_ptr()
 
 
+# Threads of a block of the DFT-GEMM kernels (dft_frame.cuh kThreads).
+_GEMM_THREADS = 256
+
+
 def _grid(name, device_index, frames, ndet, has_base, block_bytes):
     return max(1, min(frames,
                       _resident_blocks(name, device_index, ndet, has_base),
@@ -779,55 +915,86 @@ def _device_index(psi):
 
 
 def _grad_fused_cuda(psi, data, scan_int, prb, ndet, model, base,
-                     variant=None, threads=None, prefetch=None):
-    """Launches ``grad_fused``'s kernel: the variant :func:`dft_variant`
-    names for these shapes, or the one forced with ``variant`` (``'gemm'``
-    takes every size, ``'fft'`` raises off its sizes). ``threads`` is the
-    FFT variant's block size (512, or 1024 at ``ndet`` 128; None takes
-    :func:`fft_threads`). ``prefetch`` (FFT variant, one mode): fetch each
-    measured frame into shared memory a frame ahead; None means wherever
-    it can be done (one mode, ``data`` 16-byte aligned)."""
+                     variant=None, threads=None, prefetch=None, chunk=None):
+    """Launches ``grad_fused``'s kernels: for each chunk of ``chunk``
+    consecutive frames (default :func:`frame_chunk`), the frame kernel --
+    the variant :func:`dft_variant` names for these shapes, or the one
+    forced with ``variant`` (``'gemm'`` takes every size, ``'fft'`` raises
+    off its sizes) -- into the scratch, then ``scatter_conj_probe``'s tile
+    kernel from it into the gradient in scan order (:func:`frame_chunks`).
+    ``variant='atomic'`` forces the one-pass FFT kernel with fp32 atomics
+    that this design replaced (FFT sizes, no base), to time the two in
+    turns. ``threads`` is the FFT variant's block size (512, or 1024 at
+    ``ndet`` 128; None takes :func:`fft_threads`). ``prefetch`` (FFT
+    variant, one mode): fetch each measured frame into shared memory a
+    frame ahead; None means wherever it can be done (one mode, ``data``
+    16-byte aligned). Each frame-kernel launch adds one to
+    ``grad_fused.launches``."""
     t, nz, n, nmodes, nprb, s = _check_inputs("grad_fused", psi, scan_int,
                                               prb, ndet, data)
     base_p = _base_ptr("grad_fused", base, (t, s, nmodes, ndet, ndet),
                        psi.device)
-    variant, defines = _pick_variant("grad_fused", variant, nprb, ndet,
-                                     nmodes)
+    atomic = variant == "atomic"
+    if atomic and base is not None:
+        raise ValueError("grad_fused: the atomic kernel takes no base")
+    variant, defines = _pick_variant("grad_fused",
+                                     "fft" if atomic else variant, nprb,
+                                     ndet, nmodes)
+    chunk = _chunk_arg("grad_fused", chunk, nmodes, nprb)
     lib = _lib("grad_fused", defines)
     dev = _device_index(psi)
     psi, prb = psi.contiguous(), prb.contiguous()
     data, scan_int = data.contiguous(), scan_int.contiguous()
-    grad = torch.zeros((t, nz, n), dtype=torch.complex64, device=psi.device)
     if variant == "fft":
         threads = fft_threads(ndet) if threads is None else threads
         prefetch = _fft_prefetch("grad_fused", prefetch, nmodes, data)
         grid = _fft_grid("grad_fused", dev, t * s, ndet,
                          int(nmodes > 1 or prefetch), base is not None,
                          threads, defines)
-        partial = torch.empty(grid, dtype=torch.float64, device=psi.device)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = lib.tk_grad_fused_fft(
-                psi.data_ptr(), prb.data_ptr(), data.data_ptr(),
-                scan_int.data_ptr(), grad.data_ptr(), partial.data_ptr(),
-                base_p, t, s, nz, n, nmodes, nprb, ndet, _MODEL_CODE[model],
-                int(prefetch), grid, threads, stream)
     else:
         per_block = nmodes * ndet * (nprb + ndet)  # complex elements
         grid = _grid("grad_fused", dev, t * s, ndet, base is not None,
                      8 * per_block)
         scratch = torch.empty(2 * grid * per_block, dtype=torch.float32,
                               device=psi.device)
-        partial = torch.empty(grid, dtype=torch.float64, device=psi.device)
+        threads = _GEMM_THREADS
+    partial = torch.empty(grid, dtype=torch.float64, device=psi.device)
+    model_code = _MODEL_CODE[model]
+    if atomic:
+        grad = torch.zeros((t, nz, n), dtype=torch.complex64,
+                           device=psi.device)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
-            err = lib.tk_grad_fused(
+            err = lib.tk_grad_fused_atomic_fft(
                 psi.data_ptr(), prb.data_ptr(), data.data_ptr(),
-                scan_int.data_ptr(), grad.data_ptr(), scratch.data_ptr(),
-                partial.data_ptr(), base_p, t, s, nz, n, nmodes, nprb, ndet,
-                _MODEL_CODE[model], grid, stream)
-    _check("grad_fused", err, f"kernel launch ({variant})")
-    grad_fused.launches += 1
+                scan_int.data_ptr(), grad.data_ptr(), partial.data_ptr(), t,
+                s, nz, n, nmodes, nprb, ndet, model_code, int(prefetch), grid,
+                threads, stream)
+        _check("grad_fused", err, "kernel launch (atomic)")
+        grad_fused.launches += 1
+        grad_fused.variant = "atomic"
+        return grad, partial.sum().to(torch.float32)
+
+    def launch(g0, g1, first, last, near, carry):
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            if variant == "fft":
+                return lib.tk_grad_fused_fft(
+                    psi.data_ptr(), prb.data_ptr(), data.data_ptr(),
+                    scan_int.data_ptr(), near, partial.data_ptr(), carry,
+                    base_p, t, s, nz, n, nmodes, nprb, ndet, model_code,
+                    int(prefetch), g0, g1, first, last, grid, threads,
+                    stream)
+            return lib.tk_grad_fused(
+                psi.data_ptr(), prb.data_ptr(), data.data_ptr(),
+                scan_int.data_ptr(), near, scratch.data_ptr(),
+                partial.data_ptr(), carry, base_p, t, s, nz, n, nmodes, nprb,
+                ndet, model_code, g0, g1, first, last, grid, stream)
+
+    grad = _scan_order(grad_fused, variant, launch, prb, scan_int, t, s,
+                       nz, n, chunk, grid, threads, psi.device)
+    if t * s == 0:
+        partial.zero_()
     grad_fused.variant = variant
     return grad, partial.sum().to(torch.float32)
 
@@ -996,7 +1163,8 @@ def _adj_cuda(farplane, scan_int, prb, nz, n, variant=None, threads=None,
     (default :func:`adj_chunk`), the frame kernel ('fft' or 'gemm', forced
     or picked as in :func:`_grad_fused_cuda`; ``threads`` likewise) into
     the scratch, then ``scatter_conj_probe``'s tile kernel from it into the
-    object, continuing from the chunk before. ``variant='atomic'`` forces
+    object, continuing from the running sums of the chunk before.
+    ``variant='atomic'`` forces
     the one-pass FFT kernel with fp32 atomics that this design replaced
     (FFT sizes only), to time the two in turns. Each frame-kernel launch
     adds one to ``adj.launches``."""
@@ -1036,9 +1204,12 @@ def _adj_cuda(farplane, scan_int, prb, nz, n, variant=None, threads=None,
         adj.launches += 1
         adj.variant = "atomic"
         return out
-    # Every pixel is stored by the first tile launch, covered or not.
+    # Every pixel is stored by the last tile launch, covered or not; the
+    # chunks before it keep their running sums in double.
     out = torch.empty((t, nz, n), dtype=torch.complex64,
                       device=farplane.device)
+    running = (torch.empty((t, nz, n), dtype=torch.complex128,
+                           device=farplane.device) if chunk < s else None)
     scratch = torch.empty(t * chunk * nmodes * nprb * nprb,
                           dtype=torch.complex64, device=farplane.device)
     if variant == "gemm":
@@ -1069,7 +1240,9 @@ def _adj_cuda(farplane, scan_int, prb, nz, n, variant=None, threads=None,
         _check("adj", err, f"kernel launch ({variant})")
         adj.launches += 1
         kernels._scatter_conj_probe_cuda(near, scan_c, prb, nz, n, out=out,
-                                         from_partial=c0 > 0)
+                                         partial=running,
+                                         from_partial=c0 > 0,
+                                         last=c0 + sc == s)
     adj.variant = variant
     return out
 
@@ -1124,9 +1297,12 @@ def _adj_probe_cuda(farplane, scan_int, psi, nprb, variant=None,
 
 
 def _adj_residual_cuda(farplane, data, scan_int, prb, nz, n, model,
-                       variant=None, threads=None):
-    """Launches ``adj_residual``'s kernel; ``variant`` and ``threads`` as in
-    :func:`_grad_fused_cuda`."""
+                       variant=None, threads=None, chunk=None):
+    """Launches ``adj_residual``'s kernels as :func:`_grad_fused_cuda`
+    launches ``grad_fused``'s: the frame kernel on each chunk of ``chunk``
+    frames, then the tile kernel; ``variant`` (``'atomic'`` included) and
+    ``threads`` likewise. Each frame-kernel launch adds one to
+    ``adj_residual.launches``."""
     t, s, nmodes, ndet = _check_farplane("adj_residual", farplane, scan_int,
                                          prb, "prb", (farplane.shape[0],
                                                       farplane.shape[2]))
@@ -1136,14 +1312,15 @@ def _adj_residual_cuda(farplane, data, scan_int, prb, nz, n, model,
         raise ValueError(f"adj_residual: inconsistent shapes farplane "
                          f"{tuple(farplane.shape)}, data {tuple(data.shape)}")
     nprb = prb.shape[-1]
-    variant, defines = _pick_variant("adj_residual", variant, nprb, ndet,
-                                     nmodes)
+    atomic = variant == "atomic"
+    variant, defines = _pick_variant("adj_residual",
+                                     "fft" if atomic else variant, nprb,
+                                     ndet, nmodes)
+    chunk = _chunk_arg("adj_residual", chunk, nmodes, nprb)
     lib = _lib("adj_residual", defines)
     dev = _device_index(farplane)
     farplane, prb = farplane.contiguous(), prb.contiguous()
     data, scan_int = data.contiguous(), scan_int.contiguous()
-    grad = torch.zeros((t, nz, n), dtype=torch.complex64,
-                       device=farplane.device)
     if variant == "fft":
         # The materialized solver hands over fwd's output, which PyTorch's
         # allocator aligns.
@@ -1151,32 +1328,49 @@ def _adj_residual_cuda(farplane, data, scan_int, prb, nz, n, model,
         threads = fft_threads(ndet) if threads is None else threads
         grid = _fft_grid("adj_residual", dev, t * s, ndet, int(nmodes > 1),
                          False, threads, defines)
-        partial = torch.empty(grid, dtype=torch.float64,
-                              device=farplane.device)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = lib.tk_adj_residual_fft(
-                farplane.data_ptr(), data.data_ptr(), prb.data_ptr(),
-                scan_int.data_ptr(), grad.data_ptr(), partial.data_ptr(), t,
-                s, nz, n, nmodes, nprb, ndet, _MODEL_CODE[model], grid,
-                threads, stream)
     else:
         stride = 2 * nprb * ndet + ndet * ndet  # floats: p x d complex, d x d
         stride += stride % 2
         grid = _grid("adj_residual", dev, t * s, ndet, False, 4 * stride)
         scratch = torch.empty(grid * stride, dtype=torch.float32,
                               device=farplane.device)
-        partial = torch.empty(grid, dtype=torch.float64,
-                              device=farplane.device)
+        threads = _GEMM_THREADS
+    partial = torch.empty(grid, dtype=torch.float64, device=farplane.device)
+    model_code = _MODEL_CODE[model]
+    if atomic:
+        grad = torch.zeros((t, nz, n), dtype=torch.complex64,
+                           device=farplane.device)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
-            err = lib.tk_adj_residual(
+            err = lib.tk_adj_residual_atomic_fft(
                 farplane.data_ptr(), data.data_ptr(), prb.data_ptr(),
-                scan_int.data_ptr(), grad.data_ptr(), scratch.data_ptr(),
-                partial.data_ptr(), t, s, nz, n, nmodes, nprb, ndet,
-                _MODEL_CODE[model], grid, stride, stream)
-    _check("adj_residual", err, f"kernel launch ({variant})")
-    adj_residual.launches += 1
+                scan_int.data_ptr(), grad.data_ptr(), partial.data_ptr(), t,
+                s, nz, n, nmodes, nprb, ndet, model_code, grid, threads,
+                stream)
+        _check("adj_residual", err, "kernel launch (atomic)")
+        adj_residual.launches += 1
+        adj_residual.variant = "atomic"
+        return grad, partial.sum().to(torch.float32)
+
+    def launch(g0, g1, first, last, near, carry):
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            if variant == "fft":
+                return lib.tk_adj_residual_fft(
+                    farplane.data_ptr(), data.data_ptr(), scan_int.data_ptr(),
+                    near, partial.data_ptr(), carry, t, s, nz, n, nmodes,
+                    nprb, ndet, model_code, g0, g1, first, last, grid,
+                    threads, stream)
+            return lib.tk_adj_residual(
+                farplane.data_ptr(), data.data_ptr(), scan_int.data_ptr(),
+                near, scratch.data_ptr(), partial.data_ptr(), carry, t, s, nz,
+                n, nmodes, nprb, ndet, model_code, g0, g1, first, last, grid,
+                stride, stream)
+
+    grad = _scan_order(adj_residual, variant, launch, prb, scan_int, t, s,
+                       nz, n, chunk, grid, threads, farplane.device)
+    if t * s == 0:
+        partial.zero_()
     adj_residual.variant = variant
     return grad, partial.sum().to(torch.float32)
 

@@ -46,11 +46,12 @@ tiles). The fp32-atomic kernel it replaced, deterministic only up to the
 order in which overlapping patches land, stays only for timing the two in
 turns, forced with ``_scatter_conj_probe_cuda(..., variant='atomic')``
 (``scatter_conj_probe.variant`` names the last launch's). The tile kernel
-also continues from a stored partial object, which is how the fused tiers'
-``adj`` sums its frames chunk by chunk with the bits of one pass. The port's
-other object scatters (``grad_fused``, ``adj_residual``) still use fp32
-atomics. ``gather_probe_mul`` has no reduction, and ``adj_probe_reduce``
-sums fixed runs of positions in registers and the runs in a fixed order.
+sums each pixel in double and rounds it to fp32 once; it can also leave its
+running sums in double and continue from them, which is how the fused
+tiers' object scatters (``adj``, ``grad_fused``, ``adj_residual``) sum
+their frames chunk by chunk with the bits of one pass.
+``gather_probe_mul`` has no reduction, and ``adj_probe_reduce`` sums fixed
+runs of positions in registers and the runs in a fixed order.
 
 Each function takes CPU or CUDA tensors. On a CUDA tensor it launches its
 kernel or raises; on a CPU tensor it runs its ``*_reference``, the plain
@@ -186,6 +187,7 @@ adj_probe_reduce_reference.launches = 0
 _STRIDES = [ctypes.c_int64] * 4
 _GATHER_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
 _SCATTER_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + _STRIDES
+_TILE_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + _STRIDES
 # Argument types of each entry point of a library: pointers, ints (and the
 # frames' four strides), then the stream.
 _ENTRIES = {
@@ -193,7 +195,7 @@ _ENTRIES = {
                          "tk_gather_probe_mul_pixel": _GATHER_ARGS},
     "scatter_conj_probe": {
         # + tiles_y, tiles_x, mode_chunk, from_partial
-        "tk_scatter_conj_probe": _SCATTER_ARGS + [ctypes.c_int] * 4,
+        "tk_scatter_conj_probe": _TILE_ARGS + [ctypes.c_int] * 4,
         "tk_scatter_conj_probe_atomic": _SCATTER_ARGS},
     "adj_probe_reduce": {"tk_adj_probe_reduce": [ctypes.c_void_p] * 5
                          + [ctypes.c_int] * 7 + _STRIDES},
@@ -341,44 +343,65 @@ def scatter_blocks_per_sm(device_index: int, nmodes: int = 1) -> int:
 
 
 def _scatter_conj_probe_cuda(nearplane, scan_int, prb, nz, n, variant=None,
-                             out=None, from_partial=False):
+                             out=None, partial=None, from_partial=False,
+                             last=True):
     """Launches ``scatter_conj_probe``'s tile kernel, or the atomic kernel
     it replaced when ``variant='atomic'`` forces it (to time the two in
-    turns). The tile kernel writes into ``out`` where given (a contiguous
-    complex64 ``(t, nz, n)``), and with ``from_partial`` each pixel
-    continues from the value ``out`` holds: ``adj`` sums its chunks of
+    turns). The tile kernel sums each pixel in double. With ``last`` (the
+    default) it rounds the sums into ``out`` (a contiguous complex64 ``(t,
+    nz, n)``, made when not given) and returns it; without, it stores them
+    into ``partial`` (a contiguous complex128 ``(t, nz, n)``) and returns
+    that. With ``from_partial`` each pixel continues from the sum
+    ``partial`` holds: the fused tiers' object scatters sum their chunks of
     positions so, with the bits of one launch."""
     name = "scatter_conj_probe"
     variant = _scatter_variant(variant)
     t, s, m, p = _check_frames(name, nearplane, scan_int, prb, "prb")
     prb, scan_int = prb.contiguous(), scan_int.contiguous()
-    dev_i = fused._device_index(nearplane)
     if variant == "atomic":
         out = torch.zeros((t, nz, n), dtype=torch.complex64,
                           device=nearplane.device)
-        _launch(name, dev_i, nearplane.data_ptr(), prb.data_ptr(),
+        _launch(name, fused._device_index(nearplane), nearplane.data_ptr(),
+                prb.data_ptr(),
                 scan_int.data_ptr(), out.data_ptr(), t, s, nz, n, m, p,
                 *nearplane.stride()[:4], entry="tk_scatter_conj_probe_atomic")
-    else:
-        tiles_y, tiles_x, _ = scatter_tile_plan(t, nz, n)
-        if out is None:
-            # Every pixel is stored by the kernel, covered or not.
-            out = torch.empty((t, nz, n), dtype=torch.complex64,
-                              device=nearplane.device)
-        elif (out.shape != (t, nz, n) or out.dtype != torch.complex64
-              or out.device != nearplane.device or not out.is_contiguous()):
-            raise ValueError(f"{name}: out must be a contiguous complex64 "
+        scatter_conj_probe.launches += 1
+        scatter_conj_probe.variant = variant
+        return out
+    tiles_y, tiles_x, _ = scatter_tile_plan(t, nz, n)
+
+    def checked(x, dtype, what):
+        if (x.shape != (t, nz, n) or x.dtype != dtype
+                or x.device != nearplane.device or not x.is_contiguous()):
+            raise ValueError(f"{name}: {what} must be a contiguous {dtype} "
                              f"tensor of shape {(t, nz, n)} on "
                              f"{nearplane.device}")
-        if scan_int.data_ptr() % 8:  # read a position (8 bytes) at a time
-            scan_int = scan_int.clone()
-        _launch(name, dev_i, nearplane.data_ptr(), prb.data_ptr(),
-                scan_int.data_ptr(), out.data_ptr(), t, s, nz, n, m, p,
-                *nearplane.stride()[:4], tiles_y, tiles_x,
-                scatter_mode_chunk(m), int(bool(from_partial)))
+        return x
+
+    if partial is not None:
+        checked(partial, torch.complex128, "partial")
+    elif from_partial or not last:
+        raise ValueError(f"{name}: continuing from or keeping running sums "
+                         "needs partial")
+    if not last:
+        out = None
+    elif out is None:
+        # Every pixel is stored by the kernel, covered or not.
+        out = torch.empty((t, nz, n), dtype=torch.complex64,
+                          device=nearplane.device)
+    else:
+        checked(out, torch.complex64, "out")
+    if scan_int.data_ptr() % 8:  # read a position (8 bytes) at a time
+        scan_int = scan_int.clone()
+    _launch(name, fused._device_index(nearplane), nearplane.data_ptr(),
+            prb.data_ptr(), scan_int.data_ptr(),
+            None if out is None else out.data_ptr(),
+            None if partial is None else partial.data_ptr(), t, s, nz, n, m,
+            p, *nearplane.stride()[:4], tiles_y, tiles_x,
+            scatter_mode_chunk(m), int(bool(from_partial)))
     scatter_conj_probe.launches += 1
     scatter_conj_probe.variant = variant
-    return out
+    return out if last else partial
 
 
 def _adj_probe_reduce_cuda(nearplane, scan_int, psi):

@@ -133,3 +133,85 @@ def stall(rank: int, world: int, seconds: float):
     x = torch.ones(1)
     dist.all_reduce(x)
     return float(x)
+
+
+def tiling_mesh(mesh_shape, device_type="cpu"):
+    """The tiling mesh of ``mesh_shape``: ``(D,)`` an ``('obj',)`` mesh,
+    ``(D, S)`` an ``('obj', 'scan')`` mesh, ``(T, D, S)`` a ``('theta',
+    'obj', 'scan')`` mesh."""
+    from tikejax_torch.parallel import tiling
+
+    make = {1: tiling.make_obj_mesh, 2: tiling.make_obj_scan_mesh,
+            3: tiling.make_full_mesh}[len(mesh_shape)]
+    return make(*mesh_shape, device_type=device_type)
+
+
+def tiled(rank: int, world: int, mesh_shape, geometry, arrays: dict,
+          kw: dict):
+    """``run_tiled(data, psi0, scan, prb, geometry, mesh, **kw)`` on this
+    rank (:func:`tiling_mesh` of ``mesh_shape``). Returns {'out': its
+    result, metrics without 'cg_state', 'collectives' and 'halo': this
+    rank's all-reduces and halo broadcasts (with 'halo_bytes'), 'jax': the
+    jax modules this rank loaded, 'rank': rank}."""
+    from tikejax_torch.parallel import tiling
+    from tikejax_torch.solvers import cg
+
+    a = _tensors(arrays)
+    mesh = tiling_mesh(mesh_shape)
+    before = (cg.all_reduce.launches, cg.halo_exchange.launches,
+              cg.halo_exchange.bytes)
+    psi, prb, m = tiling.run_tiled(a["data"], a["psi0"], a["scan"], a["prb"],
+                                   geometry, mesh, **kw)
+    return {"out": (psi, prb, {k: v for k, v in m.items()
+                               if k != "cg_state"}),
+            "collectives": cg.all_reduce.launches - before[0],
+            "halo": cg.halo_exchange.launches - before[1],
+            "halo_bytes": cg.halo_exchange.bytes - before[2],
+            "jax": _jax_modules(), "rank": rank}
+
+
+def halo(rank: int, world: int, slabs, halo_rows: int):
+    """``cg.halo_exchange`` of this rank's slab ``slabs[rank]`` on a
+    ``('obj',)`` mesh of every rank: (the exchanged slab, the broadcasts
+    and bytes this rank took part in)."""
+    from tikejax_torch.solvers import cg
+
+    mesh = tiling_mesh((world,))
+    before = (cg.halo_exchange.launches, cg.halo_exchange.bytes)
+    x = cg.halo_exchange(torch.from_numpy(np.array(slabs[rank])),
+                         cg._halo_pairs(mesh, "obj"), halo_rows)
+    return (x, cg.halo_exchange.launches - before[0],
+            cg.halo_exchange.bytes - before[1])
+
+
+def tiled_errors(rank: int, world: int, mesh_shape, geometry, arrays: dict,
+                 cases: list):
+    """Each case ``(entry, kw)`` that must fail: ``'run_tiled'`` with
+    ``kw`` (``'mesh'`` in it replaces the mesh: ``'scan'`` a 1-D scan mesh
+    of ``parallel.make_mesh``), ``'reconstruct'`` with ``kw`` (a mesh the
+    same way), ``'mesh'`` with ``kw['shape']``. Returns one (exception
+    type, message) per case; ``(None, '')`` where a case did not raise."""
+    from tikejax_torch.parallel import sharding, tiling
+    from tikejax_torch.solvers import reconstruct
+
+    a = _tensors(arrays)
+    args = (a["data"], a["psi0"], a["scan"], a["prb"], geometry)
+    found = []
+    for entry, kw in cases:
+        kw = dict(kw)
+        try:
+            mesh = kw.pop("mesh", mesh_shape)
+            mesh = (sharding.make_mesh(device_type="cpu") if mesh == "scan"
+                    else tiling_mesh(mesh) if entry != "mesh" else None)
+            if entry == "run_tiled":
+                tiling.run_tiled(*args, mesh, **kw)
+            elif entry == "reconstruct":
+                reconstruct(*args, mesh=mesh, **kw)
+            elif entry == "mesh":
+                tiling_mesh(kw["shape"])
+            else:
+                raise AssertionError(f"unknown entry {entry!r}")
+            found.append((None, ""))
+        except (ValueError, NotImplementedError, RuntimeError) as e:
+            found.append((type(e).__name__, str(e)))
+    return found

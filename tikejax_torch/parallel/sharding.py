@@ -64,7 +64,6 @@ def make_mesh(n_devices: int | tuple[int, int] | None = None,
       collective). A mesh made before is returned again.
     """
     import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
 
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs a process group: call it on "
@@ -83,6 +82,15 @@ def make_mesh(n_devices: int | tuple[int, int] | None = None,
     if size != world:
         raise ValueError(f"mesh {n_devices} needs {size} devices, have "
                          f"{world} (the ranks of the process group)")
+    return _mesh(device_type, shape, names)
+
+
+def _mesh(device_type: str, shape: tuple, names: tuple):
+    """The ``DeviceMesh`` of ``shape`` and dimension ``names`` over every
+    rank, made once per process group."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
     # Keyed on the default group too: a mesh of a destroyed process group
     # holds groups that are gone.
     key = (dist.group.WORLD, device_type, shape, names)
@@ -100,6 +108,10 @@ def _axes(mesh) -> tuple[str | None, str]:
     if names is None or len(names) not in (1, 2):
         raise ValueError(f"expected a 1-D or 2-D mesh with named "
                          f"dimensions, got {names}")
+    if "obj" in names:
+        raise ValueError(f"a mesh with an 'obj' dimension ({names}) tiles "
+                         "the object: run it through "
+                         "tikejax_torch.parallel.run_tiled")
     if len(names) == 1:
         return None, names[0]
     return names[0], names[1]
@@ -300,6 +312,10 @@ def run_sharded(data, psi0, scan, prb0, geometry: Geometry, mesh,
         options = _cg.CGOptions(**kw)
     elif kw:
         options = dataclasses.replace(options, **kw)
+    for name, default in _cg.OBJ_FIELDS.items():
+        if getattr(options, name) != default:
+            raise ValueError(f"run_sharded: {name} names object tiling; "
+                             "run through tikejax_torch.parallel.run_tiled")
     options = _cg.normalize_options(options,
                                     diffraction._backend(psi0.device))
     theta_ax, scan_ax, tsh, nsh, ti, si = _layout(mesh)

@@ -59,22 +59,28 @@ the carried state (steps, the L-BFGS curvature ring and count) are host
 values, kept as 0-d or 1-d CPU tensors.
 
 On a mesh (``axis_name`` / ``theta_axis_name``, set by
-``tikejax_torch.parallel.run_sharded``, which hands ``run_impl`` the
-``DeviceMesh`` and the rank's slice of the problem) every rank runs this
-loop on its own positions, and the solver all-reduces (``torch.distributed``)
-exactly where the JAX package ``psum``s: the objective and every
-line-search value over all ranks, the object gradient and the illumination
-map over the scan axis, the probe gradient and its ``seen`` map over the
-scan axis, the object- and probe-domain inner products over the theta axis,
-``sum(data)`` and the Poisson offset over all ranks. Every branch of the
-step control then reads an all-reduced value, so the ranks stay in lock
-step, and gloo's all-reduce hands every rank the same bits, so a replicated
-object stays bitwise equal across ranks. :func:`all_reduce` counts the
-collectives.
+``tikejax_torch.parallel.run_sharded``, and ``obj_axis_name`` /
+``obj_halo`` / ``obj_axis_size``, set by ``tikejax_torch.parallel.
+run_tiled``, each of which hands ``run_impl`` the ``DeviceMesh`` and the
+rank's slice of the problem) every rank runs this loop on its own
+positions, and the solver all-reduces (``torch.distributed``) exactly where
+the JAX package ``psum``s: the objective and every line-search value over
+all ranks; the object gradient and the illumination map over the scan axis
+and then, under object tiling, through the halo exchange over the object
+axis (:func:`halo_exchange`, the JAX package's ``_halo_fix``), the
+illumination map's per-angle maximum over the object axis too; the probe
+gradient and its ``seen`` map over the scan and object axes; the
+object-domain inner products over the theta and object axes on the owned
+rows only (the halo rows mirror the next slab's), the probe-domain ones
+over the theta axis; ``sum(data)`` and the Poisson offset over all ranks.
+Every branch of the step control then reads an all-reduced value, so the
+ranks stay in lock step, and gloo's all-reduce hands every rank the same
+bits, so a replicated object stays bitwise equal across ranks.
+:func:`all_reduce` and :func:`halo_exchange` count the collectives.
 
-Not ported (each raises NotImplementedError naming ROADMAP.md): object
-tiling (the ``obj_*`` fields), the slab fields and the TPU slab planner /
-compile-retry ladder (``run`` calls ``run_impl`` directly).
+Not ported (each raises NotImplementedError naming ROADMAP.md): the slab
+fields and the TPU slab planner / compile-retry ladder (``run`` calls
+``run_impl`` directly).
 """
 
 from __future__ import annotations
@@ -188,6 +194,14 @@ class CGOptions:
     kernel: str = "auto"
     axis_name: str | None = None
     theta_axis_name: str | None = None
+    # Object-domain tiling (P3, tikejax_torch.parallel.tiling): the object's
+    # rows are cut into obj_axis_size slabs over the mesh dimension
+    # obj_axis_name; each rank holds its owned rows plus obj_halo halo rows
+    # below, which mirror the next slab's first rows (the probe-window
+    # overlap). run_tiled sets all three.
+    obj_axis_name: str | None = None
+    obj_halo: int = 0
+    obj_axis_size: int = 1
     verbose_every: int = 0
     precondition: str = "illum"
     lowk_boost: float = 4.0
@@ -209,35 +223,38 @@ class CGOptions:
 # The JAX package's remaining CGOptions fields with their defaults: a call
 # that keeps the default runs, any other value raises.
 _UNPORTED_FIELDS = {
-    "obj_axis_name": None, "obj_halo": 0,
-    "obj_axis_size": 1, "obj_slabs": 1,
-    "obj_slabs_partitioned": False, "obj_slab_rows": None,
+    "obj_slabs": 1, "obj_slabs_partitioned": False, "obj_slab_rows": None,
     "obj_slab_cols": 1, "kernel_frames": None,
 }
+# The object-tiling fields, which only run_tiled's mesh gives a meaning.
+OBJ_FIELDS = {"obj_axis_name": None, "obj_halo": 0, "obj_axis_size": 1}
 
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported to tikejax_torch yet; see ROADMAP.md "
-        "(queue 1 item 5 for object tiling, the obj_* fields; the slab "
+        f"{what} is not ported to tikejax_torch; see ROADMAP.md (the slab "
         "fields are under 'Not to port')")
 
 
-def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
-    """``x`` summed over the ranks of the process ``group``
-    (``torch.distributed.all_reduce``, in place on a contiguous ``x``, which
-    is returned). Counts its calls in ``all_reduce.launches``, the bytes it
-    reduced in ``all_reduce.bytes`` and the calls by size in
-    ``all_reduce.sizes`` ({bytes: calls}); gloo takes CUDA tensors for
-    it."""
+def _count(fn, nbytes: int) -> None:
+    fn.launches += 1
+    fn.bytes += nbytes
+    fn.sizes[nbytes] = fn.sizes.get(nbytes, 0) + 1
+
+
+def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """``x`` summed (``op='max'``: its maximum) over the ranks of the
+    process ``group`` (``torch.distributed.all_reduce``, in place on a
+    contiguous ``x``, which is returned). Counts its calls in
+    ``all_reduce.launches``, the bytes it reduced in ``all_reduce.bytes``
+    and the calls by size in ``all_reduce.sizes`` ({bytes: calls}); gloo
+    takes CUDA tensors for it."""
     import torch.distributed as dist
 
     x = x.contiguous()
-    dist.all_reduce(x, group=group)
-    nbytes = x.numel() * x.element_size()
-    all_reduce.launches += 1
-    all_reduce.bytes += nbytes
-    all_reduce.sizes[nbytes] = all_reduce.sizes.get(nbytes, 0) + 1
+    dist.all_reduce(x, op=dist.ReduceOp.MAX if op == "max"
+                    else dist.ReduceOp.SUM, group=group)
+    _count(all_reduce, x.numel() * x.element_size())
     return x
 
 
@@ -246,35 +263,149 @@ all_reduce.bytes = 0
 all_reduce.sizes = {}
 
 
+def halo_exchange(x: torch.Tensor, pairs, halo: int) -> torch.Tensor:
+    """The JAX package's ``_halo_fix`` of a slab-tiled object-domain
+    array ``x`` (t, owned + halo, n), in place, returned:
+
+    1. each slab's halo rows (partial sums that belong to the next slab's
+       first rows) go forward and are added there;
+    2. each slab's completed first rows go back into the previous slab's
+       halo rows, which so mirror them again; the last slab's halo rows
+       are zero (no slab follows it).
+
+    ``pairs`` is this rank's ``[(d, group, rank of slab d, rank of slab d +
+    1)]`` of the pair groups ``{d, d + 1}`` along the object dimension that
+    it belongs to, in increasing ``d`` (:class:`_Comm`). Each step is a
+    ``torch.distributed.broadcast`` in a pair group, which gloo takes for
+    CUDA tensors, as it takes no point-to-point send: every rank walks its
+    pairs in one global order, a chain serial in the number of slabs.
+    Counts each broadcast it takes part in in ``halo_exchange.launches``,
+    ``.bytes`` and ``.sizes``, as :func:`all_reduce` counts."""
+    import torch.distributed as dist
+
+    owned = x.shape[1] - halo
+    me = dist.get_rank()
+    for back in (False, True):
+        for _, group, lo, hi in pairs:
+            sending = (me == hi) if back else (me == lo)
+            strip = (x[:, :halo] if back else x[:, owned:]).contiguous()
+            buf = strip if sending else torch.empty_like(strip)
+            dist.broadcast(torch.view_as_real(buf) if buf.is_complex()
+                           else buf, src=hi if back else lo, group=group)
+            _count(halo_exchange, buf.numel() * buf.element_size())
+            if not sending and back:
+                x[:, owned:] = buf
+            elif not sending:
+                x[:, :halo] += buf
+    if not any(lo == me for _, _, lo, _ in pairs):
+        x[:, owned:] = 0  # the last slab
+    return x
+
+
+halo_exchange.launches = 0
+halo_exchange.bytes = 0
+halo_exchange.sizes = {}
+
+
+def _mesh_groups(mesh, dims: tuple[str, ...]):
+    """The process group of this rank over the mesh dimensions ``dims``
+    together (the ranks that share its coordinates along every other
+    dimension), made once per mesh and kept on it. Every rank makes every
+    such group, in the same order: a new group is a collective."""
+    import torch.distributed as dist
+
+    cache = mesh.__dict__.setdefault("_tikejax_groups", {})
+    if dims not in cache:
+        names = mesh.mesh_dim_names
+        layout = mesh.mesh.permute(
+            [names.index(d) for d in names if d not in dims]
+            + [names.index(d) for d in dims])
+        me = dist.get_rank()
+        mine = None
+        for ranks in layout.reshape(-1, math.prod(
+                mesh.size(names.index(d)) for d in dims)).tolist():
+            group = dist.new_group(ranks)
+            if me in ranks:
+                mine = group
+        cache[dims] = mine
+    return cache[dims]
+
+
+def _halo_pairs(mesh, dim: str):
+    """This rank's pair groups ``{d, d + 1}`` along the mesh dimension
+    ``dim``, as :func:`halo_exchange` takes them, made once per mesh (every
+    rank makes every pair group, in one order)."""
+    import torch.distributed as dist
+
+    cache = mesh.__dict__.setdefault("_tikejax_groups", {})
+    key = ("pairs", dim)
+    if key not in cache:
+        names = mesh.mesh_dim_names
+        at = names.index(dim)
+        layout = mesh.mesh.movedim(at, -1)
+        lines = layout.reshape(-1, layout.shape[-1]).tolist()
+        me = dist.get_rank()
+        mine = []
+        for line in lines:
+            for d in range(len(line) - 1):
+                lo, hi = line[d], line[d + 1]
+                group = dist.new_group([lo, hi])
+                if me in (lo, hi):
+                    mine.append((d, group, lo, hi))
+        cache[key] = sorted(mine, key=lambda pair: pair[0])
+    return cache[key]
+
+
 class _Comm:
-    """Where a run on a mesh reduces: the process groups of the scan axis
-    (``options.axis_name``), of the theta axis (``theta_axis_name``) and of
-    every rank (the JAX package's ``_scalar_axes``; a mesh that
-    ``run_sharded`` takes spans every rank). A dimension of one rank sums
-    nothing, and without a mesh every reduction is the identity."""
+    """Where a run on a mesh reduces (the JAX package's ``_scalar_axes``,
+    ``_grad_prb_axes``, ``_dot`` and ``_halo_fix``): the process groups of
+    the scan axis (``options.axis_name``), of the theta axis
+    (``theta_axis_name``), of the object axis (``obj_axis_name``), of every
+    rank (a mesh spans every rank), of the theta and object axes together
+    (the object-domain inner products) and of the scan and object axes
+    together (the probe-domain sums over positions); and the object axis'
+    pair groups of the halo exchange. A dimension of one rank sums nothing,
+    and without a mesh every reduction is the identity."""
 
     def __init__(self, o: CGOptions, mesh):
-        names = tuple(a for a in (o.theta_axis_name, o.axis_name)
-                      if a is not None)
+        names = tuple(a for a in (o.theta_axis_name, o.axis_name,
+                                  o.obj_axis_name) if a is not None)
         if names and mesh is None:
+            entry = ("run_tiled" if o.obj_axis_name is not None
+                     else "run_sharded")
             raise ValueError(
-                f"axis_name / theta_axis_name ({names}) name dimensions of "
-                "a mesh: run through tikejax_torch.parallel.run_sharded")
+                f"axis_name / theta_axis_name / obj_axis_name ({names}) "
+                "name dimensions of a mesh: run through "
+                f"tikejax_torch.parallel.{entry}")
 
-        def group(name):
-            if name is None or mesh.size(
-                    mesh.mesh_dim_names.index(name)) == 1:
+        def size(name):
+            return (1 if name is None
+                    else mesh.size(mesh.mesh_dim_names.index(name)))
+
+        def group(*dims):
+            dims = tuple(d for d in dims if size(d) > 1)
+            if not dims:
                 return None
-            return mesh.get_group(name)
+            if len(dims) == 1:
+                return mesh.get_group(dims[0])
+            return _mesh_groups(mesh, dims)
 
         self.scan = group(o.axis_name)
         self.theta = group(o.theta_axis_name)
-        if self.scan is not None and self.theta is not None:
+        self.obj = group(o.obj_axis_name)
+        # The halo rows are masked out of the inner products on any tiling
+        # mesh, and exchanged where there are two slabs or more.
+        self.halo = o.obj_halo if o.obj_axis_name is not None else 0
+        self.pairs = (_halo_pairs(mesh, o.obj_axis_name)
+                      if self.halo and self.obj is not None else [])
+        if self.obj is None and (self.scan is None or self.theta is None):
+            self.every = self.scan if self.scan is not None else self.theta
+        else:
             import torch.distributed as dist
 
             self.every = dist.group.WORLD
-        else:
-            self.every = self.scan if self.scan is not None else self.theta
+        self.obj_theta = group(o.theta_axis_name, o.obj_axis_name)
+        self.obj_scan = group(o.axis_name, o.obj_axis_name)
 
     @staticmethod
     def _sum(x, group):
@@ -286,14 +417,34 @@ class _Comm:
         return self._sum(x, self.every)
 
     def over_scan(self, x):
-        """An object- or probe-domain sum over the positions (a gradient,
-        the illumination or ``seen`` map): over the scan axis."""
-        return self._sum(x, self.scan)
+        """An object-domain sum over the positions (the object gradient,
+        the illumination map): over the scan axis, then under object tiling
+        the halo exchange over the object axis."""
+        x = self._sum(x, self.scan)
+        if x is not None and self.pairs:
+            x = halo_exchange(x, self.pairs, self.halo)
+        return x
 
-    def over_theta(self, x):
-        """A sum over the angles (an inner product of object- or
-        probe-domain arrays, which a theta mesh shards per angle)."""
-        return self._sum(x, self.theta)
+    def over_positions(self, x):
+        """A probe-domain sum over the positions (the probe gradient, the
+        ``seen`` map): over the scan and object axes."""
+        return self._sum(x, self.obj_scan)
+
+    def max_over_obj(self, x):
+        """The maximum over the object axis (the illumination map's
+        per-angle maximum under object tiling)."""
+        return x if self.obj is None else all_reduce(x, self.obj, op="max")
+
+    def owned(self, x):
+        """The owned rows of an object-domain array: the halo rows mirror
+        the next slab's and must not count twice in an inner product."""
+        return x[:, :x.shape[1] - self.halo] if self.halo else x
+
+    def over_theta(self, x, kind="psi"):
+        """A sum over the angles of inner products of object-domain
+        (``kind='psi'``, also over the object axis) or probe-domain
+        (``'prb'``) arrays."""
+        return self._sum(x, self.obj_theta if kind == "psi" else self.theta)
 
 
 def _lbfgs_memory(direction: str) -> int:
@@ -405,6 +556,10 @@ class _Engine:
                                  "object-only (the low-k filter has no "
                                  "probe analogue); run joint recovery "
                                  "with 'illum' first")
+            if o.obj_axis_name is not None:
+                raise ValueError("precondition='illum_lowk' needs the "
+                                 "full object spectrum; it does not "
+                                 "compose with object-domain tiling")
             if o.lowk_boost < 0 or not (0 < o.lowk_frac <= 0.5):
                 raise ValueError("lowk_boost must be >= 0 and lowk_frac "
                                  "in (0, 0.5]")
@@ -472,15 +627,19 @@ class _Engine:
         self.syncs += 1
         return float(x)
 
-    def dots(self, *pairs) -> torch.Tensor:
-        """The real inner products ``<a, b>`` of the object- or
-        probe-domain ``pairs``, stacked on the device and summed over the
-        theta axis in one collective (the JAX package's ``_dot``)."""
-        return self.comm.over_theta(torch.stack([_rdot(a, b)
-                                                 for a, b in pairs]))
+    def dots(self, *pairs, kind: str = "psi") -> torch.Tensor:
+        """The real inner products ``<a, b>`` of the object-domain
+        (``kind='psi'``) or probe-domain (``'prb'``) ``pairs``, stacked on
+        the device and summed over the mesh in one collective (the JAX
+        package's ``_dot``): object-domain arrays over the theta and object
+        axes, on their owned rows only; probe-domain ones over the theta
+        axis."""
+        own = self.comm.owned if kind == "psi" else (lambda x: x)
+        return self.comm.over_theta(torch.stack(
+            [_rdot(own(a), own(b)) for a, b in pairs]), kind)
 
-    def dot(self, a, b) -> torch.Tensor:
-        return self.dots((a, b))[0]
+    def dot(self, a, b, kind: str = "psi") -> torch.Tensor:
+        return self.dots((a, b), kind=kind)[0]
 
     # -- objective and gradient passes ----------------------------------
 
@@ -563,9 +722,10 @@ class _Engine:
     def _reduced(self, f0, gpsi, gprb, fpsi):
         """A gradient pass's results summed over the mesh where the JAX
         package ``psum``s them: the objective over every rank, the object
-        and the probe gradient over the scan axis."""
+        gradient over the scan axis (then the halo exchange), the probe
+        gradient over the scan and object axes."""
         return (self.comm.scalar(f0), self.comm.over_scan(gpsi),
-                self.comm.over_scan(gprb), fpsi)
+                self.comm.over_positions(gprb), fpsi)
 
     def minf_pass(self, psi, prb, scan_i, data):
         """The objective at ``psi`` (plus the base) through the frameless
@@ -752,11 +912,12 @@ class _Engine:
 
     # -- search directions -----------------------------------------------
 
-    def dy_direction(self, grad, grad_prev, d_prev):
+    def dy_direction(self, grad, grad_prev, d_prev, kind="psi"):
         """d = -g + beta * d_prev, beta = ||g||^2 / <d_prev, g - g_prev>_R
         (Dai-Yuan 1999); steepest descent when the denominator is 0. The
-        products are global (:meth:`dots`)."""
-        num, den = self.dots((grad, grad), (d_prev, grad - grad_prev))
+        products are global (:meth:`dots` of ``kind``)."""
+        num, den = self.dots((grad, grad), (d_prev, grad - grad_prev),
+                             kind=kind)
         beta = torch.where(den != 0, num / torch.where(den != 0, den, 1.0),
                            0.0)
         return -grad + beta.to(grad.dtype) * d_prev
@@ -868,12 +1029,15 @@ def _lowk_symbol(nz, n, boost, frac, dtype, device):
 
 
 def _illum_denominator(prb, scan_i, nz, n, comm=None):
-    """The probe-illumination map (summed over the scan axis on a mesh),
-    floored at 10% of its per-angle maximum."""
+    """The probe-illumination map (on a mesh summed over the scan axis,
+    then through the halo exchange), floored at 10% of its per-angle
+    maximum (under object tiling the maximum over every slab)."""
     illum = _patches.illumination_map(scan_i, _probe_power(prb), nz, n)
     if comm is not None:
         illum = comm.over_scan(illum)
     m = torch.amax(illum, dim=(-2, -1), keepdim=True)
+    if comm is not None:
+        m = comm.max_over_obj(m)
     return torch.maximum(illum, 0.1 * m)
 
 
@@ -908,8 +1072,9 @@ def _preconditioner(o: CGOptions, prb0, scan_i, nz, n, comm=None):
 def _probe_preconditioner(o: CGOptions, scan_i, comm=None):
     """``precond(gprb, psi)``, the probe-gradient preconditioner: for
     'illum', divide by the object power each probe pixel sees over all
-    positions (``patches.patch_power_map``, summed over the scan axis on a
-    mesh), floored at 10% of its maximum; otherwise the identity."""
+    positions (``patches.patch_power_map``, summed over the scan and object
+    axes on a mesh), floored at 10% of its maximum; otherwise the
+    identity."""
     if o.precondition != "illum":
         return lambda gprb, psi: gprb
 
@@ -917,7 +1082,7 @@ def _probe_preconditioner(o: CGOptions, scan_i, comm=None):
         seen = _patches.patch_power_map(scan_i, psi.abs()**2,
                                         gprb.shape[-1])
         if comm is not None:
-            seen = comm.over_scan(seen)
+            seen = comm.over_positions(seen)
         floor = 0.1 * torch.amax(seen, dim=(-2, -1), keepdim=True)
         return gprb / torch.maximum(seen, floor)[:, None]
     return precond
@@ -1058,14 +1223,14 @@ def run_impl(geometry: Geometry, options: CGOptions, data, psi0, scan, prb0,
                     want_prb=True)
                 f_p = eng.host(f_t)
                 gp = precond_prb(gp_raw, psi)
-                d_prb = eng.dy_direction(gp, g_prb_prev, d_prb)
+                d_prb = eng.dy_direction(gp, g_prb_prev, d_prb, kind="prb")
                 gamma0_p = eng.gamma0(gam_p_prev, gam0_p_prev)
                 search = eng.searcher(psi, prb, scan, scan_i, data, fpsi,
                                       dprb=d_prb)
                 del fpsi
                 gamma_p = search(f_p, gamma0_p,
-                                 lambda: 2.0 * eng.host(eng.dot(gp_raw,
-                                                                d_prb)))
+                                 lambda: 2.0 * eng.host(eng.dot(
+                                     gp_raw, d_prb, kind="prb")))
                 del search
                 if gamma_p != 0.0:
                     prb = prb + gamma_p * d_prb

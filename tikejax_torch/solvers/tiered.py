@@ -57,8 +57,10 @@ the global one without a collective. Mesh runs keep the farplane-reusing
 safeguard, as the JAX package's do. Rank 0 writes the checkpoints, from
 the global state; every rank reads them.
 
-Object tiling (the ``obj_*`` fields) raises NotImplementedError naming
-ROADMAP.md. The TPU slab backstop (``_maybe_slab_partition``) and
+Object-tiled meshes (an ``'obj'`` dimension) and the ``obj_*`` fields
+raise ValueError: they are ``parallel.run_tiled``-only, as in the JAX
+package, whose driver's iterate algebra works on whole-object arrays, not
+overlapping slabs. The TPU slab backstop (``_maybe_slab_partition``) and
 ``hostio`` are not ported by design.
 """
 
@@ -175,6 +177,15 @@ def reconstruct(data, psi0, scan, prb0, geometry: Geometry,
         options = _cg.CGOptions(**kw)
     elif kw:
         options = dataclasses.replace(options, **kw)
+    tiled = [f"{name}={getattr(options, name)!r}"
+             for name, default in _cg.OBJ_FIELDS.items()
+             if getattr(options, name) != default]
+    if tiled or "obj" in (getattr(mesh, "mesh_dim_names", None) or ()):
+        raise ValueError(
+            "reconstruct: object-tiled ('obj', ...) meshes are run_tiled-only "
+            "(tikejax_torch.parallel.run_tiled): the driver's iterate "
+            "algebra works on whole-object arrays, not overlapping slabs"
+            + (f"; got {', '.join(tiled)}" if tiled else ""))
     if target_residual <= 0:
         raise ValueError("target_residual must be > 0; for fixed-count "
                          "runs use tikejax_torch.solvers.run")

@@ -10,8 +10,10 @@ positions, 128^2 probe and detector, one mode) it times ``grad_fused``,
 variant -- as launched, without the data prefetch, at 512 threads -- and on
 the forced ``'gemm'`` variant; then ``grad_fused`` and ``adj_probe`` built
 from patched copies of ``csrc/`` that each leave one phase of the kernel out
-(the transforms, the scatter's atomics, the data read, the gather's loads;
-the farplane load, the partial's update), which says what that phase costs.
+(the transforms, the store of the cropped frames the tile scatter sums, the
+data read, the gather's loads; the farplane load, the partial's update),
+which says what that phase costs (``grad_fused`` as launched: its frame
+kernel and the tile scatter).
 
 ``scatter`` times ``scatter_conj_probe``'s tile kernel at one mode and at
 4 modes against the forced atomic kernel; then the tile kernel on inputs
@@ -48,11 +50,9 @@ PATCHES = {
     "no transforms": ("grad_fused", [(
         "dft_frame.cuh", "  auto row_at = [](int r, int e) {",
         "  __syncthreads();\n  return;\n  auto row_at = [](int r, int e) {")]),
-    "no scatter atomics": ("grad_fused", [(
-        "dft_frame.cuh",
-        "    scatter_add_pixel(grad, th, nz, n, sy + y, sx + x, g);",
-        "    if (g.x == 12345.f) scatter_add_pixel(grad, th, nz, n, sy + y, "
-        "sx + x, g);")]),
+    "no crop store": ("grad_fused", [(
+        "dft_frame.cuh", "    nr[i] = fr[fft_near_index<kD>(y, x)];",
+        "    if (p < 0) nr[i] = fr[fft_near_index<kD>(y, x)];")]),
     "no data read": ("grad_fused", [(
         "dft_frame.cuh", "staged != nullptr ? staged[i] : __ldcs(dat + i),",
         "1.0f,")]),
