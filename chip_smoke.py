@@ -40,7 +40,8 @@ is caught):
                   kernel it replaced on the headline (one position masked)
                   and on awkward cases (n 101 and 102, nprb 56, 55 and 48,
                   2 angles x 2 modes, strided crops, windows on the last
-                  row and column), every position masked giving exactly
+                  row and column), the same bits with its chunk skip
+                  forced off, every position masked giving exactly
                   zero; kernel and
                   plain times at the headline size beside each kernel's
                   bound; <fwd(x), y> = <x, adj(y)> to 1e-5 at the headline.
@@ -204,7 +205,26 @@ is caught):
                   Gaussian) on a (2, 2) ('obj', 'scan') mesh (four ranks),
                   8 iterations, each held to the one-rank run as in phase
                   17; halo broadcasts and bytes, all-reduces per iteration
-                  and each rank's real and padded positions are printed.
+                  and each rank's real and padded positions are printed;
+ 19. large     -- the JAX package's large-object configurations, which
+                  its TPU runs through object row slabs, here whole: 1024^2
+                  and 2048^2 objects with 16384 positions and 1024^2 with
+                  65536 (128^2 probe and detector, Gaussian, defaults)
+                  through solvers.run (100, 100 and 32 iterations after a
+                  warm-up: the residual fallen tenfold, grad_fused and the
+                  tile scatter once a chunk of frames an evaluation, peak
+                  extra memory below the frame scratch and 24 objects),
+                  reconstruct to 1e-5 on the first (the reference's deep
+                  slab row); before the runs at the two larger, grad_fused
+                  (in scan order), minf_fused, fwd, adj, adj_probe and the
+                  tile scatter against their plain versions over chunks of
+                  8192 positions, the tile scatter bitwise repeatable and
+                  the same bits with and without its chunk skip, grad_fused
+                  the same bits at 512 and 32 MiB of frame scratch, each
+                  timed beside its bound, and the tile kernel's walk alone
+                  (every position masked, every chunk walked); the tile
+                  scatter with and without the skip in turns at the
+                  headline and at 2048^2.
 No phase may run a plain version on the main path.
 The line before the last is the card's nvidia-smi line; before it, one JSON
 line describing each kernel (its launches on each phase that ran it, with
@@ -375,6 +395,28 @@ OPTION_ITERS = 32
 LS_STEPS = [0.5 ** k for k in range(17)]  # the solver's default K
 # Iterations of the profiled windows of phases 7, 8 and 13.
 PROFILE_ITERS = 8
+# Phase 19, large: the JAX package's large-object capability
+# configurations (BASELINE.md rows "Slab campaign measured", "Large-object
+# capability rows", "Deep time-to-target at slab scale"), which its TPU runs
+# through row slabs of the object; here whole, on one card. Gaussian, solver
+# defaults, one angle, one mode, 128^2 probe and detector.
+LARGE = {"1024": dict(nz=1024, n=1024, nscan=16384, ndet=128, nprb=128),
+         "2048": dict(nz=2048, n=2048, nscan=16384, ndet=128, nprb=128),
+         "64k": dict(nz=1024, n=1024, nscan=65536, ndet=128, nprb=128)}
+LARGE_ITERS = {"1024": 100, "2048": 100, "64k": 32}
+# reconstruct's target on LARGE["1024"]: the reference's deep slab row.
+LARGE_TARGET = 1e-5
+LARGE_MAX_SEGMENTS = 16
+# Positions per plain-version chunk at one mode: 1 GiB of frames.
+LARGE_CHUNK = 8192
+# Frame scratch (MiB) at which grad_fused's object scatter must give the
+# same bits.
+LARGE_BUDGETS = (512, 32)
+# Peak extra memory of a large run: the frame scratch beside this many
+# object-sized complex64 arrays (the solver's vectors and the scatter's
+# running sums in double); at 1024^2 that is under the 1 GiB of data, so a
+# data-sized temporary shows.
+LARGE_OBJECTS = 24
 
 
 def log(phase: str, msg: str) -> None:
@@ -800,7 +842,8 @@ def scatter_entry(kernels, nmodes: int) -> str:
 
 def scatter_as_tile(torch, kernels, frames, scan_i, prb, nz, n):
     """scatter_conj_probe's tile kernel (as launched) on ``frames`` (any
-    strides): bitwise repeatable, within GRAD_TOL of scale of the plain
+    strides): bitwise repeatable, the same bits with every chunk of the
+    scan walked (no chunk skip), within GRAD_TOL of scale of the plain
     version and within SCATTER_ORDER_TOL of the forced atomic kernel it
     replaced; with every position masked exactly zero (the output is not
     zeroed before the kernel, so a pixel it missed would show). Returns
@@ -811,6 +854,10 @@ def scatter_as_tile(torch, kernels, frames, scan_i, prb, nz, n):
     check(torch.equal(got, kernels.scatter_conj_probe(frames, scan_i, prb, nz,
                                                       n)),
           ("scatter_conj_probe is not bitwise repeatable",
+           tuple(frames.shape), nz, n))
+    check(torch.equal(got, kernels._scatter_conj_probe_cuda(
+        frames, scan_i, prb, nz, n, skip=False)),
+          ("scatter_conj_probe: the chunk skip changed the bits",
            tuple(frames.shape), nz, n))
     ref = kernels.scatter_conj_probe_reference(frames, scan_i, prb, nz, n)
     old = kernels._scatter_conj_probe_cuda(frames, scan_i, prb, nz, n,
@@ -1143,6 +1190,225 @@ def tiled_job(rank, world, mesh_shape, geom, seed, kw, perturb=0.0):
     del data, scan, psi0
     torch.cuda.empty_cache()
     return out
+
+
+def scatter_skip_turns(torch, timer, kernels, label, frames, scan_i, prb,
+                       nz, n):
+    """scatter_conj_probe's tile kernel with the chunk skip against the
+    forced walk over every chunk: the same bits, then (skip ms, no-skip
+    ms) in turns."""
+    got = kernels.scatter_conj_probe(frames, scan_i, prb, nz, n)
+    check(torch.equal(got, kernels._scatter_conj_probe_cuda(
+        frames, scan_i, prb, nz, n, skip=False)),
+          (label, "the chunk skip changed the bits"))
+    del got
+    return in_turns_ms(
+        torch, timer, f"scatter skip {label}",
+        lambda: kernels.scatter_conj_probe(frames, scan_i, prb, nz, n),
+        lambda: kernels._scatter_conj_probe_cuda(frames, scan_i, prb, nz, n,
+                                                 skip=False))
+
+
+def large_kernels(torch, fused, kernels, g, psi, data, scan_i, prb, card,
+                  gen):
+    """Phase 19's kernels at a large shape, outside the counted runs:
+    grad_fused (in scan order), minf_fused, fwd, adj and adj_probe
+    against their plain versions over chunks of positions
+    (:func:`compare_at_scale`, with and without a base); the tile scatter
+    against its plain version, bitwise across launches, with and without
+    the chunk skip, and grad_fused's gradient the same bits at 512 and 32
+    MiB of frame scratch; each timed (median of 10) beside its bound, and
+    the tile kernel's walk alone (every position masked, every chunk
+    walked). Returns {kernel: (abs err, ms, bound)} and the scatter's
+    extra times."""
+    psi_r = psi + 0.05 * torch.randn(psi.shape, dtype=psi.dtype,
+                                     device=psi.device, generator=gen)
+    base = fused.fwd(0.5 * psi_r, scan_i, prb, g.ndet, split_out=True)
+    errs = compare_at_scale(torch, fused, g, psi_r, data, scan_i, prb, base,
+                            LARGE_CHUNK)
+    frames = fused._base_complex(base)
+    parts = [slice(i, min(i + LARGE_CHUNK, g.nscan))
+             for i in range(0, g.nscan, LARGE_CHUNK)]
+    s_k = kernels.scatter_conj_probe(frames, scan_i, prb, g.nz, g.n)
+    check(kernels.scatter_conj_probe.variant == "tile" and torch.equal(
+        s_k, kernels.scatter_conj_probe(frames, scan_i, prb, g.nz, g.n))
+        and torch.equal(s_k, kernels._scatter_conj_probe_cuda(
+            frames, scan_i, prb, g.nz, g.n, skip=False)),
+          (str(g), "the tile scatter is not the same bits"))
+    s_r = sum(kernels.scatter_conj_probe_reference(
+        frames[:, c], scan_i[:, c], prb, g.nz, g.n) for c in parts)
+    errs["scatter_conj_probe"] = rel_err(torch, s_k, s_r)
+    check(bool(torch.isfinite(s_k).all())
+          and errs["scatter_conj_probe"][0] <= GRAD_TOL,
+          (str(g), "scatter_conj_probe", errs["scatter_conj_probe"]))
+    del s_k, s_r
+    grads = []
+    for mib in LARGE_BUDGETS:
+        chunk = mib * 2**20 // (g.nmodes * g.nprb**2 * 8)
+        grads.append(fused._grad_fused_cuda(psi_r, data, scan_i, prb, g.ndet,
+                                            "gaussian", None, chunk=chunk))
+    check(all(torch.equal(x[0], grads[0][0])
+              and float(x[1]) == float(grads[0][1]) for x in grads),
+          (str(g), "grad_fused: not the same bits at every frame scratch"))
+    del grads
+    masked = scan_i.clone()
+    masked[..., 0] = -1
+    px = psi_r.numel() * 8
+    times = {
+        "grad_fused": (lambda: fused.grad_fused(
+            psi_r, data, scan_i, prb, g.ndet, "gaussian"),
+            bound(fft_flops(scan_i, g.nmodes, g.ndet, 2),
+                  nbytes(psi_r, prb, data, scan_i) + px + 4)),
+        "minf_fused": (lambda: fused.minf_fused(
+            psi_r, data, scan_i, prb, g.ndet, "gaussian"),
+            bound(fft_flops(scan_i, g.nmodes, g.ndet, 1),
+                  nbytes(psi_r, prb, data, scan_i) + 4)),
+        "fwd": (lambda: fused.fwd(psi_r, scan_i, prb, g.ndet),
+                bound(fft_flops(scan_i, g.nmodes, g.ndet, 1),
+                      nbytes(psi_r, prb, scan_i, frames))),
+        "scatter_conj_probe": (lambda: kernels.scatter_conj_probe(
+            frames, scan_i, prb, g.nz, g.n),
+            bound(8 * frames.numel(), nbytes(frames, prb, scan_i) + px)),
+    }
+    out = {}
+    for name, (fn, bnd) in times.items():
+        fn()
+        out[name] = (errs[name][1], median_ms(torch, fn, 10), bnd)
+    noskip = median_ms(torch, lambda: kernels._scatter_conj_probe_cuda(
+        frames, scan_i, prb, g.nz, g.n, skip=False), 10)
+    walk = median_ms(torch, lambda: kernels._scatter_conj_probe_cuda(
+        frames, masked, prb, g.nz, g.n, skip=False), 10)
+    tiles_y, tiles_x, _ = kernels.scatter_tile_plan(g.ntheta, g.nz, g.n)
+    log("large", f"{g} kernels against their plain versions (over chunks "
+        f"of {LARGE_CHUNK} positions; grad_fused, minf_fused, fwd with and "
+        "without a split-view base, adj and adj_probe on it): " + ", ".join(
+            f"{k} err {e:.2e}" for k, (e, _) in errs.items())
+        + "; the tile scatter bitwise repeatable and the same bits with "
+        "and without the chunk skip, grad_fused the same bits at "
+        f"{' and '.join(str(b) for b in LARGE_BUDGETS)} MiB of frame "
+        "scratch; median of 10: " + ", ".join(
+            f"{k} {ms:.3f} ms (bound {b[0]:.3f} by {b[1]})"
+            for k, (_, ms, b) in out.items())
+        + f"; the tile scatter without the skip {noskip:.3f} ms, its walk "
+        f"alone (every position masked, every chunk walked) {walk:.3f} ms: "
+        f"{100 * walk / noskip:.1f}% of it ({tiles_y * tiles_x} tiles x "
+        f"{g.nscan} positions); on {card}")
+    return out, {"noskip_ms": noskip, "walk_ms": walk}
+
+
+def large_phase(torch, dev, card, timer, reset_counts, counters, plain):
+    """Phase 19 (see the module note): returns ({run label: (launches,
+    the shape of one call)}, {configuration: kernel times}, the tile
+    scatter in turns with and without the chunk skip)."""
+    from tikejax_torch import Geometry
+    from tikejax_torch.models import make_problem
+    from tikejax_torch.models.simulate import make_probe, raster_scan
+    from tikejax_torch.ops import fused, kernels
+    from tikejax_torch.ops.patches import scan_to_int
+    from tikejax_torch.solvers import reconstruct, run
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    # The tile scatter in turns with and without the skip at the headline
+    # frame size (random frames; no data needed).
+    gh = Geometry(**HEADLINE)
+    scan_h = scan_to_int(raster_scan(gen, gh, device=dev))
+    prb_h = make_probe(1, 1, gh.nprb, device=dev)
+    frames_h = torch.randn(gh.farplane_shape, dtype=torch.complex64,
+                           device=dev, generator=gen)
+    turns = {"headline": scatter_skip_turns(torch, timer, kernels, "headline",
+                                            frames_h, scan_h, prb_h, gh.nz,
+                                            gh.n)}
+    del frames_h
+    counts, kernel_times = {}, {}
+    for label, geom in LARGE.items():
+        g = Geometry(**geom)
+        t0 = time.perf_counter()
+        _, scan, prb, data = make_problem(gen, g, device=dev)
+        torch.cuda.synchronize()
+        made_s = time.perf_counter() - t0
+        psi0 = torch.ones(g.psi_shape, dtype=torch.complex64, device=dev)
+        scan_i = scan_to_int(scan)
+        if label != "1024":
+            kernel_times[label] = large_kernels(
+                torch, fused, kernels, g, psi0, data, scan_i, prb, card, gen)
+            if label == "2048":
+                turns[label] = scatter_skip_turns(
+                    torch, timer, kernels, label, torch.randn(
+                        g.farplane_shape, dtype=torch.complex64, device=dev,
+                        generator=gen), scan_i, prb, g.nz, g.n)
+            torch.cuda.empty_cache()
+        run(data, psi0, scan, prb, g, piter=3)  # warm-up
+        held = reset_counts()
+        t0 = time.perf_counter()
+        psi, _, m = run(data, psi0, scan, prb, g, piter=LARGE_ITERS[label],
+                        model="gaussian")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) - held
+        counts[f"large {label}"] = ({fn.__name__: fn.launches
+                                     for fn in counters}, shape(g))
+        check(all(fn.launches == 0 for fn in plain), "plain version ran")
+        chunks = frame_launches(fused, *shape(g))
+        check(fused.grad_fused.launches == m["evaluations"] * chunks > 0
+              and kernels.scatter_conj_probe.launches
+              == fused.grad_fused.launches,
+              (label, fused.grad_fused.launches, m["evaluations"], chunks))
+        iters = int(m["iters_run"])
+        res = m["residual"][:iters].cpu()
+        limit = fused.FRAME_SCRATCH_BYTES + LARGE_OBJECTS * psi0.numel() * 8
+        check(psi.shape == g.psi_shape and bool(torch.isfinite(psi).all()),
+              (label, "psi shape or finiteness"))
+        check(float(res[-1]) <= 0.1 * float(res[0]), (label, res))
+        check(peak <= limit, (label, f"peak extra memory {peak} bytes"))
+        log("large", f"{label}: {g} gaussian, solver defaults, made in "
+            f"{made_s:.1f} s; {iters} iters in {seconds:.3f} s: "
+            f"{iters / seconds:.2f} iters/s, {1e3 * seconds / iters:.2f} "
+            f"ms/iter, {m['evaluations'] / iters:.2f} evals/iter, "
+            f"{m['host_syncs'] / iters:.2f} host syncs/iter, residual "
+            f"{float(res[0]):.4e} -> {float(res[-1]):.4e}, peak extra "
+            f"memory {peak / 2**20:.1f} MiB (limit {limit / 2**20:.1f}: the "
+            f"frame scratch and {LARGE_OBJECTS} objects), grad_fused and "
+            f"the tile scatter {fused.grad_fused.launches} launches each "
+            f"({chunks} chunks of frames an evaluation), on {card}")
+        del psi, m
+        if label == "1024":
+            held = reset_counts()
+            t0 = time.perf_counter()
+            psi, _, stages = reconstruct(data, psi0, scan, prb, g,
+                                         target_residual=LARGE_TARGET,
+                                         max_segments=LARGE_MAX_SEGMENTS)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated(dev) - held
+            counts["large 1024 deep"] = ({fn.__name__: fn.launches
+                                          for fn in counters}, shape(g))
+            check(all(fn.launches == 0 for fn in plain), "plain version ran")
+            iters = [int(mm["iters_run"]) for _, mm in stages]
+            evals = sum(mm["evaluations"] for _, mm in stages)
+            n_split = sum(1 for name, _ in stages if name.startswith("split:"))
+            res_end = final_residual(stages)
+            check(bool(torch.isfinite(psi).all()), "psi finiteness")
+            check(res_end <= LARGE_TARGET, (label, "deep", res_end,
+                                            len(stages)))
+            check(fused.grad_fused.launches == evals * chunks > 0,
+                  (label, "deep", fused.grad_fused.launches, evals))
+            log("large", f"{label}: {g} reconstruct(target_residual="
+                f"{LARGE_TARGET:g}) defaults from psi0 = ones: "
+                f"{seconds:.3f} s, {sum(iters)} iters in {len(stages)} "
+                f"stages ({n_split} refinement segments) "
+                f"{[f'{n}:{k}' for (n, _), k in zip(stages, iters)]}, final "
+                f"residual {res_end:.4e}, {evals / sum(iters):.3f} "
+                f"evals/iter, peak extra memory {peak / 2**30:.3f} GiB, "
+                f"launches {counts['large 1024 deep'][0]}, on {card}")
+            del psi, stages
+        del data, scan, prb, psi0, scan_i
+        torch.cuda.empty_cache()
+    log("large", "the tile scatter with the chunk skip / every chunk walked, "
+        "5 back-to-back launches each in turns walked, skip, skip, walked: "
+        + "; ".join(f"{k} {new:.3f} / {old:.3f} ms ({old / new:.2f}x)"
+                    for k, (new, old) in turns.items())
+        + f"; the same bits; on {card}")
+    return counts, kernel_times, turns
 
 
 def final_residual(stages) -> float:
@@ -1906,7 +2172,8 @@ def main() -> None:
     s_old = kernel_report(cuda_build, built["scatter_conj_probe"][2],
                           SCATTER_ATOMIC_ENTRY)
     tiles_y, tiles_x, _ = kernels.scatter_tile_plan(g.ntheta, g.nz, g.n)
-    # The walk reads the scan once a tile: its bytes against the frames'.
+    # Walked whole (no chunk skip), the scan is read once a tile: its bytes
+    # against the frames'.
     walk = tiles_y * tiles_x / (g.nmodes * g.nprb**2)
     log("kernel", f"headline {g} scatter_conj_probe: tile ({tile0[0]}x"
         f"{tile0[1]}) / "
@@ -1920,7 +2187,7 @@ def main() -> None:
         + f"; tile {s_regs['registers']} registers, "
         f"{s_regs['spill_stores'] + s_regs['spill_loads']} spill bytes, "
         f"{s_regs['smem']} B static shared memory, {s_per_sm} blocks/SM; "
-        f"atomic {s_old['registers']} registers; the walk's scan reads "
+        f"atomic {s_old['registers']} registers; walked whole, the scan reads "
         f"{100 * walk:.2f}% of the frame bytes ({tiles_y * tiles_x} tiles); "
         "err against the plain version / the atomic kernel on the headline "
         f"with one position masked {scatter_head[0]:.2e}/"
@@ -2834,6 +3101,14 @@ def main() -> None:
         del ranks, single
         torch.cuda.empty_cache()
 
+    # -- 19. large: objects past the headline's 512^2, whole ---------------
+    large_counts, large_times, large_turns = large_phase(
+        torch, dev, card, timer, reset_counts, counters, plain)
+    for times, _ in large_times.values():
+        for name, (abs_err, _, _) in times.items():
+            results[name] = ((max(results[name][0], abs_err),)
+                             + results[name][1:])
+
     # Launches of each kernel on each phase, with the frames (positions
     # times modes) of one launch there: the times above are at the headline
     # frame size (16384 frames), and a phase's share is launches x time
@@ -2869,6 +3144,7 @@ def main() -> None:
         **{f"sharded {k}": v for k, v in sharded_counts.items()},
         # Over the ranks; the shape of one rank's call.
         **{f"tiled {k}": v for k, v in tiled_counts.items()},
+        **large_counts,
     }
     by_path = {name: {phase: {"launches": counts[name],
                               "frames": launch_frames(name, counts, *dims)}
@@ -2890,8 +3166,16 @@ def main() -> None:
            if name == "ls_objectives" else {}),
         **({"variant": "persistent", "pixel_ms": gather_pixel_ms}
            if name == "gather_probe_mul" else {}),
-        **({"variant": "tile", "atomic_ms": scatter_atomic_ms}
+        **({"variant": "tile", "atomic_ms": scatter_atomic_ms,
+            "skip_in_turns_ms": {k: {"skip": new, "every_chunk": old}
+                                 for k, (new, old) in large_turns.items()}}
            if name == "scatter_conj_probe" else {}),
+        **({"large": {k: {"ms": times[name][1], "bound_ms": times[name][2][0],
+                          "bound_by": times[name][2][1],
+                          **(extra if name == "scatter_conj_probe" else {})}
+                      for k, (times, extra) in large_times.items()}}
+           if name in ("grad_fused", "minf_fused", "fwd",
+                       "scatter_conj_probe") else {}),
         **({"atomic_ms": adj_atomic_ms} if name == "adj" else {}),
         **({"atomic_ms": scan_order_atomic_ms[name]}
            if name in scan_order_atomic_ms else {})}

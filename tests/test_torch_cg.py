@@ -133,13 +133,13 @@ def test_target_residual(problem):
 
 
 def test_ported_options_mirror_jax():
-    """Every ported field has the JAX package's name and default; every
-    other JAX field is listed as unported with its JAX default."""
+    """Every field has the JAX package's name and default, and every JAX
+    field is ported (the slab fields as a contract: validated, then the
+    whole-object solve)."""
     jf = {f.name: f.default for f in dataclasses.fields(jcg.CGOptions)}
     tf = {f.name: f.default for f in dataclasses.fields(tcg.CGOptions)}
     assert all(jf[k] == v for k, v in tf.items())
-    assert set(jf) == set(tf) | set(tcg._UNPORTED_FIELDS)
-    assert all(jf[k] == v for k, v in tcg._UNPORTED_FIELDS.items())
+    assert set(jf) == set(tf)
 
 
 @pytest.mark.parametrize("kw", [
@@ -222,15 +222,14 @@ def test_verbose_every_prints(problem, capsys):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(axis_name="scan"), dict(obj_slabs=2), dict(obj_axis_name="obj"),
-    dict(obj_halo=3),
+    dict(axis_name="scan"), dict(obj_axis_name="obj"), dict(obj_halo=3),
 ], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items())[:40])
 def test_unported_options_raise(problem, kw):
-    """The slab fields raise, naming ROADMAP.md ('Not to port'); the mesh
-    axes are ported, and name dimensions of a mesh, which only
+    """The mesh axes name dimensions of a mesh, which only
     ``parallel.run_sharded`` (the scan and theta axes) and
     ``parallel.run_tiled`` (the object axis) supply; ``obj_halo`` without
-    an object axis changes nothing, as in the JAX package."""
+    an object axis changes nothing, as in the JAX package. (The slab
+    fields are ported as a contract: ``tests/test_torch_large.py``.)"""
     data, psi0, scan, prb, _ = map(cpu, problem)
     if "axis_name" in kw or "obj_axis_name" in kw:
         entry = "run_tiled" if "obj_axis_name" in kw else "run_sharded"
@@ -238,20 +237,16 @@ def test_unported_options_raise(problem, kw):
             tcg.run(data, psi0, scan, prb, geometry_from(GEOM), piter=2,
                     **kw)
         return
-    if "obj_halo" in kw:
-        psi, _, m = tcg.run(data, psi0, scan, prb, geometry_from(GEOM),
-                            piter=2, kernel="xla", **kw)
-        psi_1, _, m_1 = tcg.run(data, psi0, scan, prb, geometry_from(GEOM),
-                                piter=2, kernel="xla")
-        assert torch.equal(psi, psi_1) and torch.equal(m["minf"],
-                                                       m_1["minf"])
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP") as err:
-        tcg.run(data, psi0, scan, prb, geometry_from(GEOM), piter=2, **kw)
-    assert "Not to port" in str(err.value)
+    psi, _, m = tcg.run(data, psi0, scan, prb, geometry_from(GEOM),
+                        piter=2, kernel="xla", **kw)
+    psi_1, _, m_1 = tcg.run(data, psi0, scan, prb, geometry_from(GEOM),
+                            piter=2, kernel="xla")
+    assert torch.equal(psi, psi_1) and torch.equal(m["minf"], m_1["minf"])
 
 
 def test_unported_fields_at_default_run(problem):
+    """The slab fields at their defaults (and any other field) run; an
+    unknown keyword raises TypeError, as CGOptions does."""
     data, psi0, scan, prb, _ = map(cpu, problem)
     _, _, m = tcg.run(data, psi0, scan, prb, geometry_from(GEOM), piter=2,
                       fused_linesearch=False, obj_slabs=1, carry_state=False)

@@ -38,7 +38,8 @@ forced, is held to the same values. ``gather_probe_mul`` launches its
 persistent kernel; the pixel kernel it replaced, forced, writes the same
 bits. ``scatter_conj_probe`` launches its tile kernel; the atomic kernel it
 replaced, forced, is held to the same values within 1e-5 of scale, and the
-tile kernel writes the same bits whatever the frames' strides.
+tile kernel writes the same bits whatever the frames' strides, and with or
+without its chunk skip.
 """
 
 import pytest
@@ -1231,6 +1232,74 @@ def test_tile_scatter_writes_every_pixel(dev):
             assert float(got[covered].abs().min()) > 0.0
             assert close(got, kernels.scatter_conj_probe_reference(
                 near, scan_i, prb, g.nz, g.n), 1e-5)
+
+
+# -- the tile kernel's chunk skip -------------------------------------------
+
+# A scan longer than one 256-position chunk, on two angles and two modes, so
+# that chunks miss tiles and a launch can start past a chunk's start.
+LONG_SCAN = Geometry(nz=200, n=180, nscan=700, ndet=32, nprb=24, ntheta=2,
+                     nmodes=2)
+
+
+@pytest.mark.parametrize("g", SCATTER_GEOMS + [LONG_SCAN], ids=str)
+def test_tile_scatter_skip_writes_the_same_bits(dev, g):
+    """Skipping the chunks of 256 positions whose box misses the tile
+    leaves each pixel's positions in scan order: the same bits as the walk
+    over every chunk, on the awkward cases (a masked position, windows on
+    the last row and column, 2 angles x 2 modes, partial edge tiles), and
+    for a launch on the positions from ``a`` on with the whole scan's boxes
+    (``first=a``: its walk starts with part of a chunk), whose sum is also
+    the plain version's on those positions."""
+    near, scan_i, prb = scatter_inputs(g, dev)
+    want = kernels._scatter_conj_probe_cuda(near, scan_i, prb, g.nz, g.n,
+                                            skip=False)
+    assert torch.equal(kernels.scatter_conj_probe(near, scan_i, prb, g.nz,
+                                                  g.n), want)
+    boxes = kernels.scatter_boxes(scan_i, g.nz, g.n, g.nprb)
+    for a in sorted({1, g.nscan // 2, min(300, g.nscan - 1)}):
+        got, walked = (kernels._scatter_conj_probe_cuda(
+            near[:, a:], scan_i[:, a:], prb, g.nz, g.n, boxes=boxes,
+            first=a, skip=skip) for skip in (True, False))
+        assert torch.equal(got, walked), a
+        assert close(got, kernels.scatter_conj_probe_reference(
+            near[:, a:], scan_i[:, a:], prb, g.nz, g.n), 1e-5), a
+
+
+@pytest.mark.parametrize("which", ["grad_fused", "adj_residual", "adj"])
+def test_scatter_skip_lines_up_with_the_chunks(dev, which):
+    """The object scatters on chunks that start mid-angle, past a
+    256-position chunk's start (300 and 555 frames of grad_fused and
+    adj_residual, 300 positions of adj), each launch skipping by the whole
+    scan's boxes from its first position: the same bits as one chunk of
+    everything."""
+    g = LONG_SCAN
+    if which == "adj":
+        _, _, scan_i, prb = inputs(g, dev)
+        far = base_for(g, dev)
+        whole = fused._adj_cuda(far, scan_i, prb, g.nz, g.n, chunk=g.nscan)
+        assert torch.equal(fused._adj_cuda(far, scan_i, prb, g.nz, g.n,
+                                           chunk=300), whole)
+        return
+    whole, f_whole = two_pass(g, dev, which, chunk=g.ntheta * g.nscan)
+    for chunk in (300, 555):
+        got, f_got = two_pass(g, dev, which, chunk=chunk)
+        assert torch.equal(got, whole) and float(f_got) == float(f_whole)
+
+
+def test_scatter_boxes_are_kept_beside_the_scan(dev):
+    """The box plan is made once per scan and made again when the scan
+    changes in place."""
+    g = LONG_SCAN
+    _, _, scan_i, _ = inputs(g, dev)
+    boxes = kernels.scatter_boxes(scan_i, g.nz, g.n, g.nprb)
+    assert kernels.scatter_boxes(scan_i, g.nz, g.n, g.nprb) is boxes
+    assert torch.equal(boxes, kernels.scatter_box_plan(scan_i, g.nz, g.n,
+                                                       g.nprb))
+    scan_i[0, 0] = torch.tensor([-1, 0])
+    again = kernels.scatter_boxes(scan_i, g.nz, g.n, g.nprb)
+    assert again is not boxes and torch.equal(
+        again, kernels.scatter_box_plan(scan_i, g.nz, g.n, g.nprb))
 
 
 # -- grad_fused and adj_residual in scan order ------------------------------

@@ -213,13 +213,11 @@ def test_frameless_safeguard_reproduces_the_reuse_safeguard(problem,
 
 
 @pytest.mark.parametrize("kw, error, match", [
-    (dict(mesh=object()), ValueError, "DeviceMesh"),
-    (dict(obj_slabs=2), NotImplementedError, "ROADMAP")],
-    ids=["mesh", "obj_slabs"])
+    (dict(mesh=object()), ValueError, "DeviceMesh")], ids=["mesh"])
 def test_unported_arguments_raise(problem, kw, error, match):
-    """The slab fields raise, naming ROADMAP.md; ``mesh=`` is ported
-    (``tests/test_torch_sharding.py`` runs it on gloo ranks) and takes
-    only a DeviceMesh."""
+    """``mesh=`` is ported (``tests/test_torch_sharding.py`` runs it on
+    gloo ranks) and takes only a DeviceMesh. (The slab fields are ported
+    as a contract: ``tests/test_torch_large.py``.)"""
     with pytest.raises(error, match=match):
         port_run(problem, **BASE, **kw)
 

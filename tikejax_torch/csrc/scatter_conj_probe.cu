@@ -31,7 +31,13 @@
 // warp ballot and a prefix over the warps' counts in shared memory compact
 // the hits, in scan order, into a list that every thread then works
 // through before the next chunk (whose positions are loaded while it
-// does). The list holds each hit's corner and its frame and probe offsets
+// does). A chunk whose bounding box of corners (ops/kernels.py
+// scatter_box_plan, made once per scan), widened by the window, misses the
+// tile is skipped whole: the walk then costs a block the chunks near its
+// tile, not its angle's whole scan, which on a larger object would cost
+// more than the frames (tiles x positions: 16384 x 16384 at a 2048^2
+// object). Skipping whole chunks leaves the hits in scan order: the same
+// bits with or without the skip. The list holds each hit's corner and its frame and probe offsets
 // less the corner, so a thread's addresses are one add from offsets it
 // computes once a tile. A thread issues the probe and frame loads of kK
 // listed positions and kM modes at once (12 pixel loads in flight: kK = 12
@@ -49,10 +55,11 @@
 // What bounds it: bytes. Every frame pixel is read once (8 bytes a pixel
 // and mode, 2.1 GB at 16384 frames of 128^2: 0.64 ms at 3.35 TB/s): a
 // frame pixel lands in exactly one tile. Beside them the tile kernel reads
-// the scan once a tile (tiles x positions x 8 bytes, from L2: 134 MB at
-// 16384 positions and 1024 tiles of a 512^2 object, 6.25% of the frame
-// bytes; the share is tiles / (modes p^2), whatever the number of
-// positions) and writes the object once (2 MiB). The probe is read beside
+// the scan of the chunks near each tile (without the skip, the whole scan
+// once a tile: tiles x positions x 8 bytes, from L2, 134 MB at 16384
+// positions and 1024 tiles of a 512^2 object, 6.25% of the frame bytes, a
+// share of tiles / (modes p^2) that grows with the object) and writes the
+// object once (2 MiB). The probe is read beside
 // every frame pixel, from L1/L2. On an H100 80GB HBM3 (700 W) the tile
 // kernel reaches about 60% of that bound at the headline: the walk over the
 // scan, the per-position arithmetic and the probe loads are issued beside
@@ -98,10 +105,20 @@ struct Params {
                        // the tile kernel rounds into it where not null
   double* part;        // (t, nz, n) complex as interleaved re/im doubles:
                        // the tile kernel's running sums (may be null)
+  // The tile kernel's chunk boxes: for each angle and each chunk of kThreads
+  // consecutive positions of its whole scan, (ymin, xmin, ymax, xmax) of
+  // the chunk's valid corners (an empty chunk's meets no tile), box_chunks
+  // an angle; null walks every chunk.
+  const int4* boxes;
   int t, s, nz, n, m, p;
   int64_t st_t, st_s, st_m, st_row;  // strides of nearp, complex elements
   int tiles_y, tiles_x;              // the tile kernel's tiles of an angle
   int from_partial;  // the tile kernel: continue from the sums in `part`
+  int box_chunks;
+  // Index of this launch's first position in its angle's whole scan: the
+  // walk's chunks are the boxes' chunks, multiples of kThreads positions
+  // of that scan, so a launch on part of a scan starts with a part chunk.
+  int first;
 };
 
 // -- the tile kernel ----------------------------------------------------
@@ -185,11 +202,35 @@ __global__ void __launch_bounds__(kThreads, 2)
   const float2* prb = q.prb + static_cast<int64_t>(th) * m * pp;
   const float2* frames = q.nearp + th * q.st_t;
 
-  int2 ahead = threadIdx.x < q.s ? __ldg(scan + threadIdx.x) : none;
-  for (int c0 = 0; c0 < q.s; c0 += kThreads) {
+  // Chunk c holds this launch's positions c kThreads - lead + [0, kThreads)
+  // (those in [0, s)); a chunk whose box, widened by the window, misses the
+  // tile holds no position whose window meets it and is skipped whole, so
+  // the hits stay in scan order. Block-uniform.
+  const int lead = q.first % kThreads;
+  const int chunks = (lead + q.s + kThreads - 1) / kThreads;
+  const int4* box =
+      q.boxes == nullptr
+          ? nullptr
+          : q.boxes + static_cast<int64_t>(th) * q.box_chunks +
+                q.first / kThreads;
+  auto next_chunk = [&](int c) {
+    for (; c < chunks && box != nullptr; ++c) {
+      const int4 b = __ldg(box + c);  // (ymin, xmin, ymax, xmax)
+      if (b.x < y1 && b.z + p > y0 && b.y < x1 && b.w + p > x0) break;
+    }
+    return c;
+  };
+  auto position = [&](int c) {
+    const int i = c * kThreads - lead + static_cast<int>(threadIdx.x);
+    return c < chunks && i >= 0 && i < q.s ? __ldg(scan + i) : none;
+  };
+
+  int c = next_chunk(0);
+  int2 ahead = position(c);
+  while (c < chunks) {
     // Compact this chunk's positions whose window meets the tile, in scan
     // order (masked and invalid positions never meet it).
-    const int i = c0 + threadIdx.x;
+    const int i = c * kThreads - lead + static_cast<int>(threadIdx.x);
     const int2 pos = ahead;  // (y, x)
     const bool hit = frame_valid(pos.x, pos.y, q.nz, q.n, p) && pos.x < y1 &&
                      pos.x + p > y0 && pos.y < x1 && pos.y + p > x0;
@@ -210,7 +251,8 @@ __global__ void __launch_bounds__(kThreads, 2)
       hit_frame[at] =
           static_cast<long long>(i) * q.st_s - pos.x * q.st_row - pos.y;
     }
-    ahead = i + kThreads < q.s ? __ldg(scan + i + kThreads) : none;
+    const int next = next_chunk(c + 1);
+    ahead = position(next);
     __syncthreads();
     if (total > 0 && !started) {
       if (inside) acc = *part;
@@ -273,6 +315,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       }
     }
     __syncthreads();  // the list is rewritten by the next chunk
+    c = next;
   }
 
   if (!started) {
@@ -344,21 +387,32 @@ extern "C" {
 // zeroing; with `out` null it stores the sums in double into `part`
 // (complex128, t x nz x n). With from_partial 1 each pixel continues from
 // the sum `part` holds. `scan` must be 8-byte aligned. The strides of
-// `nearp` are in complex elements. Returns the first CUDA error (0 on
-// success).
+// `nearp` are in complex elements. `first` is the index of `scan`'s first
+// position in its angle's whole scan; `boxes` (16-byte aligned int32, t x
+// box_chunks x 4, box_chunks covering positions [0, first + s) of that
+// scan, or null to walk every chunk) are the chunk boxes of the whole
+// scan. Returns the first CUDA error (0 on success).
 int tk_scatter_conj_probe(const void* nearp, const void* prb, const void* scan,
-                          void* out, void* part, int t, int s, int nz, int n,
-                          int m, int p, int64_t st_t, int64_t st_s,
-                          int64_t st_m, int64_t st_row, int tiles_y,
-                          int tiles_x, int mode_chunk, int from_partial,
+                          void* out, void* part, const void* boxes, int t,
+                          int s, int nz, int n, int m, int p, int64_t st_t,
+                          int64_t st_s, int64_t st_m, int64_t st_row,
+                          int tiles_y, int tiles_x, int mode_chunk,
+                          int from_partial, int box_chunks, int first,
                           void* stream) {
-  Params q{static_cast<const float2*>(nearp), static_cast<const float2*>(prb),
-           static_cast<const int*>(scan), static_cast<float*>(out),
-           static_cast<double*>(part), t, s, nz, n, m, p, st_t, st_s, st_m,
-           st_row, tiles_y, tiles_x, from_partial};
+  Params q{static_cast<const float2*>(nearp),
+           static_cast<const float2*>(prb),
+           static_cast<const int*>(scan),
+           static_cast<float*>(out),
+           static_cast<double*>(part),
+           static_cast<const int4*>(boxes),
+           t, s, nz, n, m, p, st_t, st_s, st_m, st_row, tiles_y, tiles_x,
+           from_partial, box_chunks, first};
   if (static_cast<int64_t>(t) * nz * n == 0) return 0;
   if ((out == nullptr && part == nullptr) ||
-      (from_partial && part == nullptr)) {
+      (from_partial && part == nullptr) || first < 0 ||
+      (boxes != nullptr &&
+       (static_cast<int64_t>(first) + s + kThreads - 1) / kThreads >
+           box_chunks)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int64_t grid = static_cast<int64_t>(t) * tiles_y * tiles_x;
@@ -392,9 +446,13 @@ int tk_scatter_conj_probe_atomic(const void* nearp, const void* prb,
                                  int nz, int n, int m, int p, int64_t st_t,
                                  int64_t st_s, int64_t st_m, int64_t st_row,
                                  void* stream) {
-  Params q{static_cast<const float2*>(nearp), static_cast<const float2*>(prb),
-           static_cast<const int*>(scan), static_cast<float*>(out), nullptr,
-           t, s, nz, n, m, p, st_t, st_s, st_m, st_row, 0, 0, 0};
+  Params q{static_cast<const float2*>(nearp),
+           static_cast<const float2*>(prb),
+           static_cast<const int*>(scan),
+           static_cast<float*>(out),
+           nullptr,
+           nullptr,
+           t, s, nz, n, m, p, st_t, st_s, st_m, st_row, 0, 0, 0, 0, 0};
   const int64_t frames = static_cast<int64_t>(t) * s;
   if (frames == 0) return 0;
   const int grid = static_cast<int>(frames < 2147483647 ? frames : 2147483647);

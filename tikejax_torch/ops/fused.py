@@ -210,10 +210,13 @@ def _scatter_segments(near, g0, segments, s, scan_int, prb, nz, n, out,
                       partial):
     """The tile kernel on each segment of a chunk whose cropped frames
     (frame ``g0`` first) ``near`` holds: into ``out``, continuing from and
-    leaving running sums in ``partial`` where a segment splits an angle."""
+    leaving running sums in ``partial`` where a segment splits an angle;
+    each launch skips the chunks of its positions whose box (the whole
+    scan's, ``kernels.scatter_boxes``) misses its tile."""
     from tikejax_torch.ops import kernels
 
     m, p = prb.shape[1], prb.shape[-1]
+    boxes = kernels.scatter_boxes(scan_int, nz, n, p)
     for th0, th1, a, b in segments:
         k, c = th1 - th0, b - a
         start = (th0 * s + a - g0) * m * p * p
@@ -222,7 +225,7 @@ def _scatter_segments(near, g0, segments, s, scan_int, prb, nz, n, out,
             frames, scan_int[th0:th1, a:b], prb[th0:th1], nz, n,
             out=out[th0:th1],
             partial=None if partial is None else partial[th0:th1],
-            from_partial=a > 0, last=b == s)
+            from_partial=a > 0, last=b == s, boxes=boxes[th0:th1], first=a)
 
 
 def _chunk_arg(name, chunk, nmodes, nprb) -> int:
@@ -1217,6 +1220,7 @@ def _adj_cuda(farplane, scan_int, prb, nz, n, variant=None, threads=None,
         block_scratch = torch.empty(2 * grid * nprb * ndet,
                                     dtype=torch.float32,
                                     device=farplane.device)
+    boxes = kernels.scatter_boxes(scan_int, nz, n, nprb)
     for c0 in range(0, max(s, 1), chunk):
         sc = min(chunk, s - c0)
         far_c = farplane[:, c0:c0 + sc]
@@ -1242,7 +1246,8 @@ def _adj_cuda(farplane, scan_int, prb, nz, n, variant=None, threads=None,
         kernels._scatter_conj_probe_cuda(near, scan_c, prb, nz, n, out=out,
                                          partial=running,
                                          from_partial=c0 > 0,
-                                         last=c0 + sc == s)
+                                         last=c0 + sc == s, boxes=boxes,
+                                         first=c0)
     adj.variant = variant
     return out
 

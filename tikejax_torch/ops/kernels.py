@@ -79,7 +79,12 @@ _MAX_GRID_YZ = 65535
 # SCATTER_TILE = (rows, columns) pixels, one pixel a thread (the shape
 # csrc/scatter_conj_probe.cu is built for), one block per (angle, tile).
 SCATTER_TILE = (8, 32)
+# The tile kernel walks an angle's scan in chunks of this many consecutive
+# positions (one a thread); scatter_box_plan boxes each chunk.
+SCATTER_CHUNK = 256
 _MAX_GRID_X = 2**31 - 1
+# An empty chunk's box: no tile meets it.
+_NO_BOX = (2**30, 2**30, -2**30, -2**30)
 
 
 def gather_probe_mul(psi: torch.Tensor, scan_int: torch.Tensor,
@@ -187,15 +192,15 @@ adj_probe_reduce_reference.launches = 0
 _STRIDES = [ctypes.c_int64] * 4
 _GATHER_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
 _SCATTER_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + _STRIDES
-_TILE_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + _STRIDES
+_TILE_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + _STRIDES
 # Argument types of each entry point of a library: pointers, ints (and the
 # frames' four strides), then the stream.
 _ENTRIES = {
     "gather_probe_mul": {"tk_gather_probe_mul": _GATHER_ARGS,
                          "tk_gather_probe_mul_pixel": _GATHER_ARGS},
     "scatter_conj_probe": {
-        # + tiles_y, tiles_x, mode_chunk, from_partial
-        "tk_scatter_conj_probe": _TILE_ARGS + [ctypes.c_int] * 4,
+        # + tiles_y, tiles_x, mode_chunk, from_partial, box_chunks, first
+        "tk_scatter_conj_probe": _TILE_ARGS + [ctypes.c_int] * 6,
         "tk_scatter_conj_probe_atomic": _SCATTER_ARGS},
     "adj_probe_reduce": {"tk_adj_probe_reduce": [ctypes.c_void_p] * 5
                          + [ctypes.c_int] * 7 + _STRIDES},
@@ -309,6 +314,46 @@ def scatter_tile_plan(t: int, nz: int, n: int):
     return tiles_y, tiles_x, blocks
 
 
+def scatter_box_plan(scan_int: torch.Tensor, nz: int, n: int,
+                     nprb: int) -> torch.Tensor:
+    """The tile kernel's chunk boxes of a scan: for each angle and each
+    chunk of ``SCATTER_CHUNK`` consecutive positions (positions ``[c C, c
+    C + C)``), the least and the greatest corner of its valid positions
+    (those whose window lies in the ``nz x n`` object; masked rows are not
+    valid), ``(ymin, xmin, ymax, xmax)``; a chunk with none gets a box that
+    meets no tile. Returns ``(t, ceil(s / C), 4)`` int32 on the scan's
+    device (pure PyTorch). A tile ``[y0, y1) x [x0, x1)`` can meet a window
+    of the chunk only if ``ymin < y1``, ``ymax + nprb > y0``, ``xmin < x1``
+    and ``xmax + nprb > x0``; the kernel skips a chunk that fails it."""
+    t, s, _ = scan_int.shape
+    chunks = -(-s // SCATTER_CHUNK)
+    masked = scan_int.new_full((t, chunks * SCATTER_CHUNK - s, 2), -1)
+    sc = torch.cat([scan_int, masked], dim=1).view(t, chunks, SCATTER_CHUNK,
+                                                   2)
+    y, x = sc[..., 0], sc[..., 1]
+    valid = (y >= 0) & (y <= nz - nprb) & (x >= 0) & (x <= n - nprb)
+    lo, hi = (torch.tensor(v, dtype=scan_int.dtype, device=scan_int.device)
+              for v in (_NO_BOX[0], _NO_BOX[2]))
+    return torch.stack([torch.where(valid, y, lo).amin(-1),
+                        torch.where(valid, x, lo).amin(-1),
+                        torch.where(valid, y, hi).amax(-1),
+                        torch.where(valid, x, hi).amax(-1)],
+                       dim=-1).to(torch.int32)
+
+
+def scatter_boxes(scan_int: torch.Tensor, nz: int, n: int,
+                  nprb: int) -> torch.Tensor:
+    """:func:`scatter_box_plan` of ``scan_int``, made once and kept on the
+    scan tensor itself (a solve hands the same scan to every evaluation);
+    made again if the scan was changed in place or the shapes differ."""
+    key = (scan_int.data_ptr(), scan_int._version, nz, n, nprb)
+    held = getattr(scan_int, "_tk_scatter_boxes", None)
+    if held is None or held[0] != key:
+        held = (key, scatter_box_plan(scan_int, nz, n, nprb))
+        scan_int._tk_scatter_boxes = held
+    return held[1]
+
+
 def scatter_mode_chunk(nmodes: int) -> int:
     """How many modes of a position the tile kernel loads at once: 1, 2
     or 4 (three modes take a chunk of 4 with one left empty, more than
@@ -344,7 +389,7 @@ def scatter_blocks_per_sm(device_index: int, nmodes: int = 1) -> int:
 
 def _scatter_conj_probe_cuda(nearplane, scan_int, prb, nz, n, variant=None,
                              out=None, partial=None, from_partial=False,
-                             last=True):
+                             last=True, boxes=None, first=0, skip=True):
     """Launches ``scatter_conj_probe``'s tile kernel, or the atomic kernel
     it replaced when ``variant='atomic'`` forces it (to time the two in
     turns). The tile kernel sums each pixel in double. With ``last`` (the
@@ -353,7 +398,13 @@ def _scatter_conj_probe_cuda(nearplane, scan_int, prb, nz, n, variant=None,
     into ``partial`` (a contiguous complex128 ``(t, nz, n)``) and returns
     that. With ``from_partial`` each pixel continues from the sum
     ``partial`` holds: the fused tiers' object scatters sum their chunks of
-    positions so, with the bits of one launch."""
+    positions so, with the bits of one launch.
+
+    The tile kernel skips the chunks of positions whose box misses its
+    tile: ``boxes`` are :func:`scatter_box_plan`'s of the angles' whole
+    scan, of which ``scan_int`` holds positions ``[first, first + s)``
+    (None: :func:`scatter_boxes` of ``scan_int``, ``first`` 0).
+    ``skip=False`` walks every chunk; the bits are the same."""
     name = "scatter_conj_probe"
     variant = _scatter_variant(variant)
     t, s, m, p = _check_frames(name, nearplane, scan_int, prb, "prb")
@@ -391,14 +442,29 @@ def _scatter_conj_probe_cuda(nearplane, scan_int, prb, nz, n, variant=None,
                           device=nearplane.device)
     else:
         checked(out, torch.complex64, "out")
+    if boxes is None:
+        if first:
+            raise ValueError(f"{name}: first={first} needs the boxes of "
+                             "the whole scan")
+        boxes = scatter_boxes(scan_int, nz, n, p)
+    chunks = -(-(first + s) // SCATTER_CHUNK)
+    if (first < 0 or boxes.dtype != torch.int32 or boxes.ndim != 3
+            or boxes.shape[0] != t or boxes.shape[1] < chunks
+            or boxes.shape[2] != 4 or not boxes.is_contiguous()
+            or boxes.device != nearplane.device):
+        raise ValueError(f"{name}: boxes must be a contiguous int32 tensor "
+                         f"({t}, >= {chunks}, 4) on {nearplane.device} for "
+                         f"first={first}, got {tuple(boxes.shape)}")
     if scan_int.data_ptr() % 8:  # read a position (8 bytes) at a time
         scan_int = scan_int.clone()
     _launch(name, fused._device_index(nearplane), nearplane.data_ptr(),
             prb.data_ptr(), scan_int.data_ptr(),
             None if out is None else out.data_ptr(),
-            None if partial is None else partial.data_ptr(), t, s, nz, n, m,
+            None if partial is None else partial.data_ptr(),
+            boxes.data_ptr() if skip else None, t, s, nz, n, m,
             p, *nearplane.stride()[:4], tiles_y, tiles_x,
-            scatter_mode_chunk(m), int(bool(from_partial)))
+            scatter_mode_chunk(m), int(bool(from_partial)),
+            boxes.shape[1], first)
     scatter_conj_probe.launches += 1
     scatter_conj_probe.variant = variant
     return out if last else partial

@@ -304,14 +304,15 @@ def run_sharded(data, psi0, scan, prb0, geometry: Geometry, mesh,
       same on every rank (``metrics['cg_state']`` per angle on a theta
       mesh).
     """
-    _check_mesh(mesh)
-    for name, default in _cg._UNPORTED_FIELDS.items():
-        if name in kw and kw.pop(name) != default:
-            raise _cg._not_ported(f"run_sharded: {name}")
     if options is None:
         options = _cg.CGOptions(**kw)
     elif kw:
         options = dataclasses.replace(options, **kw)
+    # The solver's slab checks, which every rank would make, before the
+    # mesh is touched: obj_slabs > 1 is for one device.
+    _cg.check_slabs(options, diffraction._backend(psi0.device),
+                    on_mesh=True)
+    _check_mesh(mesh)
     for name, default in _cg.OBJ_FIELDS.items():
         if getattr(options, name) != default:
             raise ValueError(f"run_sharded: {name} names object tiling; "

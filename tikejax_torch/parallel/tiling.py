@@ -249,9 +249,6 @@ def run_tiled(data, psi0, scan, prb0, geometry: Geometry, mesh,
     """
     import torch.distributed as dist
 
-    for name, default in _cg._UNPORTED_FIELDS.items():
-        if name in kw and kw.pop(name) != default:
-            raise _cg._not_ported(f"run_tiled: {name}")
     if options is None:
         options = _cg.CGOptions(**kw)
     elif kw:
@@ -259,6 +256,10 @@ def run_tiled(data, psi0, scan, prb0, geometry: Geometry, mesh,
     psi0, scan, data, prb0 = (_tensor(x) for x in (psi0, scan, data, prb0))
     options = _cg.normalize_options(options,
                                     diffraction._backend(psi0.device))
+    # The solver's slab checks, which every rank would make, before the
+    # mesh is touched: obj_slabs > 1 is for one device.
+    _cg.check_slabs(options, diffraction._backend(psi0.device),
+                    on_mesh=True)
     g = geometry
     theta_ax, scan_ax, tsh, dsh, ssh, ti, di, si = _layout(mesh)
     if mesh.size() != dist.get_world_size():

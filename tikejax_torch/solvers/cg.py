@@ -78,9 +78,19 @@ ranks stay in lock step, and gloo's all-reduce hands every rank the same
 bits, so a replicated object stays bitwise equal across ranks.
 :func:`all_reduce` and :func:`halo_exchange` count the collectives.
 
-Not ported (each raises NotImplementedError naming ROADMAP.md): the slab
-fields and the TPU slab planner / compile-retry ladder (``run`` calls
-``run_impl`` directly).
+The slab fields (``obj_slabs``, ``obj_slabs_partitioned``,
+``obj_slab_rows``, ``obj_slab_cols``, ``kernel_frames``) are the JAX
+package's answer to its TPU's scoped-VMEM object cap: there the fused
+kernels stream the object in row slabs over a y-sorted, padded partition of
+the positions. Here the kernels read the object from device memory through
+the scan's corners whatever its size, so a valid slab request runs the
+whole-object solve in the caller's scan order: ``run(obj_slabs=D)`` returns
+``run()``'s bits, which the JAX package's own slab runs match only to its
+tests' tolerances (residual rtol 2e-4, psi 1e-3), its partition having
+reordered and padded the positions. The fields are validated as the JAX
+package validates them (:func:`check_slabs`, and ``obj_slab_cols`` in
+:func:`run`); no partition, slab planner or compile-retry ladder is applied
+(``run`` calls ``run_impl`` directly).
 """
 
 from __future__ import annotations
@@ -180,10 +190,21 @@ class CGOptions:
       axis_name: the mesh dimension that shards the scan positions (set by
         ``tikejax_torch.parallel.run_sharded``; needs its mesh).
       theta_axis_name: the mesh dimension that shards the angles, likewise.
+      obj_slabs, obj_slabs_partitioned, obj_slab_rows, obj_slab_cols,
+        kernel_frames: the JAX package's object row-slab fields (the TPU's
+        answer to its scoped-VMEM object cap: slabs of rows, the positions
+        partitioned among them, frames per kernel step). They are accepted
+        and validated as there -- ``obj_slabs >= 1``; ``obj_slabs > 1``
+        only on a fused tier, frameless, with ``nchunks == 1`` and off a
+        mesh; ``obj_slab_cols >= 1`` -- and change nothing: a valid slab
+        request runs the whole-object solve in the caller's scan order and
+        returns the bits of the same call without them (the JAX package's
+        slab runs follow its whole-object run to residual rtol 2e-4 and
+        psi 1e-3). No partition is applied.
     """
 
-    # In the JAX package's order (the fields it has and this one lacks left
-    # out), so that a positional construction means the same in both.
+    # In the JAX package's order, so that a positional construction means
+    # the same in both.
     piter: int = 32
     model: str = "gaussian"
     recover_prb: bool = False
@@ -218,22 +239,45 @@ class CGOptions:
     merged_linesearch: str = "auto"
     carry_state: bool = False
     carry_lbfgs: bool = False
+    obj_slabs: int = 1
+    obj_slabs_partitioned: bool = False
+    obj_slab_rows: tuple | None = None
+    obj_slab_cols: int = 1
+    kernel_frames: int | None = None
 
 
-# The JAX package's remaining CGOptions fields with their defaults: a call
-# that keeps the default runs, any other value raises.
-_UNPORTED_FIELDS = {
-    "obj_slabs": 1, "obj_slabs_partitioned": False, "obj_slab_rows": None,
-    "obj_slab_cols": 1, "kernel_frames": None,
-}
 # The object-tiling fields, which only run_tiled's mesh gives a meaning.
 OBJ_FIELDS = {"obj_axis_name": None, "obj_halo": 0, "obj_axis_size": 1}
+# The fields that name a mesh dimension.
+MESH_AXES = ("axis_name", "obj_axis_name", "theta_axis_name")
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to tikejax_torch; see ROADMAP.md (the slab "
-        "fields are under 'Not to port')")
+def check_slabs(o: CGOptions, backend: str, on_mesh: bool = False) -> None:
+    """The JAX package's checks of ``obj_slabs`` (its ``_Engine``'s), in its
+    order and with its exception type and wording: at least 1, and above 1
+    only on a fused tier, frameless, unstreamed and off a mesh (``on_mesh``,
+    or a mesh axis named in ``o``). ``backend`` ('cuda' or 'cpu') resolves
+    ``kernel='auto'``."""
+    if o.obj_slabs < 1:
+        raise ValueError(f"obj_slabs must be >= 1, got {o.obj_slabs}")
+    if o.obj_slabs == 1:
+        return
+    fused_tier = diffraction.resolve_kernel(o.kernel, backend).startswith(
+        "fused")
+    if not fused_tier:
+        raise ValueError("obj_slabs > 1 requires a fused kernel tier (the "
+                         "JAX package's slabs stream its fused kernels' "
+                         "object; 'xla' and 'pallas' have none)")
+    if o.memory not in ("frameless", "auto"):
+        raise ValueError("obj_slabs > 1 requires the frameless memory "
+                         "policy (memory='auto' or 'frameless')")
+    if o.nchunks != 1:
+        raise ValueError("obj_slabs > 1 already streams the positions "
+                         "slab by slab; combine with nchunks == 1")
+    if on_mesh or any(getattr(o, a) is not None for a in MESH_AXES):
+        raise ValueError("obj_slabs composes with single-device runs only; "
+                         "on a mesh use tikejax_torch.parallel.run_tiled "
+                         "(P3 object tiling)")
 
 
 def _count(fn, nbytes: int) -> None:
@@ -604,6 +648,7 @@ class _Engine:
         # The one-pass line search needs both farplanes in memory.
         self.fused_linesearch = (o.fused_linesearch and o.nchunks == 1
                                  and not self.frameless and self.fused)
+        check_slabs(o, backend)
         # Split-operator mode: psi is a small correction on a frozen base
         # whose farplane f_base was computed once with an accurate kernel.
         if f_base is not None and self.frameless and not self.fused:
@@ -1298,8 +1343,8 @@ def run(data, psi0, scan, prb0, geometry: Geometry,
     measured intensities.
 
     The port's counterpart of ``tikejax.solvers.run``; extra keyword
-    arguments override CGOptions fields. The JAX package's other fields are
-    accepted at their defaults and raise NotImplementedError otherwise.
+    arguments override CGOptions fields. The slab fields are validated as
+    the JAX package validates them and change nothing (:class:`CGOptions`).
     ``f_base`` (split-operator mode) and ``cg_init`` (a carried
     ``metrics['cg_state']``; with recover_prb it carries the object's
     state only, as in the JAX package) as in :func:`run_impl`.
@@ -1320,15 +1365,20 @@ def run(data, psi0, scan, prb0, geometry: Geometry,
       counts once and reads its K values in one host read); 'cg_state'
       the carried state under ``carry_state``.
     """
-    for name, default in _UNPORTED_FIELDS.items():
-        if name in kw:
-            value = kw.pop(name)
-            if value != default:
-                raise _not_ported(f"{name}={value!r}")
     if options is None:
         options = CGOptions(**kw)
     elif kw:
         options = dataclasses.replace(options, **kw)
     options = normalize_options(options, diffraction._backend(psi0.device))
+    # Where the JAX package's run() would partition the positions among
+    # slabs (one device, unstreamed, frameless, fused), it checks the
+    # column count first.
+    slab_route = (all(getattr(options, a) is None for a in MESH_AXES)
+                  and options.nchunks == 1
+                  and options.memory != "materialized"
+                  and options.kernel.startswith("fused"))
+    if (slab_route and not options.obj_slabs_partitioned
+            and options.obj_slab_cols < 1):
+        raise ValueError("obj_slab_cols must be >= 1")
     return run_impl(geometry, options, data, psi0, scan, prb0, f_base,
                     cg_init)

@@ -60,8 +60,13 @@ the global state; every rank reads them.
 Object-tiled meshes (an ``'obj'`` dimension) and the ``obj_*`` fields
 raise ValueError: they are ``parallel.run_tiled``-only, as in the JAX
 package, whose driver's iterate algebra works on whole-object arrays, not
-overlapping slabs. The TPU slab backstop (``_maybe_slab_partition``) and
-``hostio`` are not ported by design.
+overlapping slabs. The slab fields (``obj_slabs`` and the rest, see
+``tikejax_torch.solvers.cg``) are checked as the JAX package's driver
+checks them -- ``obj_slabs > 1`` needs every stage kernel on a fused tier
+-- and then change nothing: the stages run the whole object in the
+caller's scan order. The TPU slab partition and its backstop
+(``_maybe_slab_partition``, the retry ladder) and ``hostio`` are not
+ported by design.
 """
 
 from __future__ import annotations
@@ -168,11 +173,6 @@ def reconstruct(data, psi0, scan, prb0, geometry: Geometry,
       (psi, prb, stages): stages is a list of (stage_name, metrics);
       metrics['iters_run'] holds each stage's iteration count.
     """
-    for name, default in _cg._UNPORTED_FIELDS.items():
-        if name in kw:
-            value = kw.pop(name)
-            if value != default:
-                raise _cg._not_ported(f"reconstruct: {name}={value!r}")
     if options is None:
         options = _cg.CGOptions(**kw)
     elif kw:
@@ -200,6 +200,8 @@ def reconstruct(data, psi0, scan, prb0, geometry: Geometry,
     if accelerate is not None and _parse_anderson_depth(accelerate) is None:
         raise ValueError(f"unknown accelerate {accelerate!r}; use None, "
                          "'anderson', or 'anderson:<depth>'")
+    _check_slab_stages(options, psi0.device, method, tiers, base_kernel,
+                       fast_kernel, joint_kernel, mesh)
     if mesh is not None:
         from tikejax_torch.parallel import sharding
 
@@ -242,6 +244,34 @@ def reconstruct(data, psi0, scan, prb0, geometry: Geometry,
         if floor <= target_residual:
             break  # this tier could reach the target; done
     return psi, prb, stages
+
+
+def _check_slab_stages(options, device, method, tiers, base_kernel,
+                       fast_kernel, joint_kernel, mesh) -> None:
+    """The JAX package's slab checks for the deep driver, before any stage
+    runs: one device, every stage kernel a fused tier (its
+    ``_maybe_slab_partition``); on a mesh, the first stage's solver checks
+    (``cg.check_slabs``). A valid slab request changes nothing here."""
+    if options.obj_slabs == 1:
+        return
+    backend = diffraction._backend(device)
+    on_cuda = backend == "cuda"
+    if method == "split":
+        kernels = [fast_kernel or ("fused" if on_cuda else "xla"),
+                   base_kernel or ("fused_hp" if on_cuda else "xla")]
+        if options.recover_prb:
+            kernels.append(joint_kernel or kernels[1])
+    else:
+        kernels = [k for k, _, _ in tiers]
+    if mesh is not None:
+        _cg.check_slabs(dataclasses.replace(options, kernel=kernels[0]),
+                        backend, on_mesh=True)
+    elif options.obj_slabs > 1 and not all(
+            diffraction.resolve_kernel(k, backend).startswith("fused")
+            for k in kernels):
+        raise ValueError("obj_slabs > 1 requires every driver stage kernel "
+                         f"to be a fused tier; this call would run "
+                         f"{kernels!r}")
 
 
 def _make_run_fn(mesh):

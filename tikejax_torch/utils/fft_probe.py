@@ -18,11 +18,12 @@ kernel and the tile scatter).
 ``scatter`` times ``scatter_conj_probe``'s tile kernel at one mode and at
 4 modes against the forced atomic kernel; then the tile kernel on inputs
 that take one cost away (every position reading one frame, which stays in
-L2; every position masked, which leaves the walk over the scan alone;
-window corners on multiples of 4 columns, so that no frame-row segment
-straddles a 32-byte sector more than it must); then built from patched
-copies that leave the frame loads, the probe loads or both out, or keep
-another number of loads in flight or of blocks resident.
+L2; every position masked with every chunk walked, which leaves the walk
+over the scan alone; window corners on multiples of 4 columns, so that no
+frame-row segment straddles a 32-byte sector more than it must) and with
+every chunk walked (no chunk skip); then built from patched copies that
+leave the frame loads, the probe loads or both out, or keep another number
+of loads in flight or of blocks resident.
 
 The patched kernels compute nothing meaningful and are only timed; the
 copies go under the build directory. Medians of 7 launches with CUDA
@@ -219,9 +220,11 @@ def scatter_kernel(dev) -> None:
         print(f"{label}: tile {base[label]:.3f} ms, atomic {atomic:.3f}",
               flush=True)
     for label, run in (("one frame for every position", tile(one)),
-                       ("every position masked", tile(scan=masked)),
+                       ("every position masked, every chunk walked",
+                        tile(scan=masked, skip=False)),
                        ("corners on multiples of 4 columns",
-                        tile(scan=aligned))):
+                        tile(scan=aligned)),
+                       ("every chunk walked", tile(skip=False))):
         run()
         print(f"one mode, {label}: {median_ms(run):.3f} ms of "
               f"{base['one mode']:.3f}", flush=True)
