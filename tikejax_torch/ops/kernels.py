@@ -69,7 +69,7 @@ import torch
 
 from tikejax_torch.ops import fused
 from tikejax_torch.ops import patches as _patches
-from tikejax_torch.utils import cuda_build
+from tikejax_torch.utils import cuda_build, profiling
 
 # adj_probe_reduce cuts the positions of an angle into runs so that about
 # this many blocks are in flight (132 SMs x 8 blocks of 256 threads, twice).
@@ -345,11 +345,13 @@ def scatter_boxes(scan_int: torch.Tensor, nz: int, n: int,
                   nprb: int) -> torch.Tensor:
     """:func:`scatter_box_plan` of ``scan_int``, made once and kept on the
     scan tensor itself (a solve hands the same scan to every evaluation);
-    made again if the scan was changed in place or the shapes differ."""
+    made again if the scan was changed in place or the shapes differ. Each
+    plan made is an ``ops.scan_plan`` span."""
     key = (scan_int.data_ptr(), scan_int._version, nz, n, nprb)
     held = getattr(scan_int, "_tk_scatter_boxes", None)
     if held is None or held[0] != key:
-        held = (key, scatter_box_plan(scan_int, nz, n, nprb))
+        with profiling.span("ops.scan_plan"):
+            held = (key, scatter_box_plan(scan_int, nz, n, nprb))
         scan_int._tk_scatter_boxes = held
     return held[1]
 

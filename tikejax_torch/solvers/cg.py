@@ -105,6 +105,7 @@ from tikejax_torch.geometry import Geometry
 from tikejax_torch.models import likelihoods
 from tikejax_torch.ops import diffraction, fused, linesearch
 from tikejax_torch.ops import patches as _patches
+from tikejax_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -295,9 +296,10 @@ def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     takes CUDA tensors for it."""
     import torch.distributed as dist
 
-    x = x.contiguous()
-    dist.all_reduce(x, op=dist.ReduceOp.MAX if op == "max"
-                    else dist.ReduceOp.SUM, group=group)
+    with span("cg.all_reduce"):
+        x = x.contiguous()
+        dist.all_reduce(x, op=dist.ReduceOp.MAX if op == "max"
+                        else dist.ReduceOp.SUM, group=group)
     _count(all_reduce, x.numel() * x.element_size())
     return x
 
@@ -329,20 +331,21 @@ def halo_exchange(x: torch.Tensor, pairs, halo: int) -> torch.Tensor:
 
     owned = x.shape[1] - halo
     me = dist.get_rank()
-    for back in (False, True):
-        for _, group, lo, hi in pairs:
-            sending = (me == hi) if back else (me == lo)
-            strip = (x[:, :halo] if back else x[:, owned:]).contiguous()
-            buf = strip if sending else torch.empty_like(strip)
-            dist.broadcast(torch.view_as_real(buf) if buf.is_complex()
-                           else buf, src=hi if back else lo, group=group)
-            _count(halo_exchange, buf.numel() * buf.element_size())
-            if not sending and back:
-                x[:, owned:] = buf
-            elif not sending:
-                x[:, :halo] += buf
-    if not any(lo == me for _, _, lo, _ in pairs):
-        x[:, owned:] = 0  # the last slab
+    with span("cg.halo_exchange"):
+        for back in (False, True):
+            for _, group, lo, hi in pairs:
+                sending = (me == hi) if back else (me == lo)
+                strip = (x[:, :halo] if back else x[:, owned:]).contiguous()
+                buf = strip if sending else torch.empty_like(strip)
+                dist.broadcast(torch.view_as_real(buf) if buf.is_complex()
+                               else buf, src=hi if back else lo, group=group)
+                _count(halo_exchange, buf.numel() * buf.element_size())
+                if not sending and back:
+                    x[:, owned:] = buf
+                elif not sending:
+                    x[:, :halo] += buf
+        if not any(lo == me for _, _, lo, _ in pairs):
+            x[:, owned:] = 0  # the last slab
     return x
 
 
@@ -580,8 +583,10 @@ class _Lbfgs:
 
 class _Engine:
     """Geometry/options-bound internals of the CG loop; counts the host
-    reads it makes in ``syncs`` and its objective evaluations (gradient
-    passes and line-search candidates) in ``evaluations``."""
+    reads it makes in ``syncs`` (:meth:`host`, each a ``cg.host_read``
+    span) and its objective evaluations (gradient passes and line-search
+    candidates) in ``evaluations`` (:meth:`evaluation`, each a
+    ``cg.grad_pass`` or ``cg.minf_pass`` span)."""
 
     def __init__(self, g: Geometry, o: CGOptions, backend: str,
                  f_base=None, mesh=None):
@@ -667,10 +672,21 @@ class _Engine:
         self.syncs = 0
         self.evaluations = 0
 
-    def host(self, x: torch.Tensor) -> float:
-        """Read a device scalar on the host (one synchronisation)."""
+    def host(self, x: torch.Tensor, read=float):
+        """Read the device value ``x`` on the host with ``read`` (a scalar
+        with ``float``; several at once with ``torch.Tensor.tolist``): one
+        synchronisation, counted in ``syncs`` and spanned as
+        ``cg.host_read``. Every host read of the loop comes through
+        here."""
         self.syncs += 1
-        return float(x)
+        with span("cg.host_read"):
+            return read(x)
+
+    def evaluation(self, name: str):
+        """The span of one objective evaluation, ``'cg.grad_pass'`` or
+        ``'cg.minf_pass'``, counted in ``evaluations``."""
+        self.evaluations += 1
+        return span(name)
 
     def dots(self, *pairs, kind: str = "psi") -> torch.Tensor:
         """The real inner products ``<a, b>`` of the object-domain
@@ -717,52 +733,53 @@ class _Engine:
         summed over the chunks in order (the JAX package's ``lax.scan``)
         with one chunk's farplane at a time. Unstreamed and materialized,
         the farplane is returned for the line search to reuse."""
-        self.evaluations += 1
-        o = self.o
-        if self.fused and o.nchunks == 1:
-            adj_precision = diffraction._fused_adj_precision(self.kernel)
-            if not want_prb and self.frameless:
-                grad, f0 = fused.grad_fused(
-                    psi, data, scan_i, prb, self.g.ndet, o.model,
-                    precision=self.precision, adj_precision=adj_precision,
-                    base=self.f_base)
-                return self._reduced(f0, grad, None, None)
-            if not want_prb:
-                fpsi = fused.fwd(psi, scan_i, prb, self.g.ndet,
-                                 precision=self.precision, base=self.f_base)
-                grad, f0 = fused.adj_residual(
-                    fpsi, data, scan_i, prb, self.g.nz, self.g.n, o.model,
-                    precision=adj_precision)
-                return self._reduced(f0, grad, None, fpsi)
-            if self.frameless:
-                gprb, f0 = fused.grad_prb_fused(
-                    psi, data, scan_i, prb, self.g.ndet, o.model,
-                    precision=self.precision, adj_precision=adj_precision)
-                return self._reduced(f0, None, gprb, None)
-        f0 = torch.zeros((), dtype=psi.real.dtype, device=psi.device)
-        gpsi = torch.zeros_like(psi) if want_psi else None
-        gprb = torch.zeros_like(prb) if want_prb else None
-        fpsi = None
-        for sc, dc, fb in self._chunks(scan, data):
-            fp = self._fwd(psi, sc, prb)
-            if fb is not None:
-                fp = fp + fb
-            # Over chunks of positions: no data-sized temporary beside the
-            # farplane and its residual.
-            f0 = f0 + _sum_over_positions(self.minf_fn, fp, dc)
-            r = _map_over_positions(self.resid_fn, fp, dc)
-            if o.nchunks == 1:
-                fpsi = fp
-            del fp  # streamed: one chunk's farplane at a time
-            if want_psi:
-                gpsi = gpsi + diffraction.adj_raw(r, sc, prb, self.g.nz,
-                                                  self.g.n, self.kernel)
-            if want_prb:
-                gprb = gprb + diffraction.adj_probe_raw(r, sc, psi,
-                                                        self.g.nprb,
-                                                        self.kernel)
-            del r
-        return self._reduced(f0, gpsi, gprb, fpsi)
+        with self.evaluation("cg.grad_pass"):
+            o = self.o
+            if self.fused and o.nchunks == 1:
+                adj_precision = diffraction._fused_adj_precision(self.kernel)
+                if not want_prb and self.frameless:
+                    grad, f0 = fused.grad_fused(
+                        psi, data, scan_i, prb, self.g.ndet, o.model,
+                        precision=self.precision, adj_precision=adj_precision,
+                        base=self.f_base)
+                    return self._reduced(f0, grad, None, None)
+                if not want_prb:
+                    fpsi = fused.fwd(psi, scan_i, prb, self.g.ndet,
+                                     precision=self.precision,
+                                     base=self.f_base)
+                    grad, f0 = fused.adj_residual(
+                        fpsi, data, scan_i, prb, self.g.nz, self.g.n, o.model,
+                        precision=adj_precision)
+                    return self._reduced(f0, grad, None, fpsi)
+                if self.frameless:
+                    gprb, f0 = fused.grad_prb_fused(
+                        psi, data, scan_i, prb, self.g.ndet, o.model,
+                        precision=self.precision, adj_precision=adj_precision)
+                    return self._reduced(f0, None, gprb, None)
+            f0 = torch.zeros((), dtype=psi.real.dtype, device=psi.device)
+            gpsi = torch.zeros_like(psi) if want_psi else None
+            gprb = torch.zeros_like(prb) if want_prb else None
+            fpsi = None
+            for sc, dc, fb in self._chunks(scan, data):
+                fp = self._fwd(psi, sc, prb)
+                if fb is not None:
+                    fp = fp + fb
+                # Over chunks of positions: no data-sized temporary beside the
+                # farplane and its residual.
+                f0 = f0 + _sum_over_positions(self.minf_fn, fp, dc)
+                r = _map_over_positions(self.resid_fn, fp, dc)
+                if o.nchunks == 1:
+                    fpsi = fp
+                del fp  # streamed: one chunk's farplane at a time
+                if want_psi:
+                    gpsi = gpsi + diffraction.adj_raw(r, sc, prb, self.g.nz,
+                                                      self.g.n, self.kernel)
+                if want_prb:
+                    gprb = gprb + diffraction.adj_probe_raw(r, sc, psi,
+                                                            self.g.nprb,
+                                                            self.kernel)
+                del r
+            return self._reduced(f0, gpsi, gprb, fpsi)
 
     def _reduced(self, f0, gpsi, gprb, fpsi):
         """A gradient pass's results summed over the mesh where the JAX
@@ -776,10 +793,10 @@ class _Engine:
         """The objective at ``psi`` (plus the base) through the frameless
         ``minf_fused`` kernel: one candidate of the non-merged line
         search."""
-        self.evaluations += 1
-        return self.comm.scalar(fused.minf_fused(
-            psi, data, scan_i, prb, self.g.ndet, self.o.model,
-            precision=self.precision, base=self.f_base))
+        with self.evaluation("cg.minf_pass"):
+            return self.comm.scalar(fused.minf_fused(
+                psi, data, scan_i, prb, self.g.ndet, self.o.model,
+                precision=self.precision, base=self.f_base))
 
     def line_fn(self, psi, prb, scan, scan_i, data, fpsi, dpsi=None,
                 dprb=None):
@@ -818,11 +835,13 @@ class _Engine:
                 del fp
 
         def f_of(gamma):
-            self.evaluations += 1
-            minf_at = functools.partial(_minf_of_gamma, o.model, gamma=gamma)
-            total = sum(_sum_over_positions(minf_at, a, b, c, dc)
-                        for (a, b, c), dc in stats)
-            return self.host(self.comm.scalar(total)), None
+            with self.evaluation("cg.minf_pass"):
+                minf_at = functools.partial(_minf_of_gamma, o.model,
+                                            gamma=gamma)
+                total = self.comm.scalar(sum(
+                    _sum_over_positions(minf_at, a, b, c, dc)
+                    for (a, b, c), dc in stats))
+            return self.host(total), None
 
         return f_of
 
@@ -855,10 +874,10 @@ class _Engine:
         gammas = torch.tensor(gamma0, dtype=f32) * torch.tensor(
             o.step_shrink, dtype=f32) ** torch.arange(o.max_halvings + 1,
                                                        dtype=f32)
-        self.evaluations += 1
-        self.syncs += 1
-        values = self.comm.scalar(linesearch.ls_objectives(
-            fpsi, fd, data, gammas, o.model)).tolist()
+        with self.evaluation("cg.minf_pass"):
+            values = self.comm.scalar(linesearch.ls_objectives(
+                fpsi, fd, data, gammas, o.model))
+        values = self.host(values, torch.Tensor.tolist)
         for gamma, f in zip(gammas.tolist(), values):
             if f <= f0:
                 return gamma
@@ -979,8 +998,8 @@ class _Engine:
         read of the three products); otherwise the memory is unchanged."""
         if not accepted:
             return lb
-        self.syncs += 1
-        sy, ss, yy = self.dots((s, y), (s, s), (y, y)).tolist()
+        sy, ss, yy = self.host(self.dots((s, y), (s, s), (y, y)),
+                               torch.Tensor.tolist)
         if not sy > 1e-12 * math.sqrt(ss * yy):
             return lb
         return _Lbfgs(torch.cat([lb.S[1:], s[None]]),
@@ -1176,38 +1195,52 @@ def run_impl(geometry: Geometry, options: CGOptions, data, psi0, scan, prb0,
     carried ``metrics['cg_state']`` taken at the same iterate. With
     ``options.axis_name`` / ``theta_axis_name`` set, ``mesh`` is the
     ``DeviceMesh`` that names them and the arrays are this rank's slice
-    (``tikejax_torch.parallel.run_sharded`` sets all three)."""
-    o = options
-    eng = _Engine(geometry, o, diffraction._backend(psi0.device), f_base,
-                  mesh)
-    comm = eng.comm
-    real_dtype = psi0.real.dtype
-    device = psi0.device
-    scan_i = _patches.scan_to_int(scan)
-    precond = _preconditioner(o, prb0, scan_i, geometry.nz, geometry.n,
-                              comm)
-    precond_prb = _probe_preconditioner(o, scan_i, comm)
+    (``tikejax_torch.parallel.run_sharded`` sets all three).
 
-    sum_data = eng.host(comm.scalar(_sum_over_positions(
-        lambda c: torch.sum(torch.clamp_min(c, 0.0)), data)))
-    minf_offset = (eng.host(comm.scalar(_sum_over_positions(
-        likelihoods.poisson_perfect_minf, data)))
-        if o.model == "poisson" else 0.0)
+    Spans: the call is ``cg.run``, its set-up ``cg.setup``, then each
+    iteration ``cg.iteration``: the classic body's gradient pass, then
+    ``cg.direction``, ``cg.line_search``, ``cg.update`` and, with
+    recover_prb, ``cg.probe_step`` (the probe's own gradient pass,
+    direction and line search)."""
+    with span("cg.run"):
+        return _run_loop(geometry, options, data, psi0, scan, prb0, f_base,
+                         cg_init, mesh)
+
+
+def _run_loop(geometry, o: CGOptions, data, psi0, scan, prb0, f_base,
+              cg_init, mesh):
+    """The body of :func:`run_impl`."""
+    with span("cg.setup"):
+        eng = _Engine(geometry, o, diffraction._backend(psi0.device),
+                      f_base, mesh)
+        comm = eng.comm
+        real_dtype = psi0.real.dtype
+        device = psi0.device
+        scan_i = _patches.scan_to_int(scan)
+        precond = _preconditioner(o, prb0, scan_i, geometry.nz, geometry.n,
+                                  comm)
+        precond_prb = _probe_preconditioner(o, scan_i, comm)
+
+        sum_data = eng.host(comm.scalar(_sum_over_positions(
+            lambda c: torch.sum(torch.clamp_min(c, 0.0)), data)))
+        minf_offset = (eng.host(comm.scalar(_sum_over_positions(
+            likelihoods.poisson_perfect_minf, data)))
+            if o.model == "poisson" else 0.0)
+
+        minf, residual, gamma_hist, gamma_prb, grad_norm = [], [], [], [], []
+        psi, prb = psi0, prb0
+        d, g_prev, gam_prev, gam0_prev, lb = _initial_state(eng, o, psi0,
+                                                            cg_init)
+        # The probe's own Dai-Yuan state (joint recovery only).
+        d_prb, g_prb_prev = torch.zeros_like(prb0), torch.zeros_like(prb0)
+        gam_p_prev = gam0_p_prev = 0.0
+        if eng.merged:
+            f_t, g_raw, _, _ = eng.grad_pass(psi0, prb0, scan, scan_i, data)
+            f_cur = eng.host(f_t)
+            g_cur = precond(g_raw, prb0)
 
     def residual_of(f):
         return math.sqrt(max(f - minf_offset, 0.0) / sum_data)
-
-    minf, residual, gamma_hist, gamma_prb, grad_norm = [], [], [], [], []
-    psi, prb = psi0, prb0
-    d, g_prev, gam_prev, gam0_prev, lb = _initial_state(eng, o, psi0,
-                                                        cg_init)
-    # The probe's own Dai-Yuan state (joint recovery only).
-    d_prb, g_prb_prev = torch.zeros_like(prb0), torch.zeros_like(prb0)
-    gam_p_prev = gam0_p_prev = 0.0
-    if eng.merged:
-        f_t, g_raw, _, _ = eng.grad_pass(psi0, prb0, scan, scan_i, data)
-        f_cur = eng.host(f_t)
-        g_cur = precond(g_raw, prb0)
 
     def fp0():
         # Directional derivative along d: 2 Re<raw gradient, d> (the
@@ -1218,80 +1251,98 @@ def run_impl(geometry: Geometry, options: CGOptions, data, psi0, scan, prb0,
         """The search direction at the gradient ``g_now`` and its
         line-search start; updates the L-BFGS memory."""
         nonlocal lb
-        if lb is None:
-            return (eng.dy_direction(g_now, g_prev, d),
-                    eng.gamma0(gam_prev, gam0_prev))
-        lb = eng.lbfgs_push(lb, gam_prev * d, g_now - g_prev, gam_prev > 0)
-        return (eng.lbfgs_direction(g_now, lb),
-                eng.lbfgs_gamma0(lb.count, gam_prev, gam0_prev))
+        with span("cg.direction"):
+            if lb is None:
+                return (eng.dy_direction(g_now, g_prev, d),
+                        eng.gamma0(gam_prev, gam0_prev))
+            lb = eng.lbfgs_push(lb, gam_prev * d, g_now - g_prev,
+                                gam_prev > 0)
+            return (eng.lbfgs_direction(g_now, lb),
+                    eng.lbfgs_gamma0(lb.count, gam_prev, gam0_prev))
 
-    i = 0
-    while eng.keep_going(i, residual, gamma_hist, gamma_prb):
-        gamma_p = 0.0
-        if eng.merged:
-            # Every candidate is evaluated with its gradient; the accepted
-            # one seeds the next iteration.
-            d, gamma0 = direction(g_cur)
-
-            def f_of(gamma):
-                fc, gc, _, _ = eng.grad_pass(psi + gamma * d, prb, scan,
-                                             scan_i, data)
-                return eng.host(fc), gc
-
-            gamma, fc, gc = eng.line_search(f_of, f_cur, gamma0, fp0)
-            f_iter, g_iter = f_cur, g_cur
-            g_prev = g_cur
-            if fc <= f_cur:
-                psi = psi + gamma * d
-                g_cur, g_raw, f_cur = precond(gc, prb), gc, fc
-        else:
-            # Object step.
-            f_t, g_raw, _, fpsi = eng.grad_pass(psi, prb, scan, scan_i,
-                                                data)
-            f_iter = eng.host(f_t)
-            g_iter = precond(g_raw, prb)
-            d, gamma0 = direction(g_iter)
-            search = eng.searcher(psi, prb, scan, scan_i, data, fpsi,
-                                  dpsi=d)
-            del fpsi
-            gamma = search(f_iter, gamma0, fp0)
-            del search  # the line-search statistics or farplanes
-            if gamma != 0.0:
-                psi = psi + gamma * d
-            g_prev = g_iter
-            if o.recover_prb:
-                # Probe step at the updated object: its gradient, a
-                # Dai-Yuan direction and a warm-started line search of its
-                # own (cg.py's joint body in the JAX package).
-                f_t, _, gp_raw, fpsi = eng.grad_pass(
-                    psi, prb, scan, scan_i, data, want_psi=False,
-                    want_prb=True)
-                f_p = eng.host(f_t)
-                gp = precond_prb(gp_raw, psi)
-                d_prb = eng.dy_direction(gp, g_prb_prev, d_prb, kind="prb")
-                gamma0_p = eng.gamma0(gam_p_prev, gam0_p_prev)
-                search = eng.searcher(psi, prb, scan, scan_i, data, fpsi,
-                                      dprb=d_prb)
-                del fpsi
-                gamma_p = search(f_p, gamma0_p,
-                                 lambda: 2.0 * eng.host(eng.dot(
-                                     gp_raw, d_prb, kind="prb")))
-                del search
-                if gamma_p != 0.0:
-                    prb = prb + gamma_p * d_prb
-                g_prb_prev = gp
-                gam_p_prev, gam0_p_prev = gamma_p, gamma0_p
+    def record(gamma, gamma0, f_iter, g_iter):
+        """The iteration's entries of the histories (``gamma_prb``'s
+        follows the probe step) and the step control's memory."""
+        nonlocal gam_prev, gam0_prev
         if lb is not None and gamma == 0.0:
             lb.count = 0  # a fully-failed search restarts from -grad
         minf.append(f_iter)
         residual.append(residual_of(f_iter))
         gamma_hist.append(gamma)
-        gamma_prb.append(gamma_p)
         grad_norm.append(torch.sqrt(eng.dot(g_iter, g_iter)))
         gam_prev, gam0_prev = gamma, gamma0
-        if o.verbose_every > 0 and i % o.verbose_every == 0:
-            print(f"iter {i}: minf={f_iter:.6e} gamma={gamma:.4f}",
-                  flush=True)
+
+    i = 0
+    while eng.keep_going(i, residual, gamma_hist, gamma_prb):
+        with span("cg.iteration"):
+            gamma_p = 0.0
+            if eng.merged:
+                # Every candidate is evaluated with its gradient; the
+                # accepted one seeds the next iteration.
+                d, gamma0 = direction(g_cur)
+
+                def f_of(gamma):
+                    fc, gc, _, _ = eng.grad_pass(psi + gamma * d, prb, scan,
+                                                 scan_i, data)
+                    return eng.host(fc), gc
+
+                with span("cg.line_search"):
+                    gamma, fc, gc = eng.line_search(f_of, f_cur, gamma0, fp0)
+                with span("cg.update"):
+                    f_iter, g_iter = f_cur, g_cur
+                    g_prev = g_cur
+                    if fc <= f_cur:
+                        psi = psi + gamma * d
+                        g_cur, g_raw, f_cur = precond(gc, prb), gc, fc
+                    record(gamma, gamma0, f_iter, g_iter)
+            else:
+                # Object step.
+                f_t, g_raw, _, fpsi = eng.grad_pass(psi, prb, scan, scan_i,
+                                                    data)
+                f_iter = eng.host(f_t)
+                g_iter = precond(g_raw, prb)
+                d, gamma0 = direction(g_iter)
+                with span("cg.line_search"):
+                    search = eng.searcher(psi, prb, scan, scan_i, data, fpsi,
+                                          dpsi=d)
+                    del fpsi
+                    gamma = search(f_iter, gamma0, fp0)
+                    del search  # the line-search statistics or farplanes
+                with span("cg.update"):
+                    if gamma != 0.0:
+                        psi = psi + gamma * d
+                    g_prev = g_iter
+                    record(gamma, gamma0, f_iter, g_iter)
+                if o.recover_prb:
+                    # Probe step at the updated object: its gradient, a
+                    # Dai-Yuan direction and a warm-started line search of
+                    # its own (cg.py's joint body in the JAX package).
+                    with span("cg.probe_step"):
+                        f_t, _, gp_raw, fpsi = eng.grad_pass(
+                            psi, prb, scan, scan_i, data, want_psi=False,
+                            want_prb=True)
+                        f_p = eng.host(f_t)
+                        gp = precond_prb(gp_raw, psi)
+                        with span("cg.direction"):
+                            d_prb = eng.dy_direction(gp, g_prb_prev, d_prb,
+                                                     kind="prb")
+                            gamma0_p = eng.gamma0(gam_p_prev, gam0_p_prev)
+                        with span("cg.line_search"):
+                            search = eng.searcher(psi, prb, scan, scan_i,
+                                                  data, fpsi, dprb=d_prb)
+                            del fpsi
+                            gamma_p = search(f_p, gamma0_p,
+                                             lambda: 2.0 * eng.host(eng.dot(
+                                                 gp_raw, d_prb, kind="prb")))
+                            del search
+                        if gamma_p != 0.0:
+                            prb = prb + gamma_p * d_prb
+                        g_prb_prev = gp
+                        gam_p_prev, gam0_p_prev = gamma_p, gamma0_p
+            gamma_prb.append(gamma_p)
+            if o.verbose_every > 0 and i % o.verbose_every == 0:
+                print(f"iter {i}: minf={f_iter:.6e} gamma={gamma:.4f}",
+                      flush=True)
         i += 1
 
     def padded(values):

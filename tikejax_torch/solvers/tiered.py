@@ -84,6 +84,7 @@ from tikejax_torch.ops import diffraction, fused
 from tikejax_torch.ops import patches as _patches
 from tikejax_torch.solvers import cg as _cg
 from tikejax_torch.utils import checkpoint as _checkpoint
+from tikejax_torch.utils.profiling import span
 
 # (kernel, exit-residual floor, default max iterations) per tier, as in the
 # JAX package. In this port every fused tier runs the same fp32 kernels.
@@ -202,48 +203,49 @@ def reconstruct(data, psi0, scan, prb0, geometry: Geometry,
                          "'anderson', or 'anderson:<depth>'")
     _check_slab_stages(options, psi0.device, method, tiers, base_kernel,
                        fast_kernel, joint_kernel, mesh)
-    if mesh is not None:
-        from tikejax_torch.parallel import sharding
+    with span("tiered.reconstruct"):
+        if mesh is not None:
+            from tikejax_torch.parallel import sharding
 
-        sharding._check_mesh(mesh)
-        _, _, tsh, nsh, _, _ = sharding._layout(mesh)
-        if geometry.ntheta % tsh:
-            raise ValueError(
-                f"ntheta ({geometry.ntheta}) must be divisible by the "
-                f"theta mesh axis size ({tsh})")
-        data, scan, geometry = sharding.pad_scan_problem(data, scan,
-                                                         geometry, nsh)
-        data, scan = sharding.shard_problem(mesh, data, scan)
-    if method == "split":
-        return _reconstruct_split(data, psi0, scan, prb0, geometry,
-                                  target_residual, segment, max_segments,
-                                  base_kernel, fast_kernel, options, tiers,
-                                  segment_carry, floor_patience, accelerate,
-                                  joint_kernel, checkpoint_path,
-                                  checkpoint_every, mesh)
-    run_fn = _make_run_fn(mesh)
+            sharding._check_mesh(mesh)
+            _, _, tsh, nsh, _, _ = sharding._layout(mesh)
+            if geometry.ntheta % tsh:
+                raise ValueError(
+                    f"ntheta ({geometry.ntheta}) must be divisible by the "
+                    f"theta mesh axis size ({tsh})")
+            data, scan, geometry = sharding.pad_scan_problem(data, scan,
+                                                             geometry, nsh)
+            data, scan = sharding.shard_problem(mesh, data, scan)
+        if method == "split":
+            return _reconstruct_split(
+                data, psi0, scan, prb0, geometry, target_residual, segment,
+                max_segments, base_kernel, fast_kernel, options, tiers,
+                segment_carry, floor_patience, accelerate, joint_kernel,
+                checkpoint_path, checkpoint_every, mesh)
+        run_fn = _make_run_fn(mesh)
 
-    psi, prb = psi0, prb0
-    stages = []
-    for tier_i, (kernel, floor, max_piter) in enumerate(tiers):
-        tier_target = max(target_residual, floor)
-        # Runs of at most 512 iterations, as in the JAX package (there a
-        # longer device program risked the transport's deadline); a run
-        # started after the target was reached exits after one iteration.
-        remaining = max_piter
-        while remaining > 0:
-            seg = min(remaining, 512)
-            tier_opts = dataclasses.replace(
-                options, kernel=kernel, piter=seg,
-                target_residual=tier_target,
-                direction="dy" if tier_i == 0 else options.direction)
-            psi, prb, metrics = run_fn(data, psi, scan, prb, geometry,
-                                       tier_opts)
-            stages.append((kernel, metrics))
-            remaining -= seg
-        if floor <= target_residual:
-            break  # this tier could reach the target; done
-    return psi, prb, stages
+        psi, prb = psi0, prb0
+        stages = []
+        for tier_i, (kernel, floor, max_piter) in enumerate(tiers):
+            tier_target = max(target_residual, floor)
+            # Runs of at most 512 iterations, as in the JAX package (there a
+            # longer device program risked the transport's deadline); a run
+            # started after the target was reached exits after one iteration.
+            remaining = max_piter
+            while remaining > 0:
+                seg = min(remaining, 512)
+                tier_opts = dataclasses.replace(
+                    options, kernel=kernel, piter=seg,
+                    target_residual=tier_target,
+                    direction="dy" if tier_i == 0 else options.direction)
+                with span("tiered.stage"):
+                    psi, prb, metrics = run_fn(data, psi, scan, prb,
+                                               geometry, tier_opts)
+                stages.append((kernel, metrics))
+                remaining -= seg
+            if floor <= target_residual:
+                break  # this tier could reach the target; done
+        return psi, prb, stages
 
 
 def _check_slab_stages(options, device, method, tiers, base_kernel,
@@ -329,8 +331,9 @@ def _reconstruct_split(data, psi0, scan, prb, g, target, segment,
 
     ck = None
     if checkpoint_path is not None and os.path.exists(checkpoint_path):
-        ck = _checkpoint.load(checkpoint_path)
-        _ckpt_validate(ck, g, segment, target)
+        with span("tiered.checkpoint"):
+            ck = _checkpoint.load(checkpoint_path)
+            _ckpt_validate(ck, g, segment, target)
 
     recover = options.recover_prb
     # The joint escalation and refresh chains: Dai-Yuan runs of 128 joint
@@ -345,7 +348,8 @@ def _reconstruct_split(data, psi0, scan, prb, g, target, segment,
         opts1 = dataclasses.replace(options, kernel=fast, direction="dy",
                                     piter=tiers[0][2] if tiers else 256,
                                     target_residual=max(target, floor))
-        psi, prb, m = run_fn(data, psi0, scan, prb, g, opts1)
+        with span("tiered.stage"):
+            psi, prb, m = run_fn(data, psi0, scan, prb, g, opts1)
         stages.append((fast + (":joint" if recover else ""), m))
         if recover and target < floor:
             # A probe frozen at the fast tier's accuracy would floor the
@@ -381,6 +385,7 @@ def _reconstruct_split(data, psi0, scan, prb, g, target, segment,
             * psi.element_size() > _SAFEGUARD_FRAMELESS_BYTES):
         minf_base_fn = _make_minf_base(g)
         fwd_base = _make_fwd_base_split(g)
+    fwd_base = _spanned("tiered.base_freeze", fwd_base)
 
     prev = None
     flat = 0
@@ -393,88 +398,101 @@ def _reconstruct_split(data, psi0, scan, prb, g, target, segment,
                 else 0)
     f_next = None  # chosen farplane handed forward by the Anderson step
     if ck is not None:
-        (flat, budget, refreshes, res_hist, prev, aa_hist,
-         state) = _ckpt_restore(ck, state, psi0.device)
+        with span("tiered.checkpoint"):
+            (flat, budget, refreshes, res_hist, prev, aa_hist,
+             state) = _ckpt_restore(ck, state, psi0.device)
     elif checkpoint_path is not None:
-        _ckpt_save(checkpoint_path, g, segment, target, psi, prb, budget,
-                   flat, refreshes, res_hist, prev, aa_hist, state, mesh)
-    seg_i = 0
-    while budget > 0:
-        budget -= 1
-        f_base = f_next if f_next is not None else fwd_base(psi, scan, prb)
-        f_next = None
-        delta0 = torch.zeros(g.psi_shape, dtype=psi.dtype, device=psi.device)
-        delta, _, m = run_fn(data, delta0, scan, prb, g, opts2,
-                             f_base=f_base, cg_init=state)
-        f_base = None  # at scale the base IS the memory budget
-        psi = psi + delta
-        stages.append((f"split:{fast}", m))
-        if segment_carry:
-            state = _masked_state(m["cg_state"], m["iters_run"], segment)
-        if aa_depth:
-            # History holds raw segment outputs and their corrections; a
-            # taken mix never enters it.
-            aa_hist.append((psi, delta))
-            del aa_hist[:-aa_depth]
-            if len(aa_hist) >= 2:
-                if minf_base_fn is not None:
-                    psi, took, f_next = _anderson_step_frameless(
-                        [p for p, _ in aa_hist], [d for _, d in aa_hist],
-                        data, scan, prb, minf_base_fn)
-                else:
-                    psi, took, f_next = _anderson_step(
-                        [p for p, _ in aa_hist], [d for _, d in aa_hist],
-                        data, scan, prb, fwd_base, reduce)
-                if segment_carry:
-                    # A taken mix moves psi off the carried trajectory.
-                    state = _masked_state_flag(state, took)
-        # The termination test reads the PREVIOUS segment's status (the
-        # JAX package's one-deep speculation; see the module note).
-        if prev is not None:
-            reached, contraction, res_end = _segment_status(prev, segment,
-                                                            target)
-            if reached:
-                break
-            res_hist.append(res_end)
-            can_refresh = refreshes > 0 and budget > 0
-            want_refresh = False
-            if contraction > _FLOOR_CONTRACTION:
-                flat += 1
-                if floor_patience > 0 and flat >= floor_patience:
-                    if not can_refresh:
-                        break  # pinned at the base kernel's or data's floor
-                    want_refresh = True
-            else:
-                flat = 0
-            if (not want_refresh and can_refresh
-                    and _probe_floor_predicted(res_hist, target)):
-                want_refresh = True  # approaching a frozen-probe floor
-            if want_refresh:
-                refreshes -= 1
-                budget -= 1
-                psi, prb, (r_reached, r_contr) = _joint_chain(
-                    data, psi, scan, prb, g, joint_opts, stages,
-                    target=target, run_fn=run_fn)
-                if r_reached:
-                    _ckpt_done(checkpoint_path, mesh)
-                    return psi, prb, stages
-                if r_contr > _FLOOR_CONTRACTION:
-                    break  # the probe refresh is flat too: genuine floor
-                # The joint run changed the map and the probe: restart the
-                # Anderson history, the pending base and the carried state.
-                flat, prev = 0, None
-                res_hist = []
-                aa_hist = []
-                f_next = None
-                state = (_cg.zero_cg_state(psi, opts2) if segment_carry
-                         else None)
-                continue
-        prev = m
-        seg_i += 1
-        if checkpoint_path is not None and seg_i % checkpoint_every == 0:
+        with span("tiered.checkpoint"):
             _ckpt_save(checkpoint_path, g, segment, target, psi, prb,
                        budget, flat, refreshes, res_hist, prev, aa_hist,
                        state, mesh)
+    seg_i = 0
+    while budget > 0:
+        with span("tiered.segment"):
+            budget -= 1
+            f_base = (f_next if f_next is not None
+                      else fwd_base(psi, scan, prb))
+            f_next = None
+            delta0 = torch.zeros(g.psi_shape, dtype=psi.dtype,
+                                 device=psi.device)
+            delta, _, m = run_fn(data, delta0, scan, prb, g, opts2,
+                                 f_base=f_base, cg_init=state)
+            f_base = None  # at scale the base IS the memory budget
+            psi = psi + delta
+            stages.append((f"split:{fast}", m))
+            if segment_carry:
+                state = _masked_state(m["cg_state"], m["iters_run"],
+                                      segment)
+            if aa_depth:
+                # History holds raw segment outputs and their corrections;
+                # a taken mix never enters it.
+                aa_hist.append((psi, delta))
+                del aa_hist[:-aa_depth]
+                if len(aa_hist) >= 2:
+                    with span("tiered.anderson"):
+                        if minf_base_fn is not None:
+                            psi, took, f_next = _anderson_step_frameless(
+                                [p for p, _ in aa_hist],
+                                [d for _, d in aa_hist], data, scan, prb,
+                                minf_base_fn)
+                        else:
+                            psi, took, f_next = _anderson_step(
+                                [p for p, _ in aa_hist],
+                                [d for _, d in aa_hist], data, scan, prb,
+                                fwd_base, reduce)
+                    if segment_carry:
+                        # A taken mix moves psi off the carried trajectory.
+                        state = _masked_state_flag(state, took)
+            # The termination test reads the PREVIOUS segment's status (the
+            # JAX package's one-deep speculation; see the module note).
+            if prev is not None:
+                with span("tiered.status"):
+                    reached, contraction, res_end = _segment_status(
+                        prev, segment, target)
+                    if reached:
+                        break
+                    res_hist.append(res_end)
+                    can_refresh = refreshes > 0 and budget > 0
+                    want_refresh = False
+                    if contraction > _FLOOR_CONTRACTION:
+                        flat += 1
+                        if floor_patience > 0 and flat >= floor_patience:
+                            if not can_refresh:
+                                break  # pinned at the base's or data's floor
+                            want_refresh = True
+                    else:
+                        flat = 0
+                    if (not want_refresh and can_refresh
+                            and _probe_floor_predicted(res_hist, target)):
+                        want_refresh = True  # nearing a frozen-probe floor
+                if want_refresh:
+                    refreshes -= 1
+                    budget -= 1
+                    psi, prb, (r_reached, r_contr) = _joint_chain(
+                        data, psi, scan, prb, g, joint_opts, stages,
+                        target=target, run_fn=run_fn)
+                    if r_reached:
+                        _ckpt_done(checkpoint_path, mesh)
+                        return psi, prb, stages
+                    if r_contr > _FLOOR_CONTRACTION:
+                        break  # the probe refresh is flat too: genuine floor
+                    # The joint run changed the map and the probe: restart
+                    # the Anderson history, the pending base and the
+                    # carried state.
+                    flat, prev = 0, None
+                    res_hist = []
+                    aa_hist = []
+                    f_next = None
+                    state = (_cg.zero_cg_state(psi, opts2) if segment_carry
+                             else None)
+                    continue
+            prev = m
+            seg_i += 1
+            if checkpoint_path is not None and seg_i % checkpoint_every == 0:
+                with span("tiered.checkpoint"):
+                    _ckpt_save(checkpoint_path, g, segment, target, psi, prb,
+                               budget, flat, refreshes, res_hist, prev,
+                               aa_hist, state, mesh)
     _ckpt_done(checkpoint_path, mesh)
     return psi, prb, stages
 
@@ -487,10 +505,11 @@ def _joint_chain(data, psi, scan, prb, g, joint_opts, stages, target=None,
     residual contraction across the chain); else None."""
     run_fn = run_fn or _cg.run
     ms = []
-    for _ in range(4):
-        psi, prb, m = run_fn(data, psi, scan, prb, g, joint_opts)
-        stages.append((joint_opts.kernel + ":joint", m))
-        ms.append(m)
+    with span("tiered.joint_chain"):
+        for _ in range(4):
+            psi, prb, m = run_fn(data, psi, scan, prb, g, joint_opts)
+            stages.append((joint_opts.kernel + ":joint", m))
+            ms.append(m)
     if target is None:
         return psi, prb, None
     kl = int(ms[-1]["iters_run"])
@@ -602,6 +621,16 @@ def _anderson_select(psi_mix, psi_plain, f_mix, f_plain, data,
     if bool(res(f_mix) < res(f_plain)):
         return psi_mix, True, f_mix
     return psi_plain, False, f_plain
+
+
+def _spanned(name: str, fn):
+    """``fn`` with each call inside the span ``name``."""
+
+    def call(*args):
+        with span(name):
+            return fn(*args)
+
+    return call
 
 
 def _make_minf_base(g: Geometry):
