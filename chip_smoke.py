@@ -11,7 +11,8 @@ is caught):
   2. build     -- nvcc builds the twelve kernels (grad_fused, fwd,
                   minf_fused, grad_prb_fused, adj, adj_probe, adj_residual,
                   fwd_quad_stats, ls_objectives, gather_probe_mul,
-                  scatter_conj_probe, adj_probe_reduce) from
+                  scatter_conj_probe, adj_probe_reduce) and the L-BFGS
+                  direction's two (lbfgs_gram, lbfgs_combine) from
                   tikejax_torch/csrc, one process per source, in parallel,
                   into the build directory it prints; beside them the eight
                   kernels that have an FFT variant once more on the
@@ -90,6 +91,13 @@ is caught):
                   farplane, adj, adj_probe, adj_residual and grad_fused at
                   64^2 and 128^2, 1 and 4 modes, against a complex128
                   oracle on the card: the fused_hp bound (~4e-7) held;
+                  lbfgs_gram and lbfgs_combine at the headline object
+                  (512^2, complex64) and m = 8 against their plain
+                  versions, bitwise repeatable, the pair stored in its
+                  slot, timed beside their bounds, their plain versions
+                  and the compact plain form (one matrix product for the
+                  Gram, one matrix-vector product for the combination, in
+                  float32 and float64);
   4. solver    -- a small problem against the CPU complex128 oracle solver;
   5. main      -- the headline problem (512^2 object, 16384 positions, 128^2
                   probe and detector, Gaussian, solver defaults) through
@@ -103,7 +111,10 @@ is caught):
                   between two torch.cuda.synchronize(): the target must be
                   reached, fwd ('fft') must freeze every base and make
                   every Anderson candidate, grad_fused ('fft') must run
-                  every evaluation, and no plain version may run;
+                  every evaluation, lbfgs_combine must run once a
+                  refinement (L-BFGS) iteration and lbfgs_gram once an
+                  accepted step there (and at most once more a segment),
+                  and no plain version may run;
   7. materialized -- the headline through solvers.run(memory=
                   'materialized'), 100 iterations: fwd, adj_residual and
                   fwd_quad_stats (all 'fft') once an iteration, no grad_fused or
@@ -358,7 +369,14 @@ KERNEL_SOURCES = {
                            "tikejax/ops/pallas_kernels.py:349"),
     "adj_probe_reduce": ("tikejax_torch/csrc/adj_probe_reduce.cu",
                          "tikejax/ops/pallas_kernels.py:436"),
+    # The L-BFGS direction's Gram and combination passes: they replace no
+    # TPU kernel (the JAX package's two-loop is jnp in a fori_loop).
+    "lbfgs": ("tikejax_torch/csrc/lbfgs.cu", None),
 }
+# The wrappers of lbfgs.cu, one line each in the kernels line.
+LBFGS_WRAPPERS = ("lbfgs_gram", "lbfgs_combine")
+LBFGS_M = 8  # the solver's default ring
+LBFGS_SHAPE = (1, 512, 512)  # the headline object
 # The reference's operator accuracy of its most accurate tier, fused_hp
 # (tikejax/ops/diffraction.py: ~4e-7; fused_mp / fused_mx ~8e-6), here as
 # max|err| / max|ref| against a complex128 oracle on the card.
@@ -934,6 +952,111 @@ def compare_hybrid_at_scale(torch, kernels, g, psi, scan_i, prb, frames,
     return errs
 
 
+def compare_lbfgs(torch, lbfgs, dev):
+    """The L-BFGS direction's kernels at the headline object (512^2,
+    complex64) and m = 8: each against its plain version on CPU copies (the
+    test's tolerances), each bitwise repeatable, the combination's pair
+    stored in its slot; then each timed (median of 20, CUDA events) beside
+    its plain version on the card and the compact plain form: the Gram as
+    the two operations that form s and y into a contiguous ring and one
+    matrix product, the combination as the pair's two copies into its slot,
+    the coefficients' copy to the card and one matrix-vector product, each
+    in float32 and in float64. Returns ({name: (max abs err, ms, plain
+    ms)}, {name: bound}, {name: {'float32': (ms, rel err), 'float64': (ms,
+    rel err)}})."""
+    m, gamma, slot, c_g = LBFGS_M, 0.625, 3, 0.875
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+
+    def rand(*lead):
+        return torch.randn(lead + LBFGS_SHAPE, generator=gen, device=dev,
+                           dtype=torch.complex64)
+
+    def bits(x):
+        return torch.view_as_real(x).view(torch.int32)
+
+    S, Y, g, gp, dp = rand(m), rand(m), rand(), rand(), rand()
+    cpu = [x.cpu() for x in (S, Y, g, gp, dp)]
+    prods = lbfgs.lbfgs_gram(S, Y, g, gp, dp, gamma)
+    check(torch.equal(prods, lbfgs.lbfgs_gram(S, Y, g, gp, dp, gamma)),
+          "lbfgs_gram: two calls differ")
+    plain = lbfgs.lbfgs_gram_reference(*cpu, gamma)
+    gram_err = float((prods.cpu() - plain).abs().max())
+    check(torch.allclose(prods.cpu(), plain, rtol=1e-10, atol=1e-8),
+          ("lbfgs_gram", gram_err))
+    a = [0.5 - 0.1 * k for k in range(m)]
+    b = [0.2 * k - 0.7 for k in range(m)]
+    S2, Y2 = S.clone(), Y.clone()
+    d = lbfgs.lbfgs_combine(S, Y, g, gp, dp, gamma, slot, c_g, a, b)
+    d2 = lbfgs.lbfgs_combine(S2, Y2, g, gp, dp, gamma, slot, c_g, a, b)
+    check(torch.equal(bits(d), bits(d2)) and torch.equal(bits(S), bits(S2))
+          and torch.equal(bits(Y), bits(Y2)), "lbfgs_combine: two calls "
+          "differ")
+    d_plain = lbfgs.lbfgs_combine_reference(*cpu, gamma, slot, c_g, a, b)
+    check(torch.equal(S[slot].cpu(), cpu[0][slot])
+          and torch.equal(Y[slot].cpu(), cpu[1][slot]),
+          "lbfgs_combine: the pair stored otherwise than the plain version")
+    comb_err = float((d.cpu() - d_plain).abs().max())
+    # The same sums in double but for contracted multiply-adds: at most an
+    # ulp apart after the one rounding in complex64.
+    size = c_g + sum(map(abs, a)) + sum(map(abs, b))
+    tol = 4 * torch.finfo(torch.float32).eps * size * max(
+        float(x.abs().max()) for x in cpu)
+    check(comb_err <= tol, ("lbfgs_combine", comb_err, tol))
+
+    # The compact plain form: rows S_0..S_{m-1}, Y_0..Y_{m-1}, g, s, y.
+    ring = torch.cat([S, Y, g[None], torch.empty_like(S[:2])])
+    rows = torch.view_as_real(ring).reshape(2 * m + 3, -1)
+    coeffs = a + b + [c_g]
+
+    def form():
+        torch.mul(dp, gamma, out=ring[2 * m + 1])
+        torch.sub(g, gp, out=ring[2 * m + 2])
+
+    def gram_plain(dtype):
+        form()
+        w = rows.to(dtype)
+        return w[2 * m:] @ w.T
+
+    def combine_plain(dtype):
+        ring[slot], ring[m + slot] = ring[2 * m + 1], ring[2 * m + 2]
+        c = torch.tensor(coeffs, dtype=dtype).to(dev)
+        return torch.mv(rows[:2 * m + 1].T.to(dtype), -c).to(torch.float32)
+
+    form()
+    ref_d = -(c_g * g + sum(a[k] * ring[k] + b[k] * ring[m + k]
+                            for k in range(m)))
+    ref_prods = lbfgs.lbfgs_gram(S, Y, g, gp, dp, gamma)  # the pair stored
+    compact = {"lbfgs_gram": {}, "lbfgs_combine": {}}
+    for name, dtype in (("float32", torch.float32),
+                        ("float64", torch.float64)):
+        got = gram_plain(dtype).double()
+        compact["lbfgs_gram"][name] = (
+            median_ms(torch, lambda: gram_plain(dtype), 20),
+            float((got - ref_prods).abs().max() / ref_prods.abs().max()))
+        got = torch.view_as_complex(combine_plain(dtype).view(-1, 2))
+        compact["lbfgs_combine"][name] = (
+            median_ms(torch, lambda: combine_plain(dtype), 20),
+            float((got - ref_d.reshape(-1)).abs().max()
+                  / ref_d.abs().max()))
+    results = {
+        "lbfgs_gram": (gram_err, median_ms(torch, lambda: lbfgs.lbfgs_gram(
+            S, Y, g, gp, dp, gamma), 20), median_ms(
+            torch, lambda: lbfgs.lbfgs_gram_reference(S, Y, g, gp, dp,
+                                                      gamma), 20)),
+        "lbfgs_combine": (comb_err, median_ms(
+            torch, lambda: lbfgs.lbfgs_combine(S, Y, g, gp, dp, gamma, slot,
+                                               c_g, a, b), 20), median_ms(
+            torch, lambda: lbfgs.lbfgs_combine_reference(
+                S, Y, g, gp, dp, gamma, slot, c_g, a, b), 20))}
+    # Bytes: the Gram reads the ring, g, g_prev and d_prev; the combination
+    # reads the ring but the stored slot, g, g_prev and d_prev and writes d
+    # and the pair.
+    slot_bytes = nbytes(g)
+    bounds = {"lbfgs_gram": bound(0.0, (2 * m + 3) * slot_bytes),
+              "lbfgs_combine": bound(0.0, (2 * m + 4) * slot_bytes)}
+    return results, bounds, compact
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -1008,15 +1131,17 @@ def show_busy(iters, busy, plain_ms) -> str:
 
 
 def kernel_counters():
-    """(the twelve kernels' wrappers, the hybrid tier's three last; their
-    plain versions): each keeps its count in ``launches``."""
-    from tikejax_torch.ops import fused, kernels, linesearch
+    """(the twelve kernels' wrappers, the hybrid tier's three next to last,
+    then the L-BFGS direction's two; their plain versions): each keeps its
+    count in ``launches``."""
+    from tikejax_torch.ops import fused, kernels, lbfgs, linesearch
 
     return ([fused.grad_fused, fused.fwd, fused.minf_fused,
              fused.grad_prb_fused, fused.adj, fused.adj_probe,
              fused.adj_residual, fused.fwd_quad_stats,
              linesearch.ls_objectives, kernels.gather_probe_mul,
-             kernels.scatter_conj_probe, kernels.adj_probe_reduce],
+             kernels.scatter_conj_probe, kernels.adj_probe_reduce,
+             lbfgs.lbfgs_gram, lbfgs.lbfgs_combine],
             [fused.grad_fused_reference, fused.fwd_reference,
              fused.minf_fused_reference, fused.grad_prb_fused_reference,
              fused.adj_reference, fused.adj_probe_reference,
@@ -1024,7 +1149,8 @@ def kernel_counters():
              linesearch.ls_objectives_reference,
              kernels.gather_probe_mul_reference,
              kernels.scatter_conj_probe_reference,
-             kernels.adj_probe_reduce_reference])
+             kernels.adj_probe_reduce_reference,
+             lbfgs.lbfgs_gram_reference, lbfgs.lbfgs_combine_reference])
 
 
 def shape(gg, positions=None):
@@ -2192,6 +2318,21 @@ def main() -> None:
         "err against the plain version / the atomic kernel on the headline "
         f"with one position masked {scatter_head[0]:.2e}/"
         f"{scatter_head[1]:.2e}; bitwise repeatable; on {card}")
+    from tikejax_torch.ops import lbfgs
+
+    lb_results, lb_bounds, lb_compact = compare_lbfgs(torch, lbfgs, dev)
+    results.update(lb_results)
+    bounds.update(lb_bounds)
+    log("kernel", f"L-BFGS direction at {LBFGS_SHAPE} complex64, m = "
+        f"{LBFGS_M}: " + "; ".join(
+            f"{name} err {lb_results[name][0]:.2e} against the plain "
+            f"version, bitwise repeatable, {lb_results[name][1]:.4f} ms "
+            f"(bound {lb_bounds[name][0]:.4f} ms by {lb_bounds[name][1]}, "
+            f"{100 * lb_bounds[name][0] / lb_results[name][1]:.1f}% of it "
+            f"reached), plain {lb_results[name][2]:.4f} ms, compact plain "
+            + ", ".join(f"{k} {v[0]:.4f} ms (rel err {v[1]:.2e})"
+                        for k, v in lb_compact[name].items())
+            for name in LBFGS_WRAPPERS) + f"; median of 20 on {card}")
     log("kernel", "bounds (ms, by): " + ", ".join(
         f"{k} {v[0]:.3f} {v[1]}" for k, v in bounds.items()))
     del base, psi_r, args, far, fd, dpsi_h
@@ -2290,6 +2431,16 @@ def main() -> None:
     deep = {fn.__name__: fn.launches for fn in counters}
     check(all(fn.launches == 0 for fn in plain), "plain version ran")
     iters = [int(mm["iters_run"]) for _, mm in stages]
+    # One combination every refinement (L-BFGS) iteration; one Gram pass
+    # every direction after an accepted step: within a segment, and at its
+    # start where it carries one.
+    refine = [(mm, k) for (name, mm), k in zip(stages, iters)
+              if name.startswith("split:")]
+    accepted = sum(sum(v > 0 for v in mm["gamma"][:k - 1].tolist())
+                   for mm, k in refine)
+    check(deep["lbfgs_combine"] == sum(k for _, k in refine) > 0
+          and accepted <= deep["lbfgs_gram"] <= accepted + len(refine),
+          (deep, accepted, len(refine)))
     evals = sum(mm["evaluations"] for _, mm in stages)
     syncs = sum(mm["host_syncs"] for _, mm in stages)
     n_split = sum(1 for name, _ in stages if name.startswith("split:"))
@@ -2318,7 +2469,10 @@ def main() -> None:
         f"{syncs / sum(iters):.3f} host syncs/iter, refinement segments "
         f"{split_iters / split_s:.2f} iters/s ({split_iters} iters in "
         f"{split_s:.3f} s), stage 1 {timed[-len(stages)]:.3f} s, peak "
-        f"extra memory {peak / 2**30:.3f} GiB, launches {deep}, on {card}")
+        f"extra memory {peak / 2**30:.3f} GiB, launches {deep} (lbfgs_gram "
+        f"bound {1e3 * bounds['lbfgs_gram'][0]:.1f} us, lbfgs_combine "
+        f"{1e3 * bounds['lbfgs_combine'][0]:.1f} us; {accepted} accepted "
+        f"refinement steps), on {card}")
     deep_summary = (seconds, sum(iters), len(stages))
     del psi, stages
 
@@ -3146,17 +3300,23 @@ def main() -> None:
         **{f"tiled {k}": v for k, v in tiled_counts.items()},
         **large_counts,
     }
+    # lbfgs.cu's two wrappers are reported each on its own; they take no
+    # frames.
+    reported = {**{k: v for k, v in KERNEL_SOURCES.items() if k != "lbfgs"},
+                **{k: KERNEL_SOURCES["lbfgs"] for k in LBFGS_WRAPPERS}}
     by_path = {name: {phase: {"launches": counts[name],
-                              "frames": launch_frames(name, counts, *dims)}
+                              "frames": (None if name in LBFGS_WRAPPERS else
+                                         launch_frames(name, counts, *dims))}
                       for phase, (counts, dims) in phases.items()
                       if counts[name]}
-               for name in KERNEL_SOURCES}
+               for name in reported}
     check(all(by_path.values()), ("a kernel ran on no path", by_path))
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src, "replaces": tpu,
         "launches": sum(v["launches"] for v in by_path[name].values()),
         "launches_by_path": by_path[name],
-        "frames_of_ms": g.ntheta * g.nscan * g.nmodes,
+        "frames_of_ms": (None if name in LBFGS_WRAPPERS
+                         else g.ntheta * g.nscan * g.nmodes),
         "max_abs_err": results[name][0], "ms": results[name][1],
         "plain_ms": results[name][2], "bound_ms": bounds[name][0],
         "bound_by": bounds[name][1], "library_ms": None,
@@ -3178,8 +3338,10 @@ def main() -> None:
                        "scatter_conj_probe") else {}),
         **({"atomic_ms": adj_atomic_ms} if name == "adj" else {}),
         **({"atomic_ms": scan_order_atomic_ms[name]}
-           if name in scan_order_atomic_ms else {})}
-        for name, (src, tpu) in KERNEL_SOURCES.items()]}))
+           if name in scan_order_atomic_ms else {}),
+        **({"compact_plain_ms": {k: v[0] for k, v in lb_compact[name].items()}}
+           if name in LBFGS_WRAPPERS else {})}
+        for name, (src, tpu) in reported.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -49,8 +49,8 @@ Execution model. The JAX package runs the whole loop, data-dependent
 cannot branch on ``f(candidate) > f(current)`` without reading the value, so
 this solver keeps the step control on the host and reads ONE scalar per
 line-search candidate (plus the directional derivative when the 'interp'
-step needs it, the three curvature products of an L-BFGS pair after an
-accepted step, and two scalars at the start). Everything array-valued
+step needs it, the inner products of an L-BFGS direction at once, and two
+scalars at the start). Everything array-valued
 stays on the device. ``metrics['host_syncs']`` counts the reads and
 ``metrics['evaluations']`` the objective evaluations; a fused line search
 (one ``ls_objectives`` pass) counts as one evaluation and one read, since
@@ -103,7 +103,7 @@ import torch
 
 from tikejax_torch.geometry import Geometry
 from tikejax_torch.models import likelihoods
-from tikejax_torch.ops import diffraction, fused, linesearch
+from tikejax_torch.ops import diffraction, fused, lbfgs, linesearch
 from tikejax_torch.ops import patches as _patches
 from tikejax_torch.utils.profiling import span
 
@@ -569,16 +569,36 @@ def _minf_of_gamma(model, a, b, c, data, gamma):
     return torch.sum(intensity - d * torch.log(intensity + 1e-8))
 
 
-@dataclasses.dataclass
 class _Lbfgs:
-    """The L-BFGS memory: S/Y rings of m object-shaped device arrays (oldest
-    first, newest at index m-1), their curvature products sy (host) and
-    the number of valid pairs (host)."""
+    """The L-BFGS memory, kept in place: S/Y rings of m object-shaped
+    device arrays allocated once and written slot by slot (``head`` is the
+    slot of the oldest pair, where the next push goes), and on the host the
+    curvature products ``sy`` by slot, the number of valid pairs and the
+    float64 Gram matrix of the ring by slot (rows and columns S_0..S_{m-1},
+    Y_0..Y_{m-1})."""
 
-    S: torch.Tensor
-    Y: torch.Tensor
-    sy: torch.Tensor
-    count: int
+    def __init__(self, S: torch.Tensor, Y: torch.Tensor, sy: list[float],
+                 count: int):
+        m = S.shape[0]
+        self.S, self.Y, self.sy, self.count = S, Y, sy, count
+        self.head = 0
+        self.gram = [[0.0] * (2 * m) for _ in range(2 * m)]
+
+    def slot(self, i: int) -> int:
+        """The slot of pair ``i`` in age order (0 the oldest, m-1 the
+        newest)."""
+        return (self.head + i) % self.S.shape[0]
+
+    def export(self, real_dtype) -> tuple:
+        """(S, Y, sy, count) in the JAX package's layout: oldest first,
+        newest at index m-1."""
+        m, h = self.S.shape[0], self.head
+        order = [self.slot(i) for i in range(m)]
+        S, Y = ((self.S, self.Y) if h == 0 else
+                (torch.roll(self.S, -h, 0), torch.roll(self.Y, -h, 0)))
+        return (S, Y, torch.tensor([self.sy[k] for k in order],
+                                   dtype=real_dtype),
+                torch.tensor(self.count, dtype=torch.int32))
 
 
 class _Engine:
@@ -986,52 +1006,81 @@ class _Engine:
                            0.0)
         return -grad + beta.to(grad.dtype) * d_prev
 
-    def lbfgs_init(self, like: torch.Tensor) -> _Lbfgs:
+    def lbfgs_init(self, like: torch.Tensor, carried=None) -> _Lbfgs:
+        """The ring for arrays like ``like``: empty, or a copy of the
+        ``carried`` (S, Y, sy, count) in the JAX package's layout, whose
+        Gram matrix one float64 matrix product makes on the device and one
+        host read brings (once a run)."""
         m = self.lbfgs_m
-        z = torch.zeros((m,) + tuple(like.shape), dtype=like.dtype,
-                        device=like.device)
-        return _Lbfgs(z, z, torch.zeros(m, dtype=torch.float64), 0)
-
-    def lbfgs_push(self, lb: _Lbfgs, s, y, accepted: bool) -> _Lbfgs:
-        """Append the (s, y) pair when the previous step was accepted and
-        it passes the curvature guard <s,y> > 1e-12 ||s|| ||y|| (one host
-        read of the three products); otherwise the memory is unchanged."""
-        if not accepted:
-            return lb
-        sy, ss, yy = self.host(self.dots((s, y), (s, s), (y, y)),
-                               torch.Tensor.tolist)
-        if not sy > 1e-12 * math.sqrt(ss * yy):
-            return lb
-        return _Lbfgs(torch.cat([lb.S[1:], s[None]]),
-                      torch.cat([lb.Y[1:], y[None]]),
-                      torch.cat([lb.sy[1:], lb.sy.new_tensor([sy])]),
-                      min(lb.count + 1, self.lbfgs_m))
-
-    def lbfgs_direction(self, grad, lb: _Lbfgs):
-        """Two-loop recursion on the (already preconditioned) gradient over
-        the valid pairs; H0 = (<s,y>/<y,y>) I from the newest pair scales
-        the direction so the natural step is 1. With no pairs this is
-        steepest descent."""
-        m = self.lbfgs_m
-        sy = lb.sy.tolist()
-        rho = [1.0 / max(v, 1e-300) if v > 0 else 0.0 for v in sy]
-        valid = [i >= m - lb.count for i in range(m)]
-        q = grad
-        al = [None] * m
-        for i in reversed(range(m)):
-            if valid[i]:
-                al[i] = rho[i] * self.dot(lb.S[i], q)
-                q = q - al[i].to(q.dtype) * lb.Y[i]
+        alloc = torch.zeros if carried is None else torch.empty
+        S, Y = (alloc((m,) + tuple(like.shape), dtype=like.dtype,
+                      device=like.device) for _ in range(2))
+        if carried is None:
+            return _Lbfgs(S, Y, [0.0] * m, 0)
+        cS, cY, sy, count = carried
+        if cS.shape[0] != m:
+            raise ValueError(f"carried L-BFGS ring has m={cS.shape[0]}, "
+                             f"options request m={m}")
+        S.copy_(torch.as_tensor(cS))
+        Y.copy_(torch.as_tensor(cY))
+        lb = _Lbfgs(S, Y, torch.as_tensor(sy).detach().to(
+            "cpu", torch.float64).tolist(), int(count))
         if lb.count > 0:
-            yy = self.dot(lb.Y[m - 1], lb.Y[m - 1])
-            h0 = torch.where(yy > 0, sy[m - 1] / torch.clamp_min(yy, 1e-300),
-                             1.0)
-            q = q * h0.to(q.dtype)
-        for i in range(m):
-            if valid[i]:
-                b = rho[i] * self.dot(lb.Y[i], q)
-                q = q + (al[i] - b).to(q.dtype) * lb.S[i]
-        return -q
+            rows = S.shape[-2] - self.comm.halo
+            ring = torch.view_as_real(torch.cat([S, Y])[..., :rows, :])
+            ring = ring.reshape(2 * m, -1).to(torch.float64)
+            lb.gram = self.host(self.comm.over_theta(ring @ ring.T),
+                                torch.Tensor.tolist)
+        return lb
+
+    def lbfgs_direction(self, lb: _Lbfgs, grad, grad_prev, d_prev,
+                        gamma_prev: float) -> torch.Tensor:
+        """Push the pair (s, y) = (gamma_prev d_prev, grad - grad_prev) when
+        the previous step was accepted and the pair passes the curvature
+        guard <s,y> > 1e-12 ||s|| ||y||, then the two-loop recursion on the
+        (already preconditioned) gradient over the valid pairs; H0 =
+        (<s,y>/<y,y>) I from the newest pair scales the direction so the
+        natural step is 1. With no pairs this is steepest descent.
+
+        The compact form of the two-loop: one ``lbfgs_gram`` pass makes
+        every inner product the push and the recursion need, summed over
+        the mesh in one collective and read in ONE host read; the host
+        keeps the ring's Gram matrix, runs the recursion on scalars in
+        float64 and one ``lbfgs_combine`` pass stores the pair and writes
+        d = -(h0 g + sum_i (alpha_i - beta_i) s_i - h0 alpha_i y_i). Without
+        a push to test and without pairs, d = -g with no read."""
+        m = self.lbfgs_m
+        accepted = gamma_prev > 0
+        zero = [0.0] * m
+        if not accepted and lb.count == 0:
+            return lbfgs.lbfgs_combine(lb.S, lb.Y, grad, None, None, 0.0, -1,
+                                       1.0, zero, zero)
+        prods = lbfgs.lbfgs_gram(lb.S, lb.Y, grad, grad_prev, d_prev,
+                                 gamma_prev, grad.shape[-2] - self.comm.halo)
+        vals = self.host(self.comm.over_theta(prods.reshape(-1)),
+                         torch.Tensor.tolist)
+        G = lb.gram
+        n = 2 * m + 3
+        pg, ps, py = vals[:n], vals[n:2 * n], vals[2 * n:]
+        gS, gY = pg[:m], pg[m:2 * m]
+        slot = -1
+        if accepted:
+            sy, ss, yy = ps[2 * m + 2], ps[2 * m + 1], py[2 * m + 2]
+            if sy > 1e-12 * math.sqrt(ss * yy):
+                slot = lb.head
+                for j in range(2 * m):
+                    if j % m != slot:
+                        G[slot][j] = G[j][slot] = ps[j]
+                        G[m + slot][j] = G[j][m + slot] = py[j]
+                G[slot][slot], G[m + slot][m + slot] = ss, yy
+                G[slot][m + slot] = G[m + slot][slot] = sy
+                gS[slot], gY[slot] = pg[2 * m + 1], pg[2 * m + 2]
+                lb.sy[slot] = sy
+                lb.head = (slot + 1) % m
+                lb.count = min(lb.count + 1, m)
+        c_g, a, b = _lbfgs_coefficients(lb, gS, gY)
+        return lbfgs.lbfgs_combine(lb.S, lb.Y, grad, grad_prev, d_prev,
+                                   gamma_prev, slot, c_g, a, b)
 
     def keep_going(self, i: int, residual: list, gamma: list,
                    gamma_prb: list) -> bool:
@@ -1047,6 +1096,48 @@ class _Engine:
         return not (n > 0 and i >= n and all(
             g == 0 and gp == 0
             for g, gp in zip(gamma[i - n:i], gamma_prb[i - n:i])))
+
+
+def _lbfgs_coefficients(lb: _Lbfgs, gS: list, gY: list):
+    """(c_g, a, b) of the L-BFGS direction d = -(c_g g + sum_k a[k] S_k +
+    b[k] Y_k), by slot: the two-loop recursion run on scalars in float64,
+    from the ring's Gram matrix and the products ``gS[k] = <S_k, g>``,
+    ``gY[k] = <Y_k, g>``. With pairs i (oldest first), rho_i = 1 / <s_i,
+    y_i> (0 where that is not positive):
+
+      alpha_i = rho_i (<s_i, g> - sum_{j>i} alpha_j <s_i, y_j>)
+      h0      = <s, y> / <y, y> of the newest pair (1 where <y, y> is 0)
+      beta_i  = rho_i (h0 (<y_i, g> - sum_j alpha_j <y_i, y_j>)
+                       + sum_{k<i} (alpha_k - beta_k) <y_i, s_k>)
+      d       = -(h0 g - h0 sum_j alpha_j y_j + sum_i (alpha_i - beta_i) s_i)
+
+    which is what the two loops compute on arrays. Slots of no valid pair
+    get 0; with no pairs d = -g."""
+    m = len(gS)
+    a, b = [0.0] * m, [0.0] * m
+    if lb.count == 0:
+        return 1.0, a, b
+    G = lb.gram
+    valid = [lb.slot(i) for i in range(m - lb.count, m)]
+    rho = {k: 1.0 / max(lb.sy[k], 1e-300) if lb.sy[k] > 0 else 0.0
+           for k in valid}
+    alpha = {}
+    for i in reversed(range(len(valid))):
+        k = valid[i]
+        alpha[k] = rho[k] * (gS[k] - sum(alpha[j] * G[k][m + j]
+                                         for j in valid[i + 1:]))
+    newest = valid[-1]
+    yy = G[m + newest][m + newest]
+    h0 = lb.sy[newest] / max(yy, 1e-300) if yy > 0 else 1.0
+    beta = {}
+    for i, k in enumerate(valid):
+        q = gY[k] - sum(alpha[j] * G[m + k][m + j] for j in valid)
+        beta[k] = rho[k] * (h0 * q + sum((alpha[j] - beta[j]) * G[m + k][j]
+                                         for j in valid[:i]))
+    for k in valid:
+        a[k] = alpha[k] - beta[k]
+        b[k] = -h0 * alpha[k]
+    return h0, a, b
 
 
 def _sum_over_positions(fn, *arrays, chunk_bytes=16 * 2**20):
@@ -1155,8 +1246,8 @@ def _probe_preconditioner(o: CGOptions, scan_i, comm=None):
 def _initial_state(eng: _Engine, o: CGOptions, psi0, cg_init):
     """(d, g_prev, gamma_prev, gamma0_prev, L-BFGS memory or None) from
     ``cg_init`` (a carried metrics['cg_state']) or a fresh start."""
-    lb = eng.lbfgs_init(psi0) if eng.lbfgs_m else None
     if cg_init is None:
+        lb = eng.lbfgs_init(psi0) if eng.lbfgs_m else None
         return torch.zeros_like(psi0), torch.zeros_like(psi0), 0.0, 0.0, lb
     ring_carry = bool(eng.lbfgs_m) and o.carry_lbfgs
     if ring_carry and len(cg_init) != 8:
@@ -1174,14 +1265,8 @@ def _initial_state(eng: _Engine, o: CGOptions, psi0, cg_init):
         return torch.as_tensor(x).to(device=psi0.device, dtype=psi0.dtype)
 
     d_in, g_in, gam_in, gam0_in = cg_init[:4]
-    if ring_carry:
-        S, Y, sy, count = cg_init[4:]
-        if S.shape[0] != eng.lbfgs_m:
-            raise ValueError(f"carried L-BFGS ring has m={S.shape[0]}, "
-                             f"options request m={eng.lbfgs_m}")
-        lb = _Lbfgs(like_psi(S), like_psi(Y),
-                    torch.as_tensor(sy).detach().to("cpu", torch.float64),
-                    int(count))
+    lb = (eng.lbfgs_init(psi0, tuple(cg_init[4:]) if ring_carry else None)
+          if eng.lbfgs_m else None)
     return like_psi(d_in), like_psi(g_in), float(gam_in), float(gam0_in), lb
 
 
@@ -1250,14 +1335,11 @@ def _run_loop(geometry, o: CGOptions, data, psi0, scan, prb0, f_base,
     def direction(g_now):
         """The search direction at the gradient ``g_now`` and its
         line-search start; updates the L-BFGS memory."""
-        nonlocal lb
         with span("cg.direction"):
             if lb is None:
                 return (eng.dy_direction(g_now, g_prev, d),
                         eng.gamma0(gam_prev, gam0_prev))
-            lb = eng.lbfgs_push(lb, gam_prev * d, g_now - g_prev,
-                                gam_prev > 0)
-            return (eng.lbfgs_direction(g_now, lb),
+            return (eng.lbfgs_direction(lb, g_now, g_prev, d, gam_prev),
                     eng.lbfgs_gamma0(lb.count, gam_prev, gam0_prev))
 
     def record(gamma, gamma0, f_iter, g_iter):
@@ -1368,8 +1450,7 @@ def _run_loop(geometry, o: CGOptions, data, psi0, scan, prb0, f_base,
         cs = (d, g_prev, torch.tensor(gam_prev, dtype=real_dtype),
               torch.tensor(gam0_prev, dtype=real_dtype))
         if lb is not None and o.carry_lbfgs:
-            cs += (lb.S, lb.Y, lb.sy.to(real_dtype),
-                   torch.tensor(lb.count, dtype=torch.int32))
+            cs += lb.export(real_dtype)
         metrics["cg_state"] = cs
     return psi, prb, metrics
 

@@ -45,7 +45,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNELS = ("grad_fused", "fwd", "minf_fused", "grad_prb_fused", "adj",
            "adj_probe", "adj_residual", "fwd_quad_stats", "ls_objectives",
-           "gather_probe_mul", "scatter_conj_probe", "adj_probe_reduce")
+           "gather_probe_mul", "scatter_conj_probe", "adj_probe_reduce",
+           "lbfgs")
 
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 _LOADED: dict[tuple, ctypes.CDLL] = {}
