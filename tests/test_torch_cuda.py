@@ -1379,3 +1379,60 @@ def test_atomic_variants_take_fft_sizes_without_a_base(dev):
     with pytest.raises(ValueError, match="'fft' variant takes ndet"):
         fused._grad_fused_cuda(psi, data, scan_i, prb, g.ndet, "gaussian",
                                None, variant="atomic")
+
+
+# -- the process group on the card, and the span report's device time ----
+
+
+def test_an_nccl_group_of_one_runs_run_sharded(dev, tmp_path):
+    """The backend rule gives one rank on one card NCCL; ``run_sharded`` on
+    its one-rank ``('scan',)`` mesh equals ``solvers.run`` up to the order
+    of the sums (no sum crosses a rank here)."""
+    import torch.distributed as dist
+
+    from tikejax_torch import parallel
+    from tikejax_torch.solvers import run
+    from tikejax_torch.solvers.cg import all_reduce
+
+    g = Geometry(nz=96, n=96, nscan=64, ndet=32, nprb=24)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    _, scan, prb, data = make_problem(gen, g, device=dev)
+    psi0 = torch.ones((1, g.nz, g.n), dtype=torch.complex64, device=dev)
+    want = run(data, psi0, scan.clone(), prb, g, piter=8)
+    backend = parallel.join_group(0, 1, f"file://{tmp_path}/pg", "cuda",
+                                  timeout=60)
+    try:
+        assert backend == "nccl" == dist.get_backend()
+        mesh = parallel.make_mesh(1)
+        got = parallel.run_sharded(data, psi0, scan.clone(), prb, g, mesh,
+                                   piter=8)
+        assert int(got[2]["iters_run"]) == int(want[2]["iters_run"]) == 8
+        scale = want[0].abs().max()
+        assert float((got[0] - want[0]).abs().max() / scale) < 1e-5
+        # A collective on the card stays there.
+        x = all_reduce(torch.ones(3, device=dev), dist.group.WORLD)
+        assert x.device == dev and torch.equal(x, torch.ones(3, device=dev))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_span_device_time_is_its_kernels_time(dev):
+    """``device_s`` of a span that launches one known kernel is that
+    kernel's time on the card, as the profiler's trace has it (here the
+    report's busy time: the window holds no other device work)."""
+    from tikejax_torch.utils.profiling import span, span_report
+
+    x = torch.ones(2**26, device=dev)
+    x.mul_(2)
+    torch.cuda.synchronize(dev)
+    with span_report() as report:
+        with span("outer"):
+            with span("one_kernel"):
+                x.mul_(2)
+            with span("no_kernel"):
+                pass
+    f = report.by_name["one_kernel"]
+    assert f.launches == 1 and f.device_s > 0
+    assert f.device_s == pytest.approx(report.busy_s, rel=1e-9)
+    assert report.by_name["outer"].device_s == f.device_s
+    assert report.by_name["no_kernel"].device_s == 0

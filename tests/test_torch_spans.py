@@ -9,6 +9,7 @@ on the card:
         tests/test_torch_spans.py
 """
 
+import dataclasses
 import json
 
 import pytest
@@ -132,6 +133,14 @@ def test_phases_nest_in_an_iteration_of_one_run(runs, body):
     assert report.idle_s is None and run_.idle_s is None
     assert run_.launches is None and report.busy_s is None
     assert 0 < run_.self_s < run_.wall_s <= report.window_s
+
+
+@pytest.mark.parametrize("body", BODIES)
+def test_no_device_time_off_the_card(runs, body):
+    report, _, _ = runs[body]
+    assert report.by_name and all(
+        f.device_s is None for table in [report.by_name, *report.by_root]
+        for f in table.values())
 
 
 @pytest.mark.parametrize("body", BODIES)
@@ -271,6 +280,28 @@ def test_launches_by_the_host_time_of_the_call():
     assert report.by_name["run"].launches == 5  # not 120, after it
 
 
+def test_device_time_by_the_launch_that_queued_it():
+    # (host time of the launch, ns on the card): the kernel launched at 45
+    # ran long after its read closed, and still counts to the read.
+    kernels = [(5, 4), (25, 3), (45, 200), (65, 8), (120, 50)]
+    launches = [t for t, _ in kernels]
+    with_device = fill(spans_of(*JOB), BUSY, launches)
+    report = SpanReport()
+    profiling._fill(report, spans_of(*JOB), BUSY, launches, (0, 100),
+                    kernels)
+    device = {name: f.device_s for name, f in report.by_name.items()}
+    assert device == pytest.approx({
+        "run": 215e-9, "setup": 4e-9, "iteration": 211e-9,
+        "line_search": 208e-9, "read": 208e-9})  # not 120's, after run
+    assert [r["run"].device_s for r in report.by_root] == [
+        pytest.approx(215e-9)]
+    # The other figures are those of a report without device times.
+    for name, f in report.by_name.items():
+        assert dataclasses.replace(f, device_s=None) == \
+            with_device.by_name[name]
+    assert with_device.by_name["run"].device_s is None
+
+
 class Event:
     """A kineto event as ``_timeline`` reads it (``kind``, kineto's
     activity type, says what the event is; not every torch has it)."""
@@ -319,6 +350,38 @@ def test_annotation_mirrors_are_not_busy():
     # Off the card: no busy time and no launches, the spans' times kept.
     spans, busy, launches, _ = profiling._timeline(events, spans, False)
     assert busy is None and launches is None and spans[0].end == 100
+
+
+class Launched(Event):
+    """An event with the CUDA correlation id that ties a launch call to
+    its kernels."""
+
+    def __init__(self, name, start, end, corr, device=DeviceType.CPU):
+        super().__init__(name, None, start, end, device)
+        self._c = corr
+
+    def correlation_id(self):
+        return self._c
+
+
+def test_kernels_are_tied_to_their_launch_by_correlation():
+    cuda = DeviceType.CUDA
+    events = [
+        Launched("cudaLaunchKernel", 15, 16, 7),
+        Launched("cuLaunchKernelEx", 40, 41, 9),
+        Launched("cudaMemcpyAsync", 44, 45, 11),
+        Launched("tikejax_torch.read", 40, 50, 0),
+        Launched("tikejax_torch.read", 41, 49, 0, cuda),  # a mirror
+        Launched("grad_kernel", 20, 30, 7, cuda),
+        Launched("ncclDevKernel_AllReduce", 42, 90, 9, cuda),
+        Launched("Memcpy DtoH", 45, 47, 11, cuda),  # no kernel launch
+    ]
+    assert profiling._kernels_by_launch(events) == [(15, 10), (40, 48)]
+    # Launches but nothing tied: the profiler shows no correlation.
+    lost = [Launched("cudaLaunchKernel", 15, 16, 7),
+            Launched("grad_kernel", 20, 30, 0, cuda)]
+    assert profiling._kernels_by_launch(lost) is None
+    assert profiling._kernels_by_launch([]) == []
 
 
 def test_a_span_the_profiler_lost_raises():

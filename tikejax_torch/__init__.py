@@ -14,9 +14,11 @@ evaluations, gradients, farplanes, adjoints and line searches:
 ``adj_probe``, ``adj_residual`` and ``fwd_quad_stats`` (``ops.fused``),
 ``ls_objectives`` (``ops.linesearch``), and ``gather_probe_mul``,
 ``scatter_conj_probe`` and ``adj_probe_reduce`` (``ops.kernels``).
-``tikejax_torch.parallel`` shards the positions and the angles over gloo
-ranks (``run_sharded``, ``reconstruct(mesh=)``, the facade's ``mesh=``)
-and tiles the object's rows with a halo exchange (``run_tiled``).
+``tikejax_torch.parallel`` shards the positions and the angles over ranks
+(``run_sharded``, ``reconstruct(mesh=)``, the facade's ``mesh=``) and tiles
+the object's rows with a halo exchange (``run_tiled``), on NCCL where every
+rank has a card of its own and on gloo for CPU ranks and ranks that share a
+card (``parallel.join_group``).
 It imports ``torch`` and never ``jax``; ``tikejax`` stays the reference.
 """
 

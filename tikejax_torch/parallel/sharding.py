@@ -15,19 +15,27 @@ Counterpart of ``tikejax.parallel.sharding``:
 Execution model. The JAX package is ONE controller over a ``shard_map``:
 the caller hands global arrays to one call, and XLA runs the per-device
 body and its ``psum``\\ s. Here EVERY rank calls :func:`run_sharded` (each in
-its own process, in one gloo process group: ``parallel.RankPool`` starts
-such ranks), with the global arrays or with its own slice of them, and runs
+its own process, in one process group: ``parallel.join_group`` makes it,
+on NCCL where every rank has a card of its own and on gloo for CPU ranks
+and for ranks that share a card; ``parallel.RankPool`` starts such ranks),
+with the global arrays or with its own slice of them, and runs
 ``solvers.cg.run_impl`` on its local geometry; the solver all-reduces where
 the JAX package ``psum``\\ s (``tikejax_torch.solvers.cg``). The step control
 is on the host and every branch reads an all-reduced value, so the ranks
-stay in lock step; gloo's all-reduce hands every rank the same bits, so the
-replicated object and probe stay bitwise equal across ranks. psi and prb
-come back as global tensors on every rank (as JAX's global arrays read); on
-a theta mesh they are gathered with an all-reduce of zero-filled global
-tensors over the theta dimension, since gloo takes CUDA tensors only for
-``all_reduce`` and ``broadcast``. The metrics are the same on every rank.
-On a theta mesh the carried ``cg_state`` stays per angle, as the JAX
-package's does. The meshes span every rank of the process group.
+stay in lock step. Either backend hands every rank the same bits of an
+all-reduce (gloo sums on the host in one order and sends the sum; NCCL's
+ring, tree and NVLink-switch algorithms each reduce every element once and
+send the result on), so the replicated object and probe stay bitwise equal
+across ranks; on NCCL the tensors stay on the rank's card and the
+collective runs in the card's stream order, so a host read after it waits
+for it. psi and prb come back as global tensors on every rank (as JAX's
+global arrays read); on a theta mesh they are gathered with an all-reduce
+of zero-filled global tensors over the theta dimension, since gloo takes
+CUDA tensors only for ``all_reduce`` and ``broadcast`` (one path on both
+backends). The metrics are the same on every rank. On a theta mesh the
+carried ``cg_state`` stays per angle, as the JAX package's does. The meshes
+span every rank of the process group, and their process groups take the
+default group's collective timeout.
 
 The JAX package's ``_call_checked`` and ``_SHARDED_CACHE`` (``check_vma``
 and the jit memo) are tracing machinery with no eager counterpart.
@@ -41,6 +49,7 @@ import torch
 
 from tikejax_torch.geometry import Geometry
 from tikejax_torch.ops import diffraction
+from tikejax_torch.parallel import _ranks
 from tikejax_torch.solvers import cg as _cg
 
 _MESHES: dict = {}
@@ -97,8 +106,15 @@ def _mesh(device_type: str, shape: tuple, names: tuple):
     if key not in _MESHES:
         for old in [k for k in _MESHES if k[0] is not key[0]]:
             del _MESHES[old]
-        _MESHES[key] = init_device_mesh(device_type, shape,
-                                        mesh_dim_names=names)
+        mesh = init_device_mesh(device_type, shape, mesh_dim_names=names)
+        # A dimension's group that is not the default one would wait its
+        # backend's default timeout (NCCL's 10 minutes).
+        timeout = _ranks.group_timeout()
+        for dim in range(len(shape)):
+            group = mesh.get_group(dim)
+            if group is not dist.group.WORLD:
+                _ranks.set_group_timeout(group, timeout)
+        _MESHES[key] = mesh
     return _MESHES[key]
 
 
@@ -242,7 +258,8 @@ def gather_angles(x, mesh, axis: int = 0):
     """A global tensor from this rank's angles of an object-domain array
     on a 2-D mesh: each rank writes its angles into a zero-filled global
     tensor and the theta dimension's all-reduce sums them (every rank gets
-    the same bits). ``x`` as it is on a 1-D mesh."""
+    the same bits, on its card under NCCL). ``x`` as it is on a 1-D
+    mesh."""
     theta_ax, _, tsh, _, ti, _ = _layout(mesh)
     if theta_ax is None or tsh == 1:
         return x

@@ -74,8 +74,12 @@ object-domain inner products over the theta and object axes on the owned
 rows only (the halo rows mirror the next slab's), the probe-domain ones
 over the theta axis; ``sum(data)`` and the Poisson offset over all ranks.
 Every branch of the step control then reads an all-reduced value, so the
-ranks stay in lock step, and gloo's all-reduce hands every rank the same
-bits, so a replicated object stays bitwise equal across ranks.
+ranks stay in lock step, and the all-reduce hands every rank the same bits
+(gloo's sum on the host, sent to every rank; NCCL's, where every rank has a
+card of its own, reduces each element once on the cards and sends it on),
+so a replicated object stays bitwise equal across ranks. Under NCCL every
+reduced tensor lives on the rank's card and the collective is queued in
+the card's stream order, so the host read that follows it waits for it.
 :func:`all_reduce` and :func:`halo_exchange` count the collectives.
 
 The slab fields (``obj_slabs``, ``obj_slabs_partitioned``,
@@ -292,8 +296,9 @@ def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     process ``group`` (``torch.distributed.all_reduce``, in place on a
     contiguous ``x``, which is returned). Counts its calls in
     ``all_reduce.launches``, the bytes it reduced in ``all_reduce.bytes``
-    and the calls by size in ``all_reduce.sizes`` ({bytes: calls}); gloo
-    takes CUDA tensors for it."""
+    and the calls by size in ``all_reduce.sizes`` ({bytes: calls}). On
+    NCCL ``x`` is on the rank's card and stays there; gloo takes CPU and
+    CUDA tensors (a CUDA tensor through the host)."""
     import torch.distributed as dist
 
     with span("cg.all_reduce"):
@@ -323,8 +328,9 @@ def halo_exchange(x: torch.Tensor, pairs, halo: int) -> torch.Tensor:
     1)]`` of the pair groups ``{d, d + 1}`` along the object dimension that
     it belongs to, in increasing ``d`` (:class:`_Comm`). Each step is a
     ``torch.distributed.broadcast`` in a pair group, which gloo takes for
-    CUDA tensors, as it takes no point-to-point send: every rank walks its
-    pairs in one global order, a chain serial in the number of slabs.
+    CUDA tensors, as it takes no point-to-point send (NCCL takes the same
+    broadcast): every rank walks its pairs in one global order, a chain
+    serial in the number of slabs.
     Counts each broadcast it takes part in in ``halo_exchange.launches``,
     ``.bytes`` and ``.sizes``, as :func:`all_reduce` counts."""
     import torch.distributed as dist
@@ -358,8 +364,11 @@ def _mesh_groups(mesh, dims: tuple[str, ...]):
     """The process group of this rank over the mesh dimensions ``dims``
     together (the ranks that share its coordinates along every other
     dimension), made once per mesh and kept on it. Every rank makes every
-    such group, in the same order: a new group is a collective."""
+    such group, in the same order: a new group is a collective. A group
+    takes the default group's collective timeout."""
     import torch.distributed as dist
+
+    from tikejax_torch.parallel._ranks import group_timeout
 
     cache = mesh.__dict__.setdefault("_tikejax_groups", {})
     if dims not in cache:
@@ -371,7 +380,7 @@ def _mesh_groups(mesh, dims: tuple[str, ...]):
         mine = None
         for ranks in layout.reshape(-1, math.prod(
                 mesh.size(names.index(d)) for d in dims)).tolist():
-            group = dist.new_group(ranks)
+            group = dist.new_group(ranks, timeout=group_timeout())
             if me in ranks:
                 mine = group
         cache[dims] = mine
@@ -381,8 +390,11 @@ def _mesh_groups(mesh, dims: tuple[str, ...]):
 def _halo_pairs(mesh, dim: str):
     """This rank's pair groups ``{d, d + 1}`` along the mesh dimension
     ``dim``, as :func:`halo_exchange` takes them, made once per mesh (every
-    rank makes every pair group, in one order)."""
+    rank makes every pair group, in one order), with the default group's
+    collective timeout."""
     import torch.distributed as dist
+
+    from tikejax_torch.parallel._ranks import group_timeout
 
     cache = mesh.__dict__.setdefault("_tikejax_groups", {})
     key = ("pairs", dim)
@@ -396,7 +408,7 @@ def _halo_pairs(mesh, dim: str):
         for line in lines:
             for d in range(len(line) - 1):
                 lo, hi = line[d], line[d + 1]
-                group = dist.new_group([lo, hi])
+                group = dist.new_group([lo, hi], timeout=group_timeout())
                 if me in (lo, hi):
                     mine.append((d, group, lo, hi))
         cache[key] = sorted(mine, key=lambda pair: pair[0])

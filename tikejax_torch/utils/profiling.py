@@ -14,7 +14,8 @@ README lists. They are off unless :func:`trace` or :func:`span_report` is
 active; there each one is a ``record_function`` range named
 ``tikejax_torch.<name>`` on the profiler's timeline, on the clock of the
 card's kernels. :func:`span_report` charges every stretch of time in which
-the card ran nothing to the innermost span open on the host then.
+the card ran nothing to the innermost span open on the host then, and each
+kernel's time on the card to the span open when the host launched it.
 """
 
 from __future__ import annotations
@@ -168,13 +169,18 @@ class Figures:
     the span itself (it was the innermost span open); ``idle_s``, that
     charged to it and its children; ``launches``, the kernels launched
     while it was open, children included (by the launch call's time on the
-    host). The idle and launch fields are None off the card."""
+    host); ``device_s``, the card's time in the kernels launched while it
+    was open, children included, each kernel tied to its launch call by
+    the profiler's correlation id (a collective's kernel, which waits on
+    the card for its peers, counts whole). The idle, launch and device
+    fields are None off the card."""
     count: int = 0
     wall_s: float = 0.0
     self_s: float = 0.0
     idle_self_s: float | None = None
     idle_s: float | None = None
     launches: int | None = None
+    device_s: float | None = None
 
 
 @dataclasses.dataclass
@@ -235,8 +241,10 @@ def span_report():
                 device_sync()
     finally:
         result = _disable_profiler()
-    _fill(report, *_timeline(result.events(), rec.spans,
-                             cuda and _cuda_in_use()))
+    events = result.events()
+    on_card = cuda and _cuda_in_use()
+    _fill(report, *_timeline(events, rec.spans, on_card),
+          _kernels_by_launch(events) if on_card else None)
 
 
 def _timeline(events, spans, on_card: bool):
@@ -277,6 +285,33 @@ def _timeline(events, spans, on_card: bool):
         sorted(launches) if on_card else None, window
 
 
+def _kernels_by_launch(events):
+    """``[(t, ns)]`` in time order: for each launch call among the
+    profiler's ``events`` (a host event whose name holds
+    ``LaunchKernel``), its time ``t`` on the host and the card's time
+    ``ns`` in the kernels it launched, tied to it by the CUDA correlation
+    id that the call and its kernels share; every time in ns. None where
+    launches were recorded but none could be tied (a profiler that shows
+    no correlation)."""
+    from torch.autograd import DeviceType
+
+    cpu = DeviceType.CPU
+    launched, ran = {}, {}
+    for e in events:
+        name = e.name()
+        if name.startswith(PREFIX):
+            continue
+        if e.device_type() == cpu:
+            if "LaunchKernel" in name:
+                launched[e.correlation_id()] = e.start_ns()
+        else:
+            c = e.correlation_id()
+            ran[c] = ran.get(c, 0) + e.end_ns() - e.start_ns()
+    tied = sorted((launched[c], ns) for c, ns in ran.items()
+                  if c in launched)
+    return None if launched and not tied else tied
+
+
 def _merge(intervals):
     """Sorted, disjoint union of ``(start, end)`` intervals."""
     out = []
@@ -308,18 +343,21 @@ def _innermost(spans):
     return [seg for seg in out if seg[1] > seg[0]]
 
 
-def _fill(report: SpanReport, spans, busy, launches, window) -> None:
-    """Charge the idle time and the launches to ``spans`` (start and end
-    filled in, in the order they opened: a parent before its children)
-    and fill ``report`` with the sums. ``busy`` (intervals) and
-    ``launches`` (host times) are None off the card; ``window`` is
-    ``(first, last)``; every time is in ns."""
+def _fill(report: SpanReport, spans, busy, launches, window,
+          kernels=None) -> None:
+    """Charge the idle time, the launches and the kernels' device time to
+    ``spans`` (start and end filled in, in the order they opened: a parent
+    before its children) and fill ``report`` with the sums. ``busy``
+    (intervals), ``launches`` (host times) and ``kernels`` (``(host time
+    of the launch, device time)``, :func:`_kernels_by_launch`) are None
+    off the card; ``window`` is ``(first, last)``; every time is in
+    ns."""
     n = len(spans)
     segments = _innermost(spans)
     self_ns = [0] * n
     for a, b, i in segments:
         self_ns[i] += b - a
-    idle_self = launch_self = None
+    idle_self = launch_self = device_self = None
     if busy is not None:
         idle, t = [], window[0]
         for a, b in _merge(busy):
@@ -346,17 +384,32 @@ def _fill(report: SpanReport, spans, busy, launches, window) -> None:
         report.idle_unspanned_s = (total - charged) * 1e-9
         launch_self = [0] * n
         starts = [seg[0] for seg in segments]
-        for t in launches:
+
+        def owner(t):
+            """The span innermost at host time ``t``, or None."""
             j = bisect.bisect_right(starts, t) - 1
-            if j >= 0 and t < segments[j][1]:
-                launch_self[segments[j][2]] += 1
+            return segments[j][2] if j >= 0 and t < segments[j][1] else None
+
+        for t in launches:
+            i = owner(t)
+            if i is not None:
+                launch_self[i] += 1
+        if kernels is not None:
+            device_self = [0] * n
+            for t, ns in kernels:
+                i = owner(t)
+                if i is not None:
+                    device_self[i] += ns
     idle_incl = None if idle_self is None else list(idle_self)
     launch_incl = None if launch_self is None else list(launch_self)
+    device_incl = None if device_self is None else list(device_self)
     for i in reversed(range(n)):  # a child opened after its parent
         p = spans[i].parent
         if p is not None and idle_incl is not None:
             idle_incl[p] += idle_incl[i]
             launch_incl[p] += launch_incl[i]
+        if p is not None and device_incl is not None:
+            device_incl[p] += device_incl[i]
     report.spans = spans
     report.by_name = {}
     report.by_root = [{} for _ in range(1 + max((s.root for s in spans),
@@ -366,7 +419,8 @@ def _fill(report: SpanReport, spans, busy, launches, window) -> None:
             f = table.setdefault(s.name, Figures(
                 idle_self_s=None if idle_self is None else 0.0,
                 idle_s=None if idle_self is None else 0.0,
-                launches=None if launch_self is None else 0))
+                launches=None if launch_self is None else 0,
+                device_s=None if device_self is None else 0.0))
             f.count += 1
             f.wall_s += (s.end - s.start) * 1e-9
             f.self_s += self_ns[i] * 1e-9
@@ -374,6 +428,8 @@ def _fill(report: SpanReport, spans, busy, launches, window) -> None:
                 f.idle_self_s += idle_self[i] * 1e-9
                 f.idle_s += idle_incl[i] * 1e-9
                 f.launches += launch_incl[i]
+            if device_self is not None:
+                f.device_s += device_incl[i] * 1e-9
         if s.parent is None:
             report.roots_wall_s += (s.end - s.start) * 1e-9
     report.window_s = (window[1] - window[0]) * 1e-9
