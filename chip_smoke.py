@@ -87,7 +87,16 @@ is caught):
                   forced atomic kernels with their objectives bit for bit,
                   grad_fused(psi)'s gradient adj_residual(fwd(psi))'s bit
                   for bit, timed in turns against the atomic kernels with
-                  512, 128 and 32 MiB of frame scratch; the 'fft' fwd
+                  512, 128 and 32 MiB of frame scratch; grad_fused's
+                  two FFT bodies at the headline (the fused one the shapes
+                  pick, the shared-memory one forced with
+                  variant='fft_smem'): the same bits for both models,
+                  without and with a base, at 512 and 32 MiB of frame
+                  scratch, masked and out-of-bounds positions in the scan,
+                  the objective minf_fused's, then timed in turns (the
+                  whole call and the frame kernels alone) beside the
+                  bound, and the fused body's data prefetch on and off;
+                  the 'fft' fwd
                   farplane, adj, adj_probe, adj_residual and grad_fused at
                   64^2 and 128^2, 1 and 4 modes, against a complex128
                   oracle on the card: the fused_hp bound (~4e-7) held;
@@ -102,8 +111,9 @@ is caught):
   5. main      -- the headline problem (512^2 object, 16384 positions, 128^2
                   probe and detector, Gaussian, solver defaults) through
                   solvers.run, checking that every evaluation launched the
-                  kernel (its 'fft' variant, one frame-kernel launch a
-                  chunk of frames), that the residual fell tenfold and that
+                  kernel (its 'fft' variant's fused body, one frame-kernel
+                  launch a chunk of frames: grad_fused.body_launches; so
+                  in phase deep), that the residual fell tenfold and that
                   peak extra memory stayed below 83.4 MiB (what the 'gemm'
                   variant's scratch made it) and the 512 MiB frame scratch;
   6. deep      -- the headline through solvers.reconstruct with its defaults
@@ -279,7 +289,8 @@ REDESIGNED = ("grad_fused", "minf_fused", "grad_prb_fused", "fwd", "adj",
 # Part of the mangled name of the instantiation the headline runs (side 128,
 # 1024 threads, no base) and of the 'gemm' kernel, for the compiler's report.
 HEADLINE_ENTRIES = {
-    "grad_fused": ("grad_fused_fft_kernelILi128ELi1024ELb0",
+    # grad_fused's FFT variant at the headline: its fused body.
+    "grad_fused": ("grad_fused_regs_kernelILb0ELb1E",
                    "grad_fused_kernelILb0"),
     "minf_fused": ("minf_fused_fft_kernelILi128ELi1024ELb0",
                    "minf_fused_kernelILb0"),
@@ -664,6 +675,77 @@ def in_turns_ms(torch, timer, label, new_fn, old_fn, reps=5):
     t = timer.times
     return tuple(1e3 * (t[f"{label} {v} 1"] + t[f"{label} {v} 2"])
                  / (2 * reps) for v in ("new", "old"))
+
+
+def grad_fused_bodies(torch, fused, timer, g, psi, data, scan_i, prb, base,
+                      bound_ms, card):
+    """grad_fused's two FFT bodies at the headline (one mode, 128^2): the
+    fused one that the shapes pick and the shared-memory one forced with
+    ``variant='fft_smem'``. The same gradient and objective bit for bit for
+    both likelihoods, without and with a base, at 512 and 32 MiB of frame
+    scratch, on a scan with masked and out-of-bounds positions, and the
+    fused body's objective is minf_fused's; then the two in turns without
+    and with a base (the whole call, and the frame kernels alone under the
+    profiler), and the fused body with and without the data prefetch.
+    Returns {case: (fused ms, shared-memory ms)}."""
+    odd = scan_i.clone()
+    odd[0, 5, 0] = -1        # a masked dummy
+    odd[0, 11, 1] = g.n      # a window past the right edge
+    odd[0, 17, 0] = g.nz     # and one past the bottom
+    for model in ("gaussian", "poisson"):
+        for b in (None, base):
+            for mib in (512, 32):
+                chunk = mib * 2**20 // (g.nmodes * g.nprb**2 * 8)
+                got, f_got = fused._grad_fused_cuda(
+                    psi, data, odd, prb, g.ndet, model, b, chunk=chunk)
+                check(fused.grad_fused.body == "fft_regs",
+                      fused.grad_fused.body)
+                old, f_old = fused._grad_fused_cuda(
+                    psi, data, odd, prb, g.ndet, model, b,
+                    variant="fft_smem", chunk=chunk)
+                check(fused.grad_fused.body == "fft_smem",
+                      fused.grad_fused.body)
+                f_m = fused.minf_fused(psi, data, odd, prb, g.ndet, model,
+                                       base=b)
+                check(torch.equal(got, old) and float(f_got) == float(f_old)
+                      == float(f_m),
+                      ("grad_fused's bodies differ", model, b is not None,
+                       mib, float(f_got), float(f_old), float(f_m)))
+    args = (psi, data, scan_i, prb, g.ndet, "gaussian")
+    turns = {}
+    for case, b in (("no base", None), ("base", base)):
+        turns[case] = in_turns_ms(
+            torch, timer, f"grad_fused bodies {case}",
+            lambda: fused._grad_fused_cuda(*args, b),
+            lambda: fused._grad_fused_cuda(*args, b, variant="fft_smem"))
+        alone = {}
+        for body, kw in (("fft_regs", {}), ("fft_smem",
+                                            {"variant": "fft_smem"})):
+            wall, _, top = device_busy(torch, lambda: [
+                fused._grad_fused_cuda(*args, b, **kw) for _ in range(5)])
+            kernel = ("grad_fused_regs_kernel" if body == "fft_regs"
+                      else "grad_fused_fft_kernel")
+            alone[body] = sum(ms for k, ms in top.items() if kernel in k) / 5
+        turns[case + ", frame kernel alone"] = (alone["fft_regs"],
+                                                alone["fft_smem"])
+    turns["prefetch on/off"] = in_turns_ms(
+        torch, timer, "grad_fused fused body prefetch",
+        lambda: fused._grad_fused_cuda(*args, None, prefetch=True),
+        lambda: fused._grad_fused_cuda(*args, None, prefetch=False))
+    log("kernel", f"grad_fused's two FFT bodies at {g}: the fused body "
+        "equals the forced shared-memory body bit for bit (gradient and "
+        "objective, gaussian and poisson, without and with a base, at 512 "
+        "and 32 MiB of frame scratch, masked and out-of-bounds positions in "
+        "the scan), and its objective is minf_fused's; in turns (5 "
+        "back-to-back calls each, smem, fused, fused, smem): " + ", ".join(
+            f"{k} {new:.3f} / smem {old:.3f} ms ({new / old:.3f}x)"
+            for k, (new, old) in turns.items() if k != "prefetch on/off")
+        + f"; the operator's bound {bound_ms:.3f} ms ("
+        f"{100 * bound_ms / turns['no base'][0]:.1f}% of it reached, smem "
+        f"{100 * bound_ms / turns['no base'][1]:.1f}%); fused body with the "
+        f"data prefetch {turns['prefetch on/off'][0]:.3f} / without "
+        f"{turns['prefetch on/off'][1]:.3f} ms; on {card}")
+    return turns
 
 
 def kernel_report(cuda_build, report: str, pattern: str) -> dict:
@@ -1151,6 +1233,13 @@ def kernel_counters():
              kernels.scatter_conj_probe_reference,
              kernels.adj_probe_reduce_reference,
              lbfgs.lbfgs_gram_reference, lbfgs.lbfgs_combine_reference])
+
+
+def body_delta(fused, before) -> dict:
+    """grad_fused's frame-kernel launches by body since ``before`` (a copy
+    of ``grad_fused.body_launches``), the bodies that ran only."""
+    return {k: v - before[k] for k, v in fused.grad_fused.body_launches.items()
+            if v != before[k]}
 
 
 def shape(gg, positions=None):
@@ -1953,15 +2042,20 @@ def main() -> None:
         fft_ms, gemm_ms = in_turns_ms(
             torch, timer, name, lambda: run_variant(variant="fft"),
             lambda: run_variant(variant="gemm"))
-        t512 = median_ms(torch, lambda: run_variant(variant="fft",
+        # The block size is the shared-memory body's choice: grad_fused's
+        # fused body runs 1024 threads only.
+        smem = "fft_smem" if name == "grad_fused" else "fft"
+        t512 = median_ms(torch, lambda: run_variant(variant=smem,
                                                     threads=512), 5)
-        t1024 = median_ms(torch, lambda: run_variant(variant="fft",
+        t1024 = median_ms(torch, lambda: run_variant(variant=smem,
                                                      threads=1024), 5)
         plain_layout = median_ms(torch, lambda: run_variant(
             variant="fft_unpadded"), 5)
         # The data prefetch's plane, of the three kernels that have one.
         planes = int(name in ("grad_fused", "minf_fused", "grad_prb_fused"))
-        per_sm, smem = fused.fft_launch_config(name, dev_i, g.ndet, planes)
+        per_sm, smem_bytes = fused.fft_launch_config(
+            name, dev_i, g.ndet, planes,
+            body=fused.fft_body(g.ndet, g.nmodes))
         regs, old = fft_regs[name], gemm_regs[name]
         check(fft_ms < gemm_ms, (name, fft_ms, gemm_ms))
         extra = ""
@@ -1980,11 +2074,13 @@ def main() -> None:
             f"({100 * bounds[name][0] / fft_ms:.1f}% of it reached, 'gemm' "
             f"{100 * bounds[name][0] / gemm_ms:.1f}%), plain "
             f"{results[name][2]:.3f} ms; 512 threads {t512:.3f} / 1024 "
-            f"threads {t1024:.3f} ms; {extra}padded frame layout "
+            f"threads {t1024:.3f} ms"
+            f"{' (the shared-memory body)' if name == 'grad_fused' else ''}; "
+            f"{extra}padded frame layout "
             f"{t1024:.3f} / unpadded (every row-pass access on one bank) "
             f"{plain_layout:.3f} ms; 'fft' {regs['registers']} registers, "
             f"{regs['spill_stores'] + regs['spill_loads']} spill bytes, "
-            f"{smem} B dynamic + {regs['smem']} B static shared memory, "
+            f"{smem_bytes} B dynamic + {regs['smem']} B static shared memory, "
             f"{per_sm} block/SM; 'gemm' {old['registers']} registers, "
             f"{old['spill_stores'] + old['spill_loads']} spill bytes; on "
             f"{card}")
@@ -2095,6 +2191,9 @@ def main() -> None:
     log("kernel", "grad_fused(psi)'s gradient equals adj_residual(fwd(psi))'s "
         f"bit for bit at {g.nscan} and {STREAM_FRAMES} frames ('fft': the "
         "same inverse half)")
+    body_turns = grad_fused_bodies(torch, fused, timer, g, psi_r, data,
+                                   scan_i, prb, base,
+                                   bounds["grad_fused"][0], card)
     # The 'fft' operators against a complex128 oracle on the card: the
     # reference's operator accuracy is ~4e-7 for its fused_hp tier (~8e-6
     # for fused_mp / fused_mx), and every fused tier maps to these kernels,
@@ -2369,6 +2468,7 @@ def main() -> None:
     # -- 5. the main path: solvers.run -------------------------------------
     run(data, psi0, scan, prb, g, piter=3)  # warm-up
     held = reset_counts()
+    bodies = dict(fused.grad_fused.body_launches)
     t0 = time.perf_counter()
     psi, _, m = run(data, psi0, scan, prb, g, piter=MAIN_ITERS,
                     model="gaussian")
@@ -2381,6 +2481,8 @@ def main() -> None:
     check(all(fn.launches == 0 for fn in plain), "plain version ran")
     check(main_launches == m["evaluations"] * main_chunks > 0,
           (main_launches, m["evaluations"], main_chunks))
+    main_bodies = body_delta(fused, bodies)
+    check(main_bodies == {"fft_regs": main_launches}, main_bodies)
     iters = int(m["iters_run"])
     minf = m["minf"][:iters].cpu()
     res = m["residual"][:iters].cpu()
@@ -2401,7 +2503,7 @@ def main() -> None:
         f"{peak / 2**20:.1f} MiB (limit {main_peak / 2**20:.1f}: the "
         f"'gemm' variant's {MAIN_PEAK / 2**20:.1f} and the frame scratch), "
         f"grad_fused launches {main_launches} ({main_chunks} chunks of "
-        f"frames an evaluation), on {card}")
+        f"frames an evaluation; by body {main_bodies}), on {card}")
     del psi, m
 
     # Per-stage wall time of reconstruct's solver calls (each ends in a
@@ -2421,6 +2523,7 @@ def main() -> None:
 
     # -- 6. deep: reconstruct to 1e-6 on the headline ----------------------
     held = reset_counts()
+    bodies = dict(fused.grad_fused.body_launches)
     t0 = time.perf_counter()
     psi, _, stages = reconstruct(data, psi0, scan, prb, g,
                                  target_residual=DEEP_TARGET,
@@ -2449,6 +2552,8 @@ def main() -> None:
     check(res_end <= DEEP_TARGET, f"deep residual {res_end:.4e} > "
           f"{DEEP_TARGET:g} after {len(stages)} stages")
     check(deep["grad_fused"] == evals * main_chunks > 0, (deep, evals))
+    deep_bodies = body_delta(fused, bodies)
+    check(deep_bodies == {"fft_regs": deep["grad_fused"]}, deep_bodies)
     check(fused.grad_fused.variant == "fft", fused.grad_fused.variant)
     # The reuse safeguard: the first two segments freeze their base, then
     # every Anderson step makes both candidates' farplanes and hands the
@@ -2469,7 +2574,8 @@ def main() -> None:
         f"{syncs / sum(iters):.3f} host syncs/iter, refinement segments "
         f"{split_iters / split_s:.2f} iters/s ({split_iters} iters in "
         f"{split_s:.3f} s), stage 1 {timed[-len(stages)]:.3f} s, peak "
-        f"extra memory {peak / 2**30:.3f} GiB, launches {deep} (lbfgs_gram "
+        f"extra memory {peak / 2**30:.3f} GiB, launches {deep} (grad_fused "
+        f"by body {deep_bodies}; lbfgs_gram "
         f"bound {1e3 * bounds['lbfgs_gram'][0]:.1f} us, lbfgs_combine "
         f"{1e3 * bounds['lbfgs_combine'][0]:.1f} us; {accepted} accepted "
         f"refinement steps), on {card}")
@@ -3337,6 +3443,9 @@ def main() -> None:
            if name in ("grad_fused", "minf_fused", "fwd",
                        "scatter_conj_probe") else {}),
         **({"atomic_ms": adj_atomic_ms} if name == "adj" else {}),
+        **({"body": "fft_regs", "fft_smem_ms": body_turns["no base"][1],
+            "bodies_in_turns_ms": body_turns}
+           if name == "grad_fused" else {}),
         **({"atomic_ms": scan_order_atomic_ms[name]}
            if name in scan_order_atomic_ms else {}),
         **({"compact_plain_ms": {k: v[0] for k, v in lb_compact[name].items()}}

@@ -29,7 +29,9 @@ at the reference's ``fused_hp`` operator bound (~4e-7).
 each: ``GEOMS`` runs their ``'gemm'`` variant (but for its 32^2 detector),
 ``POW2_GEOMS`` their ``'fft'`` variant, and one shape runs both, forced
 through the private wrappers' ``variant`` argument (``ADJ_GEOMS`` both of
-``adj``'s). On ``'fft'`` the
+``adj``'s). ``grad_fused``'s ``'fft'`` variant has two bodies: at 128^2
+with one mode the fused one runs, held bit for bit to the shared-memory
+one forced with ``variant='fft_smem'`` (``REGS_GEOMS``). On ``'fft'`` the
 farplane ``fwd`` stores is bit for bit the one ``minf_fused`` forms inside,
 ``fwd_quad_stats`` of a direction on its own farplane gives
 ``a == b == c`` bit for bit, and ``fwd`` and ``adj`` are a pair to 1e-5.
@@ -562,6 +564,72 @@ def test_fft_grad_fused_matches_plain_version(dev, g, model, with_base):
     # repeatable.
     g_2, f_2 = fused.grad_fused(*args, g.ndet, model, base=base)
     assert float(f_2) == float(f_k) and torch.equal(g_2, g_k)
+
+
+# grad_fused's two FFT bodies at 128^2 with one mode: the fused one, which
+# the shapes pick, and the shared-memory one, forced. Masked and
+# out-of-bounds positions in both scans.
+REGS_GEOMS = [
+    Geometry(nz=200, n=180, nscan=50, ndet=128, nprb=100),
+    Geometry(nz=140, n=150, nscan=30, ndet=128, nprb=128, ntheta=2),
+]
+
+
+def regs_inputs(g, dev):
+    psi, data, scan_i, prb = inputs(g, dev)
+    scan_i[0, 3, 1] = g.n  # a window past the object's right edge
+    return psi, data, scan_i, prb
+
+
+@pytest.mark.parametrize("chunk", [None, 7])
+@pytest.mark.parametrize("with_base", [False, True])
+@pytest.mark.parametrize("model", ["gaussian", "poisson"])
+@pytest.mark.parametrize("g", REGS_GEOMS, ids=str)
+def test_fused_body_is_the_shared_memory_body_bit_for_bit(dev, g, model,
+                                                          with_base, chunk):
+    """The gradient and the objective of the fused body equal the forced
+    shared-memory body's bit for bit, with and without the data prefetch,
+    whatever the chunk; each launch counts in its body. (The plain version
+    reads an out-of-bounds window otherwise than the kernels, which skip
+    it: test_fft_grad_fused_matches_plain_version holds the fused body to it
+    on masked positions alone.)"""
+    args = regs_inputs(g, dev)
+    base = base_for(g, dev) if with_base else None
+    frames = g.ntheta * g.nscan
+    chunks = len(fused.frame_chunks(
+        g.ntheta, g.nscan, min(frames, chunk or fused.frame_chunk(1, g.nprb))))
+    for prefetch in (True, False):
+        counts = dict(fused.grad_fused.body_launches)
+        g_n, f_n = fused._grad_fused_cuda(*args, g.ndet, model, base,
+                                          prefetch=prefetch, chunk=chunk)
+        assert fused.grad_fused.body == "fft_regs"
+        g_o, f_o = fused._grad_fused_cuda(*args, g.ndet, model, base,
+                                          variant="fft_smem",
+                                          prefetch=prefetch, chunk=chunk)
+        assert (fused.grad_fused.variant, fused.grad_fused.body) == (
+            "fft", "fft_smem")
+        assert {k: v - counts[k]
+                for k, v in fused.grad_fused.body_launches.items()} == {
+            "fft_regs": chunks, "fft_smem": chunks, "gemm": 0, "atomic": 0}
+        assert torch.equal(g_n, g_o) and float(f_n) == float(f_o)
+
+
+@pytest.mark.parametrize("with_base", [False, True])
+@pytest.mark.parametrize("model", ["gaussian", "poisson"])
+def test_fused_body_objective_is_minf_fused_bit_for_bit(dev, model,
+                                                        with_base):
+    """A line search compares grad_fused's objective with minf_fused's (and
+    grad_prb_fused's): on the fused body they stay one number."""
+    g = REGS_GEOMS[0]
+    args = regs_inputs(g, dev)
+    base = base_for(g, dev) if with_base else None
+    f_g = fused.grad_fused(*args, g.ndet, model, base=base)[1]
+    assert fused.grad_fused.body == "fft_regs"
+    f_m = fused.minf_fused(*args, g.ndet, model, base=base)
+    assert fused.minf_fused.variant == "fft" and float(f_m) == float(f_g)
+    if base is None:
+        assert float(fused.grad_prb_fused(*args, g.ndet, model)[1]) == float(
+            f_g)
 
 
 @pytest.mark.parametrize("g", POW2_GEOMS, ids=str)

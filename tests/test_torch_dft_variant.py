@@ -104,6 +104,54 @@ def test_public_signatures_are_the_reference_ones():
         "psi", "scan_int", "prb"]
 
 
+@pytest.mark.parametrize("ndet, nmodes, body", [
+    (128, 1, "fft_regs"), (128, 2, "fft_smem"), (128, 4, "fft_smem"),
+    (64, 1, "fft_smem"), (32, 3, "fft_smem"), (16, 1, "fft_smem")])
+def test_grad_fused_body_is_a_function_of_the_shapes(ndet, nmodes, body):
+    """Within the 'fft' variant grad_fused runs its fused body at 128 with
+    one mode and the shared-memory body at every other FFT shape, whatever
+    the probe's side."""
+    assert fused.fft_body(ndet, nmodes) == body
+    for nprb in (ndet, ndet - 4, 1):
+        for variant in (None, "fft"):
+            assert fused._pick_body(variant, nprb, ndet, nmodes) == (
+                "fft", (), body)
+
+
+@pytest.mark.parametrize("variant, expect", [
+    ("fft_smem", ("fft", (), "fft_smem")),
+    ("fft_unpadded", ("fft", ("TK_FFT_PAD=0",), "fft_smem")),
+    ("atomic", ("fft", (), "atomic")),
+    ("gemm", ("gemm", (), "gemm"))])
+def test_shared_memory_body_runs_at_128_only_when_forced(variant, expect):
+    """At the shapes of the fused body the shared-memory one (and the
+    unpadded measurement build of it, the atomic kernel, the 'gemm'
+    variant) runs only when the caller forces it; 'fft_smem' off the FFT
+    sizes raises before any launch, as a forced 'fft' does."""
+    assert fused._pick_body(variant, 128, 128, 1) == expect
+    assert fused._pick_body(None, 100, 130, 1) == ("gemm", (), "gemm")
+    with pytest.raises(ValueError, match="'fft' variant takes ndet"):
+        fused._pick_body(variant if variant != "gemm" else "fft_smem", 56,
+                         72, 1)
+    assert set(fused.grad_fused.body_launches) == {
+        "fft_regs", "fft_smem", "gemm", "atomic"}
+
+
+def test_fused_body_takes_only_its_own_block_size():
+    """The fused body runs 1024 threads: another block size raises before
+    anything is built or launched, while the shared-memory body, forced,
+    would take it."""
+    g = Geometry(nz=140, n=140, nscan=4, ndet=128, nprb=128)
+    gen = torch.Generator().manual_seed(0)
+    _, scan, prb, data = make_problem(gen, g, device="cpu")
+    psi = torch.ones(g.psi_shape, dtype=torch.complex64)
+    counts = dict(fused.grad_fused.body_launches)
+    with pytest.raises(ValueError, match="'fft_regs' body runs 1024"):
+        fused._grad_fused_cuda(psi, data, scan_to_int(scan), prb, g.ndet,
+                               "gaussian", None, threads=512)
+    assert fused.grad_fused.body_launches == counts
+
+
 @pytest.mark.parametrize("name", ["fwd", "adj_residual", "fwd_quad_stats",
                                   "adj"])
 def test_fwd_and_adj_residual_pick_as_the_others(name):

@@ -219,18 +219,25 @@ __device__ __forceinline__ float pixel_objective(int model, float inten,
   return fmaf(-dv, logf(inten + 1e-8f), inten);
 }
 
-// Sums v over the kT threads of the block in double in a fixed order;
-// thread 0 stores the result in *out.
+// Sums the kT threads' v over the block in double in a fixed order, each
+// thread's v in slot `slot` (a permutation of the threads); thread 0 stores
+// the result in *out.
 template <int kT>
-__device__ inline void block_sum_store_n(double v, double* out) {
+__device__ inline void block_sum_store_n(double v, double* out, int slot) {
   __shared__ double red[kT];
-  red[threadIdx.x] = v;
+  red[slot] = v;
   __syncthreads();
   for (int w = kT / 2; w > 0; w >>= 1) {
     if (threadIdx.x < w) red[threadIdx.x] += red[threadIdx.x + w];
     __syncthreads();
   }
   if (threadIdx.x == 0) *out = red[0];
+}
+
+// The same with each thread's v in its own slot.
+template <int kT>
+__device__ inline void block_sum_store_n(double v, double* out) {
+  block_sum_store_n<kT>(v, out, threadIdx.x);
 }
 
 // The same for the DFT-GEMM kernels' blocks of kThreads.
@@ -391,13 +398,14 @@ __device__ __forceinline__ void fft_regs(float2 (&v)[kR]) {
   }
 }
 
-// Forward 1-D transforms of `nlines` lines of the frame, in place; element
-// e of line l is fr[at(l, e)]. Elements e >= nin of a line are taken as
-// zero and not read (the padding). Natural order in, fft_pos order out.
-// Needs a barrier before it; ends with one.
+// The first stage of the forward 1-D transforms of `nlines` lines of the
+// frame, in place; element e of line l is fr[at(l, e)]. Elements e >= nin
+// of a line are taken as zero and not read (the padding). The lanes of a
+// warp take neighbouring lines. No barrier.
 template <int kD, int kT, class At>
-__device__ void fft_lines_forward(float2* fr, At at, int nlines, int nin,
-                                  const float2* tw) {
+__device__ __forceinline__ void fft_lines_forward_stage1(float2* fr, At at,
+                                                         int nlines, int nin,
+                                                         const float2* tw) {
   constexpr int n1 = FftSplit<kD>::n1, n2 = FftSplit<kD>::n2;
   for (int task = threadIdx.x; task < nlines * n2; task += kT) {
     const int line = task % nlines, j2 = task / nlines;
@@ -414,6 +422,40 @@ __device__ void fft_lines_forward(float2* fr, At at, int nlines, int nin,
       fr[at(line, n2 * k1 + j2)] = cmul(v[i], tw[j2 * k1]);
     }
   }
+}
+
+// The second stage of the inverse 1-D transforms of `nlines` lines, in
+// place: natural order out; only the elements e < nout of a line are
+// written (the crop). The lanes of a warp take neighbouring lines. No
+// barrier.
+template <int kD, int kT, class At>
+__device__ __forceinline__ void fft_lines_inverse_stage2(float2* fr, At at,
+                                                         int nlines,
+                                                         int nout) {
+  constexpr int n1 = FftSplit<kD>::n1, n2 = FftSplit<kD>::n2;
+  for (int task = threadIdx.x; task < nlines * n2; task += kT) {
+    const int line = task % nlines, j2 = task / nlines;
+    float2 v[n1];
+#pragma unroll
+    for (int k1 = 0; k1 < n1; ++k1) v[k1] = fr[at(line, n2 * k1 + j2)];
+    fft_regs<n1, true>(v);
+#pragma unroll
+    for (int i = 0; i < n1; ++i) {
+      const int e = n2 * fft_bitrev<Log2<n1>::value>(i) + j2;
+      if (e < nout) fr[at(line, e)] = v[i];
+    }
+  }
+}
+
+// Forward 1-D transforms of `nlines` lines of the frame, in place; element
+// e of line l is fr[at(l, e)]. Elements e >= nin of a line are taken as
+// zero and not read (the padding). Natural order in, fft_pos order out.
+// Needs a barrier before it; ends with one.
+template <int kD, int kT, class At>
+__device__ void fft_lines_forward(float2* fr, At at, int nlines, int nin,
+                                  const float2* tw) {
+  constexpr int n1 = FftSplit<kD>::n1, n2 = FftSplit<kD>::n2;
+  fft_lines_forward_stage1<kD, kT>(fr, at, nlines, nin, tw);
   __syncthreads();
   for (int task = threadIdx.x; task < nlines * n1; task += kT) {
     const int line = task % nlines, k1 = task / nlines;
@@ -449,18 +491,7 @@ __device__ void fft_lines_inverse(float2* fr, At at, int nlines, int nout,
     }
   }
   __syncthreads();
-  for (int task = threadIdx.x; task < nlines * n2; task += kT) {
-    const int line = task % nlines, j2 = task / nlines;
-    float2 v[n1];
-#pragma unroll
-    for (int k1 = 0; k1 < n1; ++k1) v[k1] = fr[at(line, n2 * k1 + j2)];
-    fft_regs<n1, true>(v);
-#pragma unroll
-    for (int i = 0; i < n1; ++i) {
-      const int e = n2 * fft_bitrev<Log2<n1>::value>(i) + j2;
-      if (e < nout) fr[at(line, e)] = v[i];
-    }
-  }
+  fft_lines_inverse_stage2<kD, kT>(fr, at, nlines, nout);
   __syncthreads();
 }
 
@@ -500,6 +531,26 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
                "l"(src));
+}
+
+// An L2 policy that evicts first the lines it tags: for a stream read once
+// (a measured frame), so that it does not push the object and the probe,
+// which every frame reads, out of the L2.
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(policy));
+  return policy;
+}
+
+// cp_async16 with an L2 policy.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           uint64_t policy) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile(
+      "cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2;\n" ::"r"(
+          s),
+      "l"(src), "l"(policy));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -569,23 +620,38 @@ __device__ __forceinline__ int64_t range_start(const Range& r) {
   return r.g0 + (static_cast<int64_t>(blockIdx.x) - r.g0 % grid + grid) % grid;
 }
 
+// `slot` (0 .. threads - 1) names the objective sum a thread carries; a
+// kernel whose threads sum other pixels than thread t of another kernel does
+// carries thread t's sum in slot t all the same, so that the two agree bit
+// for bit.
+__device__ __forceinline__ double range_carry_in(const Range& r, int threads,
+                                                 int slot) {
+  return r.first
+             ? 0.0
+             : r.carry[static_cast<int64_t>(blockIdx.x) * threads + slot];
+}
+
 __device__ __forceinline__ double range_carry_in(const Range& r,
                                                  int threads) {
-  return r.first ? 0.0
-                 : r.carry[static_cast<int64_t>(blockIdx.x) * threads +
-                           threadIdx.x];
+  return range_carry_in(r, threads, threadIdx.x);
 }
 
 // Ends the block's share of the launch: the partial of a last launch, the
 // carry otherwise.
 template <int kT>
 __device__ __forceinline__ void range_carry_out(const Range& r, double fsum,
-                                                double* partial) {
+                                                double* partial, int slot) {
   if (r.last) {
-    block_sum_store_n<kT>(fsum, partial + blockIdx.x);
+    block_sum_store_n<kT>(fsum, partial + blockIdx.x, slot);
   } else {
-    r.carry[static_cast<int64_t>(blockIdx.x) * kT + threadIdx.x] = fsum;
+    r.carry[static_cast<int64_t>(blockIdx.x) * kT + slot] = fsum;
   }
+}
+
+template <int kT>
+__device__ __forceinline__ void range_carry_out(const Range& r, double fsum,
+                                                double* partial) {
+  range_carry_out<kT>(r, fsum, partial, threadIdx.x);
 }
 
 // -- the forward half of a frame, shared by grad_fused, minf_fused,
@@ -743,6 +809,233 @@ __device__ void fft_weighted_mode(float2* fr, const float* plane,
     fr[at] = make_float2(z.x * plane[i], z.y * plane[i]);
   }
   __syncthreads();
+}
+
+// ---------------------------------------------------------------------------
+// The frame's FFT with fewer trips through shared memory: d = 128, one mode,
+// 1024 threads (grad_fused.cu grad_fused_regs_kernel).
+//
+// fft2_frame makes four stages a transform, each a read and a write of the
+// frame, with a block barrier after each; between the two transforms a
+// likelihood pass reads and writes the frame once more, and the gather
+// before and the crop's store after add a write and a read: about 20
+// one-way sweeps of the frame and 12 barriers a frame. Here the same
+// arithmetic, stage for stage, runs in fewer trips:
+//   - the forward row pass's first stage takes psi * prb from device memory
+//     straight into registers (fft_rows_forward_regs), and the inverse row
+//     pass's second stage stores the crop from registers (fft_rows_inverse_
+//     regs): no gather sweep, no crop sweep;
+//   - the forward column pass's second stage, the likelihood and the inverse
+//     column pass's first stage are one step of one thread on the 16 points
+//     of one column task (fft_col_fused): the thread holding frequencies
+//     u = k1 + 8 j (j = 0..15) of column v after the forward butterflies
+//     weights them and runs the inverse butterflies on them at once;
+//   - each warp owns four rows of the frame through both row passes (rows
+//     r0, r0 + 8, r0 + 64, r0 + 72, r0 = 16 (w / 8) + w % 8), so the
+//     exchange between a row pass's two stages is a __syncwarp, and so is
+//     the one between the inverse row pass and the next frame's forward one.
+// Twelve one-way sweeps of the frame a frame (a write, then five reads and
+// writes, then a read) and four block barriers: after the forward row pass,
+// after the forward column pass's first stage, after the fused step, after
+// the inverse column pass's second stage.
+//
+// Bank conflicts: the 8-point row stages run 16 lanes along one row (the
+// gather's loads and the crop's stores coalesce; the frame accesses are 16
+// consecutive elements), the 16-point row stages run rows r and r + 8 on a
+// half-warp (9 r and 9 (r + 8) fall 8 banks apart, as 8 tasks of a row
+// cover 8 banks). The two row twiddle tables are laid out in the order the
+// lanes read them (fft_regs_row_twiddles). The fused column step's half-warp
+// takes the columns of frequencies v = 8 b + a and 8 (b + 8) + a (a = 0..7),
+// which fall on 16 banks (fft_col(fft_pos(v)) = 17 a + b mod 16) and whose
+// measured pixels fill whole 32-byte sectors; the prefetched measured frame
+// is kept swizzled (fft_staged_index) so that a warp's 32 reads fall on 32
+// banks. What streams through once -- the measured frame, the crop -- is
+// tagged to leave the L2 first (l2_evict_first, __stcs).
+
+// Frequency v of the column task of thread slot rho (0..127) in the fused
+// column step.
+__device__ __forceinline__ int fft_regs_freq(int rho) {
+  return 8 * ((rho >> 4) + 8 * ((rho >> 3) & 1)) + (rho & 7);
+}
+
+// The first of the four rows this thread's warp owns.
+__device__ __forceinline__ int fft_regs_row0() {
+  const int w = threadIdx.x >> 5;
+  return 16 * (w >> 3) + (w & 7);
+}
+
+// The row of this lane's 8-point row task `it` (0 or 1): 16 lanes a row.
+__device__ __forceinline__ int fft_regs_row8(int it) {
+  return fft_regs_row0() + 8 * it + 64 * ((threadIdx.x >> 4) & 1);
+}
+
+// The row of this lane's 16-point row task: 8 lanes a row (k1 = lane % 8).
+__device__ __forceinline__ int fft_regs_row16() {
+  return fft_regs_row0() + 8 * ((threadIdx.x >> 3) & 1) +
+         64 * ((threadIdx.x >> 4) & 1);
+}
+
+// twr[16 k1 + j2] = tws[j2 k1] (the forward row pass's first stage, lanes
+// along j2) and twi[8 j2 + k1] = tws[j2 k1] (the inverse row pass's first
+// stage, lanes along k1): copies, the same bits. Needs a barrier before it
+// (after fft_load_twiddles); ends with one.
+template <int kT>
+__device__ inline void fft_regs_row_twiddles(const float2* tws, float2* twr,
+                                             float2* twi) {
+  for (int k = threadIdx.x; k < 128; k += kT) {
+    twr[k] = tws[(k & 15) * (k >> 4)];
+    twi[k] = tws[(k >> 3) * (k & 7)];
+  }
+  __syncthreads();
+}
+
+// Index into the staged measured frame (fft_fetch_data_swizzled) of its
+// pixel i = u * 128 + v: bit 4 flipped where bit 6 is set, which keeps
+// 16-byte groups whole.
+__device__ __forceinline__ int fft_staged_index(int i) {
+  return i ^ ((i >> 2) & 16);
+}
+
+// fft_fetch_data at d = 128 with the pixels at fft_staged_index, the
+// measured frame's lines evicted first from the L2.
+template <int kT>
+__device__ __forceinline__ void fft_fetch_data_swizzled(float* staged,
+                                                        const float* src) {
+  const uint64_t policy = l2_evict_first();
+  for (int i = threadIdx.x; i < 128 * 128 / 4; i += kT) {
+    cp_async16(staged + fft_staged_index(4 * i), src + 4 * i, policy);
+  }
+  cp_async_commit();
+}
+
+// The forward row pass of the patch's rows y < p: fr <- (psi[y:y+p, x:x+p] *
+// prb) transformed along the rows, the product read from device memory into
+// registers (fft_lines_forward's two stages on fft2_frame's rows, the same
+// arithmetic). Each warp works on its own rows only, so nothing but a
+// __syncwarp separates the stages; the caller's next pass needs a barrier.
+__device__ __forceinline__ void fft_rows_forward_regs(float2* fr,
+                                                      const float2* obj,
+                                                      int n,
+                                                      const float2* pr, int p,
+                                                      const float2* twr) {
+  constexpr int kP = FftFrame<128>::pitch;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int it = 0; it < 2; ++it) {
+    const int y = fft_regs_row8(it), j2 = lane & 15;
+    if (y < p) {
+      float2 v[8];
+#pragma unroll
+      for (int j1 = 0; j1 < 8; ++j1) {
+        const int e = 16 * j1 + j2;
+        v[j1] = e < p ? cmul(__ldg(obj + static_cast<int64_t>(y) * n + e),
+                             __ldg(pr + y * p + e))
+                      : make_float2(0.f, 0.f);
+      }
+      fft_regs<8, false>(v);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int k1 = fft_bitrev<3>(i);
+        fr[y * kP + fft_col(16 * k1 + j2)] = cmul(v[i], twr[16 * k1 + j2]);
+      }
+    }
+  }
+  __syncwarp();
+  const int y = fft_regs_row16(), k1 = lane & 7;
+  if (y < p) {
+    float2 v[16];
+#pragma unroll
+    for (int j2 = 0; j2 < 16; ++j2) v[j2] = fr[y * kP + fft_col(16 * k1 + j2)];
+    fft_regs<16, false>(v);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      fr[y * kP + fft_col(16 * k1 + fft_bitrev<4>(i))] = v[i];
+    }
+  }
+}
+
+// One column task of the fused step: the forward column pass's second stage
+// on column c's positions 16 k1 .. 16 k1 + 15, then weigh(j, z) on each of
+// its points -- z the farplane pixel of frequency u = k1 + 8 j, taken in
+// the order j = 0..15 -- which returns the point the inverse transform
+// takes, then the inverse column pass's first stage on them (the same
+// arithmetic as fft_lines_forward's second and fft_lines_inverse's first
+// stage). Needs a barrier before it and one after it.
+template <class Weigh>
+__device__ __forceinline__ void fft_col_fused(float2* fr, const float2* tw,
+                                              int c, int k1, Weigh weigh) {
+  constexpr int kP = FftFrame<128>::pitch;
+  float2* col = fr + fft_col(c);
+  float2 v[16];
+#pragma unroll
+  for (int j2 = 0; j2 < 16; ++j2) v[j2] = col[(16 * k1 + j2) * kP];
+  fft_regs<16, false>(v);
+  // v[i] sits at position 16 k1 + fft_bitrev(i): frequency k1 + 8
+  // fft_bitrev(i); the inverse stage reads position 16 k1 + j into w[j].
+  float2 w[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) w[j] = weigh(j, v[fft_bitrev<4>(j)]);
+  fft_regs<16, true>(w);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int j2 = fft_bitrev<4>(i);
+    col[(16 * k1 + j2) * kP] = cmul(w[i], conjf2(tw[j2 * k1]));
+  }
+}
+
+// The inverse row pass of rows y < p, its crop stored from registers into
+// nr (p x p): fft_lines_inverse's two stages on fft2_frame's rows, the same
+// arithmetic. Needs a barrier before it; each warp works on its own rows
+// only, and it ends with a __syncwarp, after which the next frame's
+// fft_rows_forward_regs may overwrite them.
+__device__ __forceinline__ void fft_rows_inverse_regs(float2* fr, int p,
+                                                      const float2* twi,
+                                                      float2* nr) {
+  constexpr int kP = FftFrame<128>::pitch;
+  const int lane = threadIdx.x & 31;
+  {
+    const int y = fft_regs_row16(), k1 = lane & 7;
+    if (y < p) {
+      float2 v[16];
+#pragma unroll
+      for (int k2 = 0; k2 < 16; ++k2) {
+        v[k2] = fr[y * kP + fft_col(16 * k1 + k2)];
+      }
+      fft_regs<16, true>(v);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int j2 = fft_bitrev<4>(i);
+        fr[y * kP + fft_col(16 * k1 + j2)] =
+            cmul(v[i], conjf2(twi[8 * j2 + k1]));
+      }
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int it = 0; it < 2; ++it) {
+    const int y = fft_regs_row8(it), j2 = lane & 15;
+    if (y < p) {
+      float2 v[8];
+#pragma unroll
+      for (int k1 = 0; k1 < 8; ++k1) {
+        v[k1] = fr[y * kP + fft_col(16 * k1 + j2)];
+      }
+      fft_regs<8, true>(v);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int e = 16 * fft_bitrev<3>(i) + j2;
+        if (e < p) __stcs(nr + y * p + e, v[i]);  // streamed: evict first
+      }
+    }
+  }
+  __syncwarp();
+}
+
+// Dynamic shared memory of the fused body: four twiddle tables, the frame
+// and, with the prefetch, the staged measured frame.
+constexpr size_t fft_regs_smem_bytes(int planes) {
+  return sizeof(float2) * (4 * 128 + FftFrame<128>::size)
+         + sizeof(float) * static_cast<size_t>(planes) * 128 * 128;
 }
 
 // Calls fn(kernel<D, T>, dynamic shared bytes) for the instantiation of

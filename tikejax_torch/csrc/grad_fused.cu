@@ -35,9 +35,41 @@
 // objective are the same bits whatever the chunk, and the objective is
 // minf_fused's, bit for bit.
 //
-// Two kernels form the frames; the wrapper picks one from the shapes alone.
+// Two kernels form the frames; the wrapper picks one from the shapes alone,
+// and within the FFT variant one of two bodies, also from the shapes alone.
 //
-// The FFT variant (grad_fused_fft_kernel; detector side 16, 32, 64 or 128).
+// The FFT variant's fused body (grad_fused_regs_kernel; detector side 128,
+// one mode: every cell of the benchmark). The same arithmetic in the same
+// order as the shared-memory body below, stage for stage, in fewer trips
+// through shared memory (dft_frame.cuh, "the frame's FFT with fewer
+// trips"): the gather goes straight from device memory into the forward
+// row pass's registers, the forward column pass's second stage, the
+// likelihood and the inverse column pass's first stage are one step on a
+// thread's 16 points, and the crop is stored from the inverse row pass's
+// registers. A frame makes 12 one-way sweeps of its 128 KiB through shared
+// memory (the shared-memory body about 20) and 4 block barriers (about 12);
+// the exchanges inside a row pass are __syncwarp, each warp owning four
+// rows. What bounds it now (PERF.md, patched builds on an H100): the row
+// passes, about 40% of its time, and of them the device-memory traffic --
+// the gather's 256 KiB a frame of object and probe from the L2 and the
+// crop's 128 KiB store -- which one block per SM (213 KiB of shared memory)
+// cannot overlap with another frame's column passes; then the likelihood's
+// square roots and division on the special-function units; the 12 sweeps
+// (about 6.6 us a frame at the SM's shared-memory bandwidth) and the FFT
+// arithmetic (2.3 MFLOP a frame) come after. The streamed traffic -- the
+// measured frame, the base, the crop -- is tagged to leave the L2 first, so
+// that the object and the probe, which every frame reads, stay in it.
+// The gradient and the objective are the shared-memory body's bits: each
+// thread sums its 16 pixels of the objective in the order that body's
+// thread of the same slot does, and carries the sum in that slot; the
+// weighted pixel is rounded before the inverse butterflies as that body's
+// stored one is. The measured frame is still fetched a frame ahead with
+// cp.async (swizzled, so the fused step's reads fall on 32 banks).
+//
+// The FFT variant's shared-memory body (grad_fused_fft_kernel; detector
+// side 16, 32, 64 or 128; every size but 128 with one mode, and forced
+// there only by a caller that times or compares the two bodies:
+// ops/fused.py variant='fft_smem').
 // One frame, one block, the whole complex frame in dynamic shared memory
 // (140,288 bytes at 128^2, so one block per SM), transformed in place by
 // dft_frame.cuh fft2_frame. Nothing farplane-sized and no per-block scratch
@@ -281,6 +313,113 @@ __global__ void __launch_bounds__(kT, 1)
   grad_fused_fft_body<kD, kT, false, true>(q);
 }
 
+// The fused body: d = 128, one mode, 1024 threads (dft_frame.cuh, "the
+// frame's FFT with fewer trips through shared memory"). Thread t's fused
+// column task is k1 = t / 128 on the column of frequency v =
+// fft_regs_freq(t % 128); it sums the objective of the pixels (k1 + 8 j, v),
+// j = 0..15, in that order -- the pixels, and the order, that thread
+// k1 * 128 + v of the shared-memory body sums -- and carries the sum in that
+// slot, so the two bodies' objectives (and minf_fused's) are the same bits.
+template <bool kBase, bool kPrefetch>
+__global__ void __launch_bounds__(1024, 1)
+    grad_fused_regs_kernel(FftParams q) {
+  constexpr int kD = 128, kT = 1024;
+  extern __shared__ __align__(16) float2 shared[];
+  float2* tw = shared;     // e^{-2 pi i k / d}: the column passes
+  float2* tws = tw + kD;   // the same / d: the row passes
+  float2* twr = tws + kD;  // tws in the forward row pass's order
+  float2* twi = twr + kD;  // tws in the inverse row pass's order
+  float2* fr = twi + kD;   // the frame
+  // With kPrefetch: the measured frame, fetched ahead (fft_staged_index).
+  float* plane = reinterpret_cast<float*>(fr + FftFrame<kD>::size);
+  fft_load_twiddles<kD, kT>(tw, tws);
+  fft_regs_row_twiddles<kT>(tws, twr, twi);
+  auto col_at = [](int c, int e) {
+    return e * FftFrame<kD>::pitch + fft_col(c);
+  };
+
+  const int p = q.p, model = q.model;
+  constexpr int dd = kD * kD;
+  const int64_t pp = static_cast<int64_t>(p) * p, g1 = q.r.g1;
+  const int k1 = threadIdx.x / kD, v = fft_regs_freq(threadIdx.x % kD);
+  const int c = fft_pos<kD>(v), slot = k1 * kD + v;
+  double fsum = range_carry_in(q.r, kT, slot);
+  int64_t fetched = -1;  // the frame whose data `plane` holds or awaits
+
+  // Each frame's scan entry is read a frame ahead, so that its latency
+  // hides behind the frame before.
+  int64_t f = range_start(q.r);
+  int sy = -1, sx = 0;
+  if (f < g1) sy = q.scan[2 * f], sx = q.scan[2 * f + 1];
+  while (f < g1) {
+    const int64_t next = f + gridDim.x;
+    int next_y = -1, next_x = 0;
+    if (next < g1) next_y = q.scan[2 * next], next_x = q.scan[2 * next + 1];
+    if (frame_valid(sy, sx, q.nz, q.n, p)) {  // block-uniform
+      const int th = static_cast<int>(f / q.s);
+      const float2* obj =
+          q.psi + (static_cast<int64_t>(th) * q.nz + sy) * q.n + sx;
+      const float* dat = q.data + f * dd;
+      const float2* base = kBase ? q.base + f * dd : nullptr;
+      if (kPrefetch && fetched != f) {  // the block's first frame
+        fft_fetch_data_swizzled<kT>(plane, dat);
+      }
+
+      fft_rows_forward_regs(fr, obj, q.n, q.prb + th * pp, p, twr);
+      __syncthreads();
+      fft_lines_forward_stage1<kD, kT>(fr, col_at, kD, p, tw);
+      if (kPrefetch) cp_async_wait_all();
+      __syncthreads();
+      double sum = 0.0;
+      fft_col_fused(fr, tw, c, k1, [&](int j, float2 z) {
+        const int i = (k1 + 8 * j) * kD + v;
+        if constexpr (kBase) {  // fft_add_base, the base streamed (__ldcs)
+          const float2 b = __ldcs(base + i);
+          z.x += b.x;
+          z.y += b.y;
+        }
+        float factor;
+        sum += pixel_objective(
+            model, fft_intensity(z),
+            kPrefetch ? plane[fft_staged_index(i)] : __ldcs(dat + i),
+            &factor);
+        // __fmul_rn: never contracted into the inverse butterflies' adds,
+        // so the weighted pixel rounds as the shared-memory body's stored
+        // one.
+        return make_float2(__fmul_rn(z.x, factor), __fmul_rn(z.y, factor));
+      });
+      fsum += sum;
+      __syncthreads();
+      if (kPrefetch) {
+        fetched = next >= g1 || frame_valid(next_y, next_x, q.nz, q.n, p)
+                      ? next
+                      : fft_next_frame(q.scan, next, g1, q.nz, q.n, p);
+        if (fetched < g1) {
+          fft_fetch_data_swizzled<kT>(plane, q.data + fetched * dd);
+        }
+      }
+      fft_lines_inverse_stage2<kD, kT>(fr, col_at, kD, p);
+      __syncthreads();
+      fft_rows_inverse_regs(fr, p, twi, q.near + (f - q.r.g0) * pp);
+    }
+    f = next, sy = next_y, sx = next_x;
+  }
+
+  range_carry_out<kT>(q.r, fsum, q.partial, slot);
+}
+
+// The fused body's instantiation for a base or none, with the data prefetch
+// or without.
+template <class Fn>
+int fft_regs_dispatch(bool base, bool prefetch, Fn fn) {
+  if (base) {
+    return prefetch ? fn(grad_fused_regs_kernel<true, true>)
+                    : fn(grad_fused_regs_kernel<true, false>);
+  }
+  return prefetch ? fn(grad_fused_regs_kernel<false, true>)
+                  : fn(grad_fused_regs_kernel<false, false>);
+}
+
 template <bool kBase>
 struct FftKernels {
   template <int kD, int kT>
@@ -368,6 +507,58 @@ int tk_grad_fused_fft(const void* psi, const void* prb, const void* data,
   return base != nullptr
              ? fft_launch<FftKernels<true>>(q, d, threads, planes, grid, st)
              : fft_launch<FftKernels<false>>(q, d, threads, planes, grid, st);
+}
+
+// Launches the fused body of the FFT variant (d = 128, one mode, 1024
+// threads: anything else is cudaErrorInvalidValue) with the arguments of
+// tk_grad_fused_fft; the same cropped frames and objective, bit for bit.
+int tk_grad_fused_fft_regs(const void* psi, const void* prb,
+                           const void* data, const void* scan, void* near,
+                           void* partial, void* carry, const void* base,
+                           int t, int s, int nz, int n, int m, int p, int d,
+                           int model, int prefetch, int64_t g0, int64_t g1,
+                           int first, int last, int grid, int threads,
+                           void* stream) {
+  if (d != 128 || m != 1 || threads != 1024) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  FftParams q{static_cast<const float2*>(psi),
+              static_cast<const float2*>(prb),
+              static_cast<const float*>(data), static_cast<const int*>(scan),
+              static_cast<float2*>(near), nullptr,
+              static_cast<double*>(partial),
+              static_cast<const float2*>(base), t, s, nz, n, m, p, model,
+              prefetch,
+              Range{g0, g1, static_cast<double*>(carry), first, last}};
+  const size_t smem = fft_regs_smem_bytes(prefetch ? 1 : 0);
+  return fft_regs_dispatch(base != nullptr, prefetch, [&](auto kernel) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(q);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+// Resident blocks per SM of the fused body and its dynamic shared memory in
+// bytes, as tk_grad_fused_fft_blocks_per_sm.
+int tk_grad_fused_fft_regs_blocks_per_sm(int d, int has_base, int planes,
+                                         int threads, int* out,
+                                         int* smem_bytes) {
+  if (d != 128 || threads != 1024) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = fft_regs_smem_bytes(planes);
+  *smem_bytes = static_cast<int>(smem);
+  return fft_regs_dispatch(has_base, planes > 0, [&](auto kernel) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out, kernel, threads, smem));
+  });
 }
 
 // Launches the atomic kernel, the FFT variant's design before it stored

@@ -302,6 +302,16 @@ def dft_variant(nprb: int, ndet: int, nmodes: int) -> str:
     return "fft" if ndet in _FFT_NDET else "gemm"
 
 
+def fft_body(ndet: int, nmodes: int) -> str:
+    """Which body of its ``'fft'`` variant ``grad_fused`` launches:
+    ``'fft_regs'`` (the forward column pass, the likelihood and the inverse
+    column pass fused in registers, 12 sweeps of the frame through shared
+    memory) at ``ndet`` 128 with one mode, ``'fft_smem'`` (the whole frame
+    transformed stage by stage in shared memory) at every other FFT size.
+    The two give the same bits. A pure function of the shapes."""
+    return "fft_regs" if ndet == 128 and nmodes == 1 else "fft_smem"
+
+
 # Macros of the measurement build of the FFT kernels on the plain,
 # unpadded frame layout (dft_frame.cuh TK_FFT_PAD).
 _UNPADDED = ("TK_FFT_PAD=0",)
@@ -326,6 +336,23 @@ def _pick_variant(name, variant, nprb, ndet, nmodes):
     if variant == "fft_unpadded":
         return "fft", _UNPADDED
     return variant, ()
+
+
+def _pick_body(variant, nprb, ndet, nmodes):
+    """(variant, build macros, body) of a ``grad_fused`` launch: the body
+    is :func:`fft_body`'s on the ``'fft'`` variant, ``'fft_smem'`` where
+    the caller forces it (``variant='fft_smem'``, or the unpadded
+    measurement build of that body), ``'atomic'`` for the forced one-pass
+    kernel (which the FFT variant's shapes run) and ``'gemm'`` on that
+    variant."""
+    forced = variant if variant in ("fft_smem", "atomic") else None
+    variant, defines = _pick_variant("grad_fused",
+                                     "fft" if forced else variant, nprb,
+                                     ndet, nmodes)
+    if variant == "gemm":
+        return variant, defines, "gemm"
+    body = forced or ("fft_smem" if defines else fft_body(ndet, nmodes))
+    return variant, defines, body
 
 
 def _check_model(model: str) -> None:
@@ -396,6 +423,11 @@ def grad_fused(psi: torch.Tensor, data: torch.Tensor,
 
 grad_fused.launches = 0
 grad_fused.variant = None  # of the last kernel launch: 'fft' or 'gemm'
+# Of the last launch: 'fft_regs' or 'fft_smem' (fft_body), 'gemm' or
+# 'atomic'; and the frame-kernel launches of each since import.
+grad_fused.body = None
+grad_fused.body_launches = dict.fromkeys(
+    ("fft_regs", "fft_smem", "gemm", "atomic"), 0)
 
 
 def grad_fused_reference(psi: torch.Tensor, data: torch.Tensor,
@@ -716,6 +748,10 @@ _MORE_ARGTYPES = {
     "grad_fused": {
         "tk_grad_fused_atomic_fft": [ctypes.c_void_p] * 6
         + [ctypes.c_int] * 11 + [ctypes.c_void_p],
+        "tk_grad_fused_fft_regs": _FFT_ARGTYPES["grad_fused"]
+        + [ctypes.c_void_p],
+        "tk_grad_fused_fft_regs_blocks_per_sm": [ctypes.c_int] * 4
+        + [ctypes.POINTER(ctypes.c_int)] * 2,
     },
     "adj_residual": {
         "tk_adj_residual_atomic_fft": [ctypes.c_void_p] * 6
@@ -780,11 +816,17 @@ def _resident_blocks(name: str, device_index: int, ndet: int,
     return max(1, per_sm.value) * sms
 
 
+# The C entry points of grad_fused's two FFT bodies (fft_body).
+_BODY_ENTRY = {"fft_smem": "tk_grad_fused_fft",
+               "fft_regs": "tk_grad_fused_fft_regs"}
+
+
 @functools.cache
 def fft_launch_config(name: str, device_index: int, ndet: int,
                       planes: int = 0, has_base: bool = False,
                       threads: int | None = None,
-                      defines: tuple[str, ...] = ()) -> tuple[int, int]:
+                      defines: tuple[str, ...] = (),
+                      body: str = "fft_smem") -> tuple[int, int]:
     """(resident blocks per SM, dynamic shared memory in bytes) of the FFT
     variant of ``name`` (``'grad_fused'``, ``'minf_fused'``,
     ``'grad_prb_fused'``, ``'fwd'``, ``'adj'``, ``'adj_probe'``,
@@ -792,16 +834,19 @@ def fft_launch_config(name: str, device_index: int, ndet: int,
     with ``planes`` (0 or 1) float planes beside the frame (one with several
     modes, or with one mode and the data prefetch of the first three;
     ``fwd``, ``adj``, ``adj_probe`` and ``fwd_quad_stats`` have none);
-    raises
-    for a side or a thread count without a kernel."""
+    ``body='fft_regs'`` asks for ``grad_fused``'s fused body
+    (:func:`fft_body`); raises for a side or a thread count without a
+    kernel."""
     lib = _lib(name, defines)
     threads = fft_threads(ndet) if threads is None else threads
     per_sm, smem = ctypes.c_int(0), ctypes.c_int(0)
-    entry = getattr(lib, f"{_ARGTYPES[name][0]}_fft_blocks_per_sm")
+    symbol = (_BODY_ENTRY[body] if name == "grad_fused"
+              else f"{_ARGTYPES[name][0]}_fft")
+    entry = getattr(lib, f"{symbol}_blocks_per_sm")
     with torch.cuda.device(device_index):
         _check(name, entry(ndet, int(has_base), planes, threads,
                            ctypes.byref(per_sm), ctypes.byref(smem)),
-               f"occupancy query (fft, ndet={ndet}, threads={threads})")
+               f"occupancy query ({body}, ndet={ndet}, threads={threads})")
     return per_sm.value, smem.value
 
 
@@ -817,11 +862,11 @@ def _fft_prefetch(name, prefetch, nmodes, data):
 
 
 def _fft_grid(name, device_index, frames, ndet, planes, has_base, threads,
-              defines):
+              defines, body="fft_smem"):
     """Blocks of the FFT variant: what the card holds at once, at most one
     per frame."""
     per_sm, _ = fft_launch_config(name, device_index, ndet, planes, has_base,
-                                  threads, defines)
+                                  threads, defines, body)
     sms = torch.cuda.get_device_properties(device_index).multi_processor_count
     return max(1, min(frames, max(1, per_sm) * sms))
 
@@ -927,12 +972,17 @@ def _grad_fused_cuda(psi, data, scan_int, prb, ndet, model, base,
     kernel from it into the gradient in scan order (:func:`frame_chunks`).
     ``variant='atomic'`` forces the one-pass FFT kernel with fp32 atomics
     that this design replaced (FFT sizes, no base), to time the two in
-    turns. ``threads`` is the FFT variant's block size (512, or 1024 at
-    ``ndet`` 128; None takes :func:`fft_threads`). ``prefetch`` (FFT
-    variant, one mode): fetch each measured frame into shared memory a
-    frame ahead; None means wherever it can be done (one mode, ``data``
-    16-byte aligned). Each frame-kernel launch adds one to
-    ``grad_fused.launches``."""
+    turns. Within the FFT variant :func:`fft_body` picks the body from
+    the shapes; ``variant='fft_smem'`` forces the shared-memory body where
+    the fused one would run, to time or compare the two (``'fft_unpadded'``
+    builds the shared-memory body too). ``threads`` is the shared-memory
+    body's block size (512, or 1024 at ``ndet`` 128; None takes
+    :func:`fft_threads`; the fused body runs 1024 and takes no other).
+    ``prefetch`` (FFT variant, one mode): fetch each measured frame into
+    shared memory a frame ahead; None means wherever it can be done (one
+    mode, ``data`` 16-byte aligned). Each frame-kernel launch adds one to
+    ``grad_fused.launches`` and to its body's count in
+    ``grad_fused.body_launches``."""
     t, nz, n, nmodes, nprb, s = _check_inputs("grad_fused", psi, scan_int,
                                               prb, ndet, data)
     base_p = _base_ptr("grad_fused", base, (t, s, nmodes, ndet, ndet),
@@ -940,9 +990,10 @@ def _grad_fused_cuda(psi, data, scan_int, prb, ndet, model, base,
     atomic = variant == "atomic"
     if atomic and base is not None:
         raise ValueError("grad_fused: the atomic kernel takes no base")
-    variant, defines = _pick_variant("grad_fused",
-                                     "fft" if atomic else variant, nprb,
-                                     ndet, nmodes)
+    variant, defines, body = _pick_body(variant, nprb, ndet, nmodes)
+    if body == "fft_regs" and threads not in (None, 1024):
+        raise ValueError("grad_fused: the fused 'fft_regs' body runs 1024 "
+                         f"threads, got threads={threads}")
     chunk = _chunk_arg("grad_fused", chunk, nmodes, nprb)
     lib = _lib("grad_fused", defines)
     dev = _device_index(psi)
@@ -953,7 +1004,8 @@ def _grad_fused_cuda(psi, data, scan_int, prb, ndet, model, base,
         prefetch = _fft_prefetch("grad_fused", prefetch, nmodes, data)
         grid = _fft_grid("grad_fused", dev, t * s, ndet,
                          int(nmodes > 1 or prefetch), base is not None,
-                         threads, defines)
+                         threads, defines,
+                         "fft_regs" if body == "fft_regs" else "fft_smem")
     else:
         per_block = nmodes * ndet * (nprb + ndet)  # complex elements
         grid = _grid("grad_fused", dev, t * s, ndet, base is not None,
@@ -975,30 +1027,37 @@ def _grad_fused_cuda(psi, data, scan_int, prb, ndet, model, base,
                 threads, stream)
         _check("grad_fused", err, "kernel launch (atomic)")
         grad_fused.launches += 1
-        grad_fused.variant = "atomic"
+        grad_fused.body_launches["atomic"] += 1
+        grad_fused.variant = grad_fused.body = "atomic"
         return grad, partial.sum().to(torch.float32)
 
     def launch(g0, g1, first, last, near, carry):
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
             if variant == "fft":
-                return lib.tk_grad_fused_fft(
+                err = getattr(lib, _BODY_ENTRY[body])(
                     psi.data_ptr(), prb.data_ptr(), data.data_ptr(),
                     scan_int.data_ptr(), near, partial.data_ptr(), carry,
                     base_p, t, s, nz, n, nmodes, nprb, ndet, model_code,
                     int(prefetch), g0, g1, first, last, grid, threads,
                     stream)
-            return lib.tk_grad_fused(
-                psi.data_ptr(), prb.data_ptr(), data.data_ptr(),
-                scan_int.data_ptr(), near, scratch.data_ptr(),
-                partial.data_ptr(), carry, base_p, t, s, nz, n, nmodes, nprb,
-                ndet, model_code, g0, g1, first, last, grid, stream)
+            else:
+                err = lib.tk_grad_fused(
+                    psi.data_ptr(), prb.data_ptr(), data.data_ptr(),
+                    scan_int.data_ptr(), near, scratch.data_ptr(),
+                    partial.data_ptr(), carry, base_p, t, s, nz, n, nmodes,
+                    nprb, ndet, model_code, g0, g1, first, last, grid,
+                    stream)
+        if not err:
+            grad_fused.body_launches[body] += 1
+        return err
 
     grad = _scan_order(grad_fused, variant, launch, prb, scan_int, t, s,
                        nz, n, chunk, grid, threads, psi.device)
     if t * s == 0:
         partial.zero_()
     grad_fused.variant = variant
+    grad_fused.body = body
     return grad, partial.sum().to(torch.float32)
 
 

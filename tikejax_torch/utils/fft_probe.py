@@ -7,8 +7,10 @@ tile kernel, on the card.
 needs one CUDA card and ``nvcc``. At the headline frame size (16,384
 positions, 128^2 probe and detector, one mode) it times ``grad_fused``,
 ``minf_fused``, ``grad_prb_fused`` and ``adj_probe`` on their ``'fft'``
-variant -- as launched, without the data prefetch, at 512 threads -- and on
-the forced ``'gemm'`` variant; then ``grad_fused`` and ``adj_probe`` built
+variant -- as launched, without the data prefetch, at 512 threads;
+``grad_fused`` on its shared-memory body, forced, with its fused body as
+launched beside it -- and on the forced ``'gemm'`` variant; then
+``grad_fused`` (the shared-memory body) and ``adj_probe`` built
 from patched copies of ``csrc/`` that each leave one phase of the kernel out
 (the transforms, the store of the cropped frames the tile scatter sums, the
 data read, the gather's loads; the farplane load, the partial's update),
@@ -151,7 +153,9 @@ def fft_kernels(dev) -> None:
     psi, far = crandn(g.psi_shape), crandn(g.farplane_shape)
     args = (psi, data, scan_i, prb, g.ndet, "gaussian")
     runs = {
-        "grad_fused": lambda **kw: fused._grad_fused_cuda(*args, None, **kw),
+        # The shared-memory body, which the patches below take apart.
+        "grad_fused": lambda **kw: fused._grad_fused_cuda(
+            *args, None, **{"variant": "fft_smem", **kw}),
         "minf_fused": lambda **kw: fused._minf_fused_cuda(*args, None, **kw),
         "grad_prb_fused": lambda **kw: fused._grad_prb_fused_cuda(*args,
                                                                   **kw),
@@ -170,6 +174,9 @@ def fft_kernels(dev) -> None:
             whole[name, "prefetch off"] = off
         line.append(f"512 threads {median_ms(lambda: run(threads=512)):.3f}")
         line.append(f"gemm {median_ms(lambda: run(variant='gemm')):.3f}")
+        if name == "grad_fused":
+            line.append("fused body (as launched) "
+                        f"{median_ms(lambda: run(variant=None)):.3f}")
         print(f"{name}: " + ", ".join(line), flush=True)
     for label, (name, edits) in PATCHES.items():
         if name not in runs:
