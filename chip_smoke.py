@@ -14,10 +14,7 @@ is caught):
                   scatter_conj_probe, adj_probe_reduce) and the L-BFGS
                   direction's two (lbfgs_gram, lbfgs_combine) from
                   tikejax_torch/csrc, one process per source, in parallel,
-                  into the build directory it prints; beside them the eight
-                  kernels that have an FFT variant once more on the
-                  unpadded frame layout (TK_FFT_PAD=0), for the
-                  bank-conflict measurement;
+                  into the build directory it prints;
   3. kernel    -- each kernel against its plain PyTorch version on a small
                   awkward case (2 angles, 2 modes, odd sizes, a masked
                   position, both models) and at the headline frame size:
@@ -25,15 +22,13 @@ is caught):
                   a base and as split views, minf_fused with and without a
                   base, grad_prb_fused, adj, adj_probe, adj_residual,
                   fwd_quad_stats for the object and the probe direction,
-                  ls_objectives at 17 steps (its frame-major kernel and the
-                  forced pixel-major one), and the hybrid tier's
+                  ls_objectives at 17 steps, and the hybrid tier's
                   gather_probe_mul, scatter_conj_probe and adj_probe_reduce
                   (the adjoints on the strided crop of 72^2 frames to
                   56^2); the probe reductions, fwd_quad_stats,
                   ls_objectives and the three hybrid kernels also
                   bitwise repeatable; gather_probe_mul's
-                  persistent kernel equal bit for bit to the forced pixel
-                  kernel it replaced, with masked frames all zero, on the
+                  persistent kernel with masked frames all zero, on the
                   headline (one position masked) and on awkward cases
                   (odd and even n, nprb 56, 48 and the odd 55);
                   scatter_conj_probe's tile kernel bitwise repeatable and
@@ -65,18 +60,14 @@ is caught):
                   giving a == b == c bit for bit; then one line per
                   redesigned
                   kernel: FFT and forced 'gemm' times taken in turns in
-                  this run, 512 against 1024 threads, the data prefetch on
-                  and off, the padded against the unpadded frame layout,
-                  registers, spills, shared memory, resident blocks and the
-                  share of the bound (adj also at the stream path's 1024
-                  frames); ls_objectives' frame-major kernel
-                  against the forced pixel-major one, in turns, at 1 and 17
-                  steps for both models (the new one must be faster at 17);
-                  gather_probe_mul's persistent kernel against the
-                  forced pixel kernel, in turns, at 16384 and 4096 frames
-                  (the new one must be faster at both); and
-                  scatter_conj_probe's tile kernel against the forced
-                  atomic kernel, likewise; adj (its frames summed by the
+                  this run, registers, spills, shared memory, resident
+                  blocks and the share of the bound (adj also at the stream
+                  path's 1024 frames); ls_objectives at 1 and 17 steps for
+                  both models and gather_probe_mul at 16384 and 4096
+                  frames beside their bounds; scatter_conj_probe's tile
+                  kernel against the forced atomic kernel, in turns, at
+                  both frame counts (the new one must be faster at both);
+                  adj (its frames summed by the
                   tile kernel in scan order, chunk after chunk) bitwise
                   repeatable on both variants at 16384 and 1024 frames and
                   timed in turns against the forced one-pass atomic kernel
@@ -95,7 +86,7 @@ is caught):
                   scratch, masked and out-of-bounds positions in the scan,
                   the objective minf_fused's, then timed in turns (the
                   whole call and the frame kernels alone) beside the
-                  bound, and the fused body's data prefetch on and off;
+                  bound;
                   the 'fft' fwd
                   farplane, adj, adj_probe, adj_residual and grad_fused at
                   64^2 and 128^2, 1 and 4 modes, against a complex128
@@ -264,6 +255,10 @@ import sys
 import time
 from pathlib import Path
 
+from h100bench import trace
+from h100bench.roofline import bound, nbytes
+from h100bench.roofline import fft_flops as frame_flops
+
 ROOT = Path(__file__).resolve().parent
 GRAD_TOL = 1e-4   # max|g - g_ref| / max|g_ref| (the JAX fused parity bound)
 FAR_TOL = 1e-4    # max|f - f_ref| / max|f_ref|, the same bound
@@ -282,10 +277,6 @@ MAIN_PEAK = 83.4 * 2**20
 # The power-of-two awkward case of the FFT variants.
 POW2_SMALL = dict(nz=97, n=101, nscan=37, ndet=64, nprb=48, ntheta=2,
                   nmodes=2)
-UNPADDED = ("TK_FFT_PAD=0",)
-# The kernels that have an FFT variant beside their DFT-GEMM one.
-REDESIGNED = ("grad_fused", "minf_fused", "grad_prb_fused", "fwd", "adj",
-              "adj_probe", "adj_residual", "fwd_quad_stats")
 # Part of the mangled name of the instantiation the headline runs (side 128,
 # 1024 threads, no base) and of the 'gemm' kernel, for the compiler's report.
 HEADLINE_ENTRIES = {
@@ -305,13 +296,10 @@ HEADLINE_ENTRIES = {
     "fwd_quad_stats": ("fwd_quad_stats_fft_kernelILi128ELi1024EE",
                        "fwd_quad_stats_kernelE"),
 }
-# ls_objectives' frame-major kernel at the solver's 17 steps, and the
-# pixel-major one it replaced.
-LS_ENTRIES = ("ls_objectives_frame_kernelILi17EE", "ls_objectives_kernelE")
-# gather_probe_mul's persistent kernel on pixel pairs, and the pixel kernel
-# it replaced.
-GATHER_ENTRIES = ("gather_probe_mul_persistent_kernelILi2EE",
-                  "gather_probe_mul_kernelE")
+# ls_objectives' kernel at the solver's 17 steps.
+LS_ENTRY = "ls_objectives_frame_kernelILi17EE"
+# gather_probe_mul's persistent kernel on pixel pairs.
+GATHER_ENTRY = "gather_probe_mul_persistent_kernelILi2EE"
 # scatter_conj_probe's atomic kernel; the tile kernel's instantiation is
 # named from ops.kernels' mode chunk (scatter_entry).
 SCATTER_ATOMIC_ENTRY = "scatter_conj_probe_atomic_kernelE"
@@ -352,9 +340,6 @@ JOINT_PEAK = 256 * 2**20
 # (14-16 stages, 10-16 s) and one after two (23 stages, 21 s), which the 12
 # segments allowed while a run took a minute would only just have covered.
 JOINT_DEEP_MAX_SEGMENTS = 24
-# Published H100 SXM peaks (700 W): fp32 outside the tensor cores, memory.
-PEAK_FLOPS = 67e12
-PEAK_BYTES = 3.35e12
 # Special-function results a clock on one SM (square roots, logarithms).
 SFU_PER_SM_CLOCK = 16
 KERNEL_SOURCES = {
@@ -459,7 +444,9 @@ def check(ok: bool, what) -> None:
 
 
 def median_ms(torch, fn, reps: int) -> float:
-    """Median of ``reps`` synchronised calls, timed with CUDA events."""
+    """Median of ``reps`` synchronised calls, timed with CUDA events (the
+    benchmark's own timer is a method of its harness, with a warm-up
+    call)."""
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
@@ -661,7 +648,7 @@ def show_errs(errs) -> str:
 
 def in_turns_ms(torch, timer, label, new_fn, old_fn, reps=5):
     """(new ms, old ms) of two kernels of one function (the 'fft' and the
-    'gemm' variant, or ls_objectives' frame- and pixel-major kernels):
+    'gemm' variant, or the tile and the atomic scatter):
     ``reps`` back-to-back launches of each, in the order old, new, new,
     old, each run between two synchronises (the port's ``utils.Timer``);
     the two runs of a kernel are averaged."""
@@ -686,8 +673,7 @@ def grad_fused_bodies(torch, fused, timer, g, psi, data, scan_i, prb, base,
     scratch, on a scan with masked and out-of-bounds positions, and the
     fused body's objective is minf_fused's; then the two in turns without
     and with a base (the whole call, and the frame kernels alone under the
-    profiler), and the fused body with and without the data prefetch.
-    Returns {case: (fused ms, shared-memory ms)}."""
+    profiler). Returns {case: (fused ms, shared-memory ms)}."""
     odd = scan_i.clone()
     odd[0, 5, 0] = -1        # a masked dummy
     odd[0, 11, 1] = g.n      # a window past the right edge
@@ -728,10 +714,6 @@ def grad_fused_bodies(torch, fused, timer, g, psi, data, scan_i, prb, base,
             alone[body] = sum(ms for k, ms in top.items() if kernel in k) / 5
         turns[case + ", frame kernel alone"] = (alone["fft_regs"],
                                                 alone["fft_smem"])
-    turns["prefetch on/off"] = in_turns_ms(
-        torch, timer, "grad_fused fused body prefetch",
-        lambda: fused._grad_fused_cuda(*args, None, prefetch=True),
-        lambda: fused._grad_fused_cuda(*args, None, prefetch=False))
     log("kernel", f"grad_fused's two FFT bodies at {g}: the fused body "
         "equals the forced shared-memory body bit for bit (gradient and "
         "objective, gaussian and poisson, without and with a base, at 512 "
@@ -739,12 +721,10 @@ def grad_fused_bodies(torch, fused, timer, g, psi, data, scan_i, prb, base,
         "the scan), and its objective is minf_fused's; in turns (5 "
         "back-to-back calls each, smem, fused, fused, smem): " + ", ".join(
             f"{k} {new:.3f} / smem {old:.3f} ms ({new / old:.3f}x)"
-            for k, (new, old) in turns.items() if k != "prefetch on/off")
+            for k, (new, old) in turns.items())
         + f"; the operator's bound {bound_ms:.3f} ms ("
         f"{100 * bound_ms / turns['no base'][0]:.1f}% of it reached, smem "
-        f"{100 * bound_ms / turns['no base'][1]:.1f}%); fused body with the "
-        f"data prefetch {turns['prefetch on/off'][0]:.3f} / without "
-        f"{turns['prefetch on/off'][1]:.3f} ms; on {card}")
+        f"{100 * bound_ms / turns['no base'][1]:.1f}%); on {card}")
     return turns
 
 
@@ -789,28 +769,21 @@ def compare_quad_stats(torch, fused, x, scan_i, p, fpsi):
 
 
 def compare_ls(torch, linesearch, fpsi, fd, data, model):
-    """ls_objectives at LS_STEPS, its frame-major kernel (as launched) and
-    the forced pixel-major one, against its plain version, each value
-    within MINF_TOL, each kernel bitwise repeatable: (worst err of the
-    frame-major kernel, its abs err, worst err of the pixel-major one)."""
+    """ls_objectives at LS_STEPS against its plain version, each value
+    within MINF_TOL, bitwise repeatable: (worst err, its abs err)."""
+    launches = linesearch.ls_objectives.launches
     v_k = linesearch.ls_objectives(fpsi, fd, data, LS_STEPS, model)
-    check(linesearch.ls_objectives.variant == "frame",
-          linesearch.ls_objectives.variant)
     v_2 = linesearch.ls_objectives(fpsi, fd, data, LS_STEPS, model)
-    steps = torch.tensor(LS_STEPS, dtype=torch.float32, device=fpsi.device)
-    p_k, p_2 = (linesearch._ls_objectives_cuda(fpsi, fd, data, steps, model,
-                                               variant="pixel")
-                for _ in range(2))
+    check(linesearch.ls_objectives.launches == launches + 2,
+          "ls_objectives did not launch its kernel")
     v_r = linesearch.ls_objectives_reference(fpsi, fd, data, LS_STEPS,
                                              model)
     torch.cuda.synchronize()
     err = float(((v_k - v_r).abs() / v_r.abs()).max())
-    p_err = float(((p_k - v_r).abs() / v_r.abs()).max())
-    check(bool(torch.isfinite(v_k).all()) and err <= MINF_TOL
-          and p_err <= MINF_TOL, ("ls_objectives", model, err, p_err))
-    check(torch.equal(v_k, v_2) and torch.equal(p_k, p_2),
-          "ls_objectives is not bitwise repeatable")
-    return err, float((v_k - v_r).abs().max()), p_err
+    check(bool(torch.isfinite(v_k).all()) and err <= MINF_TOL,
+          ("ls_objectives", model, err))
+    check(torch.equal(v_k, v_2), "ls_objectives is not bitwise repeatable")
+    return err, float((v_k - v_r).abs().max())
 
 
 def compare_at_scale(torch, fused, g, psi, data, scan_i, prb, base, chunk):
@@ -933,6 +906,14 @@ def compare_hybrid(torch, kernels, psi, scan_i, prb, frames):
     return errs
 
 
+def scatter_blocks_per_sm(launch, kernels, device_index, nmodes) -> int:
+    """Resident blocks per SM of the tile scatter's instantiation for
+    ``nmodes`` modes."""
+    return launch.blocks_per_sm(
+        "scatter_conj_probe", "tk_scatter_conj_probe_blocks_per_sm",
+        device_index, kernels.scatter_mode_chunk(nmodes))
+
+
 def scatter_entry(kernels, nmodes: int) -> str:
     """Part of the mangled name of the tile kernel's instantiation for
     ``nmodes`` modes, for the compiler's report."""
@@ -974,20 +955,16 @@ def scatter_as_tile(torch, kernels, frames, scan_i, prb, nz, n):
     return errs
 
 
-def gather_as_pixel(torch, kernels, psi, scan_i, prb):
-    """gather_probe_mul's persistent kernel (as launched) against the
-    forced pixel kernel it replaced: equal bit for bit, bitwise repeatable,
-    every frame of a masked position zero. Returns the number of masked
-    positions."""
+def gather_repeatable(torch, kernels, psi, scan_i, prb):
+    """gather_probe_mul's persistent kernel: within GRAD_TOL of its plain
+    version, bitwise repeatable, every frame of a masked position zero.
+    Returns the number of masked positions."""
     got = kernels.gather_probe_mul(psi, scan_i, prb)
-    check(kernels.gather_probe_mul.variant == "persistent",
-          kernels.gather_probe_mul.variant)
-    old = kernels._gather_probe_mul_cuda(psi, scan_i, prb, variant="pixel")
     again = kernels.gather_probe_mul(psi, scan_i, prb)
     masked = scan_i[..., 0] < 0
-    check(torch.equal(got, old), ("gather_probe_mul: the persistent and the "
-                                  "pixel kernel differ", tuple(prb.shape),
-                                  float((got - old).abs().max())))
+    err = rel_err(torch, got, kernels.gather_probe_mul_reference(
+        psi, scan_i, prb))[0]
+    check(err <= GRAD_TOL, ("gather_probe_mul", tuple(prb.shape), err))
     check(torch.equal(got, again), "gather_probe_mul is not bitwise "
           "repeatable")
     check(not bool(masked.any()) or float(got[masked].abs().max()) == 0.0,
@@ -1139,16 +1116,10 @@ def compare_lbfgs(torch, lbfgs, dev):
     return results, bounds, compact
 
 
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
 def fft_flops(scan_i, nmodes: int, ndet: int, dfts: int) -> float:
-    """Real FLOPs of ``dfts`` 2-D FFTs of every valid (unmasked) frame and
-    mode of this run: 5 N log2 N per padded ndet^2 frame."""
-    frames = int((scan_i[..., 0] >= 0).sum())
-    n = ndet * ndet
-    return dfts * frames * nmodes * 5 * n * math.log2(n)
+    """h100bench.roofline's FFT FLOPs of every valid (unmasked) frame of
+    ``scan_i``."""
+    return frame_flops(int((scan_i[..., 0] >= 0).sum()), nmodes, ndet, dfts)
 
 
 def ls_flops(data, nmodes: int, steps: int) -> float:
@@ -1159,44 +1130,18 @@ def ls_flops(data, nmodes: int, steps: int) -> float:
     return data.numel() * (12 * nmodes + 2 + 9 * steps)
 
 
-def bound(flops: float, moved: int):
-    """(ms, what bounds it): the least time the card could take for
-    ``flops`` fp32 operations at the SIMT peak and ``moved`` bytes (each
-    input read once, each output written once) at the memory peak."""
-    flops_ms = 1e3 * flops / PEAK_FLOPS
-    bytes_ms = 1e3 * moved / PEAK_BYTES
-    return ((flops_ms, "operations") if flops_ms >= bytes_ms
-            else (bytes_ms, "bytes"))
-
-
 def device_busy(torch, fn):
-    """``fn()`` under torch.profiler, between two synchronises: (wall ms,
-    the share of it in which the card ran a kernel or a copy, {kernel: ms
-    on the card} for the six that took the most). The profiler's own host
-    work lengthens the wall time a little, so the share is a lower bound."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    """``fn()`` in h100bench.trace's profiler window, between two
+    synchronises: (wall ms, the share of it in which the card ran a kernel,
+    a copy or a set, {kernel: ms on the card} for the six that took the
+    most). The profiler's own host work lengthens the wall time a little,
+    so the share is a lower bound."""
+    with trace.window(torch.cuda.synchronize) as held:
         fn()
-        torch.cuda.synchronize()
-        wall_us = 1e6 * (time.perf_counter() - t0)
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    check(len(spans) > 0, "the profiler saw nothing run on the card")
-    busy, end, by_name = 0.0, -math.inf, {}
-    for start, stop, name in spans:
-        # Summed by the 60 characters shown: kernels that share them (the
-        # instantiations of one PyTorch template) count together.
-        by_name[name[:60]] = by_name.get(name[:60], 0.0) + (stop - start)
-        busy += max(0.0, stop - max(start, end))
-        end = max(end, stop)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return (wall_us / 1e3, busy / wall_us,
-            {name: us / 1e3 for name, us in top})
+    profile = held[0]
+    check(profile is not None, "the profiler saw nothing run on the card")
+    return (1e3 * profile.window_s, profile.busy_s / profile.window_s,
+            {name: 1e3 * s for name, s in profile.device_ops[:6]})
 
 
 def show_busy(iters, busy, plain_ms) -> str:
@@ -1642,7 +1587,8 @@ def main() -> None:
     from tikejax_torch import Geometry
     from tikejax_torch.models import likelihoods, make_problem
     from tikejax_torch import compat, native
-    from tikejax_torch.ops import diffraction, fused, kernels, linesearch
+    from tikejax_torch.ops import _launch, diffraction, fused, kernels
+    from tikejax_torch.ops import linesearch
     from tikejax_torch.ops.patches import scan_to_int
     from tikejax_torch.solvers import cg, reconstruct, run
     from tikejax_torch.utils import Timer, cuda_build
@@ -1669,27 +1615,19 @@ def main() -> None:
     dev = torch.device("cuda", 0)
 
     # -- 2. build --------------------------------------------------------
-    from concurrent.futures import ThreadPoolExecutor
-
     timer = Timer()
     log("build", f"build directory {cuda_build.BUILD_DIR} (the checkout's "
         "build/kernels where it can be written, else the user's cache)")
-    with timer("build"), ThreadPoolExecutor(2) as pool:
-        # The unpadded measurement build of the four FFT kernels starts
-        # together with the twelve libraries: every nvcc runs at once.
-        unpadded_job = pool.submit(cuda_build.build_all, REDESIGNED,
-                                   UNPADDED)
+    with timer("build"):
         built = cuda_build.build_all(tuple(KERNEL_SOURCES))
-        unpadded = unpadded_job.result()
     for name, (path, seconds, report) in built.items():
         regs = cuda_build.kernel_reports(report).values()
         spills = sum(v["spill_stores"] + v["spill_loads"] for v in regs)
         log("build", f"{path.relative_to(ROOT)} in {seconds:.1f} s; "
             f"{len(regs)} kernels, registers "
             f"{sorted({v['registers'] for v in regs})}, spill bytes {spills}")
-    log("build", f"{len(built)} libraries and {len(unpadded)} unpadded "
-        f"measurement builds in {timer.times['build']:.1f} s wall "
-        "(parallel nvcc)")
+    log("build", f"{len(built)} libraries in {timer.times['build']:.1f} s "
+        "wall (parallel nvcc)")
     fft_regs = {name: kernel_report(cuda_build, built[name][2], entry)
                 for name, (entry, _) in HEADLINE_ENTRIES.items()}
     gemm_regs = {name: kernel_report(cuda_build, built[name][2], entry)
@@ -1781,14 +1719,13 @@ def main() -> None:
         ar_err, arf_err, _ = compare_adj_residual(
             torch, fused, far_s, data_s, scan_si, prb_s, small.nz, small.n,
             model)
-        ls_err, _, lp_err = compare_ls(torch, linesearch, far_s, fd_s,
-                                       data_s, model)
+        ls_err, _ = compare_ls(torch, linesearch, far_s, fd_s, data_s,
+                               model)
         check(fused.adj_residual.variant == "gemm",
               fused.adj_residual.variant)
         log("kernel", f"small {small} {model}: adj_residual ('gemm' variant) "
             f"grad/minf err {ar_err:.2e}/{arf_err:.2e}; ls_objectives err "
-            f"{ls_err:.2e} (frame-major), {lp_err:.2e} (pixel-major) at "
-            f"{len(LS_STEPS)} steps (both bitwise repeatable)")
+            f"{ls_err:.2e} at {len(LS_STEPS)} steps (bitwise repeatable)")
     q_errs = [compare_quad_stats(torch, fused, x, scan_si, p, far_s)[0]
               for x, p in ((dpsi_s, prb_s), (psi_s, dprb_s))]
     check(fused.fwd_quad_stats.variant == "gemm",
@@ -1808,7 +1745,7 @@ def main() -> None:
         f"{k} err {e:.2e}" for k, (e, _) in h_errs.items())
         + " (adjoints on the strided crop; all three bitwise "
         "repeatable)")
-    # gather_probe_mul's two kernels on awkward cases: odd and even object
+    # gather_probe_mul's kernel on awkward cases: odd and even object
     # rows (16-byte object loads only in the second), even and odd nprb
     # (pixel pairs or pixels), 2 angles x 2 modes, a masked position.
     psi_e = crandn(small.ntheta, small.nz, small.n + 1, generator=gen5)
@@ -1816,18 +1753,18 @@ def main() -> None:
                      small.nprb - 1, generator=gen5)
     gather_cases = [(psi_s, prb_s), (psi_e, prb_s), (psi_s, prb_odd),
                     (psi_e, prb_odd), (psi_s, prb_p)]
-    masked = [gather_as_pixel(torch, kernels, x, scan_si, p)
+    masked = [gather_repeatable(torch, kernels, x, scan_si, p)
               for x, p in gather_cases[:4]]
-    masked.append(gather_as_pixel(torch, kernels, gather_cases[4][0],
-                                  scan_pi, prb_p))
+    masked.append(gather_repeatable(torch, kernels, gather_cases[4][0],
+                                    scan_pi, prb_p))
     odd_err = rel_err(torch, kernels.gather_probe_mul(psi_e, scan_si,
                                                       prb_odd),
                       kernels.gather_probe_mul_reference(psi_e, scan_si,
                                                          prb_odd))[0]
     check(odd_err <= GRAD_TOL, ("gather_probe_mul, odd nprb", odd_err))
-    log("kernel", "gather_probe_mul: the persistent kernel equal bit for bit "
-        "to the forced pixel kernel, bitwise repeatable, masked frames zero "
-        "(" + ", ".join(f"n {x.shape[-1]} nprb {p.shape[-1]}"
+    log("kernel", "gather_probe_mul: the persistent kernel within "
+        f"{GRAD_TOL:g} of its plain version, bitwise repeatable, masked "
+        "frames zero (" + ", ".join(f"n {x.shape[-1]} nprb {p.shape[-1]}"
                         for x, p in gather_cases)
         + f"; 2 angles x 2 modes; {masked} positions masked); odd nprb "
         f"against the plain version {odd_err:.2e}")
@@ -2042,30 +1979,14 @@ def main() -> None:
         fft_ms, gemm_ms = in_turns_ms(
             torch, timer, name, lambda: run_variant(variant="fft"),
             lambda: run_variant(variant="gemm"))
-        # The block size is the shared-memory body's choice: grad_fused's
-        # fused body runs 1024 threads only.
-        smem = "fft_smem" if name == "grad_fused" else "fft"
-        t512 = median_ms(torch, lambda: run_variant(variant=smem,
-                                                    threads=512), 5)
-        t1024 = median_ms(torch, lambda: run_variant(variant=smem,
-                                                     threads=1024), 5)
-        plain_layout = median_ms(torch, lambda: run_variant(
-            variant="fft_unpadded"), 5)
-        # The data prefetch's plane, of the three kernels that have one.
+        # The data prefetch's plane (one mode, aligned data), of the three
+        # kernels that have one.
         planes = int(name in ("grad_fused", "minf_fused", "grad_prb_fused"))
         per_sm, smem_bytes = fused.fft_launch_config(
             name, dev_i, g.ndet, planes,
             body=fused.fft_body(g.ndet, g.nmodes))
         regs, old = fft_regs[name], gemm_regs[name]
         check(fft_ms < gemm_ms, (name, fft_ms, gemm_ms))
-        extra = ""
-        if planes:
-            on = median_ms(torch, lambda: run_variant(variant="fft",
-                                                      prefetch=True), 5)
-            off = median_ms(torch, lambda: run_variant(variant="fft",
-                                                       prefetch=False), 5)
-            extra = (f"data prefetch (cp.async, one frame ahead) on "
-                     f"{on:.3f} / off {off:.3f} ms; ")
         variant_lines[name] = gemm_ms
         log("kernel", f"headline {g} {name}: variant 'fft' {fft_ms:.3f} ms, "
             f"forced 'gemm' {gemm_ms:.3f} ms (5 back-to-back launches each, "
@@ -2073,12 +1994,8 @@ def main() -> None:
             f"bound {bounds[name][0]:.3f} ms by {bounds[name][1]} "
             f"({100 * bounds[name][0] / fft_ms:.1f}% of it reached, 'gemm' "
             f"{100 * bounds[name][0] / gemm_ms:.1f}%), plain "
-            f"{results[name][2]:.3f} ms; 512 threads {t512:.3f} / 1024 "
-            f"threads {t1024:.3f} ms"
-            f"{' (the shared-memory body)' if name == 'grad_fused' else ''}; "
-            f"{extra}padded frame layout "
-            f"{t1024:.3f} / unpadded (every row-pass access on one bank) "
-            f"{plain_layout:.3f} ms; 'fft' {regs['registers']} registers, "
+            f"{results[name][2]:.3f} ms; 'fft' {regs['registers']} "
+            f"registers, "
             f"{regs['spill_stores'] + regs['spill_loads']} spill bytes, "
             f"{smem_bytes} B dynamic + {regs['smem']} B static shared memory, "
             f"{per_sm} block/SM; 'gemm' {old['registers']} registers, "
@@ -2247,8 +2164,8 @@ def main() -> None:
             + f"; fused_hp bound {HP_BOUND:g} met; on {card}")
         del far_po, grad_o
     fd = fused.fwd(dpsi_h, scan_i, prb, g.ndet)
-    ls_err, ls_abs, lp_err = compare_ls(torch, linesearch, far, fd, data,
-                                        "gaussian")
+    ls_err, ls_abs = compare_ls(torch, linesearch, far, fd, data,
+                                "gaussian")
     ms = median_ms(torch, lambda: linesearch.ls_objectives(
         far, fd, data, LS_STEPS, "gaussian"), 10)
     plain_ms = median_ms(torch, lambda: linesearch.ls_objectives_reference(
@@ -2262,51 +2179,32 @@ def main() -> None:
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     sfu_ms = 1e3 * len(LS_STEPS) * data.numel() / (
         SFU_PER_SM_CLOCK * sms * sm_mhz * 1e6)
-    log("kernel", f"headline {g} ls_objectives at {len(LS_STEPS)} steps "
-        f"(frame-major kernel): err {ls_err:.2e}, forced pixel-major "
-        f"{lp_err:.2e} (both bitwise repeatable); kernel {ms:.3f} ms, plain "
+    log("kernel", f"headline {g} ls_objectives at {len(LS_STEPS)} steps: "
+        f"err {ls_err:.2e} (bitwise repeatable); kernel {ms:.3f} ms, plain "
         f"{plain_ms:.3f} ms, bound {bounds['ls_objectives'][0]:.3f} ms by "
         f"{bounds['ls_objectives'][1]} (the {len(LS_STEPS)} x "
         f"{data.numel()} special-function results alone {sfu_ms:.3f} ms at "
         f"{SFU_PER_SM_CLOCK} a clock per SM and {sm_mhz:g} MHz), median of "
         f"10 on {card}")
-    # The frame-major kernel against the pixel-major one it replaced, in
-    # turns: one step (the same read of both farplanes and the data, so the
+    # One step (the same read of both farplanes and the data, so the
     # difference at 17 steps is the per-step work) and the solver's 17.
-    ls_turns = {}
-    for model in ("gaussian", "poisson"):
-        for steps in (LS_STEPS[:1], LS_STEPS):
-            gam = torch.tensor(steps, dtype=torch.float32, device=dev)
-            ls_turns[model, len(steps)] = in_turns_ms(
-                torch, timer, f"ls_objectives {model} {len(steps)}",
-                lambda: linesearch._ls_objectives_cuda(
-                    far, fd, data, gam, model, variant="frame"),
-                lambda: linesearch._ls_objectives_cuda(
-                    far, fd, data, gam, model, variant="pixel"))
-    check(all(new < old for (_, k), (new, old) in ls_turns.items()
-              if k == len(LS_STEPS)), ("ls_objectives: the frame-major "
-                                       "kernel is not faster", ls_turns))
-    ls_regs, pixel_regs = (kernel_report(cuda_build,
-                                         built["ls_objectives"][2], e)
-                           for e in LS_ENTRIES)
-    per_sm = linesearch.frame_blocks_per_sm(
-        dev.index, linesearch.step_bucket(len(LS_STEPS)))
-    ls_pixel_ms = ls_turns["gaussian", len(LS_STEPS)][1]
-    log("kernel", f"headline {g} ls_objectives: frame-major / forced "
-        "pixel-major kernel, 5 back-to-back launches each in turns pixel, "
-        "frame, frame, pixel: " + "; ".join(
-            f"{model} {k} step{'s' if k > 1 else ''} {new:.3f} / {old:.3f} "
-            f"ms ({old / new:.1f}x, "
-            f"{100 * bounds['ls_objectives'][0] / new:.1f}% of the bound "
+    ls_times = {(model, len(steps)): median_ms(
+        torch, lambda: linesearch.ls_objectives(far, fd, data, steps, model),
+        5) for model in ("gaussian", "poisson")
+        for steps in (LS_STEPS[:1], LS_STEPS)}
+    ls_regs = kernel_report(cuda_build, built["ls_objectives"][2], LS_ENTRY)
+    per_sm = _launch.blocks_per_sm(
+        "ls_objectives", "tk_ls_objectives_frame_blocks_per_sm", dev.index,
+        linesearch.step_bucket(len(LS_STEPS)))
+    log("kernel", f"headline {g} ls_objectives, median of 5: " + "; ".join(
+            f"{model} {k} step{'s' if k > 1 else ''} {ms:.3f} ms "
+            f"({100 * bounds['ls_objectives'][0] / ms:.1f}% of the bound "
             "reached)"
-            for (model, k), (new, old) in ls_turns.items())
-        + f"; frame-major at {len(LS_STEPS)} steps {ls_regs['registers']} "
-        f"registers, {ls_regs['spill_stores'] + ls_regs['spill_loads']} "
-        f"spill bytes, {ls_regs['smem']} B static shared memory, {per_sm} "
-        f"blocks of 256 threads/SM; pixel-major {pixel_regs['registers']} "
-        "registers, "
-        f"{pixel_regs['spill_stores'] + pixel_regs['spill_loads']} spill "
-        f"bytes; on {card}")
+            for (model, k), ms in ls_times.items())
+        + f"; at {len(LS_STEPS)} steps {ls_regs['registers']} registers, "
+        f"{ls_regs['spill_stores'] + ls_regs['spill_loads']} spill bytes, "
+        f"{ls_regs['smem']} B static shared memory, {per_sm} blocks of 256 "
+        f"threads/SM; on {card}")
     # The hybrid tier's kernels on the same object, probe and frames (the
     # detector is the probe's size here, so the frames are contiguous).
     h_errs = compare_hybrid(torch, kernels, psi_r, scan_i, prb, base)
@@ -2335,50 +2233,39 @@ def main() -> None:
             f"kernel {ms:.3f} ms ({moved / ms / 1e9:.3f} TB/s of its bytes), "
             f"plain {plain_ms:.3f} ms, bound {bounds[name][0]:.3f} ms, "
             f"median of 10 on {card}")
-    # gather_probe_mul's persistent kernel against the pixel kernel it
-    # replaced: the same bits on the headline with one position masked,
-    # then the two in turns at the hybrid path's frames (16384) and at the
-    # facade's and options' (4096).
+    # gather_probe_mul on the headline with one position masked, then
+    # timed at the hybrid path's frames (16384) and at the facade's and
+    # options' (4096).
     scan_m = scan_i.clone()
     scan_m[0, 5, 0] = -1
-    check(gather_as_pixel(torch, kernels, psi_r, scan_m, prb) == 1,
+    check(gather_repeatable(torch, kernels, psi_r, scan_m, prb) == 1,
           "one masked position")
     scatter_head = scatter_as_tile(torch, kernels, base, scan_m, prb, g.nz,
                                    g.n)
     del scan_m
-    gather_turns, gather_bounds = {}, {}
+    gather_times = {}
     for frames in (g.nscan, CONFIG3_FRAMES):
         part = scan_i[:, :frames]
         out_bytes = 8 * g.ntheta * frames * g.nmodes * g.nprb**2
-        gather_bounds[frames] = bound(6 * out_bytes / 8,
-                                      nbytes(psi_r, prb, part) + out_bytes)
-        gather_turns[frames] = in_turns_ms(
-            torch, timer, f"gather_probe_mul {frames}",
-            lambda: kernels.gather_probe_mul(psi_r, part, prb),
-            lambda: kernels._gather_probe_mul_cuda(psi_r, part, prb,
-                                                   variant="pixel"))
-    check(all(new < old for new, old in gather_turns.values()),
-          ("gather_probe_mul: the persistent kernel is not faster",
-           gather_turns))
-    gather_pixel_ms = gather_turns[g.nscan][1]
-    g_regs, g_old = (kernel_report(cuda_build, built["gather_probe_mul"][2],
-                                   e) for e in GATHER_ENTRIES)
-    log("kernel", f"headline {g} gather_probe_mul: persistent / forced pixel "
-        "kernel, 5 back-to-back launches each in turns pixel, persistent, "
-        "persistent, pixel: " + "; ".join(
-            f"{frames} frames {new:.3f} / {old:.3f} ms ({old / new:.1f}x, "
-            f"bound {gather_bounds[frames][0]:.3f} ms, "
-            f"{100 * gather_bounds[frames][0] / new:.1f}% of it reached)"
-            for frames, (new, old) in gather_turns.items())
-        + f"; persistent {g_regs['registers']} registers, "
+        gather_times[frames] = (
+            median_ms(torch, lambda: kernels.gather_probe_mul(psi_r, part,
+                                                              prb), 5),
+            bound(6 * out_bytes / 8, nbytes(psi_r, prb, part) + out_bytes))
+    g_regs = kernel_report(cuda_build, built["gather_probe_mul"][2],
+                           GATHER_ENTRY)
+    log("kernel", f"headline {g} gather_probe_mul, median of 5: " + "; ".join(
+            f"{frames} frames {ms:.3f} ms (bound {bnd[0]:.3f} ms, "
+            f"{100 * bnd[0] / ms:.1f}% of it reached)"
+            for frames, (ms, bnd) in gather_times.items())
+        + f"; {g_regs['registers']} registers, "
         f"{g_regs['spill_stores'] + g_regs['spill_loads']} spill bytes; "
-        f"pixel {g_old['registers']} registers; equal bit for bit on the "
-        f"headline with one position masked; on {card}")
+        f"bitwise repeatable on the headline with one position masked; on "
+        f"{card}")
     # scatter_conj_probe's tile kernel against the atomic kernel it
     # replaced, in turns, at the same two frame counts.
     scatter_turns, scatter_bounds = {}, {}
     tile0 = kernels.SCATTER_TILE
-    s_per_sm = kernels.scatter_blocks_per_sm(dev.index, g.nmodes)
+    s_per_sm = scatter_blocks_per_sm(_launch, kernels, dev.index, g.nmodes)
     for frames in (g.nscan, CONFIG3_FRAMES):
         part, near_p = scan_i[:, :frames], base[:, :frames]
         scatter_bounds[frames] = bound(
@@ -2649,10 +2536,8 @@ def main() -> None:
           == 0, fls)
     check(float(res[-1]) <= 0.1 * float(res[0]), res)
     check(peak < fls_peak, f"peak extra memory {peak} bytes")
-    check(fused.fwd.variant == fused.adj_residual.variant == "fft"
-          and linesearch.ls_objectives.variant == "frame",
-          (fused.fwd.variant, fused.adj_residual.variant,
-           linesearch.ls_objectives.variant))
+    check(fused.fwd.variant == fused.adj_residual.variant == "fft",
+          (fused.fwd.variant, fused.adj_residual.variant))
     log("fused-ls", f"{g} gaussian, run(memory='materialized', "
         f"fused_linesearch=True), fwd and adj_residual on 'fft', "
         f"ls_objectives frame-major, {iters} "
@@ -2759,7 +2644,8 @@ def main() -> None:
             frames4, scan4_i, prb4, g4.nz, g4.n, variant="atomic"))
     s4_regs = kernel_report(cuda_build, built["scatter_conj_probe"][2],
                             scatter_entry(kernels, g4.nmodes))
-    s4_per_sm = kernels.scatter_blocks_per_sm(dev.index, g4.nmodes)
+    s4_per_sm = scatter_blocks_per_sm(_launch, kernels, dev.index,
+                                      g4.nmodes)
     # grad_fused and adj_residual at 4 modes in scan order (the 8 GiB base
     # as adj_residual's farplane): bitwise repeatable, the same bits with
     # 4096-frame chunks as with the default's 1024, within
@@ -3428,10 +3314,6 @@ def main() -> None:
         "bound_by": bounds[name][1], "library_ms": None,
         **({"variant": "fft", "gemm_ms": variant_lines[name]}
            if name in variant_lines else {}),
-        **({"variant": "frame", "pixel_ms": ls_pixel_ms}
-           if name == "ls_objectives" else {}),
-        **({"variant": "persistent", "pixel_ms": gather_pixel_ms}
-           if name == "gather_probe_mul" else {}),
         **({"variant": "tile", "atomic_ms": scatter_atomic_ms,
             "skip_in_turns_ms": {k: {"skip": new, "every_chunk": old}
                                  for k, (new, old) in large_turns.items()}}

@@ -35,10 +35,10 @@ one forced with ``variant='fft_smem'`` (``REGS_GEOMS``). On ``'fft'`` the
 farplane ``fwd`` stores is bit for bit the one ``minf_fused`` forms inside,
 ``fwd_quad_stats`` of a direction on its own farplane gives
 ``a == b == c`` bit for bit, and ``fwd`` and ``adj`` are a pair to 1e-5.
-``ls_objectives`` launches its frame-major kernel; the pixel-major one,
-forced, is held to the same values. ``gather_probe_mul`` launches its
-persistent kernel; the pixel kernel it replaced, forced, writes the same
-bits. ``scatter_conj_probe`` launches its tile kernel; the atomic kernel it
+``ls_objectives`` launches its frame-major kernel and ``gather_probe_mul``
+its persistent kernel. Where the measured frames are not 16-byte aligned
+the FFT kernels read them without the data prefetch, to the same bits.
+``scatter_conj_probe`` launches its tile kernel; the atomic kernel it
 replaced, forced, is held to the same values within 1e-5 of scale, and the
 tile kernel writes the same bits whatever the frames' strides, and with or
 without its chunk skip.
@@ -204,6 +204,15 @@ def test_base_in_wrong_form_raises(dev):
 
 def close(got, ref, tol=1e-4):
     return float((got - ref).abs().max()) <= tol * float(ref.abs().max())
+
+
+def unaligned(x):
+    """A copy of ``x`` one element past an aligned start: not 16-byte
+    aligned, so the FFT kernels read it without the data prefetch."""
+    store = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = store[1:].view(x.shape)
+    view.copy_(x)
+    return view
 
 
 @pytest.mark.parametrize("model", ["gaussian", "poisson"])
@@ -588,24 +597,26 @@ def regs_inputs(g, dev):
 def test_fused_body_is_the_shared_memory_body_bit_for_bit(dev, g, model,
                                                           with_base, chunk):
     """The gradient and the objective of the fused body equal the forced
-    shared-memory body's bit for bit, with and without the data prefetch,
-    whatever the chunk; each launch counts in its body. (The plain version
+    shared-memory body's bit for bit, with the data prefetch and, on
+    unaligned data, without it, whatever the chunk; each launch counts in
+    its body. (The plain version
     reads an out-of-bounds window otherwise than the kernels, which skip
     it: test_fft_grad_fused_matches_plain_version holds the fused body to it
     on masked positions alone.)"""
-    args = regs_inputs(g, dev)
+    psi, data, scan_i, prb = regs_inputs(g, dev)
     base = base_for(g, dev) if with_base else None
     frames = g.ntheta * g.nscan
     chunks = len(fused.frame_chunks(
         g.ntheta, g.nscan, min(frames, chunk or fused.frame_chunk(1, g.nprb))))
     for prefetch in (True, False):
+        args = (psi, data if prefetch else unaligned(data), scan_i, prb)
+        assert fused._fft_prefetch(1, args[1]) == prefetch
         counts = dict(fused.grad_fused.body_launches)
         g_n, f_n = fused._grad_fused_cuda(*args, g.ndet, model, base,
-                                          prefetch=prefetch, chunk=chunk)
+                                          chunk=chunk)
         assert fused.grad_fused.body == "fft_regs"
         g_o, f_o = fused._grad_fused_cuda(*args, g.ndet, model, base,
-                                          variant="fft_smem",
-                                          prefetch=prefetch, chunk=chunk)
+                                          variant="fft_smem", chunk=chunk)
         assert (fused.grad_fused.variant, fused.grad_fused.body) == (
             "fft", "fft_smem")
         assert {k: v - counts[k]
@@ -667,11 +678,9 @@ def test_fft_minf_fused_matches_plain_version(dev, g, model, with_base):
     f_g = fused.grad_fused(psi, data, scan_i, prb, g.ndet, model,
                            base=base)[1]
     assert float(f_g) == float(f_k)
-    if g.nmodes == 1:  # with and without the data prefetch: the same sum
-        for prefetch in (False, True):
-            assert float(fused._minf_fused_cuda(
-                psi, data, scan_i, prb, g.ndet, model, base,
-                prefetch=prefetch)) == float(f_k)
+    if g.nmodes == 1:  # without the data prefetch: the same sum
+        assert float(fused.minf_fused(psi, unaligned(data), scan_i, prb,
+                                      g.ndet, model, base=base)) == float(f_k)
 
 
 @pytest.mark.parametrize("model", ["gaussian", "poisson"])
@@ -755,8 +764,7 @@ def test_fwd_feeds_minf_fused_bit_for_bit(dev, nmodes, with_base):
             zeros, data, scan_i, prb, g.ndet, model, base=far)[1])
 
 
-@pytest.mark.parametrize("threads", [512, 1024])
-def test_both_variants_agree_at_one_shape(dev, threads):
+def test_both_variants_agree_at_one_shape(dev):
     """The same inputs through both kernels of each function, forced: equal
     to 1e-5 of scale (both are fp32; the FFT sums log2(d) terms where the
     matrix product sums d)."""
@@ -765,8 +773,7 @@ def test_both_variants_agree_at_one_shape(dev, threads):
     far = base_for(g, dev)
     for base in (None, far):
         g_f, f_f = fused._grad_fused_cuda(psi, data, scan_i, prb, g.ndet,
-                                          "gaussian", base, variant="fft",
-                                          threads=threads)
+                                          "gaussian", base, variant="fft")
         assert fused.grad_fused.variant == "fft"
         g_g, f_g = fused._grad_fused_cuda(psi, data, scan_i, prb, g.ndet,
                                           "gaussian", base, variant="gemm")
@@ -774,33 +781,29 @@ def test_both_variants_agree_at_one_shape(dev, threads):
         assert close(g_f, g_g, 1e-5)
         assert abs(float(f_f) - float(f_g)) <= 1e-5 * abs(float(f_g))
         m_f = fused._minf_fused_cuda(psi, data, scan_i, prb, g.ndet,
-                                     "gaussian", base, variant="fft",
-                                     threads=threads)
+                                     "gaussian", base, variant="fft")
         m_g = fused._minf_fused_cuda(psi, data, scan_i, prb, g.ndet,
                                      "gaussian", base, variant="gemm")
         assert (fused.minf_fused.variant, float(m_f)) == ("gemm", float(f_f))
         assert abs(float(m_f) - float(m_g)) <= 1e-5 * abs(float(m_g))
     q_f, h_f = fused._grad_prb_fused_cuda(psi, data, scan_i, prb, g.ndet,
-                                          "gaussian", variant="fft",
-                                          threads=threads)
+                                          "gaussian", variant="fft")
     q_g, h_g = fused._grad_prb_fused_cuda(psi, data, scan_i, prb, g.ndet,
                                           "gaussian", variant="gemm")
     assert close(q_f, q_g, 1e-5)
     assert abs(float(h_f) - float(h_g)) <= 1e-5 * abs(float(h_g))
-    p_f = fused._adj_probe_cuda(far, scan_i, psi, g.nprb, variant="fft",
-                                threads=threads)
+    p_f = fused._adj_probe_cuda(far, scan_i, psi, g.nprb, variant="fft")
     p_g = fused._adj_probe_cuda(far, scan_i, psi, g.nprb, variant="gemm")
     assert close(p_f, p_g, 1e-5)
     q_f = fused._fwd_quad_stats_cuda(0.1 * psi, scan_i, prb, far,
-                                     variant="fft", threads=threads)
+                                     variant="fft")
     assert fused.fwd_quad_stats.variant == "fft"
     q_g = fused._fwd_quad_stats_cuda(0.1 * psi, scan_i, prb, far,
                                      variant="gemm")
     assert fused.fwd_quad_stats.variant == "gemm"
     assert all(close(x, y, 1e-5) for x, y in zip(q_f, q_g))
     for base in (None, far):
-        o_f = fused._fwd_cuda(psi, scan_i, prb, g.ndet, base, variant="fft",
-                              threads=threads)
+        o_f = fused._fwd_cuda(psi, scan_i, prb, g.ndet, base, variant="fft")
         assert fused.fwd.variant == "fft"
         o_g = fused._fwd_cuda(psi, scan_i, prb, g.ndet, base, variant="gemm")
         assert fused.fwd.variant == "gemm"
@@ -808,8 +811,7 @@ def test_both_variants_agree_at_one_shape(dev, threads):
     fpsi = fused._fwd_cuda(psi, scan_i, prb, g.ndet, None, variant="gemm")
     for model in ("gaussian", "poisson"):
         r_f, s_f = fused._adj_residual_cuda(fpsi, data, scan_i, prb, g.nz,
-                                            g.n, model, variant="fft",
-                                            threads=threads)
+                                            g.n, model, variant="fft")
         assert fused.adj_residual.variant == "fft"
         r_g, s_g = fused._adj_residual_cuda(fpsi, data, scan_i, prb, g.nz,
                                             g.n, model, variant="gemm")
@@ -888,29 +890,21 @@ LS_GEOMS = [
 @pytest.mark.parametrize("model", ["gaussian", "poisson"])
 @pytest.mark.parametrize("k", [1, 2, 5, 17, 33])
 @pytest.mark.parametrize("g", LS_GEOMS, ids=str)
-def test_frame_ls_objectives_matches_plain_and_pixel(dev, g, k, model):
+def test_frame_ls_objectives_matches_plain_version(dev, g, k, model):
     """The frame-major ls_objectives at K steps (a masked position among
-    the frames) against its plain version and the forced pixel-major
-    kernel, each value within 1e-5; both bitwise repeatable."""
+    the frames) against its plain version, each value within 1e-5;
+    bitwise repeatable."""
     psi, data, scan_i, prb, fpsi, dpsi, _ = materialized_inputs(g, dev)
     fd = fused.fwd_reference(dpsi, scan_i, prb, g.ndet)
     steps = [0.7 ** j for j in range(k)]
     launches = linesearch.ls_objectives.launches
     got = linesearch.ls_objectives(fpsi, fd, data, steps, model)
     assert linesearch.ls_objectives.launches == launches + 1
-    assert linesearch.ls_objectives.variant == "frame"
     assert got.dtype == torch.float32 and got.shape == (k,)
     ref = linesearch.ls_objectives_reference(fpsi, fd, data, steps, model)
     assert float(((got - ref).abs() / ref.abs()).max()) <= 1e-5
-    gamma = torch.tensor(steps, dtype=torch.float32, device=dev)
-    old = linesearch._ls_objectives_cuda(fpsi, fd, data, gamma, model,
-                                         variant="pixel")
-    assert linesearch.ls_objectives.variant == "pixel"
-    assert float(((got - old).abs() / old.abs()).max()) <= 1e-5
     assert torch.equal(got, linesearch.ls_objectives(fpsi, fd, data, steps,
                                                      model))
-    assert torch.equal(old, linesearch._ls_objectives_cuda(
-        fpsi, fd, data, gamma, model, variant="pixel"))
 
 
 def test_frame_ls_objectives_reads_unaligned_views(dev):
@@ -919,23 +913,15 @@ def test_frame_ls_objectives_reads_unaligned_views(dev):
     g = POW2_GEOMS[0]
     psi, data, scan_i, prb, fpsi, dpsi, _ = materialized_inputs(g, dev)
     fd = fused.fwd_reference(dpsi, scan_i, prb, g.ndet)
-
-    def odd(x):
-        store = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
-        view = store[1:].view(x.shape)
-        view.copy_(x)
-        return view
-
     ref = linesearch.ls_objectives(fpsi, fd, data, GAMMAS, "poisson")
-    got = linesearch.ls_objectives(odd(fpsi), odd(fd), odd(data), GAMMAS,
-                                   "poisson")
-    assert linesearch.ls_objectives.variant == "frame"
+    got = linesearch.ls_objectives(unaligned(fpsi), unaligned(fd),
+                                   unaligned(data), GAMMAS, "poisson")
     assert float(((got - ref).abs() / ref.abs()).max()) <= 1e-5
 
 
 def test_wrong_variant_raises(dev):
-    """A variant that cannot run the shapes, an unknown one, or a block
-    size without a kernel raises; nothing gives way to another path."""
+    """A variant that cannot run the shapes or an unknown one raises;
+    nothing gives way to another path."""
     g = GEOMS[1]  # ndet = 32 is a power of two, GEOMS[0] is not
     psi, data, scan_i, prb = inputs(GEOMS[0], dev)
     far = base_for(GEOMS[0], dev)
@@ -952,38 +938,14 @@ def test_wrong_variant_raises(dev):
                                  GEOMS[0].n, "gaussian", variant="fft")
     with pytest.raises(ValueError, match="fwd_quad_stats: the 'fft' var"):
         fused._fwd_quad_stats_cuda(psi, scan_i, prb, far, variant="fft")
-    with pytest.raises(ValueError, match="ls_objectives: unknown variant"):
-        linesearch._ls_objectives_cuda(
-            far, far, data, torch.ones(3, device=dev), "gaussian",
-            variant="fft")
     counts = (fused.fwd.launches, fused.adj_residual.launches,
               fused.fwd_quad_stats.launches, linesearch.ls_objectives.launches)
     psi, data, scan_i, prb = inputs(g, dev)
     with pytest.raises(ValueError, match="unknown variant"):
         fused._grad_fused_cuda(psi, data, scan_i, prb, g.ndet, "gaussian",
                                None, variant="cufft")
-    with pytest.raises(RuntimeError, match="occupancy query"):
-        fused._grad_fused_cuda(psi, data, scan_i, prb, g.ndet, "gaussian",
-                               None, variant="fft", threads=1024)
-    with pytest.raises(RuntimeError, match="occupancy query"):
-        fused._adj_probe_cuda(base_for(g, dev), scan_i, psi, g.nprb,
-                              variant="fft", threads=256)
-    with pytest.raises(ValueError, match="prefetch needs one mode"):
-        g3 = POW2_GEOMS[2]  # three modes
-        fused._minf_fused_cuda(*inputs(g3, dev), g3.ndet, "gaussian", None,
-                               prefetch=True)
-    with pytest.raises(RuntimeError, match="occupancy query"):
-        fused._fwd_cuda(psi, scan_i, prb, g.ndet, None, threads=1024)
     far = base_for(g, dev)
-    with pytest.raises(RuntimeError, match="occupancy query"):
-        fused._adj_residual_cuda(far, data, scan_i, prb, g.nz, g.n,
-                                 "gaussian", threads=256)
-    with pytest.raises(RuntimeError, match="occupancy query"):
-        fused._fwd_quad_stats_cuda(psi, scan_i, prb, far, threads=1024)
-    # A farplane at an odd complex offset: 8-byte aligned, not 16.
-    store = torch.empty(far.numel() + 1, dtype=torch.complex64, device=dev)
-    odd = store[1:].view(far.shape)
-    odd.copy_(far)
+    odd = unaligned(far)  # at an odd complex offset: 8-byte aligned
     with pytest.raises(ValueError, match="16-byte aligned"):
         fused.adj_residual(odd, data, scan_i, prb, g.nz, g.n, "gaussian")
     with pytest.raises(ValueError, match="16-byte aligned"):
@@ -1155,9 +1117,7 @@ def test_adj_fft_refuses_an_unaligned_farplane(dev):
     g = ADJ_GEOMS[0]
     _, _, scan_i, prb = inputs(g, dev)
     far = base_for(g, dev)
-    store = torch.empty(far.numel() + 1, dtype=torch.complex64, device=dev)
-    odd = store[1:].view(far.shape)
-    odd.copy_(far)
+    odd = unaligned(far)
     launches = fused.adj.launches
     with pytest.raises(ValueError, match="16-byte aligned"):
         fused.adj(odd, scan_i, prb, g.nz, g.n)
@@ -1179,12 +1139,12 @@ GATHER_GEOMS = [
 
 
 @pytest.mark.parametrize("g", GATHER_GEOMS, ids=str)
-def test_persistent_gather_equals_the_pixel_kernel(dev, g):
-    """The persistent gather_probe_mul against the forced pixel kernel it
-    replaced: equal bit for bit (even and odd sx, even and odd n and nprb,
-    a masked position, 2 angles x 2 modes), bitwise repeatable, masked
-    frames all zero, within 1e-5 of scale of the plain version; an object
-    at an odd complex offset (no 16-byte loads) gives the same bits."""
+def test_persistent_gather_matches_plain_version(dev, g):
+    """The persistent gather_probe_mul (even and odd sx, even and odd n
+    and nprb, a masked position, 2 angles x 2 modes): bitwise repeatable,
+    masked frames all zero, within 1e-5 of scale of the plain version; an
+    object at an odd complex offset (no 16-byte loads) gives the same
+    bits."""
     psi, _, scan_i, prb = inputs(g, dev)
     scan_i[0, 0] = torch.tensor([1, 1], dtype=torch.int32)
     scan_i[0, 1] = torch.tensor([2, 2], dtype=torch.int32)
@@ -1192,21 +1152,14 @@ def test_persistent_gather_equals_the_pixel_kernel(dev, g):
     assert {0, 1} <= set((scan_i[..., 1][valid] % 2).tolist())
     launches = kernels.gather_probe_mul.launches
     got = kernels.gather_probe_mul(psi, scan_i, prb)
-    assert kernels.gather_probe_mul.variant == "persistent"
-    old = kernels._gather_probe_mul_cuda(psi, scan_i, prb, variant="pixel")
-    assert kernels.gather_probe_mul.variant == "pixel"
-    assert kernels.gather_probe_mul.launches == launches + 2
-    assert got.shape == old.shape == (g.ntheta, g.nscan, g.nmodes, g.nprb,
-                                      g.nprb)
-    assert torch.equal(got, old)
+    assert kernels.gather_probe_mul.launches == launches + 1
+    assert got.shape == (g.ntheta, g.nscan, g.nmodes, g.nprb, g.nprb)
     assert torch.equal(got, kernels.gather_probe_mul(psi, scan_i, prb))
     assert float(got[~valid].abs().max()) == 0.0
     assert close(got, kernels.gather_probe_mul_reference(psi, scan_i, prb),
                  1e-5)
-    store = torch.empty(psi.numel() + 1, dtype=torch.complex64, device=dev)
-    odd = store[1:].view(psi.shape)
-    odd.copy_(psi)
-    assert torch.equal(kernels.gather_probe_mul(odd, scan_i, prb), got)
+    assert torch.equal(kernels.gather_probe_mul(unaligned(psi), scan_i, prb),
+                       got)
 
 
 SCATTER_GEOMS = [
@@ -1265,9 +1218,7 @@ def test_tile_scatter_bits_do_not_depend_on_the_layout(dev, g):
     bits."""
     near, scan_i, prb = scatter_inputs(g, dev)
     want = kernels.scatter_conj_probe(near, scan_i, prb, g.nz, g.n)
-    store = torch.empty(scan_i.numel() + 1, dtype=torch.int32, device=dev)
-    odd = store[1:].view(scan_i.shape)
-    odd.copy_(scan_i)
+    odd = unaligned(scan_i)
     assert odd.data_ptr() % 8
     for frames, scan in ((near.contiguous(), scan_i), (near, odd)):
         assert torch.equal(kernels.scatter_conj_probe(frames, scan, prb,

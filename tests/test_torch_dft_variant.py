@@ -7,11 +7,9 @@ objectives of the first three, which must share their arithmetic, and
 ``'fft'`` (the frame's FFT in shared memory) for a detector side of 16, 32,
 64 or 128, ``'gemm'`` (DFT matrix products) for every other size.
 ``ls_objectives`` launches its frame-major kernel for every step count,
-instantiated for the step bucket ``linesearch.step_bucket`` names, and
-``kernels.gather_probe_mul`` its persistent kernel for every size; the
-kernels they replaced run only when forced (``variant='pixel'``), to time
-the two in turns. The choice is made before the launch and never changed
-after it; on a CPU tensor no kernel runs (the plain version does)."""
+instantiated for the step bucket ``linesearch.step_bucket`` names. The
+choice is made before the launch and never changed after it; on a CPU
+tensor no kernel runs (the plain version does)."""
 
 import inspect
 
@@ -51,20 +49,15 @@ def test_forced_variant_is_checked_before_any_launch():
     shapes, 'gemm' runs every size, 'fft' only its own, anything else
     raises -- all decided from the shapes, with no device in play."""
     pick = fused._pick_variant
-    assert pick("grad_fused", None, 128, 128, 1) == ("fft", ())
-    assert pick("grad_fused", "gemm", 128, 128, 1) == ("gemm", ())
-    assert pick("adj_probe", None, 56, 72, 2) == ("gemm", ())
-    assert pick("adj_probe", "fft", 48, 64, 2) == ("fft", ())
-    # The measurement build on the plain frame layout: the FFT kernel with
-    # one macro set.
-    assert pick("adj_probe", "fft_unpadded", 128, 128, 1) == (
-        "fft", ("TK_FFT_PAD=0",))
-    with pytest.raises(ValueError, match="'fft' variant takes ndet"):
-        pick("grad_fused", "fft_unpadded", 56, 72, 2)
+    assert pick("grad_fused", None, 128, 128, 1) == "fft"
+    assert pick("grad_fused", "gemm", 128, 128, 1) == "gemm"
+    assert pick("adj_probe", None, 56, 72, 2) == "gemm"
+    assert pick("adj_probe", "fft", 48, 64, 2) == "fft"
     with pytest.raises(ValueError, match="'fft' variant takes ndet"):
         fused._pick_variant("adj_probe", "fft", 56, 72, 2)
-    with pytest.raises(ValueError, match="unknown variant"):
-        fused._pick_variant("grad_fused", "fast", 128, 128, 1)
+    for bad in ("fast", "fft_unpadded", "pixel"):
+        with pytest.raises(ValueError, match="unknown variant"):
+            fused._pick_variant("grad_fused", bad, 128, 128, 1)
     with pytest.raises(ValueError, match="grad_fused: need nprb <= ndet"):
         fused._pick_variant("grad_fused", None, 130, 128, 1)
     for fn in (fused._grad_fused_cuda, fused._minf_fused_cuda,
@@ -72,7 +65,8 @@ def test_forced_variant_is_checked_before_any_launch():
                fused._fwd_cuda, fused._adj_cuda, fused._adj_residual_cuda,
                fused._fwd_quad_stats_cuda):
         params = inspect.signature(fn).parameters
-        assert params["variant"].default is params["threads"].default is None
+        assert params["variant"].default is None
+        assert "threads" not in params and "prefetch" not in params
     assert fused.fft_threads(128) == 1024 and fused.fft_threads(64) == 512
 
 
@@ -115,41 +109,25 @@ def test_grad_fused_body_is_a_function_of_the_shapes(ndet, nmodes, body):
     for nprb in (ndet, ndet - 4, 1):
         for variant in (None, "fft"):
             assert fused._pick_body(variant, nprb, ndet, nmodes) == (
-                "fft", (), body)
+                "fft", body)
 
 
 @pytest.mark.parametrize("variant, expect", [
-    ("fft_smem", ("fft", (), "fft_smem")),
-    ("fft_unpadded", ("fft", ("TK_FFT_PAD=0",), "fft_smem")),
-    ("atomic", ("fft", (), "atomic")),
-    ("gemm", ("gemm", (), "gemm"))])
+    ("fft_smem", ("fft", "fft_smem")),
+    ("atomic", ("fft", "atomic")),
+    ("gemm", ("gemm", "gemm"))])
 def test_shared_memory_body_runs_at_128_only_when_forced(variant, expect):
     """At the shapes of the fused body the shared-memory one (and the
-    unpadded measurement build of it, the atomic kernel, the 'gemm'
-    variant) runs only when the caller forces it; 'fft_smem' off the FFT
-    sizes raises before any launch, as a forced 'fft' does."""
+    atomic kernel, the 'gemm' variant) runs only when the caller forces it;
+    'fft_smem' off the FFT sizes raises before any launch, as a forced
+    'fft' does."""
     assert fused._pick_body(variant, 128, 128, 1) == expect
-    assert fused._pick_body(None, 100, 130, 1) == ("gemm", (), "gemm")
+    assert fused._pick_body(None, 100, 130, 1) == ("gemm", "gemm")
     with pytest.raises(ValueError, match="'fft' variant takes ndet"):
         fused._pick_body(variant if variant != "gemm" else "fft_smem", 56,
                          72, 1)
     assert set(fused.grad_fused.body_launches) == {
         "fft_regs", "fft_smem", "gemm", "atomic"}
-
-
-def test_fused_body_takes_only_its_own_block_size():
-    """The fused body runs 1024 threads: another block size raises before
-    anything is built or launched, while the shared-memory body, forced,
-    would take it."""
-    g = Geometry(nz=140, n=140, nscan=4, ndet=128, nprb=128)
-    gen = torch.Generator().manual_seed(0)
-    _, scan, prb, data = make_problem(gen, g, device="cpu")
-    psi = torch.ones(g.psi_shape, dtype=torch.complex64)
-    counts = dict(fused.grad_fused.body_launches)
-    with pytest.raises(ValueError, match="'fft_regs' body runs 1024"):
-        fused._grad_fused_cuda(psi, data, scan_to_int(scan), prb, g.ndet,
-                               "gaussian", None, threads=512)
-    assert fused.grad_fused.body_launches == counts
 
 
 @pytest.mark.parametrize("name", ["fwd", "adj_residual", "fwd_quad_stats",
@@ -158,14 +136,13 @@ def test_fwd_and_adj_residual_pick_as_the_others(name):
     """``fwd``, ``adj_residual``, ``fwd_quad_stats`` and ``adj`` follow the
     same rule: 'fft' at the
     power-of-two sides, 'gemm' elsewhere, a forced 'fft' off those sides
-    raising before any launch, the unpadded measurement build by macro."""
+    raising before any launch."""
     pick = fused._pick_variant
-    assert pick(name, None, 128, 128, 1) == ("fft", ())
-    assert pick(name, None, 48, 64, 4) == ("fft", ())
-    assert pick(name, None, 56, 72, 2) == ("gemm", ())
-    assert pick(name, "gemm", 128, 128, 1) == ("gemm", ())
-    assert pick(name, "fft_unpadded", 20, 32, 3) == ("fft",
-                                                     ("TK_FFT_PAD=0",))
+    assert pick(name, None, 128, 128, 1) == "fft"
+    assert pick(name, None, 48, 64, 4) == "fft"
+    assert pick(name, None, 56, 72, 2) == "gemm"
+    assert pick(name, "gemm", 128, 128, 1) == "gemm"
+    assert pick(name, "fft", 20, 32, 3) == "fft"
     with pytest.raises(ValueError, match=f"{name}: the 'fft' variant"):
         pick(name, "fft", 100, 130, 1)
     with pytest.raises(ValueError, match=f"{name}: need nprb <= ndet"):
@@ -191,38 +168,6 @@ def test_step_bucket_covers_every_step_count_and_raises_outside():
             linesearch.step_bucket(k)
 
 
-def test_ls_objectives_variant_is_checked_before_any_launch():
-    """The private wrapper launches the frame-major kernel unless
-    ``variant='pixel'`` forces the old one; any other variant raises before
-    anything reaches a device."""
-    params = inspect.signature(linesearch._ls_objectives_cuda).parameters
-    assert params["variant"].default is None
-    z = torch.zeros((1, 1, 1, 16, 16), dtype=torch.complex64)
-    with pytest.raises(ValueError, match="unknown variant"):
-        linesearch._ls_objectives_cuda(z, z, z.real[:, :, 0], torch.ones(2),
-                                       "gaussian", variant="fft")
-
-
-def test_gather_probe_mul_variant_is_checked_before_any_launch():
-    """The private wrapper launches the persistent kernel unless
-    ``variant='pixel'`` forces the one it replaced; any other variant
-    raises before anything reaches a device, even on CPU tensors."""
-    params = inspect.signature(kernels._gather_probe_mul_cuda).parameters
-    assert params["variant"].default is None
-    assert kernels._gather_variant(None) == "persistent"
-    assert kernels._gather_variant("pixel") == "pixel"
-    for bad in ("fft", "persistent", "gemm"):
-        with pytest.raises(ValueError, match="unknown variant"):
-            kernels._gather_variant(bad)
-    psi = torch.ones((1, 16, 16), dtype=torch.complex64)
-    prb = torch.ones((1, 1, 4, 4), dtype=torch.complex64)
-    scan = torch.zeros((1, 2, 2), dtype=torch.int32)
-    launches = kernels.gather_probe_mul.launches
-    with pytest.raises(ValueError, match="gather_probe_mul: unknown variant"):
-        kernels._gather_probe_mul_cuda(psi, scan, prb, variant="fast")
-    assert kernels.gather_probe_mul.launches == launches
-
-
 def test_adj_and_gather_on_cpu_run_the_plain_version():
     """``fused.adj`` at an FFT size and ``kernels.gather_probe_mul`` on CPU
     tensors: the plain versions run, no kernel launches and no variant is
@@ -238,7 +183,7 @@ def test_adj_and_gather_on_cpu_run_the_plain_version():
     fns = (fused.adj, kernels.gather_probe_mul, fused.adj_reference,
            kernels.gather_probe_mul_reference)
     before = [fn.launches for fn in fns]
-    variants = (fused.adj.variant, kernels.gather_probe_mul.variant)
+    variant = fused.adj.variant
     obj = fused.adj(far, scan_i, prb, g.nz, g.n)
     near = kernels.gather_probe_mul(psi, scan_i, prb)
     assert obj.shape == g.psi_shape
@@ -247,7 +192,7 @@ def test_adj_and_gather_on_cpu_run_the_plain_version():
     assert torch.equal(near, kernels.gather_probe_mul_reference(psi, scan_i,
                                                                 prb))
     assert [fn.launches - b for fn, b in zip(fns, before)] == [0, 0, 2, 2]
-    assert (fused.adj.variant, kernels.gather_probe_mul.variant) == variants
+    assert fused.adj.variant == variant
 
 
 def test_cpu_tensors_run_the_plain_version_at_fft_sizes():
@@ -315,7 +260,7 @@ def test_fwd_quad_stats_and_ls_objectives_on_cpu_run_the_plain_version():
            fused.fwd_quad_stats_reference,
            linesearch.ls_objectives_reference)
     before = [fn.launches for fn in fns]
-    variants = (fused.fwd_quad_stats.variant, linesearch.ls_objectives.variant)
+    variant = fused.fwd_quad_stats.variant
     stats = fused.fwd_quad_stats(0.5 * psi, scan_i, prb, far)
     values = linesearch.ls_objectives(far, 0.5 * far, data, [1.0, 0.5, 0.25],
                                       "poisson")
@@ -326,5 +271,4 @@ def test_fwd_quad_stats_and_ls_objectives_on_cpu_run_the_plain_version():
     assert torch.equal(values, linesearch.ls_objectives_reference(
         far, 0.5 * far, data, [1.0, 0.5, 0.25], "poisson"))
     assert [fn.launches - b for fn, b in zip(fns, before)] == [0, 0, 2, 2]
-    assert (fused.fwd_quad_stats.variant,
-            linesearch.ls_objectives.variant) == variants
+    assert fused.fwd_quad_stats.variant == variant

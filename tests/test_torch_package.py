@@ -1,6 +1,7 @@
 """Packaging properties of the port: it imports no jax, its bridge keeps
 dtypes, and a CUDA tensor never falls back to the plain path."""
 
+import ctypes
 import inspect
 import pkgutil
 import re
@@ -16,7 +17,7 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 
 import tikejax
 import tikejax_torch
-from tikejax_torch.ops import fused
+from tikejax_torch.ops import _launch, fused, kernels, lbfgs, linesearch
 from tikejax_torch.utils import cuda_build, geometry_from, to_numpy, to_torch
 
 PKG = Path(tikejax_torch.__file__).parent
@@ -108,7 +109,7 @@ def test_cuda_tensor_without_a_built_library_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(cuda_build, "_LOADED", {})
     monkeypatch.setattr(cuda_build.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
-    fused._lib.cache_clear()
+    _launch.lib.cache_clear()
     kernel, plain = fused.grad_fused.launches, fused.grad_fused_reference.launches
     g = tikejax_torch.Geometry(nz=32, n=32, nscan=4, ndet=16, nprb=16)
     with FakeTensorMode():
@@ -123,7 +124,7 @@ def test_cuda_tensor_without_a_built_library_raises(monkeypatch, tmp_path):
                              prb.to(torch.complex128), g.ndet, "gaussian")
     assert fused.grad_fused.launches == kernel
     assert fused.grad_fused_reference.launches == plain
-    fused._lib.cache_clear()
+    _launch.lib.cache_clear()
 
 
 def test_packaging_finds_the_port():
@@ -161,27 +162,118 @@ def test_every_kernel_source_uses_the_shared_header():
         assert names == [f"{name}.cu", "dft_frame.cuh"], names
 
 
-def test_every_fft_variant_has_its_entry_points():
-    """Each kernel with an FFT variant (``fused._FFT_ARGTYPES``) defines
-    ``tk_<entry>_fft`` and ``tk_<entry>_fft_blocks_per_sm`` in its source,
-    the two symbols the wrapper binds; the hybrid gather defines its
-    persistent and its forced pixel entry point."""
-    assert set(fused._FFT_ARGTYPES) <= set(fused._ARGTYPES)
-    assert "adj" in fused._FFT_ARGTYPES and len(fused._FFT_ARGTYPES) == 8
-    for name in fused._FFT_ARGTYPES:
-        entry = fused._ARGTYPES[name][0]
-        text = (PKG / "csrc" / f"{name}.cu").read_text()
-        for symbol in (f"{entry}_fft", f"{entry}_fft_blocks_per_sm"):
-            assert re.search(rf"^int {symbol}\(", text, re.MULTILINE), (
-                name, symbol)
-        # The bound argument types, and the stream, are the parameters.
-        params = re.search(rf"^int {entry}_fft\(([^)]*)\)", text,
-                           re.MULTILINE).group(1)
-        assert params.count(",") + 1 == len(fused._FFT_ARGTYPES[name]) + 1, (
-            name, params)
-    text = (PKG / "csrc" / "gather_probe_mul.cu").read_text()
-    for symbol in ("tk_gather_probe_mul", "tk_gather_probe_mul_pixel"):
-        assert re.search(rf"^int {symbol}\(", text, re.MULTILINE), symbol
+# The ctypes type of each C parameter type of the kernels' interface.
+_CTYPE = {"int": ctypes.c_int, "int64_t": ctypes.c_int64,
+          "double": ctypes.c_double, "int*": ctypes.POINTER(ctypes.c_int)}
+
+
+@pytest.mark.parametrize("name", cuda_build.KERNELS)
+def test_bound_entry_points_match_the_sources(name):
+    """``_launch.ENTRIES[name]`` lists every entry point that
+    ``csrc/<name>.cu`` defines, each with the C parameters' types, and
+    the stream last where it launches a kernel; the FFT entry that
+    ``_launch.fft_entry`` names for either body is one of them."""
+    text = (PKG / "csrc" / f"{name}.cu").read_text()
+    found = dict(re.findall(r"^int (tk_\w+)\(([^)]*)\)", text, re.MULTILINE))
+    assert set(found) == set(_launch.ENTRIES[name])
+    if f"tk_{name}_fft" in found:
+        for body in ("fft_smem", "fft_regs"):
+            symbol = _launch.fft_entry(name, body)
+            assert {symbol, f"{symbol}_blocks_per_sm"} <= set(found)
+    for symbol, argtypes in _launch.ENTRIES[name].items():
+        params = [" ".join(p.split()[:-1]).replace("const ", "").replace(
+            " *", "*") for p in found[symbol].split(",") if p.strip()]
+        want = [_CTYPE.get(p, ctypes.c_void_p) for p in params]
+        if _launch.takes_stream(symbol):
+            assert params[-1] == "void*", (symbol, params)
+            want = want[:-1]
+        assert want == argtypes, (symbol, params)
+
+
+def _wrapper_inputs(c):
+    """The tiny inputs of the kernel wrappers, complex ones of dtype ``c``
+    (1 angle, 2 positions, 1 mode, a 4^2 probe, 16^2 detector and object)."""
+    def z(*shape, dtype=c):
+        return torch.zeros(shape, dtype=dtype)
+
+    return dict(psi=z(1, 16, 16), prb=z(1, 1, 4, 4),
+                scan=z(1, 2, 2, dtype=torch.int32),
+                data=z(1, 2, 16, 16, dtype=torch.float32),
+                far=z(1, 2, 1, 16, 16), fd=z(1, 2, 1, 16, 16),
+                near=z(1, 2, 1, 4, 4), gammas=z(2, dtype=torch.float32),
+                S=z(2, 1, 16, 16), Y=z(2, 1, 16, 16), g=z(1, 16, 16),
+                gp=z(1, 16, 16), dp=z(1, 16, 16))
+
+
+# Each kernel wrapper: (its call on the inputs, the input that goes to
+# another device in the two-device case).
+_WRAPPERS = {
+    "grad_fused": (lambda x: fused._grad_fused_cuda(
+        x["psi"], x["data"], x["scan"], x["prb"], 16, "gaussian", None),
+        "scan"),
+    "minf_fused": (lambda x: fused._minf_fused_cuda(
+        x["psi"], x["data"], x["scan"], x["prb"], 16, "gaussian", None),
+        "scan"),
+    "fwd": (lambda x: fused._fwd_cuda(x["psi"], x["scan"], x["prb"], 16,
+                                      None), "scan"),
+    "grad_prb_fused": (lambda x: fused._grad_prb_fused_cuda(
+        x["psi"], x["data"], x["scan"], x["prb"], 16, "gaussian"), "scan"),
+    "adj": (lambda x: fused._adj_cuda(x["far"], x["scan"], x["prb"], 16, 16),
+            "scan"),
+    "adj_probe": (lambda x: fused._adj_probe_cuda(x["far"], x["scan"],
+                                                  x["psi"], 4), "scan"),
+    "adj_residual": (lambda x: fused._adj_residual_cuda(
+        x["far"], x["data"], x["scan"], x["prb"], 16, 16, "gaussian"),
+        "scan"),
+    "fwd_quad_stats": (lambda x: fused._fwd_quad_stats_cuda(
+        x["psi"], x["scan"], x["prb"], x["far"]), "scan"),
+    "ls_objectives": (lambda x: linesearch._ls_objectives_cuda(
+        x["far"], x["fd"], x["data"], x["gammas"], "gaussian"), "fd"),
+    "gather_probe_mul": (lambda x: kernels._gather_probe_mul_cuda(
+        x["psi"], x["scan"], x["prb"]), "scan"),
+    "scatter_conj_probe": (lambda x: kernels._scatter_conj_probe_cuda(
+        x["near"], x["scan"], x["prb"], 16, 16), "scan"),
+    "adj_probe_reduce": (lambda x: kernels._adj_probe_reduce_cuda(
+        x["near"], x["scan"], x["psi"]), "scan"),
+    "lbfgs_gram": (lambda x: lbfgs._lbfgs_gram_cuda(
+        x["S"], x["Y"], x["g"], x["gp"], x["dp"], 0.5, None), "Y"),
+    "lbfgs_combine": (lambda x: lbfgs._lbfgs_combine_cuda(
+        x["S"], x["Y"], x["g"], x["gp"], x["dp"], 0.5, 0, 1.0, [0.0, 0.0],
+        [0.0, 0.0]), "Y"),
+}
+
+
+def _counters():
+    """Every kernel counter of the four wrapper modules."""
+    out = {"body": (fused.grad_fused.body,
+                    dict(fused.grad_fused.body_launches))}
+    for mod in (fused, kernels, linesearch, lbfgs):
+        for key, fn in vars(mod).items():
+            if callable(fn) and hasattr(fn, "launches"):
+                out[mod.__name__, key] = (fn.launches,
+                                          getattr(fn, "variant", None))
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(_WRAPPERS))
+def test_wrapper_checks_its_inputs_before_loading_a_library(name,
+                                                            monkeypatch):
+    """Each of the 14 kernel wrappers refuses inputs of a wrong dtype, or
+    on two devices, before any library is loaded, and counts nothing."""
+    def load(*args, **kw):
+        raise AssertionError(f"{name} loaded a library: {args}")
+
+    monkeypatch.setattr(cuda_build, "load", load)
+    _launch.lib.cache_clear()
+    call, other = _WRAPPERS[name]
+    before = _counters()
+    with pytest.raises(TypeError, match=f"{name}: the CUDA kernel"):
+        call(_wrapper_inputs(torch.float64))
+    inputs = _wrapper_inputs(torch.complex64)
+    inputs[other] = inputs[other].to("meta")
+    with pytest.raises(ValueError, match=f"{name}: {other}.* is on meta"):
+        call(inputs)
+    assert _counters() == before
 
 
 def test_options_fields_follow_the_reference_order():
@@ -252,7 +344,7 @@ def test_library_key_covers_the_build_macros():
     """A source built with other -D macros is another library."""
     plain = cuda_build.library_key("adj_probe")
     assert cuda_build.library_key("adj_probe", ()) == plain
-    assert cuda_build.library_key("adj_probe", ("TK_FFT_PAD=0",)) != plain
+    assert cuda_build.library_key("adj_probe", ("TK_TEST=1",)) != plain
 
 
 def test_kernel_reports_reads_the_compiler_output():
@@ -271,16 +363,3 @@ ptxas info    : Used 64 registers, used 1 barriers
                                  spill_loads=52, stack=24, smem=18560),
         "_Z3barv": dict(registers=64, spill_stores=0, spill_loads=0,
                         stack=0, smem=0)}
-
-
-def test_fft_probe_patches_match_the_sources():
-    """utils.fft_probe times kernels built from patched copies of csrc/;
-    each patch must find its text exactly once in today's sources."""
-    from tikejax_torch.utils import fft_probe
-
-    assert len(fft_probe.PATCHES) >= 6
-    for label, (name, edits) in fft_probe.PATCHES.items():
-        assert name in cuda_build.KERNELS
-        for source, old, new in edits:
-            text = (PKG / "csrc" / source).read_text()
-            assert text.count(old) == 1 and old != new, (label, source)

@@ -1,9 +1,9 @@
 """``scatter_conj_probe``'s tile kernel, what can be pinned without a card:
 the plan that cuts the object into tiles (every pixel in exactly one tile,
 the threads dividing each tile), the forced-variant check made before any
-launch, the entry points the wrapper binds against the C source, and the
-plain version on CPU tensors. The kernel itself is held on the card in
-``tests/test_torch_cuda.py``."""
+launch, and the plain version on CPU tensors (``tests/test_torch_package.py``
+holds the entry points the wrapper binds against the C source). The kernel
+itself is held on the card in ``tests/test_torch_cuda.py``."""
 
 import inspect
 import re
@@ -101,20 +101,6 @@ def test_scatter_variant_is_checked_before_any_launch():
         kernels._scatter_conj_probe_cuda(near, scan, prb, 16, 16,
                                          variant="fast")
     assert kernels.scatter_conj_probe.launches == launches
-
-
-@pytest.mark.parametrize("name", sorted(kernels._ENTRIES))
-def test_bound_entry_points_match_the_sources(name):
-    """Every entry point the hybrid wrappers bind is defined in its source
-    with the bound argument types and the stream as its parameters."""
-    text = (CSRC / f"{name}.cu").read_text()
-    for symbol, argtypes in kernels._ENTRIES[name].items():
-        found = re.search(rf"^int {symbol}\(([^)]*)\)", text, re.MULTILINE)
-        assert found, symbol
-        assert found.group(1).count(",") + 1 == len(argtypes) + 1, symbol
-    if name == "scatter_conj_probe":
-        assert re.search(r"^int tk_scatter_conj_probe_blocks_per_sm\(",
-                         text, re.MULTILINE)
 
 
 def test_tile_kernel_has_no_atomics():

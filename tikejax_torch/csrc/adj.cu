@@ -215,10 +215,10 @@ int tk_adj_blocks_per_sm(int d, int has_base, int* out) {
       out, adj_kernel, kThreads, smem));
 }
 
-// Launches the FFT variant (d = 16, 32, 64 or 128; `threads` 512, or 1024
-// at d = 128) on `stream` with `grid` blocks: the frames as tk_adj writes
-// them; returns the first CUDA error (0 on success). `far` is 16-byte
-// aligned (st_t even); there is no scratch.
+// Launches the FFT variant (d = 16, 32, 64 or 128; `threads` 1024 at d = 128,
+// else 512) on `stream` with `grid` blocks: the frames as tk_adj writes them;
+// returns the first CUDA error (0 on success). `far` is 16-byte aligned (st_t
+// even); there is no scratch.
 int tk_adj_fft(const void* far, const void* scan, void* near, int t, int s,
                int nz, int n, int m, int p, int d, int64_t st_t, int grid,
                int threads, void* stream) {

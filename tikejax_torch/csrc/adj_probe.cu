@@ -206,10 +206,9 @@ int tk_adj_probe_blocks_per_sm(int d, int has_base, int* out) {
       out, adj_probe_kernel, kThreads, smem));
 }
 
-// Launches the FFT variant (d = 16, 32, 64 or 128; `threads` 512, or 1024
-// at d = 128) and the block sum on `stream` with `grid` blocks; returns the
-// first CUDA error (0 on success). `acc` as in tk_adj_probe; there is no
-// scratch.
+// Launches the FFT variant (d = 16, 32, 64 or 128; `threads` 1024 at d = 128,
+// else 512) and the block sum on `stream` with `grid` blocks; returns the first
+// CUDA error (0 on success). `acc` as in tk_adj_probe; there is no scratch.
 int tk_adj_probe_fft(const void* far, const void* psi, const void* scan,
                      void* out, void* acc, int t, int s, int nz, int n,
                      int m, int p, int d, int grid, int threads,

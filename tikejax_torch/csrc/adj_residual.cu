@@ -321,11 +321,11 @@ int tk_adj_residual_blocks_per_sm(int d, int has_base, int* out) {
       out, adj_residual_kernel, kThreads, smem));
 }
 
-// Launches the FFT variant (d = 16, 32, 64 or 128; `threads` 512, or 1024
-// at d = 128) on `stream` with `grid` blocks on the frames [g0, g1) of the
-// t * s; returns the first CUDA error (0 on success). `far` is 16-byte
-// aligned; `near`, `carry` (grid * threads doubles), `partial`, `first`
-// and `last` as in tk_adj_residual; there is no other scratch.
+// Launches the FFT variant (d = 16, 32, 64 or 128; `threads` 1024 at d = 128,
+// else 512) on `stream` with `grid` blocks on the frames [g0, g1) of the t * s;
+// returns the first CUDA error (0 on success). `far` is 16-byte aligned;
+// `near`, `carry` (grid * threads doubles), `partial`, `first` and `last` as in
+// tk_adj_residual; there is no other scratch.
 int tk_adj_residual_fft(const void* far, const void* data, const void* scan,
                         void* near, void* partial, void* carry, int t, int s,
                         int nz, int n, int m, int p, int d, int model,

@@ -288,25 +288,15 @@ template <int kN> struct Log2 {
 };
 template <> struct Log2<1> { static constexpr int value = 0; };
 
-// TK_FFT_PAD = 0 builds the same code on the plain kD x kD layout (pitch kD,
-// no pads), where the lanes of every row-pass access share one bank. It
-// exists to measure what the padding buys (chip_smoke.py prints both
-// times); nothing else builds it.
-#ifndef TK_FFT_PAD
-#define TK_FFT_PAD 1
-#endif
-
 template <int kD> struct FftFrame {
   // One pad element every 16, and an odd pitch: rows fall on all banks.
-  static constexpr int row = TK_FFT_PAD ? kD + kD / 16 : kD;
-  static constexpr int pitch = TK_FFT_PAD ? (row | 1) : row;
+  static constexpr int row = kD + kD / 16;
+  static constexpr int pitch = row | 1;
   static constexpr int size = kD * pitch;  // float2 elements
 };
 
 // Column of a frame row where element c of the row is kept.
-__device__ __forceinline__ int fft_col(int c) {
-  return TK_FFT_PAD ? c + (c >> 4) : c;
-}
+__device__ __forceinline__ int fft_col(int c) { return c + (c >> 4); }
 
 // Position along a line where the forward transform leaves frequency k.
 template <int kD>
@@ -1039,8 +1029,9 @@ constexpr size_t fft_regs_smem_bytes(int planes) {
 }
 
 // Calls fn(kernel<D, T>, dynamic shared bytes) for the instantiation of
-// detector side `d` and `threads` threads a block (512 at every side, 1024
-// at 128), with `planes` float planes beside the frame;
+// detector side `d` and `threads` threads a block (512 at 16, 32 and 64,
+// 1024 at 128: ops/_launch.py fft_threads), with `planes` float planes beside
+// the frame;
 // cudaErrorInvalidValue for a side or a thread count without a kernel.
 // `Kernels` provides `template <int D, int T> static auto get()`.
 template <class Kernels, class Fn>
@@ -1052,7 +1043,6 @@ int fft_dispatch(int d, int threads, int planes, Fn fn) {
   TK_FFT_CASE(16, 512)
   TK_FFT_CASE(32, 512)
   TK_FFT_CASE(64, 512)
-  TK_FFT_CASE(128, 512)
   TK_FFT_CASE(128, 1024)
 #undef TK_FFT_CASE
   return static_cast<int>(cudaErrorInvalidValue);

@@ -207,10 +207,10 @@ int tk_fwd_blocks_per_sm(int d, int has_base, int* out) {
       out, fwd_kernel<false>, kThreads, smem));
 }
 
-// Launches the FFT variant (d = 16, 32, 64 or 128; `threads` 512, or 1024
-// at d = 128) on `stream` with `grid` blocks; returns the first CUDA error
-// (0 on success). `out` is 16-byte aligned; `base` as in tk_fwd (read 8
-// bytes at a time). There is no scratch.
+// Launches the FFT variant (d = 16, 32, 64 or 128; `threads` 1024 at d = 128,
+// else 512) on `stream` with `grid` blocks; returns the first CUDA error (0 on
+// success). `out` is 16-byte aligned; `base` as in tk_fwd (read 8 bytes at a
+// time). There is no scratch.
 int tk_fwd_fft(const void* psi, const void* prb, const void* scan, void* out,
                const void* base, int t, int s, int nz, int n, int m, int p,
                int d, int grid, int threads, void* stream) {

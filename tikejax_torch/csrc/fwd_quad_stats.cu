@@ -251,10 +251,10 @@ int tk_fwd_quad_stats_blocks_per_sm(int d, int has_base, int* out) {
       out, fwd_quad_stats_kernel, kThreads, smem));
 }
 
-// Launches the FFT variant (d = 16, 32, 64 or 128; `threads` 512, or 1024
-// at d = 128) on `stream` with `grid` blocks; returns the first CUDA error
-// (0 on success). `fp` is 16-byte aligned; `a`, `b`, `c` need no
-// initialisation. There is no scratch.
+// Launches the FFT variant (d = 16, 32, 64 or 128; `threads` 1024 at d = 128,
+// else 512) on `stream` with `grid` blocks; returns the first CUDA error (0 on
+// success). `fp` is 16-byte aligned; `a`, `b`, `c` need no initialisation.
+// There is no scratch.
 int tk_fwd_quad_stats_fft(const void* dir, const void* prb, const void* scan,
                           const void* fp, void* a, void* b, void* c, int t,
                           int s, int nz, int n, int m, int p, int d,

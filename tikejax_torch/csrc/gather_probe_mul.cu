@@ -17,12 +17,8 @@
 // (2 MiB at 512^2) stays in L2, and the arithmetic is one complex multiply
 // a pixel.
 //
-// Two kernels compute it; every call launches the first, the second only
-// when the caller forces it (ops/kernels.py, variant='pixel'), to time the
-// two in turns.
-//
-// The persistent kernel (gather_probe_mul_persistent_kernel) spends its
-// device-memory traffic on the write alone. A block owns one mode and one
+// The kernel (gather_probe_mul_persistent_kernel) spends its device-memory
+// traffic on the write alone. A block owns one mode and one
 // chunk of the patch -- a unit (a pixel pair when p is even, a pixel when
 // it is odd) for each of kUnits x 256 threads -- and walks a fixed share of
 // the frames. Each thread works out its units' patch rows and columns once,
@@ -37,14 +33,9 @@
 // frame's position is fetched a frame ahead. With several modes each block
 // takes one mode and the object patch is read once a mode (from L2).
 //
-// The pixel kernel (gather_probe_mul_kernel) is the one it replaced: one
-// block per frame, one output pixel a loop step with a division by p, the
-// probe re-read through L2 for every frame, 8-byte loads and stores.
-//
 // Offsets are 64-bit: the nearplane passes 2^31 floats at 4 modes x 16384 x
-// 128^2. Contract (both kernels): the product is dft_frame.cuh cmul(object,
-// probe), so the two kernels agree bit for bit; bitwise reproducible (no
-// reduction).
+// 128^2. Contract: the product is dft_frame.cuh cmul(object, probe);
+// bitwise reproducible (no reduction).
 
 #include "dft_frame.cuh"
 
@@ -58,38 +49,8 @@ struct Params {
   const int* scan;     // (t, s, 2) int (y, x)
   float2* out;         // (t, s, m, p, p)
   int t, s, nz, n, m, p;
-  int vec;             // psi 16-byte aligned and n even (persistent kernel)
+  int vec;             // psi 16-byte aligned and n even
 };
-
-__global__ void __launch_bounds__(kThreads) gather_probe_mul_kernel(Params q) {
-  const int p = q.p, m = q.m;
-  const int pp = p * p;
-  const int64_t frames = static_cast<int64_t>(q.t) * q.s;
-
-  for (int64_t f = blockIdx.x; f < frames; f += gridDim.x) {
-    const int th = static_cast<int>(f / q.s);
-    const int sy = q.scan[2 * f], sx = q.scan[2 * f + 1];
-    float2* out = q.out + f * m * pp;
-    if (!frame_valid(sy, sx, q.nz, q.n, p)) {
-      for (int64_t i = threadIdx.x; i < static_cast<int64_t>(m) * pp;
-           i += kThreads) {
-        out[i] = make_float2(0.f, 0.f);
-      }
-      continue;
-    }
-    const float2* obj = q.psi + (static_cast<int64_t>(th) * q.nz + sy) * q.n + sx;
-    const float2* prb = q.prb + static_cast<int64_t>(th) * m * pp;
-    for (int i = threadIdx.x; i < pp; i += kThreads) {
-      const int y = i / p, x = i - y * p;
-      const float2 a = obj[static_cast<int64_t>(y) * q.n + x];
-      for (int mm = 0; mm < m; ++mm) {
-        out[static_cast<int64_t>(mm) * pp + i] = cmul(a, __ldg(prb + mm * pp + i));
-      }
-    }
-  }
-}
-
-// -- the persistent kernel ----------------------------------------------
 
 constexpr int kUnits = 4;  // units a thread owns
 constexpr int kChunk = kThreads * kUnits;
@@ -239,23 +200,6 @@ int tk_gather_probe_mul(const void* psi, const void* prb, const void* scan,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return p % 2 == 0 ? launch_persistent<2>(q, st)
                     : launch_persistent<1>(q, st);
-}
-
-// Launches the pixel kernel on `stream`, one block per frame (grid-strided
-// past 2^31 - 1 frames); returns cudaGetLastError() (0 on success).
-int tk_gather_probe_mul_pixel(const void* psi, const void* prb,
-                              const void* scan, void* out, int t, int s,
-                              int nz, int n, int m, int p, int vec,
-                              void* stream) {
-  Params q{static_cast<const float2*>(psi), static_cast<const float2*>(prb),
-           static_cast<const int*>(scan), static_cast<float2*>(out),
-           t, s, nz, n, m, p, vec};
-  const int64_t frames = static_cast<int64_t>(t) * s;
-  if (frames == 0) return 0;
-  const int grid = static_cast<int>(frames < 2147483647 ? frames : 2147483647);
-  gather_probe_mul_kernel<<<grid, kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(q);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

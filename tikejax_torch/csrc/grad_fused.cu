@@ -480,13 +480,12 @@ int tk_grad_fused_blocks_per_sm(int d, int has_base, int* out) {
       out, grad_fused_kernel<false>, kThreads, smem));
 }
 
-// Launches the FFT variant (d = 16, 32, 64 or 128; `threads` 512, or 1024
-// at d = 128) on `stream` with `grid` blocks on the frames [g0, g1) of the
-// t * s; returns the first CUDA error (0 on success). `near`, `carry`
-// (grid * threads doubles), `partial`, `first` and `last` as in
-// tk_grad_fused; there is no other scratch. `base` as in tk_grad_fused.
-// `prefetch` != 0 (one mode only, `data` 16-byte aligned) fetches each
-// measured frame a frame ahead.
+// Launches the FFT variant (d = 16, 32, 64 or 128; `threads` 1024 at d = 128,
+// else 512) on `stream` with `grid` blocks on the frames [g0, g1) of the t * s;
+// returns the first CUDA error (0 on success). `near`, `carry` (grid * threads
+// doubles), `partial`, `first` and `last` as in tk_grad_fused; there is no
+// other scratch. `base` as in tk_grad_fused. `prefetch` != 0 (one mode only,
+// `data` 16-byte aligned) fetches each measured frame a frame ahead.
 int tk_grad_fused_fft(const void* psi, const void* prb, const void* data,
                       const void* scan, void* near, void* partial,
                       void* carry, const void* base, int t, int s, int nz,

@@ -287,11 +287,11 @@ int tk_grad_prb_fused_blocks_per_sm(int d, int has_base, int* out) {
       out, grad_prb_fused_kernel, kThreads, smem));
 }
 
-// Launches the FFT variant (d = 16, 32, 64 or 128; `threads` 512, or 1024
-// at d = 128) and the block sum on `stream` with `grid` blocks; returns the
-// first CUDA error (0 on success). `acc` and `partial` as in
-// tk_grad_prb_fused; there is no scratch. `prefetch` != 0 (one mode only,
-// `data` 16-byte aligned) fetches each measured frame a frame ahead.
+// Launches the FFT variant (d = 16, 32, 64 or 128; `threads` 1024 at d = 128,
+// else 512) and the block sum on `stream` with `grid` blocks; returns the first
+// CUDA error (0 on success). `acc` and `partial` as in tk_grad_prb_fused; there
+// is no scratch. `prefetch` != 0 (one mode only, `data` 16-byte aligned)
+// fetches each measured frame a frame ahead.
 int tk_grad_prb_fused_fft(const void* psi, const void* prb, const void* data,
                           const void* scan, void* grad, void* acc,
                           void* partial, int t, int s, int nz, int n, int m,

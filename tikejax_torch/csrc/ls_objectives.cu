@@ -19,15 +19,10 @@
 // 4.6 G at K = 17 there, about 1.1 ms at 16 a clock per SM, under the byte
 // bound. IEEE sqrtf and logf, as the plain version computes them.
 //
-// Two kernels compute it; the wrapper launches the frame-major one unless
-// the pixel-major one is forced (ops/linesearch.py, variant='pixel', kept to
-// time the two in turns).
-//
-// The frame-major kernel (ls_objectives_frame_kernel<kK>, kK the step bucket
-// the wrapper picks: the least of 1, 2, 4, 8, 17 and 33 that is >= K, with a
-// uniform guard k < K). A
-// block walks whole frames (f = blockIdx.x, stride gridDim.x), so no pixel
-// index is divided; inside a frame thread j reads the pixel pairs
+// The kernel is frame-major (ls_objectives_frame_kernel<kK>, kK the step
+// bucket the wrapper picks: the least of 1, 2, 4, 8, 17 and 33 that is >= K,
+// with a uniform guard k < K). A block walks whole frames (f = blockIdx.x,
+// stride gridDim.x), so no pixel index is divided; inside a frame thread j reads the pixel pairs
 // i = j, j + kT, ..., two pairs at once: 16-byte streaming loads of fp and
 // fd per mode and an 8-byte load of the data, 80 bytes in flight a thread.
 // Each thread sums its pixels of the frame in float, in kK registers; at the
@@ -38,19 +33,14 @@
 // number of pixels, or a pointer is not aligned for the wide loads, the same
 // kernel reads one pixel at a time.
 //
-// The pixel-major kernel (ls_objectives_kernel): every thread walks the
-// pixels (grid-stride, neighbouring threads on neighbouring pixels), with a
-// 64-bit division per pixel to find its frame, 8-byte loads, kMaxK double
-// accumulators always live (116 registers, 16 warps an SM) and a
-// float-to-double conversion and a double add per pixel and step: 8.7 ms at
-// one step against the 1.6 ms bound on an H100 80GB HBM3 at 700 W, whatever
-// K.
+// It replaced a pixel-major kernel (a 64-bit division per pixel, kMaxK
+// double accumulators always live): 8.7 ms at one step against the 1.6 ms
+// bound on an H100 80GB HBM3 at 700 W, whatever K.
 //
-// Contract (both kernels): each block sums its share in a fixed order into a
-// block-owned double partial per step, and a second kernel sums the partials
-// over the blocks in a fixed order: bitwise reproducible. K and the steps
-// are runtime arguments (1 <= K <= 33). The two kernels' low bits differ
-// (float sums inside a frame against double sums per thread).
+// Contract: each block sums its share in a fixed order into a block-owned
+// double partial per step, and a second kernel sums the partials over the
+// blocks in a fixed order: bitwise reproducible. K and the steps are runtime
+// arguments (1 <= K <= 33).
 
 #include "dft_frame.cuh"
 
@@ -59,64 +49,6 @@ namespace {
 using namespace tk;
 
 constexpr int kMaxK = 33;
-
-struct Params {
-  const float2* fp;     // (t, s, m, d, d)
-  const float2* fd;     // (t, s, m, d, d)
-  const float* data;    // (t, s, d, d)
-  const float* gammas;  // (K,)
-  double* partial;      // gridDim.x * K block partials
-  int64_t pixels;       // t * s * d * d
-  int64_t dd;           // d * d
-  int m, k, model;
-};
-
-__global__ void __launch_bounds__(kThreads) ls_objectives_kernel(Params q) {
-  __shared__ float gam[kMaxK];
-  if (threadIdx.x < q.k) gam[threadIdx.x] = q.gammas[threadIdx.x];
-  __syncthreads();
-
-  double acc[kMaxK];
-#pragma unroll
-  for (int k = 0; k < kMaxK; ++k) acc[k] = 0.0;
-
-  const int64_t step = static_cast<int64_t>(gridDim.x) * kThreads;
-  for (int64_t px = blockIdx.x * static_cast<int64_t>(kThreads) + threadIdx.x;
-       px < q.pixels; px += step) {
-    const int64_t f = px / q.dd, i = px - f * q.dd;
-    float a = 0.f, b = 0.f, c = 0.f;
-    for (int mm = 0; mm < q.m; ++mm) {
-      const int64_t j = (f * q.m + mm) * q.dd + i;
-      const float2 w = __ldg(q.fp + j), z = __ldg(q.fd + j);
-      a += w.x * w.x + w.y * w.y;
-      b += w.x * z.x + w.y * z.y;
-      c += z.x * z.x + z.y * z.y;
-    }
-    const float dv = fmaxf(__ldg(q.data + px), 0.f);
-    const float sq = sqrtf(dv);
-#pragma unroll
-    for (int k = 0; k < kMaxK; ++k) {
-      if (k < q.k) {
-        const float g = gam[k];
-        const float inten = fmaxf(a + 2.f * g * b + g * g * c, 0.f);
-        float term;
-        if (q.model == 0) {  // gaussian
-          const float r = sqrtf(inten) - sq;
-          term = r * r;
-        } else {  // poisson
-          term = inten - dv * logf(inten + 1e-8f);
-        }
-        acc[k] += term;
-      }
-    }
-  }
-
-  double* out = q.partial + static_cast<int64_t>(blockIdx.x) * q.k;
-#pragma unroll
-  for (int k = 0; k < kMaxK; ++k) {
-    if (k < q.k) block_sum_store(acc[k], out + k);
-  }
-}
 
 // out[k] = sum over blocks b = 0..blocks-1, in that order, of
 // partial[b * K + k], in double.
@@ -128,8 +60,6 @@ __global__ void sum_step_partials(const double* partial, float* out, int k,
   for (int b = 0; b < blocks; ++b) v += partial[static_cast<int64_t>(b) * k + j];
   out[j] = static_cast<float>(v);
 }
-
-// -- the frame-major kernel ------------------------------------------------
 
 constexpr int kFrameThreads = 256;
 constexpr int kWarps = kFrameThreads / 32;
@@ -324,37 +254,6 @@ int frame_dispatch(int bucket, Fn fn) {
 }  // namespace
 
 extern "C" {
-
-// Launches the pixel-major kernel and the block sum on `stream` with `grid`
-// blocks; returns the first cudaGetLastError() that is not 0 (0 on success).
-// `partial` holds grid * k doubles; `out` (k,) receives the objectives.
-// Needs 1 <= k <= 33.
-int tk_ls_objectives(const void* fp, const void* fd, const void* data,
-                     const void* gammas, void* partial, void* out,
-                     int64_t pixels, int m, int d, int k, int model,
-                     int grid, void* stream) {
-  if (k < 1 || k > kMaxK) return static_cast<int>(cudaErrorInvalidValue);
-  Params q{static_cast<const float2*>(fp), static_cast<const float2*>(fd),
-           static_cast<const float*>(data), static_cast<const float*>(gammas),
-           static_cast<double*>(partial), pixels,
-           static_cast<int64_t>(d) * d, m, k, model};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  ls_objectives_kernel<<<grid, kThreads, 0, st>>>(q);
-  const int err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
-  sum_step_partials<<<1, 64, 0, st>>>(static_cast<const double*>(partial),
-                                      static_cast<float*>(out), k, grid);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Resident blocks per SM of the pixel-major kernel (`d` and `has_base` are
-// unused); returns the CUDA error code.
-int tk_ls_objectives_blocks_per_sm(int d, int has_base, int* out) {
-  (void)d;
-  (void)has_base;
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      out, ls_objectives_kernel, kThreads, 0));
-}
 
 // Launches the frame-major kernel of step bucket `bucket` (1 <= k <=
 // bucket) and the block sum on `stream` with `grid` blocks; returns the

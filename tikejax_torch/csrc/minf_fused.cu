@@ -219,11 +219,11 @@ int tk_minf_fused_blocks_per_sm(int d, int has_base, int* out) {
       out, minf_fused_kernel<false>, kThreads, smem));
 }
 
-// Launches the FFT variant (d = 16, 32, 64 or 128; `threads` 512, or 1024
-// at d = 128) on `stream` with `grid` blocks; returns the first CUDA error
-// (0 on success). `partial` holds grid doubles; there is no scratch. `base`
-// as in tk_minf_fused. `prefetch` != 0 (one mode only, `data` 16-byte
-// aligned) fetches each measured frame a frame ahead.
+// Launches the FFT variant (d = 16, 32, 64 or 128; `threads` 1024 at d = 128,
+// else 512) on `stream` with `grid` blocks; returns the first CUDA error (0 on
+// success). `partial` holds grid doubles; there is no scratch. `base` as in
+// tk_minf_fused. `prefetch` != 0 (one mode only, `data` 16-byte aligned)
+// fetches each measured frame a frame ahead.
 int tk_minf_fused_fft(const void* psi, const void* prb, const void* data,
                       const void* scan, void* partial, const void* base,
                       int t, int s, int nz, int n, int m, int p, int d,

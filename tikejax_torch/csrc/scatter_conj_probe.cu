@@ -63,8 +63,8 @@
 // every frame pixel, from L1/L2. On an H100 80GB HBM3 (700 W) the tile
 // kernel reaches about 60% of that bound at the headline: the walk over the
 // scan, the per-position arithmetic and the probe loads are issued beside
-// the frame loads and do not all hide behind them (PERF.md;
-// `python -m tikejax_torch.utils.fft_probe scatter` times each part).
+// the frame loads and do not all hide behind them (PERF.md times each
+// part).
 //
 // Accuracy: a pixel sums its positions in double and is rounded to fp32
 // once, when it is stored. At 128^2 a pixel of the headline sums about a
@@ -131,7 +131,7 @@ static_assert(kTileH * kTileW == kThreads, "one pixel a thread");
 
 // Pixel-mode loads a thread keeps in flight: kK listed positions x kM
 // modes of them. On an H100 (700 W) 12 with two resident blocks an SM beat
-// 8 and 16, and 8 with three (PERF.md; utils/fft_probe.py).
+// 8 and 16, and 8 with three (PERF.md).
 constexpr int kLoads = 12;
 
 // The complex pixel at `src` where `want`, else zero: a predicated load,

@@ -134,21 +134,13 @@ count of its runs in its ``launches`` attribute.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
 from tikejax_torch.models import likelihoods
-from tikejax_torch.ops import diffraction
-from tikejax_torch.utils import cuda_build
+from tikejax_torch.ops import _launch, diffraction, kernels
+from tikejax_torch.ops._launch import fft_launch_config  # noqa: F401
+from tikejax_torch.ops._launch import fft_threads
 
-_MODEL_CODE = {"gaussian": 0, "poisson": 1}
-# The kernels' twiddle table lives in shared memory beside their tiles.
-_MAX_NDET = 2048
-# Per-block scratch holds one frame's intermediates; the grid is cut so
-# that all of it stays below this many bytes.
-_SCRATCH_BYTES = 256 * 1024**2
 # The frame scratch of the three object scatters (adj, grad_fused,
 # adj_residual): the cropped inverse frames (complex64) of a chunk of
 # positions, which the tile kernel then sums into the object. Chunks stay
@@ -213,8 +205,6 @@ def _scatter_segments(near, g0, segments, s, scan_int, prb, nz, n, out,
     leaving running sums in ``partial`` where a segment splits an angle;
     each launch skips the chunks of its positions whose box (the whole
     scan's, ``kernels.scatter_boxes``) misses its tile."""
-    from tikejax_torch.ops import kernels
-
     m, p = prb.shape[1], prb.shape[-1]
     boxes = kernels.scatter_boxes(scan_int, nz, n, p)
     for th0, th1, a, b in segments:
@@ -237,14 +227,14 @@ def _chunk_arg(name, chunk, nmodes, nprb) -> int:
     return chunk
 
 
-def _scan_order(wrapper, variant, launch, prb, scan_int, t, s, nz, n, chunk,
-                grid, threads, device):
+def _scan_order(wrapper, launch, prb, scan_int, t, s, nz, n, chunk, grid,
+                threads, device):
     """The object gradient of ``wrapper`` (grad_fused or adj_residual) in
     scan order:
     ``launch(g0, g1, first, last, near, carry)`` runs the frame kernel on
-    frames [g0, g1) into the scratch ``near`` (pointers; it returns the
-    CUDA error), once per chunk of ``chunk`` frames, each followed by the
-    tile kernel on the chunk's segments (:func:`frame_chunks`); each thread's
+    frames [g0, g1) into the scratch ``near`` (pointers), once per chunk of
+    ``chunk`` frames, each followed by the tile kernel on the chunk's
+    segments (:func:`frame_chunks`); each thread's
     objective sum waits in ``carry`` (``grid * threads`` doubles) between
     the chunks, and the running sums of an angle split between chunks in
     a complex128 object. Each frame-kernel launch adds one to
@@ -266,10 +256,8 @@ def _scan_order(wrapper, variant, launch, prb, scan_int, t, s, nz, n, chunk,
     running = (torch.empty((t, nz, n), dtype=torch.complex128, device=device)
                if split else None)
     for g0, g1, segments in plan:
-        err = launch(g0, g1, int(g0 == 0), int(g1 == frames),
-                     near.data_ptr(),
-                     None if carry is None else carry.data_ptr())
-        _check(wrapper.__name__, err, f"kernel launch ({variant})")
+        launch(g0, g1, int(g0 == 0), int(g1 == frames), near.data_ptr(),
+               None if carry is None else carry.data_ptr())
         wrapper.launches += 1
         _scatter_segments(near, g0, segments, s, scan_int, prb, nz, n, grad,
                           running)
@@ -282,13 +270,6 @@ def _scan_order(wrapper, variant, launch, prb, scan_int, t, s, nz, n, chunk,
 _FFT_NDET = (16, 32, 64, 128)
 
 
-def fft_threads(ndet: int) -> int:
-    """Threads per block of the FFT kernels: 1024 at 128^2 (64 registers a
-    thread, no spills; 19% faster than 512 on an H100 for both kernels),
-    512 at the smaller sides, which have no 1024-thread kernel."""
-    return 1024 if ndet == 128 else 512
-
-
 def dft_variant(nprb: int, ndet: int, nmodes: int) -> str:
     """Which of their two hand-written kernels ``grad_fused``,
     ``minf_fused``, ``grad_prb_fused``, ``fwd``, ``adj``, ``adj_probe``,
@@ -296,7 +277,7 @@ def dft_variant(nprb: int, ndet: int, nmodes: int) -> str:
     sizes: ``'fft'`` (the frame's FFT in shared memory) for ``ndet`` 16, 32,
     64 or 128, ``'gemm'`` (DFT matrix products) for any other size. A pure
     function of the shapes; ``nprb > ndet`` raises as the kernels do."""
-    _check_sizes("dft_variant", nprb, ndet)
+    _launch.check_sizes("dft_variant", nprb, ndet)
     if nmodes < 1:
         raise ValueError(f"dft_variant: nmodes must be >= 1, got {nmodes}")
     return "fft" if ndet in _FFT_NDET else "gemm"
@@ -312,64 +293,34 @@ def fft_body(ndet: int, nmodes: int) -> str:
     return "fft_regs" if ndet == 128 and nmodes == 1 else "fft_smem"
 
 
-# Macros of the measurement build of the FFT kernels on the plain,
-# unpadded frame layout (dft_frame.cuh TK_FFT_PAD).
-_UNPADDED = ("TK_FFT_PAD=0",)
-
-
 def _pick_variant(name, variant, nprb, ndet, nmodes):
-    """(variant to launch, build macros): the shapes' own variant, or the
-    one the caller forces, which must be able to run these shapes.
-    ``'fft_unpadded'`` is the FFT kernel built on the plain frame layout:
-    the same results with every row-pass access on one shared-memory bank,
-    there to measure what the padding buys."""
-    _check_sizes(name, nprb, ndet)
+    """The variant to launch: the shapes' own, or the one the caller
+    forces, which must be able to run these shapes."""
+    _launch.check_sizes(name, nprb, ndet)
     chosen = dft_variant(nprb, ndet, nmodes)
     if variant is None:
-        return chosen, ()
-    if variant not in ("fft", "gemm", "fft_unpadded"):
+        return chosen
+    if variant not in ("fft", "gemm"):
         raise ValueError(f"{name}: unknown variant {variant!r}; expected "
-                         "'fft', 'gemm', 'fft_unpadded' or None")
-    if variant != "gemm" and chosen != "fft":
+                         "'fft', 'gemm' or None")
+    if variant == "fft" and chosen != "fft":
         raise ValueError(f"{name}: the 'fft' variant takes ndet in "
                          f"{_FFT_NDET}, got ndet={ndet}")
-    if variant == "fft_unpadded":
-        return "fft", _UNPADDED
-    return variant, ()
+    return variant
 
 
 def _pick_body(variant, nprb, ndet, nmodes):
-    """(variant, build macros, body) of a ``grad_fused`` launch: the body
-    is :func:`fft_body`'s on the ``'fft'`` variant, ``'fft_smem'`` where
-    the caller forces it (``variant='fft_smem'``, or the unpadded
-    measurement build of that body), ``'atomic'`` for the forced one-pass
-    kernel (which the FFT variant's shapes run) and ``'gemm'`` on that
-    variant."""
+    """(variant, body) of a ``grad_fused`` launch: the body is
+    :func:`fft_body`'s on the ``'fft'`` variant, ``'fft_smem'`` where the
+    caller forces it (``variant='fft_smem'``), ``'atomic'`` for the forced
+    one-pass kernel (which the FFT variant's shapes run) and ``'gemm'`` on
+    that variant."""
     forced = variant if variant in ("fft_smem", "atomic") else None
-    variant, defines = _pick_variant("grad_fused",
-                                     "fft" if forced else variant, nprb,
-                                     ndet, nmodes)
+    variant = _pick_variant("grad_fused", "fft" if forced else variant, nprb,
+                            ndet, nmodes)
     if variant == "gemm":
-        return variant, defines, "gemm"
-    body = forced or ("fft_smem" if defines else fft_body(ndet, nmodes))
-    return variant, defines, body
-
-
-def _check_model(model: str) -> None:
-    if model not in _MODEL_CODE:
-        raise ValueError(f"unknown model {model!r}; expected one of "
-                         f"{tuple(_MODEL_CODE)}")
-
-
-def _route(name: str, psi: torch.Tensor) -> bool:
-    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
-    (run the plain version); any other device raises."""
-    if psi.device.type == "cpu":
-        return False
-    if psi.device.type != "cuda":
-        raise ValueError(f"{name} takes CPU or CUDA tensors, got "
-                         f"{psi.device}")
-    return True
+        return variant, "gemm"
+    return variant, forced or fft_body(ndet, nmodes)
 
 
 def _base_complex(base):
@@ -414,8 +365,8 @@ def grad_fused(psi: torch.Tensor, data: torch.Tensor,
     Returns:
       (grad ``(ntheta, nz, n)`` like ``psi``, minf ``()`` real).
     """
-    _check_model(model)
-    if not _route("grad_fused", psi):
+    _launch.check_model(model)
+    if not _launch.route("grad_fused", psi):
         return grad_fused_reference(psi, data, scan_int, prb, ndet, model,
                                     base=base)
     return _grad_fused_cuda(psi, data, scan_int, prb, ndet, model, base)
@@ -457,8 +408,8 @@ def minf_fused(psi: torch.Tensor, data: torch.Tensor,
     """The objective at ``psi`` (``G psi + base`` with a base) with nothing
     farplane-sized in memory: the forward half of :func:`grad_fused`.
     Arguments as :func:`grad_fused`. Returns minf ``()`` real."""
-    _check_model(model)
-    if not _route("minf_fused", psi):
+    _launch.check_model(model)
+    if not _launch.route("minf_fused", psi):
         return minf_fused_reference(psi, data, scan_int, prb, ndet, model,
                                     base=base)
     return _minf_fused_cuda(psi, data, scan_int, prb, ndet, model, base)
@@ -492,7 +443,7 @@ def fwd(psi: torch.Tensor, scan_int: torch.Tensor, prb: torch.Tensor,
     (scan row < 0) gets a zero frame (plus the base). With ``split_out``,
     the (re, im) real views of that complex tensor (see the module note on
     the base). ``precision`` is the JAX package's tier tag, ignored."""
-    if not _route("fwd", psi):
+    if not _launch.route("fwd", psi):
         return fwd_reference(psi, scan_int, prb, ndet, base=base,
                              split_out=split_out)
     out = _fwd_cuda(psi, scan_int, prb, ndet, base)
@@ -526,8 +477,8 @@ def grad_prb_fused(psi: torch.Tensor, data: torch.Tensor,
     :func:`grad_fused` (no base: the JAX package's joint recovery has no
     split-operator mode). Returns (grad_prb ``(ntheta, nmodes, nprb,
     nprb)`` like ``prb``, minf ``()`` real)."""
-    _check_model(model)
-    if not _route("grad_prb_fused", psi):
+    _launch.check_model(model)
+    if not _launch.route("grad_prb_fused", psi):
         return grad_prb_fused_reference(psi, data, scan_int, prb, ndet,
                                         model)
     return _grad_prb_fused_cuda(psi, data, scan_int, prb, ndet, model)
@@ -562,7 +513,7 @@ def adj(farplane: torch.Tensor, scan_int: torch.Tensor, prb: torch.Tensor,
     multiply, mode sum and overlap scatter-add. Returns ``(ntheta, nz,
     n)``; a masked position (scan row < 0) adds nothing. ``precision`` is
     the JAX package's tier tag, ignored."""
-    if not _route("adj", farplane):
+    if not _launch.route("adj", farplane):
         return adj_reference(farplane, scan_int, prb, nz, n)
     return _adj_cuda(farplane, scan_int, prb, nz, n)
 
@@ -587,7 +538,7 @@ def adj_probe(farplane: torch.Tensor, scan_int: torch.Tensor,
     ``farplane``, crop, conj(object patch) multiply and sum over the
     positions. Returns ``(ntheta, nmodes, nprb, nprb)``; a masked position
     adds nothing. ``precision`` is the JAX package's tier tag, ignored."""
-    if not _route("adj_probe", farplane):
+    if not _launch.route("adj_probe", farplane):
         return adj_probe_reference(farplane, scan_int, psi, nprb)
     return _adj_probe_cuda(farplane, scan_int, psi, nprb)
 
@@ -621,8 +572,8 @@ def adj_residual(farplane: torch.Tensor, data: torch.Tensor,
       (grad ``(ntheta, nz, n)`` like ``farplane``, minf ``()`` real), with
       ``grad = G^H(factor * farplane)`` (no factor 2).
     """
-    _check_model(model)
-    if not _route("adj_residual", farplane):
+    _launch.check_model(model)
+    if not _launch.route("adj_residual", farplane):
         return adj_residual_reference(farplane, data, scan_int, prb, nz, n,
                                       model)
     return _adj_residual_cuda(farplane, data, scan_int, prb, nz, n, model)
@@ -665,7 +616,7 @@ def fwd_quad_stats(dpsi: torch.Tensor, scan_int: torch.Tensor,
     Returns:
       (a, b, c), each ``(ntheta, nscan, ndet, ndet)`` real.
     """
-    if not _route("fwd_quad_stats", dpsi):
+    if not _launch.route("fwd_quad_stats", dpsi):
         return fwd_quad_stats_reference(dpsi, scan_int, prb, fpsi)
     return _fwd_quad_stats_cuda(dpsi, scan_int, prb, fpsi)
 
@@ -701,193 +652,11 @@ def _valid_minf(minf_fn, far, data, scan_int):
 
 # -- the CUDA path -------------------------------------------------------
 
-_ARGTYPES = {
-    # pointers, then ints; every entry point ends with the stream.
-    "grad_fused": ("tk_grad_fused", [ctypes.c_void_p] * 9
-                   + [ctypes.c_int] * 8 + [ctypes.c_int64] * 2
-                   + [ctypes.c_int] * 3),
-    "fwd": ("tk_fwd", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8),
-    "minf_fused": ("tk_minf_fused", [ctypes.c_void_p] * 7
-                   + [ctypes.c_int] * 9 + [ctypes.c_int64]),
-    "grad_prb_fused": ("tk_grad_prb_fused", [ctypes.c_void_p] * 8
-                       + [ctypes.c_int] * 9),
-    "adj": ("tk_adj", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-            + [ctypes.c_int64, ctypes.c_int]),
-    "adj_probe": ("tk_adj_probe", [ctypes.c_void_p] * 6
-                  + [ctypes.c_int] * 8),
-    "adj_residual": ("tk_adj_residual", [ctypes.c_void_p] * 7
-                     + [ctypes.c_int] * 8 + [ctypes.c_int64] * 2
-                     + [ctypes.c_int] * 3 + [ctypes.c_int64]),
-    "fwd_quad_stats": ("tk_fwd_quad_stats", [ctypes.c_void_p] * 8
-                       + [ctypes.c_int] * 8),
-    "ls_objectives": ("tk_ls_objectives", [ctypes.c_void_p] * 6
-                      + [ctypes.c_int64] + [ctypes.c_int] * 5),
-}
-
-
-# The FFT variants' entry points <entry>_fft: pointers, then ints (the last
-# two the grid and the threads per block), then the stream. Each has an
-# <entry>_fft_blocks_per_sm(ndet, has_base, planes, threads, &blocks,
-# &shared_bytes).
-_FFT_ARGTYPES = {
-    "grad_fused": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
-    + [ctypes.c_int64] * 2 + [ctypes.c_int] * 4,
-    "fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9,
-    "adj": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_int64]
-    + [ctypes.c_int] * 2,
-    "minf_fused": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11,
-    "grad_prb_fused": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11,
-    "adj_probe": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9,
-    "adj_residual": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
-    + [ctypes.c_int64] * 2 + [ctypes.c_int] * 4,
-    "fwd_quad_stats": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9,
-}
-
-# Other entry points of a library, with their full argument types.
-_MORE_ARGTYPES = {
-    "grad_fused": {
-        "tk_grad_fused_atomic_fft": [ctypes.c_void_p] * 6
-        + [ctypes.c_int] * 11 + [ctypes.c_void_p],
-        "tk_grad_fused_fft_regs": _FFT_ARGTYPES["grad_fused"]
-        + [ctypes.c_void_p],
-        "tk_grad_fused_fft_regs_blocks_per_sm": [ctypes.c_int] * 4
-        + [ctypes.POINTER(ctypes.c_int)] * 2,
-    },
-    "adj_residual": {
-        "tk_adj_residual_atomic_fft": [ctypes.c_void_p] * 6
-        + [ctypes.c_int] * 10 + [ctypes.c_void_p],
-    },
-    "adj": {
-        "tk_adj_atomic_fft": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
-        + [ctypes.c_void_p],
-    },
-    "ls_objectives": {
-        "tk_ls_objectives_frame": [ctypes.c_void_p] * 6 + [ctypes.c_int64]
-        + [ctypes.c_int] * 7 + [ctypes.c_void_p],
-        "tk_ls_objectives_frame_blocks_per_sm": [
-            ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
-    },
-}
-
-
-@functools.cache
-def _lib(name: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
-    lib = cuda_build.load(name, defines)
-    entry, argtypes = _ARGTYPES[name]
-    getattr(lib, entry).argtypes = argtypes + [ctypes.c_void_p]
-    getattr(lib, entry).restype = ctypes.c_int
-    occupancy = getattr(lib, f"{entry}_blocks_per_sm")
-    occupancy.argtypes = [ctypes.c_int, ctypes.c_int,
-                          ctypes.POINTER(ctypes.c_int)]
-    occupancy.restype = ctypes.c_int
-    if name in _FFT_ARGTYPES:
-        getattr(lib, f"{entry}_fft").argtypes = _FFT_ARGTYPES[name] + [
-            ctypes.c_void_p]
-        getattr(lib, f"{entry}_fft").restype = ctypes.c_int
-        occupancy = getattr(lib, f"{entry}_fft_blocks_per_sm")
-        occupancy.argtypes = [ctypes.c_int] * 4 + [
-            ctypes.POINTER(ctypes.c_int)] * 2
-        occupancy.restype = ctypes.c_int
-    for symbol, argtypes in _MORE_ARGTYPES.get(name, {}).items():
-        getattr(lib, symbol).argtypes = argtypes
-        getattr(lib, symbol).restype = ctypes.c_int
-    lib.tk_error_string.argtypes = [ctypes.c_int]
-    lib.tk_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _check(name: str, err: int, what: str) -> None:
-    if err:
-        raise RuntimeError(f"{name}: {what} failed: "
-                           f"{_lib(name).tk_error_string(err).decode()}")
-
-
-@functools.cache
-def _resident_blocks(name: str, device_index: int, ndet: int,
-                     has_base: bool) -> int:
-    """Blocks of kernel ``name`` the whole card holds at once."""
-    lib = _lib(name)
-    per_sm = ctypes.c_int(0)
-    entry = getattr(lib, f"{_ARGTYPES[name][0]}_blocks_per_sm")
-    with torch.cuda.device(device_index):
-        _check(name, entry(ndet, int(has_base), ctypes.byref(per_sm)),
-               "occupancy query")
-    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
-    return max(1, per_sm.value) * sms
-
-
-# The C entry points of grad_fused's two FFT bodies (fft_body).
-_BODY_ENTRY = {"fft_smem": "tk_grad_fused_fft",
-               "fft_regs": "tk_grad_fused_fft_regs"}
-
-
-@functools.cache
-def fft_launch_config(name: str, device_index: int, ndet: int,
-                      planes: int = 0, has_base: bool = False,
-                      threads: int | None = None,
-                      defines: tuple[str, ...] = (),
-                      body: str = "fft_smem") -> tuple[int, int]:
-    """(resident blocks per SM, dynamic shared memory in bytes) of the FFT
-    variant of ``name`` (``'grad_fused'``, ``'minf_fused'``,
-    ``'grad_prb_fused'``, ``'fwd'``, ``'adj'``, ``'adj_probe'``,
-    ``'adj_residual'`` or ``'fwd_quad_stats'``) at detector side ``ndet``,
-    with ``planes`` (0 or 1) float planes beside the frame (one with several
-    modes, or with one mode and the data prefetch of the first three;
-    ``fwd``, ``adj``, ``adj_probe`` and ``fwd_quad_stats`` have none);
-    ``body='fft_regs'`` asks for ``grad_fused``'s fused body
-    (:func:`fft_body`); raises for a side or a thread count without a
-    kernel."""
-    lib = _lib(name, defines)
-    threads = fft_threads(ndet) if threads is None else threads
-    per_sm, smem = ctypes.c_int(0), ctypes.c_int(0)
-    symbol = (_BODY_ENTRY[body] if name == "grad_fused"
-              else f"{_ARGTYPES[name][0]}_fft")
-    entry = getattr(lib, f"{symbol}_blocks_per_sm")
-    with torch.cuda.device(device_index):
-        _check(name, entry(ndet, int(has_base), planes, threads,
-                           ctypes.byref(per_sm), ctypes.byref(smem)),
-               f"occupancy query ({body}, ndet={ndet}, threads={threads})")
-    return per_sm.value, smem.value
-
-
-def _fft_prefetch(name, prefetch, nmodes, data):
+def _fft_prefetch(nmodes, data):
     """Whether the FFT variant fetches each measured frame into shared
-    memory a frame ahead: None means wherever it can (one mode, ``data``
-    16-byte aligned); asking for it where it cannot be done raises."""
-    can = nmodes == 1 and data.data_ptr() % 16 == 0
-    if prefetch and not can:
-        raise ValueError(f"{name}: prefetch needs one mode and 16-byte "
-                         "aligned data")
-    return can if prefetch is None else bool(prefetch)
-
-
-def _fft_grid(name, device_index, frames, ndet, planes, has_base, threads,
-              defines, body="fft_smem"):
-    """Blocks of the FFT variant: what the card holds at once, at most one
-    per frame."""
-    per_sm, _ = fft_launch_config(name, device_index, ndet, planes, has_base,
-                                  threads, defines, body)
-    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
-    return max(1, min(frames, max(1, per_sm) * sms))
-
-
-def _check_types(name, expect):
-    """Every tensor of ``expect`` ({what: (tensor, dtype)}) must lie on
-    the first one's device and have its dtype."""
-    device = next(iter(expect.values()))[0].device
-    for what, (x, dtype) in expect.items():
-        if x.device != device:
-            raise ValueError(f"{name}: {what} is on {x.device}, the other "
-                             f"inputs on {device}")
-        if x.dtype != dtype:
-            raise TypeError(f"{name}: the CUDA kernel takes {what} as "
-                            f"{dtype}, got {x.dtype}")
-
-
-def _check_sizes(name, nprb, ndet):
-    if not nprb <= ndet <= _MAX_NDET:
-        raise ValueError(f"{name}: need nprb <= ndet <= {_MAX_NDET}, "
-                         f"got nprb={nprb}, ndet={ndet}")
+    memory a frame ahead: wherever it can (one mode, ``data`` 16-byte
+    aligned)."""
+    return nmodes == 1 and data.data_ptr() % 16 == 0
 
 
 def _check_inputs(name, psi, scan_int, prb, ndet, data=None):
@@ -900,7 +669,7 @@ def _check_inputs(name, psi, scan_int, prb, ndet, data=None):
               "scan_int": (scan_int, torch.int32)}
     if data is not None:
         expect["data"] = (data, torch.float32)
-    _check_types(name, expect)
+    _launch.check_types(name, expect)
     if (prb.shape[0] != t or scan_int.shape != (t, s, 2)
             or prb.shape[-1] != nprb
             or (data is not None and data.shape != (t, s, ndet, ndet))):
@@ -909,7 +678,7 @@ def _check_inputs(name, psi, scan_int, prb, ndet, data=None):
             f"{tuple(prb.shape)}, scan_int {tuple(scan_int.shape)}"
             + (f", data {tuple(data.shape)}" if data is not None else "")
             + f", ndet {ndet}")
-    _check_sizes(name, nprb, ndet)
+    _launch.check_sizes(name, nprb, ndet)
     return t, nz, n, nmodes, nprb, s
 
 
@@ -918,9 +687,9 @@ def _check_farplane(name, farplane, scan_int, other, other_name, lead):
     d), ``scan_int`` (t, s, 2) and ``other`` (the probe or the object)
     whose leading dimensions must be ``lead``; returns (t, s, m, d)."""
     t, s, m, d, d2 = farplane.shape
-    _check_types(name, {"farplane": (farplane, torch.complex64),
-                        other_name: (other, torch.complex64),
-                        "scan_int": (scan_int, torch.int32)})
+    _launch.check_types(name, {"farplane": (farplane, torch.complex64),
+                               other_name: (other, torch.complex64),
+                               "scan_int": (scan_int, torch.int32)})
     if d2 != d or scan_int.shape != (t, s, 2) or other.shape[:len(lead)] != (
             lead):
         raise ValueError(
@@ -947,169 +716,6 @@ def _base_ptr(name, base, shape, device):
     return b.data_ptr()
 
 
-# Threads of a block of the DFT-GEMM kernels (dft_frame.cuh kThreads).
-_GEMM_THREADS = 256
-
-
-def _grid(name, device_index, frames, ndet, has_base, block_bytes):
-    return max(1, min(frames,
-                      _resident_blocks(name, device_index, ndet, has_base),
-                      _SCRATCH_BYTES // block_bytes))
-
-
-def _device_index(psi):
-    return (psi.device.index if psi.device.index is not None
-            else torch.cuda.current_device())
-
-
-def _grad_fused_cuda(psi, data, scan_int, prb, ndet, model, base,
-                     variant=None, threads=None, prefetch=None, chunk=None):
-    """Launches ``grad_fused``'s kernels: for each chunk of ``chunk``
-    consecutive frames (default :func:`frame_chunk`), the frame kernel --
-    the variant :func:`dft_variant` names for these shapes, or the one
-    forced with ``variant`` (``'gemm'`` takes every size, ``'fft'`` raises
-    off its sizes) -- into the scratch, then ``scatter_conj_probe``'s tile
-    kernel from it into the gradient in scan order (:func:`frame_chunks`).
-    ``variant='atomic'`` forces the one-pass FFT kernel with fp32 atomics
-    that this design replaced (FFT sizes, no base), to time the two in
-    turns. Within the FFT variant :func:`fft_body` picks the body from
-    the shapes; ``variant='fft_smem'`` forces the shared-memory body where
-    the fused one would run, to time or compare the two (``'fft_unpadded'``
-    builds the shared-memory body too). ``threads`` is the shared-memory
-    body's block size (512, or 1024 at ``ndet`` 128; None takes
-    :func:`fft_threads`; the fused body runs 1024 and takes no other).
-    ``prefetch`` (FFT variant, one mode): fetch each measured frame into
-    shared memory a frame ahead; None means wherever it can be done (one
-    mode, ``data`` 16-byte aligned). Each frame-kernel launch adds one to
-    ``grad_fused.launches`` and to its body's count in
-    ``grad_fused.body_launches``."""
-    t, nz, n, nmodes, nprb, s = _check_inputs("grad_fused", psi, scan_int,
-                                              prb, ndet, data)
-    base_p = _base_ptr("grad_fused", base, (t, s, nmodes, ndet, ndet),
-                       psi.device)
-    atomic = variant == "atomic"
-    if atomic and base is not None:
-        raise ValueError("grad_fused: the atomic kernel takes no base")
-    variant, defines, body = _pick_body(variant, nprb, ndet, nmodes)
-    if body == "fft_regs" and threads not in (None, 1024):
-        raise ValueError("grad_fused: the fused 'fft_regs' body runs 1024 "
-                         f"threads, got threads={threads}")
-    chunk = _chunk_arg("grad_fused", chunk, nmodes, nprb)
-    lib = _lib("grad_fused", defines)
-    dev = _device_index(psi)
-    psi, prb = psi.contiguous(), prb.contiguous()
-    data, scan_int = data.contiguous(), scan_int.contiguous()
-    if variant == "fft":
-        threads = fft_threads(ndet) if threads is None else threads
-        prefetch = _fft_prefetch("grad_fused", prefetch, nmodes, data)
-        grid = _fft_grid("grad_fused", dev, t * s, ndet,
-                         int(nmodes > 1 or prefetch), base is not None,
-                         threads, defines,
-                         "fft_regs" if body == "fft_regs" else "fft_smem")
-    else:
-        per_block = nmodes * ndet * (nprb + ndet)  # complex elements
-        grid = _grid("grad_fused", dev, t * s, ndet, base is not None,
-                     8 * per_block)
-        scratch = torch.empty(2 * grid * per_block, dtype=torch.float32,
-                              device=psi.device)
-        threads = _GEMM_THREADS
-    partial = torch.empty(grid, dtype=torch.float64, device=psi.device)
-    model_code = _MODEL_CODE[model]
-    if atomic:
-        grad = torch.zeros((t, nz, n), dtype=torch.complex64,
-                           device=psi.device)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = lib.tk_grad_fused_atomic_fft(
-                psi.data_ptr(), prb.data_ptr(), data.data_ptr(),
-                scan_int.data_ptr(), grad.data_ptr(), partial.data_ptr(), t,
-                s, nz, n, nmodes, nprb, ndet, model_code, int(prefetch), grid,
-                threads, stream)
-        _check("grad_fused", err, "kernel launch (atomic)")
-        grad_fused.launches += 1
-        grad_fused.body_launches["atomic"] += 1
-        grad_fused.variant = grad_fused.body = "atomic"
-        return grad, partial.sum().to(torch.float32)
-
-    def launch(g0, g1, first, last, near, carry):
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream().cuda_stream
-            if variant == "fft":
-                err = getattr(lib, _BODY_ENTRY[body])(
-                    psi.data_ptr(), prb.data_ptr(), data.data_ptr(),
-                    scan_int.data_ptr(), near, partial.data_ptr(), carry,
-                    base_p, t, s, nz, n, nmodes, nprb, ndet, model_code,
-                    int(prefetch), g0, g1, first, last, grid, threads,
-                    stream)
-            else:
-                err = lib.tk_grad_fused(
-                    psi.data_ptr(), prb.data_ptr(), data.data_ptr(),
-                    scan_int.data_ptr(), near, scratch.data_ptr(),
-                    partial.data_ptr(), carry, base_p, t, s, nz, n, nmodes,
-                    nprb, ndet, model_code, g0, g1, first, last, grid,
-                    stream)
-        if not err:
-            grad_fused.body_launches[body] += 1
-        return err
-
-    grad = _scan_order(grad_fused, variant, launch, prb, scan_int, t, s,
-                       nz, n, chunk, grid, threads, psi.device)
-    if t * s == 0:
-        partial.zero_()
-    grad_fused.variant = variant
-    grad_fused.body = body
-    return grad, partial.sum().to(torch.float32)
-
-
-def _minf_fused_cuda(psi, data, scan_int, prb, ndet, model, base,
-                     variant=None, threads=None, prefetch=None):
-    """Launches ``minf_fused``'s kernel; ``variant``, ``threads`` and
-    ``prefetch`` as in :func:`_grad_fused_cuda`."""
-    t, nz, n, nmodes, nprb, s = _check_inputs("minf_fused", psi, scan_int,
-                                              prb, ndet, data)
-    base_p = _base_ptr("minf_fused", base, (t, s, nmodes, ndet, ndet),
-                       psi.device)
-    variant, defines = _pick_variant("minf_fused", variant, nprb, ndet,
-                                     nmodes)
-    lib = _lib("minf_fused", defines)
-    dev = _device_index(psi)
-    psi, prb = psi.contiguous(), prb.contiguous()
-    data, scan_int = data.contiguous(), scan_int.contiguous()
-    if variant == "fft":
-        threads = fft_threads(ndet) if threads is None else threads
-        prefetch = _fft_prefetch("minf_fused", prefetch, nmodes, data)
-        grid = _fft_grid("minf_fused", dev, t * s, ndet,
-                         int(nmodes > 1 or prefetch), base is not None,
-                         threads, defines)
-        partial = torch.empty(grid, dtype=torch.float64, device=psi.device)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = lib.tk_minf_fused_fft(
-                psi.data_ptr(), prb.data_ptr(), data.data_ptr(),
-                scan_int.data_ptr(), partial.data_ptr(), base_p, t, s, nz, n,
-                nmodes, nprb, ndet, _MODEL_CODE[model], int(prefetch), grid,
-                threads, stream)
-    else:
-        stride = 2 * nprb * ndet + ndet * ndet  # floats: p x d complex, d x d
-        stride += stride % 2
-        grid = _grid("minf_fused", dev, t * s, ndet, base is not None,
-                     4 * stride)
-        scratch = torch.empty(grid * stride, dtype=torch.float32,
-                              device=psi.device)
-        partial = torch.empty(grid, dtype=torch.float64, device=psi.device)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = lib.tk_minf_fused(
-                psi.data_ptr(), prb.data_ptr(), data.data_ptr(),
-                scan_int.data_ptr(), scratch.data_ptr(), partial.data_ptr(),
-                base_p, t, s, nz, n, nmodes, nprb, ndet, _MODEL_CODE[model],
-                grid, stride, stream)
-    _check("minf_fused", err, f"kernel launch ({variant})")
-    minf_fused.launches += 1
-    minf_fused.variant = variant
-    return partial.sum().to(torch.float32)
-
-
 def _check_aligned(name, farplane):
     """The 'fft' variants read a farplane 16 bytes at a time: its storage
     must be 16-byte aligned (PyTorch's allocator aligns every allocation;
@@ -1120,18 +726,143 @@ def _check_aligned(name, farplane):
                          "aligned")
 
 
-def _fwd_cuda(psi, scan_int, prb, ndet, base, variant=None, threads=None):
-    """Launches ``fwd``'s kernel; ``variant`` and ``threads`` as in
+# Threads of a block of the DFT-GEMM kernels (dft_frame.cuh kThreads).
+_GEMM_THREADS = 256
+
+
+def _grad_fused_cuda(psi, data, scan_int, prb, ndet, model, base,
+                     variant=None, chunk=None):
+    """Launches ``grad_fused``'s kernels: for each chunk of ``chunk``
+    consecutive frames (default :func:`frame_chunk`), the frame kernel --
+    the variant :func:`dft_variant` names for these shapes, or the one
+    forced with ``variant`` (``'gemm'`` takes every size, ``'fft'`` raises
+    off its sizes) -- into the scratch, then ``scatter_conj_probe``'s tile
+    kernel from it into the gradient in scan order (:func:`frame_chunks`).
+    ``variant='atomic'`` forces the one-pass FFT kernel with fp32 atomics
+    that this design replaced (FFT sizes, no base), to time the two in
+    turns. Within the FFT variant :func:`fft_body` picks the body from
+    the shapes; ``variant='fft_smem'`` forces the shared-memory body where
+    the fused one would run, to compare the two. The FFT variant fetches
+    each measured frame a frame ahead where :func:`_fft_prefetch` allows.
+    Each frame-kernel launch adds one to ``grad_fused.launches`` and to its
+    body's count in ``grad_fused.body_launches``."""
+    name = "grad_fused"
+    t, nz, n, nmodes, nprb, s = _check_inputs(name, psi, scan_int, prb,
+                                              ndet, data)
+    base_p = _base_ptr(name, base, (t, s, nmodes, ndet, ndet), psi.device)
+    if variant == "atomic" and base is not None:
+        raise ValueError("grad_fused: the atomic kernel takes no base")
+    variant, body = _pick_body(variant, nprb, ndet, nmodes)
+    chunk = _chunk_arg(name, chunk, nmodes, nprb)
+    dev = _launch.device_index(psi)
+    psi, prb = psi.contiguous(), prb.contiguous()
+    data, scan_int = data.contiguous(), scan_int.contiguous()
+    if variant == "fft":
+        threads = fft_threads(ndet)
+        prefetch = _fft_prefetch(nmodes, data)
+        grid = _launch.fft_grid(name, dev, t * s, ndet,
+                                int(nmodes > 1 or prefetch), base is not None,
+                                "fft_regs" if body == "fft_regs"
+                                else "fft_smem")
+    else:
+        per_block = nmodes * ndet * (nprb + ndet)  # complex elements
+        grid = _launch.gemm_grid(name, dev, t * s, ndet, base is not None,
+                                 8 * per_block)
+        scratch = torch.empty(2 * grid * per_block, dtype=torch.float32,
+                              device=psi.device)
+        threads = _GEMM_THREADS
+    partial = torch.empty(grid, dtype=torch.float64, device=psi.device)
+    model_code = _launch.MODEL_CODE[model]
+    if body == "atomic":
+        grad = torch.zeros((t, nz, n), dtype=torch.complex64,
+                           device=psi.device)
+        _launch.launch(name, "tk_grad_fused_atomic_fft", dev, psi.data_ptr(),
+                       prb.data_ptr(), data.data_ptr(), scan_int.data_ptr(),
+                       grad.data_ptr(), partial.data_ptr(), t, s, nz, n,
+                       nmodes, nprb, ndet, model_code, int(prefetch), grid,
+                       threads)
+        grad_fused.launches += 1
+        grad_fused.body_launches["atomic"] += 1
+        grad_fused.variant = grad_fused.body = "atomic"
+        return grad, partial.sum().to(torch.float32)
+    symbol = _launch.fft_entry(name, body)
+
+    def launch(g0, g1, first, last, near, carry):
+        if variant == "fft":
+            _launch.launch(name, symbol, dev, psi.data_ptr(), prb.data_ptr(),
+                           data.data_ptr(), scan_int.data_ptr(), near,
+                           partial.data_ptr(), carry, base_p, t, s, nz, n,
+                           nmodes, nprb, ndet, model_code, int(prefetch), g0,
+                           g1, first, last, grid, threads)
+        else:
+            _launch.launch(name, "tk_grad_fused", dev, psi.data_ptr(),
+                           prb.data_ptr(), data.data_ptr(),
+                           scan_int.data_ptr(), near, scratch.data_ptr(),
+                           partial.data_ptr(), carry, base_p, t, s, nz, n,
+                           nmodes, nprb, ndet, model_code, g0, g1, first,
+                           last, grid)
+        grad_fused.body_launches[body] += 1
+
+    grad = _scan_order(grad_fused, launch, prb, scan_int, t, s, nz, n, chunk,
+                       grid, threads, psi.device)
+    if t * s == 0:
+        partial.zero_()
+    grad_fused.variant = variant
+    grad_fused.body = body
+    return grad, partial.sum().to(torch.float32)
+
+
+def _minf_fused_cuda(psi, data, scan_int, prb, ndet, model, base,
+                     variant=None):
+    """Launches ``minf_fused``'s kernel; ``variant`` and the prefetch as in
+    :func:`_grad_fused_cuda`."""
+    name = "minf_fused"
+    t, nz, n, nmodes, nprb, s = _check_inputs(name, psi, scan_int, prb,
+                                              ndet, data)
+    base_p = _base_ptr(name, base, (t, s, nmodes, ndet, ndet), psi.device)
+    variant = _pick_variant(name, variant, nprb, ndet, nmodes)
+    dev = _launch.device_index(psi)
+    psi, prb = psi.contiguous(), prb.contiguous()
+    data, scan_int = data.contiguous(), scan_int.contiguous()
+    model_code = _launch.MODEL_CODE[model]
+    if variant == "fft":
+        prefetch = _fft_prefetch(nmodes, data)
+        grid = _launch.fft_grid(name, dev, t * s, ndet,
+                                int(nmodes > 1 or prefetch), base is not None)
+        partial = torch.empty(grid, dtype=torch.float64, device=psi.device)
+        _launch.launch(name, "tk_minf_fused_fft", dev, psi.data_ptr(),
+                       prb.data_ptr(), data.data_ptr(), scan_int.data_ptr(),
+                       partial.data_ptr(), base_p, t, s, nz, n, nmodes, nprb,
+                       ndet, model_code, int(prefetch), grid,
+                       fft_threads(ndet))
+    else:
+        stride = 2 * nprb * ndet + ndet * ndet  # floats: p x d complex, d x d
+        stride += stride % 2
+        grid = _launch.gemm_grid(name, dev, t * s, ndet, base is not None,
+                                 4 * stride)
+        scratch = torch.empty(grid * stride, dtype=torch.float32,
+                              device=psi.device)
+        partial = torch.empty(grid, dtype=torch.float64, device=psi.device)
+        _launch.launch(name, "tk_minf_fused", dev, psi.data_ptr(),
+                       prb.data_ptr(), data.data_ptr(), scan_int.data_ptr(),
+                       scratch.data_ptr(), partial.data_ptr(), base_p, t, s,
+                       nz, n, nmodes, nprb, ndet, model_code, grid, stride)
+    minf_fused.launches += 1
+    minf_fused.variant = variant
+    return partial.sum().to(torch.float32)
+
+
+def _fwd_cuda(psi, scan_int, prb, ndet, base, variant=None):
+    """Launches ``fwd``'s kernel; ``variant`` as in
     :func:`_grad_fused_cuda`. The output comes from ``torch.empty``, so it is
     aligned for the 'fft' variant's 16-byte stores, and the kernel writes
     every frame of it (masked ones as zeros or the base)."""
-    t, nz, n, nmodes, nprb, s = _check_inputs("fwd", psi, scan_int, prb,
-                                              ndet)
+    name = "fwd"
+    t, nz, n, nmodes, nprb, s = _check_inputs(name, psi, scan_int, prb, ndet)
     shape = (t, s, nmodes, ndet, ndet)
-    base_p = _base_ptr("fwd", base, shape, psi.device)
-    variant, defines = _pick_variant("fwd", variant, nprb, ndet, nmodes)
-    lib = _lib("fwd", defines)
-    dev = _device_index(psi)
+    base_p = _base_ptr(name, base, shape, psi.device)
+    variant = _pick_variant(name, variant, nprb, ndet, nmodes)
+    dev = _launch.device_index(psi)
     psi, prb = psi.contiguous(), prb.contiguous()
     scan_int = scan_int.contiguous()
     out = torch.empty(shape, dtype=torch.complex64, device=psi.device)
@@ -1139,130 +870,109 @@ def _fwd_cuda(psi, scan_int, prb, ndet, base, variant=None, threads=None):
         # The base is read 8 bytes at a time: any complex64 tensor will do,
         # such as a streamed chunk's slice of the whole base (which starts
         # at a whole frame, so it would stay 16-byte aligned anyway).
-        threads = fft_threads(ndet) if threads is None else threads
-        grid = _fft_grid("fwd", dev, t * s, ndet, 0, base is not None,
-                         threads, defines)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = lib.tk_fwd_fft(
-                psi.data_ptr(), prb.data_ptr(), scan_int.data_ptr(),
-                out.data_ptr(), base_p, t, s, nz, n, nmodes, nprb, ndet,
-                grid, threads, stream)
+        grid = _launch.fft_grid(name, dev, t * s, ndet, 0, base is not None)
+        _launch.launch(name, "tk_fwd_fft", dev, psi.data_ptr(),
+                       prb.data_ptr(), scan_int.data_ptr(), out.data_ptr(),
+                       base_p, t, s, nz, n, nmodes, nprb, ndet, grid,
+                       fft_threads(ndet))
     else:
-        grid = _grid("fwd", dev, t * s, ndet, base is not None,
-                     8 * nprb * ndet)
+        grid = _launch.gemm_grid(name, dev, t * s, ndet, base is not None,
+                                 8 * nprb * ndet)
         scratch = torch.empty(2 * grid * nprb * ndet, dtype=torch.float32,
                               device=psi.device)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = lib.tk_fwd(
-                psi.data_ptr(), prb.data_ptr(), scan_int.data_ptr(),
-                out.data_ptr(), scratch.data_ptr(), base_p, t, s, nz, n,
-                nmodes, nprb, ndet, grid, stream)
-    _check("fwd", err, f"kernel launch ({variant})")
+        _launch.launch(name, "tk_fwd", dev, psi.data_ptr(), prb.data_ptr(),
+                       scan_int.data_ptr(), out.data_ptr(),
+                       scratch.data_ptr(), base_p, t, s, nz, n, nmodes, nprb,
+                       ndet, grid)
     fwd.launches += 1
     fwd.variant = variant
     return out
 
 
 def _grad_prb_fused_cuda(psi, data, scan_int, prb, ndet, model,
-                         variant=None, threads=None, prefetch=None):
-    """Launches ``grad_prb_fused``'s kernel; ``variant``, ``threads`` and
-    ``prefetch`` as in :func:`_grad_fused_cuda`."""
-    t, nz, n, nmodes, nprb, s = _check_inputs("grad_prb_fused", psi,
-                                              scan_int, prb, ndet, data)
-    variant, defines = _pick_variant("grad_prb_fused", variant, nprb, ndet,
-                                     nmodes)
-    lib = _lib("grad_prb_fused", defines)
-    dev = _device_index(psi)
+                         variant=None):
+    """Launches ``grad_prb_fused``'s kernel; ``variant`` and the prefetch
+    as in :func:`_grad_fused_cuda`."""
+    name = "grad_prb_fused"
+    t, nz, n, nmodes, nprb, s = _check_inputs(name, psi, scan_int, prb,
+                                              ndet, data)
+    variant = _pick_variant(name, variant, nprb, ndet, nmodes)
+    dev = _launch.device_index(psi)
     acc_block = t * nmodes * nprb * nprb       # complex elements
     psi, prb = psi.contiguous(), prb.contiguous()
     data, scan_int = data.contiguous(), scan_int.contiguous()
     grad = torch.empty((t, nmodes, nprb, nprb), dtype=torch.complex64,
                        device=psi.device)
+    model_code = _launch.MODEL_CODE[model]
     if variant == "fft":
-        threads = fft_threads(ndet) if threads is None else threads
-        prefetch = _fft_prefetch("grad_prb_fused", prefetch, nmodes, data)
-        grid = min(_fft_grid("grad_prb_fused", dev, t * s, ndet,
-                             int(nmodes > 1 or prefetch), False, threads,
-                             defines),
-                   max(1, _SCRATCH_BYTES // (8 * acc_block)))
+        prefetch = _fft_prefetch(nmodes, data)
+        grid = min(_launch.fft_grid(name, dev, t * s, ndet,
+                                    int(nmodes > 1 or prefetch), False),
+                   max(1, _launch.SCRATCH_BYTES // (8 * acc_block)))
         acc = torch.empty(2 * grid * acc_block, dtype=torch.float32,
                           device=psi.device)
         partial = torch.empty(grid, dtype=torch.float64, device=psi.device)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = lib.tk_grad_prb_fused_fft(
-                psi.data_ptr(), prb.data_ptr(), data.data_ptr(),
-                scan_int.data_ptr(), grad.data_ptr(), acc.data_ptr(),
-                partial.data_ptr(), t, s, nz, n, nmodes, nprb, ndet,
-                _MODEL_CODE[model], int(prefetch), grid, threads, stream)
+        _launch.launch(name, "tk_grad_prb_fused_fft", dev, psi.data_ptr(),
+                       prb.data_ptr(), data.data_ptr(), scan_int.data_ptr(),
+                       grad.data_ptr(), acc.data_ptr(), partial.data_ptr(), t,
+                       s, nz, n, nmodes, nprb, ndet, model_code,
+                       int(prefetch), grid, fft_threads(ndet))
     else:
         per_block = nmodes * ndet * (nprb + ndet)  # complex elements
-        grid = _grid("grad_prb_fused", dev, t * s, ndet, False,
-                     8 * (per_block + acc_block))
+        grid = _launch.gemm_grid(name, dev, t * s, ndet, False,
+                                 8 * (per_block + acc_block))
         acc = torch.empty(2 * grid * acc_block, dtype=torch.float32,
                           device=psi.device)
         scratch = torch.empty(2 * grid * per_block, dtype=torch.float32,
                               device=psi.device)
         partial = torch.empty(grid, dtype=torch.float64, device=psi.device)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = lib.tk_grad_prb_fused(
-                psi.data_ptr(), prb.data_ptr(), data.data_ptr(),
-                scan_int.data_ptr(), grad.data_ptr(), acc.data_ptr(),
-                scratch.data_ptr(), partial.data_ptr(), t, s, nz, n, nmodes,
-                nprb, ndet, _MODEL_CODE[model], grid, stream)
-    _check("grad_prb_fused", err, f"kernel launch ({variant})")
+        _launch.launch(name, "tk_grad_prb_fused", dev, psi.data_ptr(),
+                       prb.data_ptr(), data.data_ptr(), scan_int.data_ptr(),
+                       grad.data_ptr(), acc.data_ptr(), scratch.data_ptr(),
+                       partial.data_ptr(), t, s, nz, n, nmodes, nprb, ndet,
+                       model_code, grid)
     grad_prb_fused.launches += 1
     grad_prb_fused.variant = variant
     return grad, partial.sum().to(torch.float32)
 
 
-def _adj_cuda(farplane, scan_int, prb, nz, n, variant=None, threads=None,
-              chunk=None):
+def _adj_cuda(farplane, scan_int, prb, nz, n, variant=None, chunk=None):
     """Launches ``adj``'s kernels: for each chunk of ``chunk`` positions
     (default :func:`adj_chunk`), the frame kernel ('fft' or 'gemm', forced
-    or picked as in :func:`_grad_fused_cuda`; ``threads`` likewise) into
-    the scratch, then ``scatter_conj_probe``'s tile kernel from it into the
-    object, continuing from the running sums of the chunk before.
+    or picked as in :func:`_grad_fused_cuda`) into the scratch, then
+    ``scatter_conj_probe``'s tile kernel from it into the object,
+    continuing from the running sums of the chunk before.
     ``variant='atomic'`` forces
     the one-pass FFT kernel with fp32 atomics that this design replaced
     (FFT sizes only), to time the two in turns. Each frame-kernel launch
     adds one to ``adj.launches``."""
-    from tikejax_torch.ops import kernels
-
-    t, s, nmodes, ndet = _check_farplane("adj", farplane, scan_int, prb,
+    name = "adj"
+    t, s, nmodes, ndet = _check_farplane(name, farplane, scan_int, prb,
                                          "prb", (farplane.shape[0],
                                                  farplane.shape[2]))
     nprb = prb.shape[-1]
     atomic = variant == "atomic"
-    variant, defines = _pick_variant("adj", "fft" if atomic else variant,
-                                     nprb, ndet, nmodes)
+    variant = _pick_variant(name, "fft" if atomic else variant, nprb, ndet,
+                            nmodes)
     chunk = adj_chunk(t, s, nmodes, nprb) if chunk is None else int(chunk)
     if chunk < 1:
         raise ValueError(f"adj: chunk must be >= 1, got {chunk}")
     chunk = min(chunk, max(s, 1))
-    lib = _lib("adj", defines)
-    dev = _device_index(farplane)
+    dev = _launch.device_index(farplane)
     # The streamed gradient pass hands over each chunk's residual, a new
     # contiguous tensor: no copy here.
     farplane, prb = farplane.contiguous(), prb.contiguous()
     scan_int = scan_int.contiguous()
     if variant == "fft":
-        _check_aligned("adj", farplane)
-        threads = fft_threads(ndet) if threads is None else threads
+        _check_aligned(name, farplane)
+        threads = fft_threads(ndet)
     if atomic:
         out = torch.zeros((t, nz, n), dtype=torch.complex64,
                           device=farplane.device)
-        grid = _fft_grid("adj", dev, t * s, ndet, 0, False, threads, defines)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = lib.tk_adj_atomic_fft(
-                farplane.data_ptr(), prb.data_ptr(), scan_int.data_ptr(),
-                out.data_ptr(), t, s, nz, n, nmodes, nprb, ndet, grid,
-                threads, stream)
-        _check("adj", err, "kernel launch (atomic)")
+        grid = _launch.fft_grid(name, dev, t * s, ndet, 0, False)
+        _launch.launch(name, "tk_adj_atomic_fft", dev, farplane.data_ptr(),
+                       prb.data_ptr(), scan_int.data_ptr(), out.data_ptr(), t,
+                       s, nz, n, nmodes, nprb, ndet, grid, threads)
         adj.launches += 1
         adj.variant = "atomic"
         return out
@@ -1275,7 +985,8 @@ def _adj_cuda(farplane, scan_int, prb, nz, n, variant=None, threads=None,
     scratch = torch.empty(t * chunk * nmodes * nprb * nprb,
                           dtype=torch.complex64, device=farplane.device)
     if variant == "gemm":
-        grid = _grid("adj", dev, t * chunk, ndet, False, 8 * nprb * ndet)
+        grid = _launch.gemm_grid(name, dev, t * chunk, ndet, False,
+                                 8 * nprb * ndet)
         block_scratch = torch.empty(2 * grid * nprb * ndet,
                                     dtype=torch.float32,
                                     device=farplane.device)
@@ -1286,21 +997,17 @@ def _adj_cuda(farplane, scan_int, prb, nz, n, variant=None, threads=None,
         scan_c = scan_int[:, c0:c0 + sc].contiguous()
         near = scratch[:t * sc * nmodes * nprb * nprb].view(
             t, sc, nmodes, nprb, nprb)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream().cuda_stream
-            if variant == "fft":
-                grid = _fft_grid("adj", dev, t * sc, ndet, 0, False,
-                                 threads, defines)
-                err = lib.tk_adj_fft(
-                    far_c.data_ptr(), scan_c.data_ptr(), near.data_ptr(), t,
-                    sc, nz, n, nmodes, nprb, ndet, farplane.stride(0), grid,
-                    threads, stream)
-            else:
-                err = lib.tk_adj(
-                    far_c.data_ptr(), scan_c.data_ptr(), near.data_ptr(),
-                    block_scratch.data_ptr(), t, sc, nz, n, nmodes, nprb,
-                    ndet, farplane.stride(0), grid, stream)
-        _check("adj", err, f"kernel launch ({variant})")
+        if variant == "fft":
+            grid = _launch.fft_grid(name, dev, t * sc, ndet, 0, False)
+            _launch.launch(name, "tk_adj_fft", dev, far_c.data_ptr(),
+                           scan_c.data_ptr(), near.data_ptr(), t, sc, nz, n,
+                           nmodes, nprb, ndet, farplane.stride(0), grid,
+                           threads)
+        else:
+            _launch.launch(name, "tk_adj", dev, far_c.data_ptr(),
+                           scan_c.data_ptr(), near.data_ptr(),
+                           block_scratch.data_ptr(), t, sc, nz, n, nmodes,
+                           nprb, ndet, farplane.stride(0), grid)
         adj.launches += 1
         kernels._scatter_conj_probe_cuda(near, scan_c, prb, nz, n, out=out,
                                          partial=running,
@@ -1311,147 +1018,129 @@ def _adj_cuda(farplane, scan_int, prb, nz, n, variant=None, threads=None,
     return out
 
 
-def _adj_probe_cuda(farplane, scan_int, psi, nprb, variant=None,
-                    threads=None):
-    """Launches ``adj_probe``'s kernel; ``variant`` and ``threads`` as in
+def _adj_probe_cuda(farplane, scan_int, psi, nprb, variant=None):
+    """Launches ``adj_probe``'s kernel; ``variant`` as in
     :func:`_grad_fused_cuda`."""
-    t, s, nmodes, ndet = _check_farplane("adj_probe", farplane, scan_int,
-                                         psi, "psi", (farplane.shape[0],))
+    name = "adj_probe"
+    t, s, nmodes, ndet = _check_farplane(name, farplane, scan_int, psi,
+                                         "psi", (farplane.shape[0],))
     _, nz, n = psi.shape
-    variant, defines = _pick_variant("adj_probe", variant, nprb, ndet,
-                                     nmodes)
-    lib = _lib("adj_probe", defines)
-    dev = _device_index(farplane)
+    variant = _pick_variant(name, variant, nprb, ndet, nmodes)
+    dev = _launch.device_index(farplane)
     acc_block = t * nmodes * nprb * nprb  # complex elements
     farplane, psi = farplane.contiguous(), psi.contiguous()
     scan_int = scan_int.contiguous()
     out = torch.empty((t, nmodes, nprb, nprb), dtype=torch.complex64,
                       device=farplane.device)
     if variant == "fft":
-        _check_aligned("adj_probe", farplane)
-        threads = fft_threads(ndet) if threads is None else threads
-        grid = min(_fft_grid("adj_probe", dev, t * s, ndet, 0, False,
-                             threads, defines),
-                   max(1, _SCRATCH_BYTES // (8 * acc_block)))
+        _check_aligned(name, farplane)
+        grid = min(_launch.fft_grid(name, dev, t * s, ndet, 0, False),
+                   max(1, _launch.SCRATCH_BYTES // (8 * acc_block)))
         acc = torch.empty(2 * grid * acc_block, dtype=torch.float32,
                           device=farplane.device)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = lib.tk_adj_probe_fft(
-                farplane.data_ptr(), psi.data_ptr(), scan_int.data_ptr(),
-                out.data_ptr(), acc.data_ptr(), t, s, nz, n, nmodes, nprb,
-                ndet, grid, threads, stream)
+        _launch.launch(name, "tk_adj_probe_fft", dev, farplane.data_ptr(),
+                       psi.data_ptr(), scan_int.data_ptr(), out.data_ptr(),
+                       acc.data_ptr(), t, s, nz, n, nmodes, nprb, ndet, grid,
+                       fft_threads(ndet))
     else:
-        grid = _grid("adj_probe", dev, t * s, ndet, False,
-                     8 * (nprb * ndet + acc_block))
+        grid = _launch.gemm_grid(name, dev, t * s, ndet, False,
+                                 8 * (nprb * ndet + acc_block))
         acc = torch.empty(2 * grid * acc_block, dtype=torch.float32,
                           device=farplane.device)
         scratch = torch.empty(2 * grid * nprb * ndet, dtype=torch.float32,
                               device=farplane.device)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = lib.tk_adj_probe(
-                farplane.data_ptr(), psi.data_ptr(), scan_int.data_ptr(),
-                out.data_ptr(), acc.data_ptr(), scratch.data_ptr(), t, s,
-                nz, n, nmodes, nprb, ndet, grid, stream)
-    _check("adj_probe", err, f"kernel launch ({variant})")
+        _launch.launch(name, "tk_adj_probe", dev, farplane.data_ptr(),
+                       psi.data_ptr(), scan_int.data_ptr(), out.data_ptr(),
+                       acc.data_ptr(), scratch.data_ptr(), t, s, nz, n,
+                       nmodes, nprb, ndet, grid)
     adj_probe.launches += 1
     adj_probe.variant = variant
     return out
 
 
 def _adj_residual_cuda(farplane, data, scan_int, prb, nz, n, model,
-                       variant=None, threads=None, chunk=None):
+                       variant=None, chunk=None):
     """Launches ``adj_residual``'s kernels as :func:`_grad_fused_cuda`
     launches ``grad_fused``'s: the frame kernel on each chunk of ``chunk``
-    frames, then the tile kernel; ``variant`` (``'atomic'`` included) and
-    ``threads`` likewise. Each frame-kernel launch adds one to
+    frames, then the tile kernel; ``variant`` (``'atomic'`` included)
+    likewise. Each frame-kernel launch adds one to
     ``adj_residual.launches``."""
-    t, s, nmodes, ndet = _check_farplane("adj_residual", farplane, scan_int,
-                                         prb, "prb", (farplane.shape[0],
-                                                      farplane.shape[2]))
-    _check_types("adj_residual", {"farplane": (farplane, torch.complex64),
-                                  "data": (data, torch.float32)})
+    name = "adj_residual"
+    t, s, nmodes, ndet = _check_farplane(name, farplane, scan_int, prb,
+                                         "prb", (farplane.shape[0],
+                                                 farplane.shape[2]))
+    _launch.check_types(name, {"farplane": (farplane, torch.complex64),
+                               "data": (data, torch.float32)})
     if data.shape != (t, s, ndet, ndet):
         raise ValueError(f"adj_residual: inconsistent shapes farplane "
                          f"{tuple(farplane.shape)}, data {tuple(data.shape)}")
     nprb = prb.shape[-1]
     atomic = variant == "atomic"
-    variant, defines = _pick_variant("adj_residual",
-                                     "fft" if atomic else variant, nprb,
-                                     ndet, nmodes)
-    chunk = _chunk_arg("adj_residual", chunk, nmodes, nprb)
-    lib = _lib("adj_residual", defines)
-    dev = _device_index(farplane)
+    variant = _pick_variant(name, "fft" if atomic else variant, nprb, ndet,
+                            nmodes)
+    chunk = _chunk_arg(name, chunk, nmodes, nprb)
+    dev = _launch.device_index(farplane)
     farplane, prb = farplane.contiguous(), prb.contiguous()
     data, scan_int = data.contiguous(), scan_int.contiguous()
     if variant == "fft":
         # The materialized solver hands over fwd's output, which PyTorch's
         # allocator aligns.
-        _check_aligned("adj_residual", farplane)
-        threads = fft_threads(ndet) if threads is None else threads
-        grid = _fft_grid("adj_residual", dev, t * s, ndet, int(nmodes > 1),
-                         False, threads, defines)
+        _check_aligned(name, farplane)
+        threads = fft_threads(ndet)
+        grid = _launch.fft_grid(name, dev, t * s, ndet, int(nmodes > 1),
+                                False)
     else:
         stride = 2 * nprb * ndet + ndet * ndet  # floats: p x d complex, d x d
         stride += stride % 2
-        grid = _grid("adj_residual", dev, t * s, ndet, False, 4 * stride)
+        grid = _launch.gemm_grid(name, dev, t * s, ndet, False, 4 * stride)
         scratch = torch.empty(grid * stride, dtype=torch.float32,
                               device=farplane.device)
         threads = _GEMM_THREADS
     partial = torch.empty(grid, dtype=torch.float64, device=farplane.device)
-    model_code = _MODEL_CODE[model]
+    model_code = _launch.MODEL_CODE[model]
     if atomic:
         grad = torch.zeros((t, nz, n), dtype=torch.complex64,
                            device=farplane.device)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = lib.tk_adj_residual_atomic_fft(
-                farplane.data_ptr(), data.data_ptr(), prb.data_ptr(),
-                scan_int.data_ptr(), grad.data_ptr(), partial.data_ptr(), t,
-                s, nz, n, nmodes, nprb, ndet, model_code, grid, threads,
-                stream)
-        _check("adj_residual", err, "kernel launch (atomic)")
+        _launch.launch(name, "tk_adj_residual_atomic_fft", dev,
+                       farplane.data_ptr(), data.data_ptr(), prb.data_ptr(),
+                       scan_int.data_ptr(), grad.data_ptr(),
+                       partial.data_ptr(), t, s, nz, n, nmodes, nprb, ndet,
+                       model_code, grid, threads)
         adj_residual.launches += 1
         adj_residual.variant = "atomic"
         return grad, partial.sum().to(torch.float32)
 
     def launch(g0, g1, first, last, near, carry):
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream().cuda_stream
-            if variant == "fft":
-                return lib.tk_adj_residual_fft(
-                    farplane.data_ptr(), data.data_ptr(), scan_int.data_ptr(),
-                    near, partial.data_ptr(), carry, t, s, nz, n, nmodes,
-                    nprb, ndet, model_code, g0, g1, first, last, grid,
-                    threads, stream)
-            return lib.tk_adj_residual(
-                farplane.data_ptr(), data.data_ptr(), scan_int.data_ptr(),
-                near, scratch.data_ptr(), partial.data_ptr(), carry, t, s, nz,
-                n, nmodes, nprb, ndet, model_code, g0, g1, first, last, grid,
-                stride, stream)
+        if variant == "fft":
+            _launch.launch(name, "tk_adj_residual_fft", dev,
+                           farplane.data_ptr(), data.data_ptr(),
+                           scan_int.data_ptr(), near, partial.data_ptr(),
+                           carry, t, s, nz, n, nmodes, nprb, ndet, model_code,
+                           g0, g1, first, last, grid, threads)
+        else:
+            _launch.launch(name, "tk_adj_residual", dev, farplane.data_ptr(),
+                           data.data_ptr(), scan_int.data_ptr(), near,
+                           scratch.data_ptr(), partial.data_ptr(), carry, t,
+                           s, nz, n, nmodes, nprb, ndet, model_code, g0, g1,
+                           first, last, grid, stride)
 
-    grad = _scan_order(adj_residual, variant, launch, prb, scan_int, t, s,
-                       nz, n, chunk, grid, threads, farplane.device)
+    grad = _scan_order(adj_residual, launch, prb, scan_int, t, s, nz, n,
+                       chunk, grid, threads, farplane.device)
     if t * s == 0:
         partial.zero_()
     adj_residual.variant = variant
     return grad, partial.sum().to(torch.float32)
 
 
-def _fwd_quad_stats_cuda(dpsi, scan_int, prb, fpsi, variant=None,
-                         threads=None):
-    """Launches ``fwd_quad_stats``' kernel; ``variant`` and ``threads`` as
-    in :func:`_grad_fused_cuda`."""
-    t, s, nmodes, ndet = _check_farplane("fwd_quad_stats", fpsi, scan_int,
-                                         prb, "prb", (fpsi.shape[0],
-                                                      fpsi.shape[2]))
-    _, nz, n, _, nprb, _ = _check_inputs("fwd_quad_stats", dpsi, scan_int,
-                                         prb, ndet)
-    variant, defines = _pick_variant("fwd_quad_stats", variant, nprb, ndet,
-                                     nmodes)
-    lib = _lib("fwd_quad_stats", defines)
-    dev = _device_index(fpsi)
+def _fwd_quad_stats_cuda(dpsi, scan_int, prb, fpsi, variant=None):
+    """Launches ``fwd_quad_stats``' kernel; ``variant`` as in
+    :func:`_grad_fused_cuda`."""
+    name = "fwd_quad_stats"
+    t, s, nmodes, ndet = _check_farplane(name, fpsi, scan_int, prb, "prb",
+                                         (fpsi.shape[0], fpsi.shape[2]))
+    _, nz, n, _, nprb, _ = _check_inputs(name, dpsi, scan_int, prb, ndet)
+    variant = _pick_variant(name, variant, nprb, ndet, nmodes)
+    dev = _launch.device_index(fpsi)
     dpsi, prb = dpsi.contiguous(), prb.contiguous()
     fpsi, scan_int = fpsi.contiguous(), scan_int.contiguous()
     a, b, c = torch.empty((3, t, s, ndet, ndet), dtype=torch.float32,
@@ -1459,29 +1148,22 @@ def _fwd_quad_stats_cuda(dpsi, scan_int, prb, fpsi, variant=None,
     if variant == "fft":
         # The materialized solver hands over fwd's output, which PyTorch's
         # allocator aligns.
-        _check_aligned("fwd_quad_stats", fpsi)
-        threads = fft_threads(ndet) if threads is None else threads
-        grid = _fft_grid("fwd_quad_stats", dev, t * s, ndet, 0, False,
-                         threads, defines)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = lib.tk_fwd_quad_stats_fft(
-                dpsi.data_ptr(), prb.data_ptr(), scan_int.data_ptr(),
-                fpsi.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(), t,
-                s, nz, n, nmodes, nprb, ndet, grid, threads, stream)
+        _check_aligned(name, fpsi)
+        grid = _launch.fft_grid(name, dev, t * s, ndet, 0, False)
+        _launch.launch(name, "tk_fwd_quad_stats_fft", dev, dpsi.data_ptr(),
+                       prb.data_ptr(), scan_int.data_ptr(), fpsi.data_ptr(),
+                       a.data_ptr(), b.data_ptr(), c.data_ptr(), t, s, nz, n,
+                       nmodes, nprb, ndet, grid, fft_threads(ndet))
     else:
-        grid = _grid("fwd_quad_stats", dev, t * s, ndet, False,
-                     8 * nprb * ndet)
+        grid = _launch.gemm_grid(name, dev, t * s, ndet, False,
+                                 8 * nprb * ndet)
         scratch = torch.empty(2 * grid * nprb * ndet, dtype=torch.float32,
                               device=fpsi.device)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = lib.tk_fwd_quad_stats(
-                dpsi.data_ptr(), prb.data_ptr(), scan_int.data_ptr(),
-                fpsi.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
-                scratch.data_ptr(), t, s, nz, n, nmodes, nprb, ndet, grid,
-                stream)
-    _check("fwd_quad_stats", err, f"kernel launch ({variant})")
+        _launch.launch(name, "tk_fwd_quad_stats", dev, dpsi.data_ptr(),
+                       prb.data_ptr(), scan_int.data_ptr(), fpsi.data_ptr(),
+                       a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                       scratch.data_ptr(), t, s, nz, n, nmodes, nprb, ndet,
+                       grid)
     fwd_quad_stats.launches += 1
     fwd_quad_stats.variant = variant
     return a, b, c

@@ -24,11 +24,8 @@ H100 (the one pass over the nearplane). ``gather_probe_mul`` launches a
 persistent kernel built to write at that bound: a thread owns fixed pixel
 pairs of the patch (pixels at an odd ``nprb``) for every frame, holds
 their probe values in registers, reads the object 16 bytes a pair where the
-patch corner is aligned and writes with 16-byte streaming stores. The
-one-block-per-frame kernel it replaced stays only for timing the two in
-turns, forced with ``_gather_probe_mul_cuda(..., variant='pixel')``; the
-two write the same bits (``gather_probe_mul.variant`` names the last
-launch's). The TPU kernels' addressing scheme
+patch corner is aligned and writes with 16-byte streaming stores. The TPU
+kernels' addressing scheme
 (aligned power-of-two windows, object padding, sublane/lane rotates, split
 re/im planes) serves Mosaic's alignment rules and is not carried over. The
 kernels take complex64 and int32 only. The two adjoints read their frames
@@ -62,14 +59,11 @@ attribute.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
-from tikejax_torch.ops import fused
+from tikejax_torch.ops import _launch
 from tikejax_torch.ops import patches as _patches
-from tikejax_torch.utils import cuda_build, profiling
+from tikejax_torch.utils import profiling
 
 # adj_probe_reduce cuts the positions of an angle into runs so that about
 # this many blocks are in flight (132 SMs x 8 blocks of 256 threads, twice).
@@ -100,13 +94,12 @@ def gather_probe_mul(psi: torch.Tensor, scan_int: torch.Tensor,
     Returns:
       ``(ntheta, nscan, nmodes, nprb, nprb)`` like ``psi``.
     """
-    if not fused._route("gather_probe_mul", psi):
+    if not _launch.route("gather_probe_mul", psi):
         return gather_probe_mul_reference(psi, scan_int, prb)
     return _gather_probe_mul_cuda(psi, scan_int, prb)
 
 
 gather_probe_mul.launches = 0
-gather_probe_mul.variant = None  # of the last launch: 'persistent' or 'pixel'
 
 
 def gather_probe_mul_reference(psi: torch.Tensor, scan_int: torch.Tensor,
@@ -132,7 +125,7 @@ def scatter_conj_probe(nearplane: torch.Tensor, scan_int: torch.Tensor,
     Returns:
       ``(ntheta, nz, n)`` like ``nearplane``.
     """
-    if not fused._route("scatter_conj_probe", nearplane):
+    if not _launch.route("scatter_conj_probe", nearplane):
         return scatter_conj_probe_reference(nearplane, scan_int, prb, nz, n)
     return _scatter_conj_probe_cuda(nearplane, scan_int, prb, nz, n)
 
@@ -167,7 +160,7 @@ def adj_probe_reduce(nearplane: torch.Tensor, scan_int: torch.Tensor,
     Returns:
       ``(ntheta, nmodes, nprb, nprb)`` like ``nearplane``.
     """
-    if not fused._route("adj_probe_reduce", nearplane):
+    if not _launch.route("adj_probe_reduce", nearplane):
         return adj_probe_reduce_reference(nearplane, scan_int, psi)
     return _adj_probe_reduce_cuda(nearplane, scan_int, psi)
 
@@ -189,54 +182,12 @@ adj_probe_reduce_reference.launches = 0
 
 # -- the CUDA path -------------------------------------------------------
 
-_STRIDES = [ctypes.c_int64] * 4
-_GATHER_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-_SCATTER_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + _STRIDES
-_TILE_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + _STRIDES
-# Argument types of each entry point of a library: pointers, ints (and the
-# frames' four strides), then the stream.
-_ENTRIES = {
-    "gather_probe_mul": {"tk_gather_probe_mul": _GATHER_ARGS,
-                         "tk_gather_probe_mul_pixel": _GATHER_ARGS},
-    "scatter_conj_probe": {
-        # + tiles_y, tiles_x, mode_chunk, from_partial, box_chunks, first
-        "tk_scatter_conj_probe": _TILE_ARGS + [ctypes.c_int] * 6,
-        "tk_scatter_conj_probe_atomic": _SCATTER_ARGS},
-    "adj_probe_reduce": {"tk_adj_probe_reduce": [ctypes.c_void_p] * 5
-                         + [ctypes.c_int] * 7 + _STRIDES},
-}
-
-
-@functools.cache
-def _lib(name: str) -> ctypes.CDLL:
-    lib = cuda_build.load(name)
-    for symbol, argtypes in _ENTRIES[name].items():
-        entry = getattr(lib, symbol)
-        entry.argtypes = argtypes + [ctypes.c_void_p]
-        entry.restype = ctypes.c_int
-    lib.tk_error_string.argtypes = [ctypes.c_int]
-    lib.tk_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _launch(name: str, device_index: int, *args, entry=None) -> None:
-    """Call ``tk_<name>(*args, stream)`` (or the library's ``entry``) on the
-    current stream of the device; raise on a refused launch."""
-    lib = _lib(name)
-    with torch.cuda.device(device_index):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, entry or f"tk_{name}")(*args, stream)
-    if err:
-        raise RuntimeError(f"{name}: kernel launch failed: "
-                           f"{lib.tk_error_string(err).decode()}")
-
-
 def _check_frames(name, nearplane, scan_int, other, other_name):
     """Checks of the adjoints' inputs: ``nearplane`` (t, s, m, p, p) with
     innermost stride 1, ``scan_int`` (t, s, 2) and ``other`` (the probe
     (t, m, p, p) or the object (t, nz, n)); returns (t, s, m, p)."""
     t, s, m, p, p2 = nearplane.shape
-    fused._check_types(name, {"nearplane": (nearplane, torch.complex64),
+    _launch.check_types(name, {"nearplane": (nearplane, torch.complex64),
                               other_name: (other, torch.complex64),
                               "scan_int": (scan_int, torch.int32)})
     lead = (t, m, p, p) if other_name == "prb" else (t,)
@@ -253,29 +204,15 @@ def _check_frames(name, nearplane, scan_int, other, other_name):
     return t, s, m, p
 
 
-def _gather_variant(variant):
-    """The kernel to launch: the persistent one, unless ``'pixel'`` forces
-    the one it replaced; anything else raises before any launch."""
-    if variant is None:
-        return "persistent"
-    if variant != "pixel":
-        raise ValueError(f"gather_probe_mul: unknown variant {variant!r}; "
-                         "expected 'pixel' or None")
-    return variant
-
-
-def _gather_probe_mul_cuda(psi, scan_int, prb, variant=None):
-    """Launches ``gather_probe_mul``'s persistent kernel, or the pixel
-    kernel it replaced when ``variant='pixel'`` forces it (to time the two
-    in turns); both write the same bits."""
+def _gather_probe_mul_cuda(psi, scan_int, prb):
+    """Launches ``gather_probe_mul``'s persistent kernel."""
     name = "gather_probe_mul"
-    variant = _gather_variant(variant)
     t, nz, n = psi.shape
     _, m, p, p2 = prb.shape
     s = scan_int.shape[1]
-    fused._check_types(name, {"psi": (psi, torch.complex64),
-                              "prb": (prb, torch.complex64),
-                              "scan_int": (scan_int, torch.int32)})
+    _launch.check_types(name, {"psi": (psi, torch.complex64),
+                               "prb": (prb, torch.complex64),
+                               "scan_int": (scan_int, torch.int32)})
     if prb.shape[0] != t or p2 != p or scan_int.shape != (t, s, 2):
         raise ValueError(
             f"{name}: inconsistent shapes psi {tuple(psi.shape)}, prb "
@@ -290,12 +227,10 @@ def _gather_probe_mul_cuda(psi, scan_int, prb, variant=None):
     # where the patch corner allows it: only in an aligned object of even
     # row length.
     vec = int(psi.data_ptr() % 16 == 0 and n % 2 == 0)
-    _launch(name, fused._device_index(psi), psi.data_ptr(), prb.data_ptr(),
-            scan_int.data_ptr(), out.data_ptr(), t, s, nz, n, m, p, vec,
-            entry=("tk_gather_probe_mul_pixel" if variant == "pixel"
-                   else None))
+    _launch.launch(name, "tk_gather_probe_mul", _launch.device_index(psi),
+                   psi.data_ptr(), prb.data_ptr(), scan_int.data_ptr(),
+                   out.data_ptr(), t, s, nz, n, m, p, vec)
     gather_probe_mul.launches += 1
-    gather_probe_mul.variant = variant
     return out
 
 
@@ -375,20 +310,6 @@ def _scatter_variant(variant):
     return variant
 
 
-def scatter_blocks_per_sm(device_index: int, nmodes: int = 1) -> int:
-    """Resident blocks per SM of the tile kernel's instantiation for
-    ``nmodes`` modes."""
-    per_sm = ctypes.c_int(0)
-    lib = _lib("scatter_conj_probe")
-    with torch.cuda.device(device_index):
-        err = lib.tk_scatter_conj_probe_blocks_per_sm(
-            scatter_mode_chunk(nmodes), ctypes.byref(per_sm))
-    if err:
-        raise RuntimeError(f"scatter_conj_probe: occupancy query failed: "
-                           f"{lib.tk_error_string(err).decode()}")
-    return per_sm.value
-
-
 def _scatter_conj_probe_cuda(nearplane, scan_int, prb, nz, n, variant=None,
                              out=None, partial=None, from_partial=False,
                              last=True, boxes=None, first=0, skip=True):
@@ -414,10 +335,10 @@ def _scatter_conj_probe_cuda(nearplane, scan_int, prb, nz, n, variant=None,
     if variant == "atomic":
         out = torch.zeros((t, nz, n), dtype=torch.complex64,
                           device=nearplane.device)
-        _launch(name, fused._device_index(nearplane), nearplane.data_ptr(),
-                prb.data_ptr(),
-                scan_int.data_ptr(), out.data_ptr(), t, s, nz, n, m, p,
-                *nearplane.stride()[:4], entry="tk_scatter_conj_probe_atomic")
+        _launch.launch(name, "tk_scatter_conj_probe_atomic",
+                       _launch.device_index(nearplane), nearplane.data_ptr(),
+                       prb.data_ptr(), scan_int.data_ptr(), out.data_ptr(), t,
+                       s, nz, n, m, p, *nearplane.stride()[:4])
         scatter_conj_probe.launches += 1
         scatter_conj_probe.variant = variant
         return out
@@ -459,14 +380,15 @@ def _scatter_conj_probe_cuda(nearplane, scan_int, prb, nz, n, variant=None,
                          f"first={first}, got {tuple(boxes.shape)}")
     if scan_int.data_ptr() % 8:  # read a position (8 bytes) at a time
         scan_int = scan_int.clone()
-    _launch(name, fused._device_index(nearplane), nearplane.data_ptr(),
-            prb.data_ptr(), scan_int.data_ptr(),
-            None if out is None else out.data_ptr(),
-            None if partial is None else partial.data_ptr(),
-            boxes.data_ptr() if skip else None, t, s, nz, n, m,
-            p, *nearplane.stride()[:4], tiles_y, tiles_x,
-            scatter_mode_chunk(m), int(bool(from_partial)),
-            boxes.shape[1], first)
+    _launch.launch(name, "tk_scatter_conj_probe",
+                   _launch.device_index(nearplane), nearplane.data_ptr(),
+                   prb.data_ptr(), scan_int.data_ptr(),
+                   None if out is None else out.data_ptr(),
+                   None if partial is None else partial.data_ptr(),
+                   boxes.data_ptr() if skip else None, t, s, nz, n, m, p,
+                   *nearplane.stride()[:4], tiles_y, tiles_x,
+                   scatter_mode_chunk(m), int(bool(from_partial)),
+                   boxes.shape[1], first)
     scatter_conj_probe.launches += 1
     scatter_conj_probe.variant = variant
     return out if last else partial
@@ -482,16 +404,17 @@ def _adj_probe_reduce_cuda(nearplane, scan_int, psi):
         return out.zero_()
     if t > _MAX_GRID_YZ:
         raise ValueError(f"{name}: at most {_MAX_GRID_YZ} angles, got {t}")
-    per_block = _lib(name).tk_adj_probe_reduce_pixels_per_block()
+    per_block = _launch.constant(name, "tk_adj_probe_reduce_pixels_per_block")
     chunks = -(-p * p // per_block)
     groups = max(1, min(s, _MAX_GRID_YZ, -(-_TARGET_BLOCKS // (chunks * t))))
     groups = -(-s // -(-s // groups))  # no empty run of positions
     acc = torch.empty((groups, t, m, p, p), dtype=torch.complex64,
                       device=nearplane.device)
     psi, scan_int = psi.contiguous(), scan_int.contiguous()
-    _launch(name, fused._device_index(nearplane), nearplane.data_ptr(),
-            psi.data_ptr(), scan_int.data_ptr(), out.data_ptr(),
-            acc.data_ptr(), t, s, nz, n, m, p, groups,
-            *nearplane.stride()[:4])
+    _launch.launch(name, "tk_adj_probe_reduce",
+                   _launch.device_index(nearplane), nearplane.data_ptr(),
+                   psi.data_ptr(), scan_int.data_ptr(), out.data_ptr(),
+                   acc.data_ptr(), t, s, nz, n, m, p, groups,
+                   *nearplane.stride()[:4])
     adj_probe_reduce.launches += 1
     return out

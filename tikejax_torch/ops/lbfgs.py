@@ -29,12 +29,10 @@ of its runs in its ``launches`` attribute.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
-from tikejax_torch.ops import fused
-from tikejax_torch.utils import cuda_build
+from tikejax_torch.ops import _launch
 
 MAX_M = 32  # the largest ring the kernels take (direction='lbfgs:<m>')
 _CHUNK = 4096  # elements a block of the Gram pass sums
@@ -59,7 +57,7 @@ def lbfgs_gram(S: torch.Tensor, Y: torch.Tensor, g: torch.Tensor,
       ``(3, 2m + 3)`` float64, rows ``(g, s, y)`` against
       ``(S_0..S_{m-1}, Y_0..Y_{m-1}, g, s, y)``.
     """
-    if not fused._route("lbfgs_gram", S):
+    if not _launch.route("lbfgs_gram", S):
         return lbfgs_gram_reference(S, Y, g, g_prev, d_prev, gamma, rows)
     return _lbfgs_gram_cuda(S, Y, g, g_prev, d_prev, gamma, rows)
 
@@ -97,7 +95,7 @@ def lbfgs_combine(S: torch.Tensor, Y: torch.Tensor, g, g_prev, d_prev,
     ``Y[slot]`` and enters the sum there (``g_prev`` and ``d_prev`` are not
     read otherwise). ``a`` and ``b`` are m host floats by slot; a slot whose
     two coefficients are 0 is not read."""
-    if not fused._route("lbfgs_combine", S):
+    if not _launch.route("lbfgs_combine", S):
         return lbfgs_combine_reference(S, Y, g, g_prev, d_prev, gamma, slot,
                                        c_g, a, b)
     return _lbfgs_combine_cuda(S, Y, g, g_prev, d_prev, gamma, slot, c_g, a,
@@ -131,36 +129,6 @@ lbfgs_combine_reference.launches = 0
 
 # -- the CUDA path -------------------------------------------------------
 
-_ENTRIES = {
-    "tk_lbfgs_gram": [ctypes.c_void_p] * 5 + [ctypes.c_double]
-    + [ctypes.c_void_p] * 2 + [ctypes.c_int64] * 3 + [ctypes.c_int] * 3,
-    "tk_lbfgs_combine": [ctypes.c_void_p] * 6 + [ctypes.c_double] * 2
-    + [ctypes.c_void_p] * 2 + [ctypes.c_int64] + [ctypes.c_int] * 4,
-}
-
-
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = cuda_build.load("lbfgs")
-    for symbol, argtypes in _ENTRIES.items():
-        entry = getattr(lib, symbol)
-        entry.argtypes = argtypes + [ctypes.c_void_p]
-        entry.restype = ctypes.c_int
-    lib.tk_error_string.argtypes = [ctypes.c_int]
-    lib.tk_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _launch(name: str, symbol: str, device_index: int, *args) -> None:
-    lib = _lib()
-    with torch.cuda.device(device_index):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, symbol)(*args, stream)
-    if err:
-        raise RuntimeError(f"{name}: kernel launch failed: "
-                           f"{lib.tk_error_string(err).decode()}")
-
-
 def _check(name: str, S, Y, others) -> bool:
     """Checks of the kernels' inputs; True for complex128."""
     if S.dtype not in (torch.complex64, torch.complex128):
@@ -168,7 +136,7 @@ def _check(name: str, S, Y, others) -> bool:
                         f"complex128, got {S.dtype}")
     expect = {"S": (S, S.dtype), "Y": (Y, S.dtype)}
     expect.update({k: (v, S.dtype) for k, v in others.items()})
-    fused._check_types(name, expect)
+    _launch.check_types(name, expect)
     m = S.shape[0]
     if not 1 <= m <= MAX_M or Y.shape != S.shape:
         raise ValueError(f"{name}: rings of 1 to {MAX_M} slots of one "
@@ -205,10 +173,11 @@ def _lbfgs_gram_cuda(S, Y, g, g_prev, d_prev, gamma, rows):
     partial = torch.empty(outputs * chunks, dtype=torch.float64,
                           device=S.device)
     out = torch.empty(outputs, dtype=torch.float64, device=S.device)
-    _launch(name, "tk_lbfgs_gram", fused._device_index(S), S.data_ptr(),
-            Y.data_ptr(), g.data_ptr(), g_prev.data_ptr(), d_prev.data_ptr(),
-            float(gamma), partial.data_ptr(), out.data_ptr(), S[0].numel(),
-            plane, owned, chunk, m, int(wide))
+    _launch.launch("lbfgs", "tk_lbfgs_gram", _launch.device_index(S),
+                   S.data_ptr(), Y.data_ptr(), g.data_ptr(), g_prev.data_ptr(),
+                   d_prev.data_ptr(), float(gamma), partial.data_ptr(),
+                   out.data_ptr(), S[0].numel(), plane, owned, chunk, m,
+                   int(wide))
     lbfgs_gram.launches += 1
     return out.view(3, 2 * m + 3)
 
@@ -226,16 +195,13 @@ def _lbfgs_combine_cuda(S, Y, g, g_prev, d_prev, gamma, slot, c_g, a, b):
     n = g.numel()
     out = torch.empty_like(g)
     coeffs = ctypes.c_double * m
-    grid = max(1, min(-(-n // _THREADS), 8 * _sms(fused._device_index(g))))
+    dev = _launch.device_index(S)
+    grid = max(1, min(-(-n // _THREADS), 8 * _launch.sms(dev)))
     ptr = (lambda x: x.data_ptr()) if slot >= 0 else (lambda x: None)
-    _launch(name, "tk_lbfgs_combine", fused._device_index(S), S.data_ptr(),
-            Y.data_ptr(), g.data_ptr(), ptr(g_prev), ptr(d_prev),
-            out.data_ptr(), float(gamma), float(c_g), coeffs(*a), coeffs(*b),
-            n, m, slot, int(wide), grid)
+    _launch.launch("lbfgs", "tk_lbfgs_combine", dev, S.data_ptr(),
+                   Y.data_ptr(), g.data_ptr(), ptr(g_prev), ptr(d_prev),
+                   out.data_ptr(), float(gamma), float(c_g), coeffs(*a),
+                   coeffs(*b), n, m, slot, int(wide), grid)
     lbfgs_combine.launches += 1
     return out
 
-
-@functools.cache
-def _sms(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
