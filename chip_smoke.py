@@ -86,7 +86,11 @@ is caught):
                   scratch, masked and out-of-bounds positions in the scan,
                   the objective minf_fused's, then timed in turns (the
                   whole call and the frame kernels alone) beside the
-                  bound;
+                  bound; minf_fused's two FFT bodies likewise: the same
+                  objective, and grad_fused's, for both models, without
+                  and with a base, with and without the data prefetch,
+                  then in turns at 16384 and at 4096 positions (the joint
+                  cell's launch) beside the bound, and each kernel alone;
                   the 'fft' fwd
                   farplane, adj, adj_probe, adj_residual and grad_fused at
                   64^2 and 128^2, 1 and 4 modes, against a complex128
@@ -148,7 +152,8 @@ is caught):
                   adj_residual in scan order as in phase 3; then
                   reconstruct at a cut depth: the frameless Anderson
                   safeguard must launch
-                  minf_fused twice per step, the residual must fall, and
+                  minf_fused twice per step (on its shared-memory body,
+                  which 4 modes pick), the residual must fall, and
                   peak extra memory must stay below one base farplane plus
                   1.5 GiB;
  11. joint     -- BASELINE config 3 (512^2 object, 4096 positions, 128^2
@@ -159,7 +164,8 @@ is caught):
                   complex scale that the joint objective cannot fix) must
                   fall,
                   grad_fused and grad_prb_fused must launch once an
-                  iteration and minf_fused once a candidate, all three on
+                  iteration and minf_fused once a candidate (every launch
+                  on its fused body; so in phase joint-deep), all three on
                   their 'fft' variant, and peak extra
                   memory must stay below 256 MiB (frameless); then two
                   runs of 8 iterations must give the same psi, prb and
@@ -283,7 +289,8 @@ HEADLINE_ENTRIES = {
     # grad_fused's FFT variant at the headline: its fused body.
     "grad_fused": ("grad_fused_regs_kernelILb0ELb1E",
                    "grad_fused_kernelILb0"),
-    "minf_fused": ("minf_fused_fft_kernelILi128ELi1024ELb0",
+    # minf_fused's likewise: its fused body, with the data prefetch.
+    "minf_fused": ("minf_fused_regs_kernelILb0ELb1E",
                    "minf_fused_kernelILb0"),
     "grad_prb_fused": ("grad_prb_fused_fft_kernelILi128ELi1024EE",
                        "grad_prb_fused_kernelE"),
@@ -725,6 +732,89 @@ def grad_fused_bodies(torch, fused, timer, g, psi, data, scan_i, prb, base,
         + f"; the operator's bound {bound_ms:.3f} ms ("
         f"{100 * bound_ms / turns['no base'][0]:.1f}% of it reached, smem "
         f"{100 * bound_ms / turns['no base'][1]:.1f}%); on {card}")
+    return turns
+
+
+def minf_fused_bodies(torch, fused, timer, g, psi, data, scan_i, prb, base,
+                      card):
+    """minf_fused's two FFT bodies at the headline (one mode, 128^2): the
+    fused one that the shapes pick and the shared-memory one forced with
+    ``variant='fft_smem'``. The same objective bit for bit, and grad_fused's
+    on its fused body, for both likelihoods, without and with a base, with
+    the data prefetch (all the positions) and without it (an unaligned copy
+    of the first CONFIG3_FRAMES positions' data), on a scan with masked and
+    out-of-bounds positions; then the two in turns at all the positions and
+    at the first CONFIG3_FRAMES (the joint cell's launch), without and with
+    a base, beside the operator's bound, and each kernel alone under the
+    profiler without a base. Returns {case: (fused ms, shared-memory ms,
+    bound ms)}."""
+    odd = scan_i.clone()
+    odd[0, 5, 0] = -1        # a masked dummy
+    odd[0, 11, 1] = g.n      # a window past the right edge
+    odd[0, 17, 0] = g.nz     # and one past the bottom
+    few = CONFIG3_FRAMES
+    store = torch.empty(g.ntheta * few * g.ndet**2 + 1, dtype=data.dtype,
+                        device=data.device)
+    unaligned = store[1:].view(g.ntheta, few, g.ndet, g.ndet)
+    unaligned.copy_(data[:, :few])
+    check(not fused._fft_prefetch(1, unaligned), "aligned copy")
+    for model in ("gaussian", "poisson"):
+        for b in (None, base):
+            for dat, sc, bb in (
+                    (data, odd, b),
+                    (unaligned, odd[:, :few], None if b is None
+                     else b[:, :few])):
+                got = fused._minf_fused_cuda(psi, dat, sc, prb, g.ndet, model,
+                                             bb)
+                check(fused.minf_fused.body == "fft_regs",
+                      fused.minf_fused.body)
+                old = fused._minf_fused_cuda(psi, dat, sc, prb, g.ndet, model,
+                                             bb, variant="fft_smem")
+                check(fused.minf_fused.body == "fft_smem",
+                      fused.minf_fused.body)
+                f_g = fused._grad_fused_cuda(psi, dat, sc, prb, g.ndet,
+                                             model, bb)[1]
+                check(float(got) == float(old) == float(f_g),
+                      ("minf_fused's bodies differ", model, b is not None,
+                       dat is data, float(got), float(old), float(f_g)))
+    del store, unaligned
+    turns, alone = {}, {}
+    for frames in (g.nscan, few):
+        sc, dat = scan_i[:, :frames], data[:, :frames]
+        for case, b in (("no base", None), ("base", base)):
+            bb = None if b is None else b[:, :frames]
+            args = (psi, dat, sc, prb, g.ndet, "gaussian", bb)
+            new_ms, old_ms = in_turns_ms(
+                torch, timer, f"minf_fused bodies {frames} {case}",
+                lambda: fused._minf_fused_cuda(*args),
+                lambda: fused._minf_fused_cuda(*args, variant="fft_smem"))
+            moved = nbytes(psi, prb, dat, sc) + 4 + (
+                0 if bb is None else nbytes(bb))
+            turns[f"{frames} frames, {case}"] = (
+                new_ms, old_ms,
+                bound(fft_flops(sc, g.nmodes, g.ndet, 1), moved)[0])
+        args = (psi, dat, sc, prb, g.ndet, "gaussian", None)
+        for body, variant, kernel in (
+                ("fft_regs", None, "minf_fused_regs_kernel"),
+                ("fft_smem", "fft_smem", "minf_fused_fft_kernel")):
+            _, _, top = device_busy(torch, lambda: [
+                fused._minf_fused_cuda(*args, variant=variant)
+                for _ in range(5)])
+            alone[frames, body] = sum(ms for k, ms in top.items()
+                                      if kernel in k) / 5
+        turns[f"{frames} frames, kernel alone"] = (
+            alone[frames, "fft_regs"], alone[frames, "fft_smem"],
+            turns[f"{frames} frames, no base"][2])
+    log("kernel", f"minf_fused's two FFT bodies at {g}: the fused body's "
+        "objective equals the forced shared-memory body's and grad_fused's "
+        "bit for bit (gaussian and poisson, without and with a base, with "
+        f"the data prefetch and without it on {few} positions, masked and "
+        "out-of-bounds positions in the scan); in turns (5 back-to-back "
+        "calls each, smem, fused, fused, smem): " + ", ".join(
+            f"{k} {new:.3f} / smem {old:.3f} ms ({new / old:.3f}x; bound "
+            f"{bnd:.3f} ms, {100 * bnd / new:.1f}% of it reached, smem "
+            f"{100 * bnd / old:.1f}%)" for k, (new, old, bnd) in turns.items())
+        + f"; on {card}")
     return turns
 
 
@@ -1180,10 +1270,11 @@ def kernel_counters():
              lbfgs.lbfgs_gram_reference, lbfgs.lbfgs_combine_reference])
 
 
-def body_delta(fused, before) -> dict:
-    """grad_fused's frame-kernel launches by body since ``before`` (a copy
-    of ``grad_fused.body_launches``), the bodies that ran only."""
-    return {k: v - before[k] for k, v in fused.grad_fused.body_launches.items()
+def body_delta(kernel, before) -> dict:
+    """The launches of ``kernel`` (``fused.grad_fused``'s frame kernel or
+    ``fused.minf_fused``) by body since ``before`` (a copy of its
+    ``body_launches``), the bodies that ran only."""
+    return {k: v - before[k] for k, v in kernel.body_launches.items()
             if v != before[k]}
 
 
@@ -2111,6 +2202,8 @@ def main() -> None:
     body_turns = grad_fused_bodies(torch, fused, timer, g, psi_r, data,
                                    scan_i, prb, base,
                                    bounds["grad_fused"][0], card)
+    minf_turns = minf_fused_bodies(torch, fused, timer, g, psi_r, data,
+                                   scan_i, prb, base, card)
     # The 'fft' operators against a complex128 oracle on the card: the
     # reference's operator accuracy is ~4e-7 for its fused_hp tier (~8e-6
     # for fused_mp / fused_mx), and every fused tier maps to these kernels,
@@ -2368,7 +2461,7 @@ def main() -> None:
     check(all(fn.launches == 0 for fn in plain), "plain version ran")
     check(main_launches == m["evaluations"] * main_chunks > 0,
           (main_launches, m["evaluations"], main_chunks))
-    main_bodies = body_delta(fused, bodies)
+    main_bodies = body_delta(fused.grad_fused, bodies)
     check(main_bodies == {"fft_regs": main_launches}, main_bodies)
     iters = int(m["iters_run"])
     minf = m["minf"][:iters].cpu()
@@ -2439,7 +2532,7 @@ def main() -> None:
     check(res_end <= DEEP_TARGET, f"deep residual {res_end:.4e} > "
           f"{DEEP_TARGET:g} after {len(stages)} stages")
     check(deep["grad_fused"] == evals * main_chunks > 0, (deep, evals))
-    deep_bodies = body_delta(fused, bodies)
+    deep_bodies = body_delta(fused.grad_fused, bodies)
     check(deep_bodies == {"fft_regs": deep["grad_fused"]}, deep_bodies)
     check(fused.grad_fused.variant == "fft", fused.grad_fused.variant)
     # The reuse safeguard: the first two segments freeze their base, then
@@ -2689,6 +2782,7 @@ def main() -> None:
             f"{k} {e:.2e}" for k, e in order4.items())
         + f" of scale with their objectives bit for bit; on {card}")
     held = reset_counts()
+    minf_bodies = dict(fused.minf_fused.body_launches)
     t0 = time.perf_counter()
     psi4, _, st4 = reconstruct(data4, psi4, scan4, prb4, g4,
                                target_residual=DEEP_TARGET, **FRAMELESS_KW)
@@ -2705,6 +2799,11 @@ def main() -> None:
     check(bool(torch.isfinite(psi4).all()), "psi finiteness")
     check(n_split >= 2 and frameless["minf_fused"] == 2 * (n_split - 1),
           (frameless, n_split))
+    # Every minf_fused launch on the body its shapes pick: at 4 modes the
+    # shared-memory one.
+    frameless_minf = body_delta(fused.minf_fused, minf_bodies)
+    check(frameless_minf == {fused.fft_body(g4.ndet, g4.nmodes):
+                             frameless["minf_fused"]}, frameless_minf)
     check(frameless["fwd"] == n_split and frameless["grad_fused"]
           == evals * frame_launches(fused, *shape(g4)),
           (frameless, n_split, evals))
@@ -2715,8 +2814,8 @@ def main() -> None:
         f"{seconds:.3f} s, {sum(int(mm['iters_run']) for _, mm in st4)} "
         f"iters in {len(st4)} stages, residual {res_start:.4e} -> "
         f"{res_end:.4e}, base farplane {base_bytes / 2**30:.2f} GiB, peak "
-        f"extra memory {peak / 2**30:.3f} GiB, launches {frameless}, on "
-        f"{card}")
+        f"extra memory {peak / 2**30:.3f} GiB, launches {frameless} "
+        f"(minf_fused by body {frameless_minf}), on {card}")
 
     del psi4, st4, data4, scan4, prb4
 
@@ -2745,6 +2844,7 @@ def main() -> None:
     run(data3, psi3, scan3, prb3_p, g3, piter=2, model="poisson",
         recover_prb=True)  # warm-up
     held = reset_counts()
+    minf_bodies = dict(fused.minf_fused.body_launches)
     t0 = time.perf_counter()
     psi, prb_j, m = run(data3, psi3, scan3, prb3_p, g3, piter=JOINT_ITERS,
                         model="poisson", recover_prb=True)
@@ -2764,6 +2864,9 @@ def main() -> None:
     check(joint["grad_fused"] == joint["grad_prb_fused"] == iters > 0, joint)
     check(joint["minf_fused"] == m["evaluations"] - 2 * iters > 0,
           (joint, m["evaluations"]))
+    # 128^2, one mode: every candidate on minf_fused's fused body.
+    joint_minf = body_delta(fused.minf_fused, minf_bodies)
+    check(joint_minf == {"fft_regs": joint["minf_fused"]}, joint_minf)
     check(peak < JOINT_PEAK + fused.FRAME_SCRATCH_BYTES,
           f"peak extra memory {peak} bytes")
     check(fused.grad_fused.variant == fused.minf_fused.variant
@@ -2778,7 +2881,8 @@ def main() -> None:
         f"{float(res[0]):.4e} -> {float(res[-1]):.4e}, probe error "
         f"{err0:.4e} -> {probe_err(prb_j):.4e} (raw {raw_err(prb3_p):.4e} "
         f"-> {raw_err(prb_j):.4e}), peak extra memory "
-        f"{peak / 2**20:.1f} MiB, launches {joint}, on {card}")
+        f"{peak / 2**20:.1f} MiB, launches {joint} (minf_fused by body "
+        f"{joint_minf}), on {card}")
     del psi, prb_j, m
     # The joint Poisson search amplifies any difference of rounding; with
     # every object scatter in scan order two one-rank runs on the default
@@ -2892,6 +2996,7 @@ def main() -> None:
 
     # -- 14. joint-deep: reconstruct(recover_prb=True) to 1e-6 --------------
     held = reset_counts()
+    minf_bodies = dict(fused.minf_fused.body_launches)
     t0 = time.perf_counter()
     psi, prb_d, stages = reconstruct(data3, psi3, scan3, prb3_p, g3,
                                      target_residual=DEEP_TARGET,
@@ -2917,6 +3022,8 @@ def main() -> None:
     check(names[0] == "fused:joint"
           and names[1:5] == ["fused_hp:joint"] * 4, names)
     check(jdeep["grad_prb_fused"] == joint_iters > 0, (jdeep, joint_iters))
+    jdeep_minf = body_delta(fused.minf_fused, minf_bodies)
+    check(jdeep_minf == {"fft_regs": jdeep["minf_fused"]}, jdeep_minf)
     check(probe_err(prb_d) < err0, (probe_err(prb_d), err0))
     log("joint-deep", f"{g3} gaussian, reconstruct(recover_prb=True, "
         f"target_residual={DEEP_TARGET:g}, max_segments="
@@ -3328,6 +3435,10 @@ def main() -> None:
         **({"body": "fft_regs", "fft_smem_ms": body_turns["no base"][1],
             "bodies_in_turns_ms": body_turns}
            if name == "grad_fused" else {}),
+        **({"body": "fft_regs",
+            "fft_smem_ms": minf_turns[f"{g.nscan} frames, no base"][1],
+            "bodies_in_turns_ms": minf_turns}
+           if name == "minf_fused" else {}),
         **({"atomic_ms": scan_order_atomic_ms[name]}
            if name in scan_order_atomic_ms else {}),
         **({"compact_plain_ms": {k: v[0] for k, v in lb_compact[name].items()}}

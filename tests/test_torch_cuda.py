@@ -29,11 +29,12 @@ at the reference's ``fused_hp`` operator bound (~4e-7).
 each: ``GEOMS`` runs their ``'gemm'`` variant (but for its 32^2 detector),
 ``POW2_GEOMS`` their ``'fft'`` variant, and one shape runs both, forced
 through the private wrappers' ``variant`` argument (``ADJ_GEOMS`` both of
-``adj``'s). ``grad_fused``'s ``'fft'`` variant has two bodies: at 128^2
-with one mode the fused one runs, held bit for bit to the shared-memory
-one forced with ``variant='fft_smem'`` (``REGS_GEOMS``). On ``'fft'`` the
-farplane ``fwd`` stores is bit for bit the one ``minf_fused`` forms inside,
-``fwd_quad_stats`` of a direction on its own farplane gives
+``adj``'s). The ``'fft'`` variants of ``grad_fused`` and ``minf_fused``
+have two bodies each: at 128^2 with one mode the fused one runs, held bit
+for bit to the shared-memory one forced with ``variant='fft_smem'``
+(``REGS_GEOMS``), and the two kernels' objectives to each other. On
+``'fft'`` the farplane ``fwd`` stores is bit for bit the one ``minf_fused``
+forms inside, ``fwd_quad_stats`` of a direction on its own farplane gives
 ``a == b == c`` bit for bit, and ``fwd`` and ``adj`` are a pair to 1e-5.
 ``ls_objectives`` launches its frame-major kernel and ``gather_probe_mul``
 its persistent kernel. Where the measured frames are not 16-byte aligned
@@ -638,9 +639,41 @@ def test_fused_body_objective_is_minf_fused_bit_for_bit(dev, model,
     assert fused.grad_fused.body == "fft_regs"
     f_m = fused.minf_fused(*args, g.ndet, model, base=base)
     assert fused.minf_fused.variant == "fft" and float(f_m) == float(f_g)
+    assert fused.minf_fused.body == "fft_regs"
     if base is None:
         assert float(fused.grad_prb_fused(*args, g.ndet, model)[1]) == float(
             f_g)
+
+
+@pytest.mark.parametrize("with_base", [False, True])
+@pytest.mark.parametrize("model", ["gaussian", "poisson"])
+@pytest.mark.parametrize("g", REGS_GEOMS, ids=str)
+def test_minf_fused_body_is_the_shared_memory_body_bit_for_bit(dev, g, model,
+                                                               with_base):
+    """minf_fused's fused body gives the objective of its forced
+    shared-memory body and of grad_fused's fused body bit for bit, with the
+    data prefetch and, on unaligned data, without it; each launch counts in
+    its body."""
+    psi, data, scan_i, prb = regs_inputs(g, dev)
+    base = base_for(g, dev) if with_base else None
+    for prefetch in (True, False):
+        args = (psi, data if prefetch else unaligned(data), scan_i, prb)
+        assert fused._fft_prefetch(1, args[1]) == prefetch
+        counts = dict(fused.minf_fused.body_launches)
+        f_n = fused._minf_fused_cuda(*args, g.ndet, model, base)
+        assert (fused.minf_fused.variant, fused.minf_fused.body) == (
+            "fft", "fft_regs")
+        f_o = fused._minf_fused_cuda(*args, g.ndet, model, base,
+                                     variant="fft_smem")
+        assert (fused.minf_fused.variant, fused.minf_fused.body) == (
+            "fft", "fft_smem")
+        assert {k: v - counts[k]
+                for k, v in fused.minf_fused.body_launches.items()} == {
+            "fft_regs": 1, "fft_smem": 1, "gemm": 0}
+        f_g = fused._grad_fused_cuda(*args, g.ndet, model, base)[1]
+        assert fused.grad_fused.body == "fft_regs"
+        assert bool(torch.isfinite(f_n)) and float(f_n) != 0.0
+        assert float(f_n) == float(f_o) == float(f_g)
 
 
 @pytest.mark.parametrize("g", POW2_GEOMS, ids=str)

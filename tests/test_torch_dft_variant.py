@@ -108,8 +108,8 @@ def test_grad_fused_body_is_a_function_of_the_shapes(ndet, nmodes, body):
     assert fused.fft_body(ndet, nmodes) == body
     for nprb in (ndet, ndet - 4, 1):
         for variant in (None, "fft"):
-            assert fused._pick_body(variant, nprb, ndet, nmodes) == (
-                "fft", body)
+            assert fused._pick_body("grad_fused", variant, nprb, ndet,
+                                    nmodes) == ("fft", body)
 
 
 @pytest.mark.parametrize("variant, expect", [
@@ -121,13 +121,72 @@ def test_shared_memory_body_runs_at_128_only_when_forced(variant, expect):
     atomic kernel, the 'gemm' variant) runs only when the caller forces it;
     'fft_smem' off the FFT sizes raises before any launch, as a forced
     'fft' does."""
-    assert fused._pick_body(variant, 128, 128, 1) == expect
-    assert fused._pick_body(None, 100, 130, 1) == ("gemm", "gemm")
+    assert fused._pick_body("grad_fused", variant, 128, 128, 1) == expect
+    assert fused._pick_body("grad_fused", None, 100, 130, 1) == ("gemm",
+                                                                 "gemm")
     with pytest.raises(ValueError, match="'fft' variant takes ndet"):
-        fused._pick_body(variant if variant != "gemm" else "fft_smem", 56,
+        fused._pick_body("grad_fused",
+                         variant if variant != "gemm" else "fft_smem", 56,
                          72, 1)
     assert set(fused.grad_fused.body_launches) == {
         "fft_regs", "fft_smem", "gemm", "atomic"}
+
+
+@pytest.mark.parametrize("ndet, nmodes, body", [
+    (128, 1, "fft_regs"), (128, 2, "fft_smem"), (128, 4, "fft_smem"),
+    (64, 1, "fft_smem"), (32, 3, "fft_smem"), (16, 1, "fft_smem")])
+def test_minf_fused_body_is_grad_fuseds(ndet, nmodes, body):
+    """minf_fused picks its FFT body by the rule grad_fused's follows (the
+    line search compares their objectives, which the two bodies keep equal
+    bit for bit): the fused body at 128 with one mode, the shared-memory
+    body at every other FFT shape, whatever the probe's side."""
+    for nprb in (ndet, ndet - 4, 1):
+        for variant in (None, "fft"):
+            assert fused._pick_body("minf_fused", variant, nprb, ndet,
+                                    nmodes) == ("fft", body)
+
+
+@pytest.mark.parametrize("variant, expect", [
+    (None, ("fft", "fft_regs")),
+    ("fft", ("fft", "fft_regs")),
+    ("fft_smem", ("fft", "fft_smem")),
+    ("gemm", ("gemm", "gemm"))])
+def test_minf_fused_shared_memory_body_runs_at_128_only_when_forced(
+        variant, expect):
+    """At 128^2 with one mode minf_fused runs its shared-memory body only
+    when the caller forces it, and 'gemm' only when forced; off the FFT
+    sizes 'gemm' runs and a forced 'fft_smem' raises before any launch.
+    grad_fused's one-pass atomic kernel has no minf_fused counterpart. Each
+    launch counts in one of the three bodies."""
+    assert fused._pick_body("minf_fused", variant, 128, 128, 1) == expect
+    assert fused._pick_body("minf_fused", None, 100, 130, 1) == ("gemm",
+                                                                 "gemm")
+    with pytest.raises(ValueError, match="minf_fused: the 'fft' variant"):
+        fused._pick_body("minf_fused", "fft_smem", 56, 72, 1)
+    with pytest.raises(ValueError, match="unknown variant 'atomic'"):
+        fused._pick_body("minf_fused", "atomic", 128, 128, 1)
+    assert set(fused.minf_fused.body_launches) == {
+        "fft_regs", "fft_smem", "gemm"}
+
+
+def test_minf_fused_on_cpu_counts_no_body():
+    """On CPU tensors at the fused body's shapes minf_fused runs its plain
+    version: no launch, no body recorded, no body counted."""
+    g = Geometry(nz=140, n=140, nscan=3, ndet=128, nprb=16)
+    assert fused.fft_body(g.ndet, g.nmodes) == "fft_regs"
+    gen = torch.Generator().manual_seed(4)
+    _, scan, prb, data = make_problem(gen, g, device="cpu")
+    psi = torch.ones(g.psi_shape, dtype=torch.complex64)
+    before = (dict(fused.minf_fused.body_launches), fused.minf_fused.body,
+              fused.minf_fused.launches,
+              fused.minf_fused_reference.launches)
+    minf = fused.minf_fused(psi, data, scan_to_int(scan), prb, g.ndet,
+                            "poisson")
+    assert bool(torch.isfinite(minf))
+    assert (dict(fused.minf_fused.body_launches), fused.minf_fused.body,
+            fused.minf_fused.launches,
+            fused.minf_fused_reference.launches) == before[:3] + (
+        before[3] + 1,)
 
 
 @pytest.mark.parametrize("name", ["fwd", "adj_residual", "fwd_quad_stats",

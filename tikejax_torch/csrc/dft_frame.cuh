@@ -841,6 +841,12 @@ __device__ void fft_weighted_mode(float2* fr, const float* plane,
 // is kept swizzled (fft_staged_index) so that a warp's 32 reads fall on 32
 // banks. What streams through once -- the measured frame, the crop -- is
 // tagged to leave the L2 first (l2_evict_first, __stcs).
+//
+// minf_fused.cu minf_fused_regs_kernel runs the forward half alone: the
+// forward row pass, the forward column pass's first stage, then a
+// forward-only column step (fft_col_forward: the second stage and the
+// likelihood on a thread's 16 points, nothing written back). Six one-way
+// sweeps a frame and three block barriers.
 
 // Frequency v of the column task of thread slot rho (0..127) in the fused
 // column step.
@@ -971,6 +977,26 @@ __device__ __forceinline__ void fft_col_fused(float2* fr, const float2* tw,
     const int j2 = fft_bitrev<4>(i);
     col[(16 * k1 + j2) * kP] = cmul(w[i], conjf2(tw[j2 * k1]));
   }
+}
+
+// One column task of the forward-only step (minf_fused.cu
+// minf_fused_regs_kernel): fft_col_fused's first half. The forward column
+// pass's second stage on column c's positions 16 k1 .. 16 k1 + 15, then
+// visit(j, z) on each of its points -- z the farplane pixel of frequency
+// u = k1 + 8 j, in the order j = 0..15 -- and nothing written back: the
+// same arithmetic as fft_lines_forward's second stage. Needs a barrier
+// before it, and one after it before the frame is overwritten.
+template <class Visit>
+__device__ __forceinline__ void fft_col_forward(const float2* fr, int c,
+                                                int k1, Visit visit) {
+  constexpr int kP = FftFrame<128>::pitch;
+  const float2* col = fr + fft_col(c);
+  float2 v[16];
+#pragma unroll
+  for (int j2 = 0; j2 < 16; ++j2) v[j2] = col[(16 * k1 + j2) * kP];
+  fft_regs<16, false>(v);
+#pragma unroll
+  for (int j = 0; j < 16; ++j) visit(j, v[fft_bitrev<4>(j)]);
 }
 
 // The inverse row pass of rows y < p, its crop stored from registers into

@@ -89,11 +89,13 @@ ENTRIES = {
         "tk_lbfgs_combine": [_P] * 6 + [_D] * 2 + [_P] * 2 + [_L]
         + [_I] * 4},
 }
-# The forced one-pass kernels with fp32 atomics, and grad_fused's fused body.
-ENTRIES["grad_fused"].update({
-    "tk_grad_fused_atomic_fft": [_P] * 6 + [_I] * 11,
-    "tk_grad_fused_fft_regs": _FFT["grad_fused"],
-    "tk_grad_fused_fft_regs_blocks_per_sm": _FFT_BLOCKS})
+# The forced one-pass kernels with fp32 atomics, and the fused bodies of
+# grad_fused and minf_fused (REGS_BODIES).
+ENTRIES["grad_fused"]["tk_grad_fused_atomic_fft"] = [_P] * 6 + [_I] * 11
+REGS_BODIES = ("grad_fused", "minf_fused")
+for _name in REGS_BODIES:
+    ENTRIES[_name].update({f"tk_{_name}_fft_regs": _FFT[_name],
+                           f"tk_{_name}_fft_regs_blocks_per_sm": _FFT_BLOCKS})
 ENTRIES["adj_residual"]["tk_adj_residual_atomic_fft"] = [_P] * 6 + [_I] * 10
 ENTRIES["adj"]["tk_adj_atomic_fft"] = [_P] * 4 + [_I] * 9
 
@@ -168,9 +170,10 @@ def fft_threads(ndet: int) -> int:
 
 def fft_entry(name: str, body: str = "fft_smem") -> str:
     """The C entry point of the FFT variant of ``name``; ``body='fft_regs'``
-    names ``grad_fused``'s fused body (``fused.fft_body``), the other
-    kernels have one body."""
-    regs = name == "grad_fused" and body == "fft_regs"
+    names the fused body of ``grad_fused`` or ``minf_fused``
+    (:data:`REGS_BODIES`, ``fused.fft_body``), the other kernels have one
+    body."""
+    regs = name in REGS_BODIES and body == "fft_regs"
     return f"tk_{name}_fft_regs" if regs else f"tk_{name}_fft"
 
 
@@ -186,8 +189,9 @@ def fft_launch_config(name: str, device_index: int, ndet: int,
     with :func:`fft_threads` threads, with ``planes`` (0 or 1) float planes
     beside the frame (one with several modes, or with one mode and the data
     prefetch of the first three; ``fwd``, ``adj``, ``adj_probe`` and
-    ``fwd_quad_stats`` have none); ``body='fft_regs'`` asks for
-    ``grad_fused``'s fused body; raises for a side without a kernel."""
+    ``fwd_quad_stats`` have none); ``body='fft_regs'`` asks for the fused
+    body of ``grad_fused`` or ``minf_fused``; raises for a side without a
+    kernel."""
     threads = fft_threads(ndet)
     per_sm, smem = ctypes.c_int(0), ctypes.c_int(0)
     query = getattr(lib(name, defines),

@@ -284,12 +284,14 @@ def dft_variant(nprb: int, ndet: int, nmodes: int) -> str:
 
 
 def fft_body(ndet: int, nmodes: int) -> str:
-    """Which body of its ``'fft'`` variant ``grad_fused`` launches:
-    ``'fft_regs'`` (the forward column pass, the likelihood and the inverse
-    column pass fused in registers, 12 sweeps of the frame through shared
-    memory) at ``ndet`` 128 with one mode, ``'fft_smem'`` (the whole frame
-    transformed stage by stage in shared memory) at every other FFT size.
-    The two give the same bits. A pure function of the shapes."""
+    """Which body of their ``'fft'`` variant ``grad_fused`` and
+    ``minf_fused`` launch: ``'fft_regs'`` (the column pass's second stage
+    and the likelihood -- for ``grad_fused`` also the inverse column pass
+    -- fused in registers: 12 sweeps of the frame through shared memory,
+    ``minf_fused`` 6) at ``ndet`` 128 with one mode, ``'fft_smem'`` (the
+    whole frame transformed stage by stage in shared memory) at every other
+    FFT size, with or without a base or the data prefetch. The two give the
+    same bits. A pure function of the shapes."""
     return "fft_regs" if ndet == 128 and nmodes == 1 else "fft_smem"
 
 
@@ -309,15 +311,20 @@ def _pick_variant(name, variant, nprb, ndet, nmodes):
     return variant
 
 
-def _pick_body(variant, nprb, ndet, nmodes):
-    """(variant, body) of a ``grad_fused`` launch: the body is
-    :func:`fft_body`'s on the ``'fft'`` variant, ``'fft_smem'`` where the
-    caller forces it (``variant='fft_smem'``), ``'atomic'`` for the forced
-    one-pass kernel (which the FFT variant's shapes run) and ``'gemm'`` on
-    that variant."""
-    forced = variant if variant in ("fft_smem", "atomic") else None
-    variant = _pick_variant("grad_fused", "fft" if forced else variant, nprb,
-                            ndet, nmodes)
+# The bodies a caller of each kernel with two FFT bodies may force.
+_FORCED_BODIES = {"grad_fused": ("fft_smem", "atomic"),
+                  "minf_fused": ("fft_smem",)}
+
+
+def _pick_body(name, variant, nprb, ndet, nmodes):
+    """(variant, body) of a ``grad_fused`` or ``minf_fused`` launch: the
+    body is :func:`fft_body`'s on the ``'fft'`` variant, ``'fft_smem'``
+    where the caller forces it (``variant='fft_smem'``), ``'atomic'`` for
+    ``grad_fused``'s forced one-pass kernel (which the FFT variant's shapes
+    run) and ``'gemm'`` on that variant."""
+    forced = variant if variant in _FORCED_BODIES[name] else None
+    variant = _pick_variant(name, "fft" if forced else variant, nprb, ndet,
+                            nmodes)
     if variant == "gemm":
         return variant, "gemm"
     return variant, forced or fft_body(ndet, nmodes)
@@ -417,6 +424,10 @@ def minf_fused(psi: torch.Tensor, data: torch.Tensor,
 
 minf_fused.launches = 0
 minf_fused.variant = None  # of the last kernel launch: 'fft' or 'gemm'
+# Of the last launch: 'fft_regs' or 'fft_smem' (fft_body) or 'gemm'; and
+# the launches of each since import.
+minf_fused.body = None
+minf_fused.body_launches = dict.fromkeys(("fft_regs", "fft_smem", "gemm"), 0)
 
 
 def minf_fused_reference(psi: torch.Tensor, data: torch.Tensor,
@@ -752,7 +763,7 @@ def _grad_fused_cuda(psi, data, scan_int, prb, ndet, model, base,
     base_p = _base_ptr(name, base, (t, s, nmodes, ndet, ndet), psi.device)
     if variant == "atomic" and base is not None:
         raise ValueError("grad_fused: the atomic kernel takes no base")
-    variant, body = _pick_body(variant, nprb, ndet, nmodes)
+    variant, body = _pick_body(name, variant, nprb, ndet, nmodes)
     chunk = _chunk_arg(name, chunk, nmodes, nprb)
     dev = _launch.device_index(psi)
     psi, prb = psi.contiguous(), prb.contiguous()
@@ -814,13 +825,16 @@ def _grad_fused_cuda(psi, data, scan_int, prb, ndet, model, base,
 
 def _minf_fused_cuda(psi, data, scan_int, prb, ndet, model, base,
                      variant=None):
-    """Launches ``minf_fused``'s kernel; ``variant`` and the prefetch as in
-    :func:`_grad_fused_cuda`."""
+    """Launches ``minf_fused``'s kernel; ``variant``, the body and the
+    prefetch as in :func:`_grad_fused_cuda` (``variant='fft_smem'`` forces
+    the shared-memory body where the fused one would run). Each launch adds
+    one to ``minf_fused.launches`` and to its body's count in
+    ``minf_fused.body_launches``."""
     name = "minf_fused"
     t, nz, n, nmodes, nprb, s = _check_inputs(name, psi, scan_int, prb,
                                               ndet, data)
     base_p = _base_ptr(name, base, (t, s, nmodes, ndet, ndet), psi.device)
-    variant = _pick_variant(name, variant, nprb, ndet, nmodes)
+    variant, body = _pick_body(name, variant, nprb, ndet, nmodes)
     dev = _launch.device_index(psi)
     psi, prb = psi.contiguous(), prb.contiguous()
     data, scan_int = data.contiguous(), scan_int.contiguous()
@@ -828,13 +842,14 @@ def _minf_fused_cuda(psi, data, scan_int, prb, ndet, model, base,
     if variant == "fft":
         prefetch = _fft_prefetch(nmodes, data)
         grid = _launch.fft_grid(name, dev, t * s, ndet,
-                                int(nmodes > 1 or prefetch), base is not None)
+                                int(nmodes > 1 or prefetch), base is not None,
+                                body)
         partial = torch.empty(grid, dtype=torch.float64, device=psi.device)
-        _launch.launch(name, "tk_minf_fused_fft", dev, psi.data_ptr(),
-                       prb.data_ptr(), data.data_ptr(), scan_int.data_ptr(),
-                       partial.data_ptr(), base_p, t, s, nz, n, nmodes, nprb,
-                       ndet, model_code, int(prefetch), grid,
-                       fft_threads(ndet))
+        _launch.launch(name, _launch.fft_entry(name, body), dev,
+                       psi.data_ptr(), prb.data_ptr(), data.data_ptr(),
+                       scan_int.data_ptr(), partial.data_ptr(), base_p, t, s,
+                       nz, n, nmodes, nprb, ndet, model_code, int(prefetch),
+                       grid, fft_threads(ndet))
     else:
         stride = 2 * nprb * ndet + ndet * ndet  # floats: p x d complex, d x d
         stride += stride % 2
@@ -848,7 +863,9 @@ def _minf_fused_cuda(psi, data, scan_int, prb, ndet, model, base,
                        scratch.data_ptr(), partial.data_ptr(), base_p, t, s,
                        nz, n, nmodes, nprb, ndet, model_code, grid, stride)
     minf_fused.launches += 1
+    minf_fused.body_launches[body] += 1
     minf_fused.variant = variant
+    minf_fused.body = body
     return partial.sum().to(torch.float32)
 
 
