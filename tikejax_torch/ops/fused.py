@@ -140,6 +140,7 @@ from tikejax_torch.models import likelihoods
 from tikejax_torch.ops import _launch, diffraction, kernels
 from tikejax_torch.ops._launch import fft_launch_config  # noqa: F401
 from tikejax_torch.ops._launch import fft_threads
+from tikejax_torch.utils import profiling
 
 # The frame scratch of the three object scatters (adj, grad_fused,
 # adj_residual): the cropped inverse frames (complex64) of a chunk of
@@ -238,7 +239,10 @@ def _scan_order(wrapper, launch, prb, scan_int, t, s, nz, n, chunk, grid,
     objective sum waits in ``carry`` (``grid * threads`` doubles) between
     the chunks, and the running sums of an angle split between chunks in
     a complex128 object. Each frame-kernel launch adds one to
-    ``wrapper.launches``."""
+    ``wrapper.launches``, and the chunk's (angle, position, mode) frames
+    to ``wrapper.frames``. Each chunk's frame-kernel launch is a
+    ``fused.frame_pass`` span and its tile launches a ``fused.tile_scatter``
+    span."""
     frames = t * s
     # Every pixel is stored by the tile launches, covered or not.
     grad = torch.empty((t, nz, n), dtype=torch.complex64, device=device)
@@ -256,11 +260,14 @@ def _scan_order(wrapper, launch, prb, scan_int, t, s, nz, n, chunk, grid,
     running = (torch.empty((t, nz, n), dtype=torch.complex128, device=device)
                if split else None)
     for g0, g1, segments in plan:
-        launch(g0, g1, int(g0 == 0), int(g1 == frames), near.data_ptr(),
-               None if carry is None else carry.data_ptr())
+        with profiling.span("fused.frame_pass"):
+            launch(g0, g1, int(g0 == 0), int(g1 == frames), near.data_ptr(),
+                   None if carry is None else carry.data_ptr())
         wrapper.launches += 1
-        _scatter_segments(near, g0, segments, s, scan_int, prb, nz, n, grad,
-                          running)
+        wrapper.frames += (g1 - g0) * m
+        with profiling.span("fused.tile_scatter"):
+            _scatter_segments(near, g0, segments, s, scan_int, prb, nz, n,
+                              grad, running)
     return grad
 
 
@@ -380,6 +387,9 @@ def grad_fused(psi: torch.Tensor, data: torch.Tensor,
 
 
 grad_fused.launches = 0
+# The (angle, position, mode) frames of the scan-order chunks, each taken
+# by a fused.frame_pass and a fused.tile_scatter span.
+grad_fused.frames = 0
 grad_fused.variant = None  # of the last kernel launch: 'fft' or 'gemm'
 # Of the last launch: 'fft_regs' or 'fft_smem' (fft_body), 'gemm' or
 # 'atomic'; and the frame-kernel launches of each since import.
@@ -591,6 +601,7 @@ def adj_residual(farplane: torch.Tensor, data: torch.Tensor,
 
 
 adj_residual.launches = 0
+adj_residual.frames = 0  # as grad_fused's
 adj_residual.variant = None  # of the last kernel launch: 'fft' or 'gemm'
 
 
